@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, `col-bwt-torch query`, once on bench.py's
+index (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each, min-MUM
+20, split rate 10, tunnels mode), after checking every CUDA kernel of that
+path against its plain PyTorch version on the card.  Phases:
+
+1. the card's name and power limit (nvidia-smi); exits nonzero without CUDA
+2. build the CUDA kernels from colbwt_tpu_torch/csrc
+3. build the index on the host (colbwt_tpu_torch.pipeline.build_pipeline),
+   then K1-K4 against their plain versions at the main path's shapes:
+   exact equality, and each kernel's time beside its plain version's
+4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
+   1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
+   must be pos(k=4), 256 sampled records must equal the oracle
+   (query_pml_oracle) on the unsplit table, and K1-K3 must have launched
+5. main path, a small query: `query` with the default engine choice of
+   every 44th bench read, 32 of the N reads and 8 long reads (5,997
+   reads, under 1M characters, so the ladder picks the compact engine): the engine must be xla, records
+   equal phase 4's, and K4 must have launched
+
+Launch counts are reset just before each of the two queries and read just
+after it; a kernel's "launches" is the sum over both.  The last lines are
+the card line, one {"kernels": [...]} JSON line and {"ok": true,
+"device": {...}}.  Everything is written under build/chip_smoke/ of the
+checkout.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+WORK = REPO / "build" / "chip_smoke"
+
+KERNEL_INFO = {
+    "build_t1_chunk": ("K1", "colbwt_tpu_torch/csrc/query_pos.cu",
+                       "colbwt_tpu/ops/query_pos.py:93"),
+    "compose_tables": ("K2", "colbwt_tpu_torch/csrc/query_pos.cu",
+                       "colbwt_tpu/ops/query_pos.py:153"),
+    "query_chunk_pos": ("K3", "colbwt_tpu_torch/csrc/query_pos.cu",
+                        "colbwt_tpu/ops/query_pos.py:309"),
+    "query_batch_xla": ("K4", "colbwt_tpu_torch/csrc/query_xla.cu",
+                        "colbwt_tpu/ops/query_xla.py:153"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(torch, fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on the current stream (one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Checks:
+    """Per-kernel max |kernel - plain| and the timed pair."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.err = {k: 0 for k in KERNEL_INFO}
+        self.ms = {}
+
+    def equal(self, name: str, got, want, what: str) -> None:
+        t = self.torch
+        require(got is not None and want is not None
+                and got.dtype == want.dtype and got.shape == want.shape,
+                f"{name} {what}: dtype/shape {getattr(got, 'dtype', None)}"
+                f"{tuple(getattr(got, 'shape', ()))} vs "
+                f"{getattr(want, 'dtype', None)}"
+                f"{tuple(getattr(want, 'shape', ()))}")
+        u16 = got.dtype == t.uint16
+        if u16:  # few ops take uint16: compare the bit patterns as int16
+            got, want = got.view(t.int16), want.view(t.int16)
+        diff = got != want  # a mask, not int64 copies: T4 is 8 GB
+        err = 0
+        if bool(diff.any()):
+            g, w = got[diff].to(t.int64), want[diff].to(t.int64)
+            if u16:
+                g, w = g & 0xFFFF, w & 0xFFFF
+            err = int((g - w).abs().max())
+        self.err[name] = max(self.err[name], err)
+        require(err == 0, f"{name} {what}: kernel differs from its plain "
+                f"version (max abs err {err})")
+
+    def time(self, name: str, kernel_fn, plain_fn, what: str,
+             reps: int = 3) -> None:
+        ms = cuda_ms(self.torch, kernel_fn, reps)
+        plain = cuda_ms(self.torch, plain_fn, reps)
+        log(f"[time] {name} {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        self.ms.setdefault(name, (ms, plain))  # the first shape goes in JSON
+
+
+def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
+                  ) -> None:
+    from colbwt_tpu.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import index_tensors, to_device
+    from colbwt_tpu_torch.ops import query_pos as TQ
+    from colbwt_tpu_torch.ops import query_xla as TX
+
+    n, A_full = index.n, index.sigma + 1
+    digits = index.char_map[np.frombuffer(b"ACGT", np.uint8)]
+
+    # K1: one full chunk (C = min(n, 2**25)) per char, then 2**20-position
+    # chunks whose tail overlaps the chunk before it
+    C = min(n, TQ._T1_CHUNK)
+    a = TQ.t1_inputs(index, C, dev)
+    full = {}
+    for c in range(A_full):
+        pred = to_device(index.pred_jump[c], dev)
+        succ = to_device(index.succ_jump[c], dev)
+        args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+                a["threshold"], pred, succ, a["col_id"], c, 0, 0, n, C)
+        got = TQ.build_t1_chunk(torch.empty((n, 2), dtype=torch.int32,
+                                            device=dev), *args)
+        want = TQ.build_t1_chunk_ref(torch.empty((n, 2), dtype=torch.int32,
+                                                 device=dev), *args)
+        chk.equal("build_t1_chunk", got, want, f"char {c} C={C}")
+        full[c] = got
+        if c == int(digits[0]):
+            buf = torch.empty((n, 2), dtype=torch.int32, device=dev)
+            chk.time("build_t1_chunk",
+                     lambda: TQ.build_t1_chunk(buf, *args),
+                     lambda: TQ.build_t1_chunk_ref(buf, *args),
+                     f"one chunk of C={C} positions")
+    C2 = min(n, 1 << 20)
+    a2 = TQ.t1_inputs(index, C2, dev)
+    for c in (int(digits[0]), A_full - 1):
+        pred = to_device(index.pred_jump[c], dev)
+        succ = to_device(index.succ_jump[c], dev)
+        got = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        want = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        for s in range(0, n, C2):
+            s = min(s, n - C2)
+            args = (a2["char"], a2["idx_pad"], a2["length"], a2["lf_pos0"],
+                    a2["threshold"], pred, succ, a2["col_id"], c, s, s, n, C2)
+            TQ.build_t1_chunk(got, *args)
+            TQ.build_t1_chunk_ref(want, *args)
+        chk.equal("build_t1_chunk", got, want, f"char {c} C={C2} with tail")
+        chk.equal("build_t1_chunk", got, full[c], f"char {c} chunk-invariant")
+    del full, a2
+
+    # K2: T2 = T1.T1 and T4 = T2.T2 over ACGT keys
+    t1 = TQ.build_t1(index, digits, a, C)
+    t2 = TQ.compose_tables(t1, t1, n, 4, 1, 1)
+    chk.equal("compose_tables", t2, TQ.compose_tables_ref(t1, t1, n, 4, 1, 1),
+              "(1,1)")
+    t4 = TQ.compose_tables(t2, t2, n, 4, 2, 2)
+    want = TQ.compose_tables_ref(t2, t2, n, 4, 2, 2)
+    chk.equal("compose_tables", t4, want, "(2,2)")
+    del want
+    torch.cuda.empty_cache()
+    chk.time("compose_tables", lambda: TQ.compose_tables(t2, t2, n, 4, 2, 2),
+             lambda: TQ.compose_tables_ref(t2, t2, n, 4, 2, 2),
+             f"(2,2): T4 of {4 ** 4 * n} rows", reps=1)
+    torch.cuda.empty_cache()
+    t3 = TQ.compose_tables(t2, t1, n, 4, 2, 1)
+    tables = {1: t1, 2: t2, 3: t3, 4: t4}
+
+    # K3: k = 1..4, unpacked and 2-bit packed digits, fresh and carried
+    # state, at bench.py's scan shape (B = 262,144, M = 152; 156 at k = 3)
+    dod = np.full(A_full + 1, -1, dtype=np.int32)
+    dod[digits] = np.arange(4, dtype=np.int32)
+    dig156, lens, bad = TQ._encode_digits(index, {"digit_of_dense": dod},
+                                          reads, 156)
+    require(not bad.any(), "bench reads must be pure ACGT")
+    B = dig156.shape[0]
+    rng = np.random.default_rng(0xC3)
+    lens_t = to_device(lens, dev)
+    fresh_pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    fresh_ml = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pos_c = to_device(rng.integers(0, n, B), dev)
+    ml_c = to_device(rng.integers(0, 1000, B), dev)
+    for k, tab in tables.items():
+        M = 156 if k == 3 else 152
+        dig = dig156[:, 156 - M:]
+        for pack in (0, 2):
+            pat = to_device(TQ.pack_digits(dig, 4)[0] if pack else dig, dev,
+                            np.uint8)
+            for fresh, packed_out in ((True, True), (True, False),
+                                      (False, False), (False, True)):
+                args = (tab, n, pat, lens_t,
+                        fresh_pos if fresh else pos_c,
+                        fresh_ml if fresh else ml_c, 0 if fresh else 4, k, 4)
+                kw = dict(masked=not fresh, packed_out=packed_out,
+                          fresh_state=fresh, pack=pack)
+                (gp, gc), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+                (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+                what = (f"k={k} pack={pack} fresh={fresh} "
+                        f"packed_out={packed_out}")
+                chk.equal("query_chunk_pos", gp, wp, what)
+                if not packed_out:
+                    chk.equal("query_chunk_pos", gc, wc, what)
+                chk.equal("query_chunk_pos", gpos, wpos, what + " pos")
+                chk.equal("query_chunk_pos", gml, wml, what + " mlen")
+    # the main path's batch (8,192 reads padded to 252, 2-bit digits,
+    # packed u16 plane) and bench.py's whole-set shape: checked, then timed
+    dig252 = np.pad(dig156, ((0, 0), (96, 0)))
+    for label, dg in (("main-path batch", dig252[:8192]),
+                      ("bench set", dig156[:, 4:])):
+        b = dg.shape[0]
+        label = f"{label} {b}x{dg.shape[1]}"
+        pat = to_device(TQ.pack_digits(dg, 4)[0], dev, np.uint8)
+        args = (t4, n, pat, lens_t[:b].contiguous(), fresh_pos[:b],
+                fresh_ml[:b], 0, 4, 4)
+        kw = dict(packed_out=True, fresh_state=True, pack=2)
+        (gp, _), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+        (wp, _), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+        chk.equal("query_chunk_pos", gp, wp, f"k=4 {label}")
+        chk.equal("query_chunk_pos", gpos, wpos, f"k=4 {label} pos")
+        chk.equal("query_chunk_pos", gml, wml, f"k=4 {label} mlen")
+        chk.time("query_chunk_pos",
+                 lambda: TQ.query_chunk_pos(*args, **kw),
+                 lambda: TQ.query_chunk_pos_ref(*args, **kw),
+                 f"k=4 {label}")
+    del tables, t1, t2, t3, t4
+    torch.cuda.empty_cache()
+
+    # the general-T1 fallback that every read with an N takes on the main
+    # path: T1 over all A_full chars, k = 1, dense ids (not digits),
+    # unpacked, pml and cid planes, at the 252 columns of dispatch
+    tg = TQ.build_t1(index, np.arange(A_full), a, C)
+    enc, ln = index.encode_patterns(n_reads, 252)
+    b = enc.shape[0]
+    args = (tg, n, to_device(enc, dev, np.uint8), to_device(ln, dev),
+            fresh_pos[:b], fresh_ml[:b], 0, 1, A_full)
+    kw = dict(packed_out=False, fresh_state=True, pack=0)
+    (gp, gc), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+    (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+    what = f"general T1 k=1 A={A_full} {b}x252 N reads"
+    chk.equal("query_chunk_pos", gp, wp, what + " pml")
+    chk.equal("query_chunk_pos", gc, wc, what + " cid")
+    chk.equal("query_chunk_pos", gpos, wpos, what + " pos")
+    chk.equal("query_chunk_pos", gml, wml, what + " mlen")
+    chk.time("query_chunk_pos", lambda: TQ.query_chunk_pos(*args, **kw),
+             lambda: TQ.query_chunk_pos_ref(*args, **kw), what)
+    del tg, args
+    torch.cuda.empty_cache()
+
+    # K4: ff_bound 0 on the unsplit index; on a run-split index
+    # (ColPmlIndex.build(tbl, ff_bound=2)) its recorded bound and 0
+    t0 = time.perf_counter()
+    split = ColPmlIndex.build(tbl, ff_bound=2)
+    log(f"[index] run-split index for K4: r={split.r} ff_bound="
+        f"{split.ff_bound} in {time.perf_counter() - t0:.1f}s")
+    sample = reads[:8192 - 256] + n_reads[:256]
+    for idx, ff in ((index, 0), (split, split.ff_bound), (split, 0)):
+        tb = index_tensors(idx, dev)
+        enc, ln = idx.encode_patterns(sample, 256)
+        args = (tb, to_device(enc, dev), to_device(ln, dev))
+        got = TX.query_batch_device(*args, ff_bound=ff)
+        want = TX.query_batch_device_ref(*args, ff_bound=ff)
+        what = f"r={idx.r} ff_bound={ff}"
+        chk.equal("query_batch_xla", got[0], want[0], what + " pml")
+        chk.equal("query_batch_xla", got[1], want[1], what + " cid")
+        if idx is index:
+            chk.time("query_batch_xla",
+                     lambda: TX.query_batch_device(*args, ff_bound=0),
+                     lambda: TX.query_batch_device_ref(*args, ff_bound=0),
+                     "main-path batch 8192x256, unsplit, ff_bound=0")
+    torch.cuda.empty_cache()
+
+
+class Records(logging.Handler):
+    """Collects the values query_pipeline attaches to its log records."""
+
+    def __init__(self):
+        super().__init__()
+        self.values: dict = {}
+
+    def emit(self, record: logging.LogRecord) -> None:
+        for key in ("engine", "read_s", "table_build_s", "scan_s",
+                    "write_s", "query_s", "reads"):
+            if hasattr(record, key):
+                self.values[key] = getattr(record, key)
+
+
+def write_reads(path: Path, records: list[tuple[str, bytes]]) -> None:
+    with path.open("wb") as fh:
+        fh.write(b"".join(b">" + name.encode() + b"\n" + seq + b"\n"
+                          for name, seq in records))
+
+
+def run_query(cli_main, argv: list[str]) -> dict:
+    rec = Records()
+    logger = logging.getLogger("colbwt_torch.query")
+    logger.addHandler(rec)
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        rec.values["wall_s"] = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(rec)
+    require(rc == 0, f"query exited {rc}")
+    return rec.values
+
+
+def run(torch) -> tuple[dict, list[dict]]:
+    """Phases 2-5 on the card; returns the main path's metrics and the
+    kernels' JSON entries.  Raises on any failed check."""
+    from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
+    from colbwt_tpu.io import formats as F
+    from colbwt_tpu.io.fasta import FastaRecord, write_fasta
+    from colbwt_tpu.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
+    from colbwt_tpu_torch.cli import main as cli_main
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.pipeline import build_pipeline
+
+    dev = torch.device("cuda")
+    # phase 2: kernels
+    t0 = time.perf_counter()
+    K.load()
+    log(f"[phase 2] CUDA kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f}s ({K.library_path().name})")
+
+    # phase 3: index (host) and kernel checks
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    docs = make_docs()
+    fastas = []
+    for i, d in enumerate(docs):
+        fastas.append(str(WORK / f"hap{i}.fa"))
+        write_fasta(fastas[-1], [FastaRecord(f"hap{i}", d)])
+    cfg = ColBwtConfig(mode=SplitMode.TUNNELS, split_rate=10, min_mum=20,
+                       keep_temp=True)
+    prefix = str(WORK / "bench")
+    t0 = time.perf_counter()
+    index = build_pipeline(fastas, prefix, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    tbl = O.build_col_pml(
+        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
+            f"{prefix}.fa.col_runs")),
+        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
+        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+    log(f"[phase 3] host index build {build_s:.1f}s: n={index.n} "
+        f"r={index.r} bwt_r={index.bwt_r} sigma={index.sigma} "
+        f"ff_bound={index.ff_bound}")
+
+    t0 = time.perf_counter()
+    reads = make_reads()
+    rng = np.random.default_rng(0x5A0E)
+    n_reads = []
+    for i in rng.choice(N_READS, 1024, replace=False):
+        p = int(rng.integers(0, READ_LEN + 1))
+        n_reads.append(reads[i][:p] + b"N" + reads[i][p:])
+    long_reads = []
+    for j in range(16):
+        s = int(rng.integers(0, DOC_LEN - 5000))
+        arr = bytearray(docs[j % len(docs)][s:s + 5000])
+        for p in rng.integers(0, 5000, 10):
+            arr[int(p)] = int(rng.choice(list(b"ACGT")))
+        long_reads.append(bytes(arr))
+    log(f"[phase 3] reads made in {time.perf_counter() - t0:.1f}s")
+
+    chk = Checks(torch)
+    t0 = time.perf_counter()
+    check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
+    log(f"[phase 3] K1-K4 equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # phase 4: main path, a large query, through the CLI
+    records = ([(f"r{i}", s) for i, s in enumerate(reads)]
+               + [(f"n{i}", s) for i, s in enumerate(n_reads)]
+               + [(f"l{i}", s) for i, s in enumerate(long_reads)])
+    pat = WORK / "reads.fa"
+    write_reads(pat, records)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    v = run_query(cli_main, ["query", prefix, "-p", str(pat)])
+    launches4 = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    require(v.get("engine") == "pos(k=4)",
+            f"main path engine {v.get('engine')}, expected pos(k=4)")
+    for name in ("build_t1_chunk", "compose_tables", "query_chunk_pos"):
+        require(launches4[name] > 0, f"{name} never launched in phase 4")
+    names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+    require(names == [r[0] for r in records], "record names/order differ")
+    sample = (sorted(rng.choice(N_READS, 208, replace=False).tolist())
+              + [N_READS + int(i) for i in rng.choice(1024, 32,
+                                                      replace=False)]
+              + list(range(N_READS + 1024, len(records))))
+    t0 = time.perf_counter()
+    for i in sample:
+        ep, ec = O.query_pml_oracle(tbl, records[i][1])
+        require(np.array_equal(pmls[i], ep) and np.array_equal(cids[i], ec),
+                f"record {records[i][0]} differs from the oracle")
+    n_total = len(records)
+    main_path = {
+        "engine": v["engine"], "reads": n_total,
+        "read_s": v["read_s"], "table_build_s": v["table_build_s"],
+        "scan_s": v["scan_s"], "write_s": v["write_s"],
+        "query_wall_s": v["wall_s"],
+        "reads_per_s": n_total / v["wall_s"],
+        "scan_reads_per_s": n_total / v["scan_s"],
+        "device_mem_peak_bytes": peak,
+        "host_index_build_s": build_s,
+    }
+    log(f"[phase 4] engine {v['engine']}: {n_total} reads, table build "
+        f"{v['table_build_s']:.3f}s, scan {v['scan_s']:.3f}s, CLI wall "
+        f"{v['wall_s']:.3f}s -> {main_path['reads_per_s']:.0f} reads/s "
+        f"(scan only {main_path['scan_reads_per_s']:.0f} reads/s), device "
+        f"memory peak {peak} B; {len(sample)} sampled records equal the "
+        f"oracle ({time.perf_counter() - t0:.1f}s); launches "
+        f"{json.dumps(launches4)}")
+
+    # phase 5: main path, a small query (under the ladder's 1M characters),
+    # with the default engine choice
+    sel = ([44 * i for i in range(N_READS // 44)]
+           + [N_READS + i for i in range(32)]
+           + [N_READS + 1024 + i for i in range(8)])
+    chars5 = sum(len(records[i][1]) for i in sel)
+    require(chars5 < 1_000_000, f"phase 5 query has {chars5} characters")
+    pat5 = WORK / "reads_small.fa"
+    write_reads(pat5, [records[i] for i in sel])
+    K.reset_launches()
+    v5 = run_query(cli_main, ["query", prefix, "-p", str(pat5)])
+    launches5 = dict(K.launches)
+    require(v5.get("engine") == "xla",
+            f"phase 5 engine {v5.get('engine')}, expected xla")
+    require(launches5["query_batch_xla"] > 0,
+            "query_batch_xla never launched in phase 5")
+    names5, pmls5 = read_pml_cid_binary(f"{pat5}.split.pml.bin")
+    _, cids5 = read_pml_cid_binary(f"{pat5}.split.cid.bin")
+    require(names5 == [records[i][0] for i in sel], "phase 5 names differ")
+    for j, i in enumerate(sel):
+        require(np.array_equal(pmls5[j], pmls[i])
+                and np.array_equal(cids5[j], cids[i]),
+                f"phase 5 record {records[i][0]} differs from phase 4")
+    log(f"[phase 5] engine {v5['engine']}: {len(sel)} reads ({chars5} "
+        f"characters) in {v5['wall_s']:.3f}s (scan {v5['scan_s']:.3f}s), "
+        f"records equal phase 4's; launches {json.dumps(launches5)}")
+    log("[main path] " + json.dumps(main_path))
+
+    kernels = []
+    for name, (tag, src, replaces) in KERNEL_INFO.items():
+        ms, plain = chk.ms[name]
+        kernels.append({"name": f"{tag} {name}", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": launches4[name] + launches5[name],
+                        "max_abs_err": chk.err[name], "ms": ms,
+                        "plain_ms": plain})
+    return main_path, kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    # phase 1: the card
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"[phase 1] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    sys.path.insert(0, str(REPO))
+    _, kernels = run(torch)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,255 @@
+// Positional-automaton kernels for Hopper (sm_90a): K1, K2 and K3.
+//
+// Replaces three jitted XLA programs of colbwt_tpu/ops/query_pos.py:
+//   K1 colbwt_build_t1_chunk    <- _build_t1_chunk   (query_pos.py:93)
+//   K2 colbwt_compose_tables    <- _compose_tables   (query_pos.py:153)
+//   K3 colbwt_query_chunk_pos   <- query_chunk_pos   (query_pos.py:309),
+//      with query_batch_pos's digit unpacking (:386, :395) and
+//      _fold_keys (:298) done in registers.
+//
+// What bounds them on an H100: random 8-byte gathers.  A k = 4 table over
+// n = 4M positions with ACGT keys is 256 * n * 8 B = 8.2 GB against a
+// 50 MB L2, so every row K3 reads is a cold 32-byte sector from HBM, and
+// K3's next read depends on the row just read.  K2 streams its output
+// (8.2 GB for T4); the rows it gathers for one output key all lie in one
+// n-row block of T_kb (32 MB at n = 4M), which the L2 can hold.  K1 reads
+// r-sized arrays (a few MB, L2-resident) and streams its output.
+//
+// The simple design: one thread per output element for K1 and K2 (the
+// card keeps thousands of independent gathers in flight), and one thread
+// per read for K3, walking that read's keys in order.  K3's latency is
+// hidden only by the number of reads in flight; several reads per thread
+// and coalesced output stores are later work.
+//
+// Every word is handled as uint32_t: bit 31 holds a match flag (T1) or
+// the top match bit of a k = 4 row, and shifts into it must not be signed
+// overflow.  Every table index key * n + pos is int64 and clamped to the
+// table, as jnp.take(..., mode="clip") does.
+//
+// Each entry point has a plain C interface (ctypes), launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t size) {
+  return i < 0 ? 0 : (i >= size ? size - 1 : i);
+}
+
+// Largest run i with idx[i] <= pos (idx strictly increasing, idx[0] = 0):
+// the run that holds rank position pos.
+__device__ __forceinline__ int64_t run_of(const int32_t* __restrict__ idx,
+                                          int64_t r, int64_t pos) {
+  int64_t lo = 0, hi = r;  // first i with idx[i] > pos lies in [lo, hi]
+  while (lo < hi) {
+    int64_t mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(idx[mid]) <= pos) lo = mid + 1; else hi = mid;
+  }
+  return lo - 1;
+}
+
+// K1: T1 rows [row0, row0 + C) for positions [s, s + C) and key char c.
+__global__ void build_t1_chunk_kernel(
+    int32_t* __restrict__ buf, const int32_t* __restrict__ run_char,
+    const int32_t* __restrict__ idx, const int32_t* __restrict__ length,
+    const int32_t* __restrict__ lf_pos0, const int32_t* __restrict__ threshold,
+    const int32_t* __restrict__ pred_row, const int32_t* __restrict__ succ_row,
+    const int32_t* __restrict__ col_id, int64_t r, int32_t c, int64_t row0,
+    int64_t s, int64_t n, int64_t C) {
+  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       t < C; t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t pos = s + t;
+    const int64_t run = run_of(idx, r, pos);
+    const int32_t offset = static_cast<int32_t>(pos - idx[run]);
+    const int32_t lf_match = lf_pos0[run] + offset;
+    const bool match = run_char[run] == c;
+    const int32_t si = succ_row[run];
+    const int32_t pi = pred_row[run];
+    const bool has_succ = si < r;
+    const bool has_pred = pi >= 0;
+    const int64_t sic = si < r - 1 ? si : r - 1;
+    const int64_t thr = has_succ ? static_cast<int64_t>(threshold[sic]) : n;
+    const int32_t succ_pos = lf_pos0[sic];
+    const int64_t pic = pi > 0 ? pi : 0;
+    const int32_t pred_pos = lf_pos0[pic] + length[pic] - 1;
+    // threshold_step priority (include/col_bwt.hpp:531-574): pred iff
+    // pos < thr and a pred exists; else succ; else LF from the same state.
+    const bool take_pred = pos < thr && has_pred;
+    const bool take_succ = !take_pred && has_succ;
+    const int32_t repos = take_pred ? pred_pos
+                                    : (take_succ ? succ_pos : lf_match);
+    const uint32_t new_pos = static_cast<uint32_t>(match ? lf_match : repos);
+    const uint32_t w0 = new_pos | (static_cast<uint32_t>(match) << 31);
+    const int64_t row = row0 + t;
+    buf[2 * row] = static_cast<int32_t>(w0);
+    buf[2 * row + 1] = col_id[run];
+  }
+}
+
+// K2: T_{ka+kb}[key][p] from T_ka[key_hi][p] then T_kb[key_lo][pos_a].
+__global__ void compose_tables_kernel(
+    int32_t* __restrict__ out, const int32_t* __restrict__ ta,
+    const int32_t* __restrict__ tb, int64_t tb_rows, int64_t n,
+    int64_t blocks_b, int64_t total, int ka, int kb) {
+  const int k = ka + kb;
+  const int pb = 32 - k, pba = 32 - ka, pbb = 32 - kb;
+  const uint32_t maska = (1u << pba) - 1u;
+  const uint32_t maskb = (1u << pbb) - 1u;
+  const uint32_t mbits_a = (1u << ka) - 1u;
+  const uint32_t mbits_b = (1u << kb) - 1u;
+  const uint32_t cid_mask_a = ka >= 4 ? 0xFFFFFFFFu : (1u << (8 * ka)) - 1u;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t key = e / n;
+    const int64_t p = e - key * n;
+    const int64_t key_hi = key / blocks_b;
+    const int64_t key_lo = key - key_hi * blocks_b;
+    const int64_t ia = key_hi * n + p;
+    const uint32_t a0 = static_cast<uint32_t>(ta[2 * ia]);
+    const uint32_t a1 = static_cast<uint32_t>(ta[2 * ia + 1]);
+    const int64_t ib = clamp_index(key_lo * n + (a0 & maska), tb_rows);
+    const uint32_t b0 = static_cast<uint32_t>(tb[2 * ib]);
+    const uint32_t b1 = static_cast<uint32_t>(tb[2 * ib + 1]);
+    const uint32_t ma = (a0 >> pba) & mbits_a;
+    const uint32_t mb = (b0 >> pbb) & mbits_b;
+    const uint32_t w0 = (b0 & maskb) | (((mb << ka) | ma) << pb);
+    const uint32_t w1 = (a1 & cid_mask_a) | (b1 << (8 * ka));
+    out[2 * e] = static_cast<int32_t>(w0);
+    out[2 * e + 1] = static_cast<int32_t>(w1);
+  }
+}
+
+// K3 output planes.
+enum OutMode { kTwoPlanes = 0, kPackedI32 = 1, kPackedU16 = 2 };
+
+// K3: one thread per read; the read's digits are consumed right to left,
+// k per table row.  Digits are bytes (pack = 0) or pack-bit fields, digit
+// j of a byte at bits j * pack.
+__global__ void query_chunk_pos_kernel(
+    const int32_t* __restrict__ table, int64_t table_rows, int64_t n,
+    const uint8_t* __restrict__ patterns, int64_t pat_cols,
+    const int32_t* __restrict__ lengths, const int32_t* __restrict__ pos0,
+    const int32_t* __restrict__ mlen0, int64_t step_offset, int64_t B,
+    int64_t M, int k, int64_t A, int pack, bool masked, int out_mode,
+    void* __restrict__ out0, int32_t* __restrict__ out1,
+    int32_t* __restrict__ pos_out, int32_t* __restrict__ mlen_out) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  const int pb = 32 - k;
+  const uint32_t mask = (1u << pb) - 1u;
+  const int per = pack ? 8 / pack : 1;
+  const uint32_t dmask = pack ? (1u << pack) - 1u : 0xFFu;
+  const uint8_t* row_pat = patterns + b * pat_cols;
+  const int64_t len = lengths[b];
+  int64_t pos = pos0[b];
+  int32_t ml = mlen0[b];
+  for (int64_t s = 0; s < M / k; ++s) {
+    int64_t key = 0;
+    for (int j = 0; j < k; ++j) {
+      const int64_t col = M - 1 - (s * k + j);
+      uint32_t d;
+      if (pack) {
+        d = (static_cast<uint32_t>(row_pat[col / per]) >> ((col % per) * pack))
+            & dmask;
+      } else {
+        d = row_pat[col];
+      }
+      key = key * A + d;
+    }
+    const int64_t row = clamp_index(key * n + pos, table_rows);
+    const uint32_t w0 = static_cast<uint32_t>(table[2 * row]);
+    const uint32_t w1 = static_cast<uint32_t>(table[2 * row + 1]);
+    for (int j = 0; j < k; ++j) {
+      const int32_t m = static_cast<int32_t>((w0 >> (pb + j)) & 1u);
+      ml = (ml + 1) * m;  // match ? len + 1 : 0
+      uint32_t cid = (w1 >> (8 * j)) & 0xFFu;
+      uint32_t pml = static_cast<uint32_t>(ml);
+      if (masked && !(s * k + step_offset + j < len)) {
+        pml = 0;
+        cid = 0;
+      }
+      const int64_t o = b * M + (M - 1 - (s * k + j));
+      if (out_mode == kTwoPlanes) {
+        static_cast<int32_t*>(out0)[o] = static_cast<int32_t>(pml);
+        out1[o] = static_cast<int32_t>(cid);
+      } else if (out_mode == kPackedI32) {
+        static_cast<int32_t*>(out0)[o] = static_cast<int32_t>((pml << 8) | cid);
+      } else {
+        static_cast<uint16_t*>(out0)[o] =
+            static_cast<uint16_t>((pml << 8) | cid);
+      }
+    }
+    pos = w0 & mask;
+  }
+  pos_out[b] = static_cast<int32_t>(pos);
+  mlen_out[b] = ml;
+}
+
+int64_t grid_for(int64_t work) {
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = int64_t(1) << 20;  // grid-stride loops cover the rest
+  return blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+}
+
+}  // namespace
+
+extern "C" {
+
+int colbwt_build_t1_chunk(void* buf, const void* run_char, const void* idx,
+                          const void* length, const void* lf_pos0,
+                          const void* threshold, const void* pred_row,
+                          const void* succ_row, const void* col_id, int64_t r,
+                          int64_t c, int64_t row0, int64_t s, int64_t n,
+                          int64_t C, void* stream) {
+  build_t1_chunk_kernel<<<grid_for(C), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(buf), static_cast<const int32_t*>(run_char),
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(length),
+      static_cast<const int32_t*>(lf_pos0),
+      static_cast<const int32_t*>(threshold),
+      static_cast<const int32_t*>(pred_row),
+      static_cast<const int32_t*>(succ_row),
+      static_cast<const int32_t*>(col_id), r, static_cast<int32_t>(c), row0,
+      s, n, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int colbwt_compose_tables(void* out, const void* ta, const void* tb,
+                          int64_t tb_rows, int64_t n, int64_t blocks_b,
+                          int64_t total, int64_t ka, int64_t kb,
+                          void* stream) {
+  compose_tables_kernel<<<grid_for(total), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), static_cast<const int32_t*>(ta),
+      static_cast<const int32_t*>(tb), tb_rows, n, blocks_b, total,
+      static_cast<int>(ka), static_cast<int>(kb));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int colbwt_query_chunk_pos(const void* table, int64_t table_rows, int64_t n,
+                           const void* patterns, int64_t pat_cols,
+                           const void* lengths, const void* pos0,
+                           const void* mlen0, int64_t step_offset, int64_t B,
+                           int64_t M, int64_t k, int64_t A, int64_t pack,
+                           int64_t masked, int64_t out_mode, void* out0,
+                           void* out1, void* pos_out, void* mlen_out,
+                           void* stream) {
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  query_chunk_pos_kernel<<<blocks < 1 ? 1 : blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), table_rows, n,
+      static_cast<const uint8_t*>(patterns), pat_cols,
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(pos0), static_cast<const int32_t*>(mlen0),
+      step_offset, B, M, static_cast<int>(k), A, static_cast<int>(pack),
+      masked != 0, static_cast<int>(out_mode), out0,
+      static_cast<int32_t*>(out1), static_cast<int32_t*>(pos_out),
+      static_cast<int32_t*>(mlen_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

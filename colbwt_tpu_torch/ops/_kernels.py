@@ -1,0 +1,127 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes: no PyTorch headers, so a cold build takes
+seconds.  The library is built at first use into build/colbwt_kernels/ at
+the checkout root, named by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.
+
+Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
+code.  `launches` counts kernel launches per wrapper name (the wrappers in
+ops/query_pos.py and ops/query_xla.py add one where they launch, and
+nowhere else), so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "colbwt_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
+           "query_batch_xla")
+launches: Counter = Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+_SIGNATURES = {
+    "colbwt_build_t1_chunk": [_P] * 9 + [_I] * 6 + [_P],
+    "colbwt_compose_tables": [_P] * 3 + [_I] * 6 + [_P],
+    "colbwt_query_chunk_pos": ([_P, _I, _I, _P, _I, _P, _P, _P] + [_I] * 8
+                               + [_P] * 4 + [_P]),
+    "colbwt_query_batch_xla": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3
+                              + [_P] * 2 + [_P],
+}
+
+
+def reset_launches() -> None:
+    launches.clear()
+    for name in KERNELS:
+        launches[name] = 0
+
+
+reset_launches()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from colbwt_tpu_torch/csrc at first use")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcolbwt_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (when absent) and load the kernel library; raises when CUDA or
+    nvcc is missing or the build fails.  Never falls back."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    lib_path = library_path()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build to a private name, then rename: a concurrent process never
+        # loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            Path(tmp).unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device) -> None:
+    """Validate a kernel argument: device, dtype and contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,186 @@
+"""Query-engine selection and batch dispatch — port of
+colbwt_tpu/pipeline/engines.py.
+
+The selection logic is the JAX package's ladder (engines.py:28-91), kept
+as it is.  Two rungs are ported:
+
+- positional automaton (k chars per gather; ops/query_pos.py, kernels
+  K1-K3), chosen for large workloads when its tables fit the budget;
+- compact engine (table-free; ops/query_xla.py, kernel K4).
+
+Where the ladder would choose the mega, fused or mega-wide engine, this
+raises NotImplementedError naming the ROADMAP item; it never substitutes
+another engine.  The persisted table cache (`table_dir`) is not ported yet
+(ROADMAP Queue 1 item 8) and is ignored.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from colbwt_tpu.models.index import ColPmlIndex
+from colbwt_tpu.utils.config import ColBwtConfig
+from colbwt_tpu_torch.models.tensors import index_tensors, to_device
+from colbwt_tpu_torch.ops import query_pos, query_xla
+from colbwt_tpu_torch.utils.device import resolve_device
+from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
+
+_NOT_PORTED = {
+    "mega-wide": "ROADMAP Queue 1 item 6",
+    "mega": "ROADMAP Queue 1 item 5",
+    "fused": "ROADMAP Queue 1 item 9",
+}
+
+
+class QueryEngines:
+    """Owns the device tables for one index and dispatches read batches."""
+
+    def __init__(self, index: ColPmlIndex, cfg: ColBwtConfig,
+                 total_chars: int | None = None,
+                 table_dir: str | None = None, device=None):
+        del table_dir  # table cache not ported (ROADMAP Queue 1 item 8)
+        self.index = index
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # The pos tables cost O(A^k n) device work to build, so under "auto"
+        # they only pay off for real workloads; total_chars=None means "the
+        # workload is large/unbounded"
+        large = total_chars is None or total_chars >= 1_000_000
+        budget = resolve_pos_budget(cfg.pos_hbm_budget, self.device)
+        pos_k = (query_pos.choose_k(index, budget)
+                 if (not index.wide and cfg.engine in ("auto", "pos")) else 0)
+        pos_alpha = None
+        # the restricted-alphabet upgrade runs even when the general table
+        # does not fit (pos_k == 0)
+        if (not index.wide and cfg.engine in ("auto", "pos")
+                and set(index.alphabet.tolist()) - {1} <= set(b"ACGT")):
+            kq = query_pos.choose_k(index, budget, alphabet=b"ACGT")
+            if kq >= max(pos_k, 1):
+                pos_k, pos_alpha = kq, b"ACGT"
+        self.pos_k = pos_k
+        self.use_pos = pos_k >= 1 and (cfg.engine == "pos" or large)
+        self.use_wide = index.wide
+        if self.use_wide and index.ff_bound < 2:
+            raise ValueError("wide index lacks run splitting (ff_bound < 2); "
+                             "rebuild with ColPmlIndex.build")
+        self.use_mega = (not self.use_pos and not self.use_wide
+                         and index.ff_bound >= 2
+                         and cfg.engine in ("auto", "mega"))
+        self.use_fused = (not self.use_pos and not self.use_wide
+                          and not self.use_mega and index.ff_bound >= 1
+                          and cfg.engine in ("auto", "fused"))
+        if self.name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"the {self.name} engine is not ported to PyTorch yet "
+                f"({_NOT_PORTED[self.name]})")
+        self.table_build_seconds = 0.0
+        self.pt = None
+        if self.use_pos:
+            t0 = time.perf_counter()
+            self.pt = query_pos.build_pos_tables(
+                index, pos_k, hbm_budget_bytes=budget, alphabet=pos_alpha,
+                device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.table_build_seconds = time.perf_counter() - t0
+        self._xla_tb = None
+
+    @property
+    def name(self) -> str:
+        if self.use_pos:
+            return f"pos(k={self.pos_k})"
+        if self.use_wide:
+            return "mega-wide"
+        if self.use_mega:
+            return "mega"
+        if self.use_fused:
+            return "fused"
+        return "xla"
+
+    def _compact_tables(self) -> dict:
+        if self._xla_tb is None:
+            self._xla_tb = index_tensors(self.index, self.device)
+        return self._xla_tb
+
+    # ------------------------------------------------------------------
+    def dispatch(self, batch: list[bytes], padded: int):
+        """Launch one device batch without waiting for it; returns
+        (device_pml, device_cid, lens, fallback) for `materialize`.  On the
+        pos engine the pml side is one packed pml << 8 | cid plane and the
+        cid side is None."""
+        index, pt, dev = self.index, self.pt, self.device
+        if self.use_pos:
+            # M must divide both k (key folding) and the digit-packing
+            # group (4 digits/byte at A <= 4, 2 at A <= 16)
+            per = 4 if pt["A"] <= 4 else (2 if pt["A"] <= 16 else 1)
+            grp = math.lcm(self.pos_k, per)  # e.g. k=3, per=4 -> 12
+            padded = -(-padded // grp) * grp
+            if padded > 255 and max(len(r) for r in batch) <= 252:
+                padded = 252  # largest <= 255 multiple of every k <= 4:
+                # keeps the u16 packed plane for reads whose power-of-2
+                # bucket would round to 256
+            dig, lens, bad = query_pos._encode_digits(index, pt, batch, padded)
+            dig, pack = query_pos.pack_digits(dig, pt["A"])
+            p, c = query_pos.query_batch_pos(
+                pt["table"], pt["n"], to_device(dig, dev, np.uint8),
+                to_device(lens, dev), k=self.pos_k, A=pt["A"],
+                packed_out=True, pack=pack)
+            if bad.any():  # reads with non-key bytes: general k=1 fallback
+                idxs = np.flatnonzero(bad)
+                e2, l2 = index.encode_patterns([batch[i] for i in idxs],
+                                               padded)
+                if pt["t1"] is not None:
+                    p2, c2 = query_pos.query_batch_pos(
+                        pt["t1"], pt["n"], to_device(e2, dev, np.uint8),
+                        to_device(l2, dev), k=1, A=pt["A_full"])
+                else:  # general T1 does not fit: compact engine
+                    p2, c2 = query_xla.query_batch_device(
+                        self._compact_tables(), to_device(e2, dev),
+                        to_device(l2, dev), ff_bound=index.ff_bound)
+                return p, c, lens, (idxs, p2, c2)
+            return p, c, lens, None
+        enc, lens = index.encode_patterns(batch, padded)
+        p, c = query_xla.query_batch_device(
+            self._compact_tables(), to_device(enc, dev), to_device(lens, dev),
+            ff_bound=index.ff_bound)
+        return p, c, lens, None
+
+    @staticmethod
+    def materialize(result) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Wait for a dispatch() result; returns (pml (B, W), cid (B, W),
+        lens (B,)) with any fallback reads spliced back in.  A packed plane
+        (cid side None) is split on the host."""
+        p_dev, c_dev, lens, fallback = result
+        if c_dev is None:
+            p, c = query_pos.unpack_pml_cid(p_dev.cpu().numpy())
+        else:
+            p = p_dev.cpu().numpy()
+            c = c_dev.cpu().numpy()
+        if fallback is not None:
+            idxs, p2_dev, c2_dev = fallback
+            p[idxs] = p2_dev.cpu().numpy()
+            c[idxs] = c2_dev.cpu().numpy()
+        return p, c, np.asarray(lens)
+
+    # ------------------------------------------------------------------
+    def query_long_reads(self, reads: list[bytes]
+                         ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """Chunked carried-state scans for reads beyond cfg.long_read_len
+        (the -l mode, src/pml_query.cpp:126-128)."""
+        if self.use_pos:
+            return query_pos.query_long_reads(
+                self.index, reads, chunk=self.cfg.long_read_chunk, pt=self.pt)
+        # the compact engine handles any length in one batch (no table
+        # growth with M) — reuse dispatch at the padded length
+        padded = 1 << (max(max(len(r) for r in reads), 1) - 1).bit_length()
+        p, c, lens = self.materialize(self.dispatch(reads, padded))
+        W = p.shape[1]
+        return ([p[i, W - int(lens[i]):] for i in range(len(reads))],
+                [c[i, W - int(lens[i]):] for i in range(len(reads))])
+
+    def supports_long_streaming(self) -> bool:
+        return self.use_pos

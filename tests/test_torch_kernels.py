@@ -1,0 +1,193 @@
+"""CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+
+Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
+(the machine with the card has none), so it runs there without the JAX
+conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+
+Every value is an integer, so every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from colbwt_tpu.models.index import ColPmlIndex
+from colbwt_tpu.ops import oracle as O
+from colbwt_tpu_torch.models.tensors import index_tensors, to_device
+from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.ops import query_pos as TQ
+from colbwt_tpu_torch.ops import query_xla as TX
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def case():
+    rng = np.random.default_rng(0xC0DA)
+    base = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+    docs = []
+    for _ in range(3):
+        a = base.copy()
+        a[rng.integers(0, a.size, 60)] = rng.choice(
+            np.frombuffer(b"ACGT", np.uint8), 60)
+        docs.append(a.tobytes())
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    fl = O.build_fl_table(heads, lens)
+    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, 3, 12)
+    mpos, mids, mhts = O.col_split_oracle(fl, ml, mp, 3, 4, "tunnels")
+    bits, ids = O.find_col_runs_oracle(mpos, mids, mhts, fl.l_heads, fl.n)
+    tbl = O.build_col_pml(heads, lens, bits, ids,
+                          O.compute_thresholds(heads, lens, lcp))
+    reads = []
+    for i in range(300):
+        d = docs[i % 3]
+        s = int(rng.integers(0, len(d) - 200))
+        m = int(rng.integers(20, 200))
+        r = bytearray(d[s:s + m])
+        if i % 7 == 0:
+            r[int(rng.integers(0, m))] = ord("N")
+        reads.append(bytes(r))
+    return tbl, ColPmlIndex.from_table(tbl), reads
+
+
+def _equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a, b)
+
+
+def test_t1_chunks(dev, case):
+    _, index, _ = case
+    n, C = index.n, 1000
+    a = TQ.t1_inputs(index, C, dev)
+    for c in range(index.sigma + 1):
+        pred = to_device(index.pred_jump[c], dev)
+        succ = to_device(index.succ_jump[c], dev)
+        for s in (0, 3000, n - C):
+            args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+                    a["threshold"], pred, succ, a["col_id"], c, s, s, n, C)
+            before = K.launches["build_t1_chunk"]
+            got = TQ.build_t1_chunk(torch.zeros((n, 2), dtype=torch.int32,
+                                                device=dev), *args)
+            assert K.launches["build_t1_chunk"] == before + 1
+            want = TQ.build_t1_chunk_ref(
+                torch.zeros((n, 2), dtype=torch.int32, device=dev), *args)
+            _equal(got, want)
+
+
+@pytest.mark.parametrize("ka,kb", [(1, 1), (2, 1), (2, 2)])
+def test_compose(dev, case, ka, kb):
+    _, index, _ = case
+    pt = {k: TQ.build_pos_tables(index, k, alphabet=b"ACGT", device=dev)
+          for k in (1, 2)}
+    ta, tb = pt[ka]["table"], pt[kb]["table"]
+    _equal(TQ.compose_tables(ta, tb, index.n, 4, ka, kb),
+           TQ.compose_tables_ref(ta, tb, index.n, 4, ka, kb))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("pack", [0, 2])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_scan(dev, case, k, pack, fresh):
+    _, index, reads = case
+    pt = TQ.build_pos_tables(index, k, alphabet=b"ACGT", device=dev)
+    M = 204 if k == 3 else 200
+    dig, lens, _ = TQ._encode_digits(index, pt, reads, M)
+    B = dig.shape[0]
+    rng = np.random.default_rng(k)
+    pos0 = (np.full(B, index.n - 1) if fresh
+            else rng.integers(0, index.n, B)).astype(np.int32)
+    mlen0 = (np.zeros(B) if fresh else rng.integers(0, 999, B)).astype(
+        np.int32)
+    pat = TQ.pack_digits(dig, 4)[0] if pack else dig
+    for packed_out in (False, True):
+        args = (pt["table"], pt["n"], to_device(pat, dev, np.uint8),
+                to_device(lens, dev), to_device(pos0, dev),
+                to_device(mlen0, dev), 0 if fresh else 8, k, 4)
+        kw = dict(masked=not fresh, packed_out=packed_out, fresh_state=fresh,
+                  pack=pack)
+        (gp, gc), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+        (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+        _equal(gp, wp)
+        if packed_out:
+            assert gc is None and wc is None
+        else:
+            _equal(gc, wc)
+        _equal(gpos, wpos)
+        _equal(gml, wml)
+
+
+def test_scan_dispatch_shape(dev, case):
+    """The pos engine's batch as dispatch sends it: k = 4, reads padded to
+    252 columns, 2-bit digits, fresh state, one packed uint16 plane."""
+    _, index, reads = case
+    pt = TQ.build_pos_tables(index, 4, alphabet=b"ACGT", device=dev)
+    dig, lens, _ = TQ._encode_digits(index, pt, reads, 252)
+    pat, pack = TQ.pack_digits(dig, 4)
+    assert pack == 2
+    B = dig.shape[0]
+    args = (pt["table"], pt["n"], to_device(pat, dev, np.uint8),
+            to_device(lens, dev),
+            torch.full((B,), index.n - 1, dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev), 0, 4, 4)
+    kw = dict(packed_out=True, fresh_state=True, pack=2)
+    (gp, _), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+    (wp, _), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+    assert gp.dtype == torch.uint16
+    _equal(gp.view(torch.int16), wp.view(torch.int16))
+    _equal(gpos, wpos)
+    _equal(gml, wml)
+
+
+def test_scan_general_t1(dev, case):
+    """The fallback every read with a non-ACGT byte takes: the general T1
+    over all sigma+1 chars, k = 1, dense ids unpacked, pml and cid planes."""
+    tbl, index, reads = case
+    pt = TQ.build_pos_tables(index, 4, alphabet=b"ACGT", device=dev)
+    assert pt["t1"] is not None
+    n_reads = [r for r in reads if b"N" in r]
+    enc, lens = index.encode_patterns(n_reads, 252)
+    B = enc.shape[0]
+    args = (pt["t1"], pt["n"], to_device(enc, dev, np.uint8),
+            to_device(lens, dev),
+            torch.full((B,), index.n - 1, dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev), 0, 1,
+            pt["A_full"])
+    kw = dict(packed_out=False, fresh_state=True, pack=0)
+    (gp, gc), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+    (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+    for g, w in ((gp, wp), (gc, wc), (gpos, wpos), (gml, wml)):
+        _equal(g, w)
+    pml = gp.cpu().numpy()
+    for b in range(0, B, 5):
+        ep, _ = O.query_pml_oracle(tbl, n_reads[b])
+        np.testing.assert_array_equal(pml[b, 252 - len(n_reads[b]):], ep)
+
+
+@pytest.mark.parametrize("ff", [0, 2])
+def test_compact_scan(dev, case, ff):
+    tbl, unsplit, reads = case
+    index = ColPmlIndex.build(tbl, ff_bound=2) if ff else unsplit
+    tb = index_tensors(index, dev)
+    enc, lens = index.encode_patterns(reads, 256)
+    args = (tb, to_device(enc, dev), to_device(lens, dev))
+    got = TX.query_batch_device(*args, ff_bound=index.ff_bound if ff else 0)
+    want = TX.query_batch_device_ref(*args,
+                                     ff_bound=index.ff_bound if ff else 0)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    pml = got[0].cpu().numpy()
+    for b in range(0, len(reads), 37):
+        ep, _ = O.query_pml_oracle(tbl, reads[b])
+        np.testing.assert_array_equal(pml[b, 256 - len(reads[b]):], ep)

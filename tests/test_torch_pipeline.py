@@ -1,0 +1,167 @@
+"""The PyTorch port's slice as a whole against the JAX package: the host
+build lane's artifacts, the query pipeline's output files (binary and text,
+against the committed goldens too), the CLI, and the host col-split copy.
+
+The port runs its plain PyTorch path on the CPU (device="cpu").  Every
+compared value is an integer or a byte, so every comparison is exact.
+"""
+
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from colbwt_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
+from colbwt_tpu.models.index import ColPmlIndex
+from colbwt_tpu.ops import colsplit_jax as CS
+from colbwt_tpu.ops import oracle as O
+from colbwt_tpu.pipeline import build_pipeline as jax_build
+from colbwt_tpu.pipeline import query_pipeline as jax_query
+from colbwt_tpu.utils.config import ColBwtConfig
+from colbwt_tpu_torch.cli import main as torch_cli
+from colbwt_tpu_torch.ops.colsplit_host import col_split_tunneled_numpy
+from colbwt_tpu_torch.pipeline import build_pipeline, query_pipeline
+from colbwt_tpu_torch.pipeline.engines import QueryEngines
+from tests.conftest import random_docs
+from tests.test_query_xla import build_index
+
+GOLD = Path(__file__).parent / "goldens"
+CFG = dict(min_mum=20, split_rate=10, rev_comp=True, keep_temp=True)
+ARTIFACTS = ["fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
+             "lengths", "fa.col_runs", "fa.col_ids", "fa.col_pml"]
+
+
+@pytest.fixture(scope="module")
+def golden(tmp_path_factory):
+    """The goldens' collection built by both packages."""
+    tmp = tmp_path_factory.mktemp("golden")
+    for f in ("seq1.fa", "seq2.fa", "pattern.fa"):
+        shutil.copy(GOLD / f, tmp / f)
+    fastas = [str(tmp / "seq1.fa"), str(tmp / "seq2.fa")]
+    jax_build(fastas, str(tmp / "jax"), ColBwtConfig(**CFG))
+    build_pipeline(fastas, str(tmp / "torch"), ColBwtConfig(**CFG),
+                   device="cpu")
+    return tmp
+
+
+@pytest.mark.parametrize("ext", ARTIFACTS)
+def test_build_artifacts_match_jax(golden, ext):
+    assert (golden / f"torch.{ext}").read_bytes() == \
+        (golden / f"jax.{ext}").read_bytes()
+
+
+def test_index_arrays_match_jax(golden):
+    a = np.load(golden / "torch.colpml.npz")
+    b = np.load(golden / "jax.colpml.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def _query_outputs(golden, pkg, engine, tag, **cfg):
+    """Query the goldens' reads through `pkg` into a file named by `tag`;
+    returns the four output files' bytes."""
+    pat = golden / f"{tag}.{pkg}.fa"
+    shutil.copy(golden / "pattern.fa", pat)
+    c = ColBwtConfig(**CFG, engine=engine, **cfg)
+    if pkg == "jax":
+        jax_query(str(golden / "jax"), str(pat), c, write_text=True)
+    else:
+        query_pipeline(str(golden / "torch"), str(pat), c, write_text=True,
+                       device="cpu")
+    return {ext: Path(f"{pat}.{ext}").read_bytes()
+            for ext in ("split.pml.bin", "split.cid.bin", "pml", "cid")}
+
+
+@pytest.mark.parametrize("engine,cfg", [
+    ("auto", {}),
+    ("pos", {}),
+    ("pos", {"long_read_len": 40, "long_read_chunk": 32}),
+], ids=["auto-xla", "pos", "pos-long-reads"])
+def test_query_matches_jax_and_goldens(golden, engine, cfg):
+    tag = f"{engine}{len(cfg)}"
+    got = _query_outputs(golden, "torch", engine, tag, **cfg)
+    want = _query_outputs(golden, "jax", engine, tag, **cfg)
+    assert got == want
+    assert got["pml"] == (GOLD / "pattern.fa.pml.golden").read_bytes()
+    assert got["cid"] == (GOLD / "pattern.fa.cid.golden").read_bytes()
+
+
+def test_cli_build_and_query_match_library(golden, tmp_path):
+    fastas = [str(golden / "seq1.fa"), str(golden / "seq2.fa")]
+    out = str(tmp_path / "cli")
+    assert torch_cli(["build", "-o", out, "-r", "-l", "20", "-s", "10",
+                      "--device", "cpu", *fastas]) == 0
+    for ext in ARTIFACTS[:-1]:  # .fa.col_pml goes with --keep only
+        assert Path(f"{out}.{ext}").read_bytes() == \
+            (golden / f"torch.{ext}").read_bytes(), ext
+    pat = tmp_path / "pattern.fa"
+    shutil.copy(GOLD / "pattern.fa", pat)
+    assert torch_cli(["query", out, "-p", str(pat), "--text",
+                      "--device", "cpu"]) == 0
+    assert (tmp_path / "pattern.fa.pml").read_bytes() == \
+        (GOLD / "pattern.fa.pml.golden").read_bytes()
+    assert torch_cli(["query", out, "-p", str(pat), "--stream",
+                      "--device", "cpu"]) == 1
+
+
+@pytest.mark.parametrize("engine,wide,item", [
+    ("auto", None, "item 5"), ("fused", None, "item 9"),
+    ("auto", True, "item 6"),
+], ids=["mega", "fused", "mega-wide"])
+def test_engines_not_ported_raise(engine, wide, item):
+    """Where the JAX ladder picks mega, fused or mega-wide, the port raises
+    naming the ROADMAP item instead of substituting another engine."""
+    tbl, _ = build_index(random_docs(np.random.default_rng(5), 2, lo=60,
+                                     hi=90))
+    split = ColPmlIndex.build(tbl, ff_bound=2, wide=wide)
+    with pytest.raises(NotImplementedError, match=item):
+        QueryEngines(split, ColBwtConfig(engine=engine), total_chars=10,
+                     device="cpu")
+
+
+def test_chunked_sa_lane_not_ported_raises(tmp_path):
+    shutil.copy(GOLD / "seq1.fa", tmp_path / "seq1.fa")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        build_pipeline([str(tmp_path / "seq1.fa")], str(tmp_path / "c"),
+                       ColBwtConfig(sa_mode="chunked"), device="cpu")
+    assert not list(tmp_path.glob("c.*"))
+
+
+def test_n_reads_through_pos_pipeline_match_jax(golden, tmp_path):
+    """Reads with N bytes take the general-T1 fallback of the pos engine."""
+    docs = [r.seq for f in ("seq1.fa", "seq2.fa")
+            for r in read_fasta(golden / f)]
+    reads = [docs[0][10:60], docs[1][5:40] + b"N" + docs[1][41:90],
+             b"NNNN", docs[0][100:130] + b"NN" + docs[0][132:200]]
+    pat = tmp_path / "n.fa"
+    write_fasta(pat, [FastaRecord(f"r{i}", s) for i, s in enumerate(reads)])
+    _, pmls, cids = query_pipeline(str(golden / "torch"), str(pat),
+                                   ColBwtConfig(**CFG, engine="pos"),
+                                   device="cpu")
+    _, jp, jc = jax_query(str(golden / "jax"), str(pat),
+                          ColBwtConfig(**CFG, engine="pos"))
+    for read, p, c, a, b in zip(reads, pmls, cids, jp, jc):
+        np.testing.assert_array_equal(p, a, err_msg=repr(read))
+        np.testing.assert_array_equal(c, b, err_msg=repr(read))
+
+
+@pytest.mark.parametrize("seed,num_docs,rate", [(1, 2, 2), (2, 3, 3),
+                                                (3, 4, 1)])
+def test_colsplit_host_matches_jax_and_oracle(seed, num_docs, rate):
+    rng = np.random.default_rng(seed)
+    base = bytes(rng.choice(list(b"ACGT"), 300).astype("uint8"))
+    docs = random_docs(rng, num_docs, mutate_from=base)
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    fl = O.build_fl_table(heads, lens)
+    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs, 8)
+    assert ml.size > 0
+    got = col_split_tunneled_numpy(fl, ml, mp, num_docs, rate)
+    for want in (CS.col_split_tunneled_numpy(fl, ml, mp, num_docs, rate),
+                 O.col_split_oracle(fl, ml, mp, num_docs, rate, "tunnels")):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
