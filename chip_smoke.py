@@ -3,30 +3,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, `col-bwt-torch query`, once on bench.py's
-index (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each, min-MUM
-20, split rate 10, tunnels mode), after checking every CUDA kernel of that
-path against its plain PyTorch version on the card.  Phases:
+Drives the port's main path, `col-bwt-torch query`, on bench.py's index
+(4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each, min-MUM 20,
+split rate 10, tunnels mode) and on two indexes made from it by scaling
+every run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths),
+after checking every CUDA kernel of those paths against its plain PyTorch
+version on the card.  Phases:
 
 1. the card's name and power limit (nvidia-smi); exits nonzero without CUDA
 2. build the CUDA kernels from colbwt_tpu_torch/csrc
 3. build the index on the host (colbwt_tpu_torch.pipeline.build_pipeline),
    then K1-K4 against their plain versions at the main path's shapes:
-   exact equality, and each kernel's time beside its plain version's
+   exact equality, and each kernel's time beside its plain version's; then
+   the scaled indexes (run lengths x256 and x1024, ColPmlIndex.build with
+   ff_bound 2, r = 1.37M) and K5, K6a-K6c likewise at the shapes of
+   phases 6-7
 4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
    1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
    must be pos(k=4), 256 sampled records must equal the oracle
    (query_pml_oracle) on the unsplit table, and K1-K3 must have launched
 5. main path, a small query: `query` with the default engine choice of
    every 44th bench read, 32 of the N reads and 8 long reads (5,997
-   reads, under 1M characters, so the ladder picks the compact engine): the engine must be xla, records
-   equal phase 4's, and K4 must have launched
+   reads, under 1M characters, so the ladder picks the compact engine):
+   the engine must be xla, records equal phase 4's, and K4 must have
+   launched
+6. the mega path: phase 4's reads through `query` on the x256 index (4·n
+   > 2**31 - 1, so no positional table fits): the engine must be mega, the
+   256 sampled records must equal the oracle on the scaled table, and K5
+   must have launched
+7. the mega-wide path: the same on the x1024 index (n > 2**31): the engine
+   must be mega-wide (full layout) and K6a, K6b must have launched; then
+   7b, phase 5's reads through query_pipeline with a memory budget one byte
+   under the full table, so the compact layout is built: records equal
+   phase 7's and K6a-K6c must have launched
 
-Launch counts are reset just before each of the two queries and read just
-after it; a kernel's "launches" is the sum over both.  The last lines are
-the card line, one {"kernels": [...]} JSON line and {"ok": true,
-"device": {...}}.  Everything is written under build/chip_smoke/ of the
-checkout.  Imports nothing of JAX.
+Launch counts are reset just before each query and read just after it; a
+kernel's "launches" is the sum over all of them.  The last lines are the
+card line, one {"kernels": [...]} JSON line and {"ok": true, "device":
+{...}}.  Everything is written under build/chip_smoke/ of the checkout.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,7 +68,17 @@ KERNEL_INFO = {
                         "colbwt_tpu/ops/query_pos.py:309"),
     "query_batch_xla": ("K4", "colbwt_tpu_torch/csrc/query_xla.cu",
                         "colbwt_tpu/ops/query_xla.py:153"),
+    "query_chunk_mega": ("K5", "colbwt_tpu_torch/csrc/query_mega.cu",
+                         "colbwt_tpu/ops/query_mega.py:116"),
+    "query_chunk_mega_wide": ("K6a", "colbwt_tpu_torch/csrc/query_mega.cu",
+                              "colbwt_tpu/ops/query_mega_wide.py:369"),
+    "fill_block_wide": ("K6b", "colbwt_tpu_torch/csrc/query_mega_wide.cu",
+                        "colbwt_tpu/ops/query_mega_wide.py:160"),
+    "shared_table_wide": ("K6c", "colbwt_tpu_torch/csrc/query_mega_wide.cu",
+                          "colbwt_tpu/ops/query_mega_wide.py:183"),
 }
+# run-length scales of the mega (n ~ 1.0e9) and mega-wide (n ~ 4.1e9) indexes
+MEGA_SCALE, WIDE_SCALE = 256, 1024
 
 
 def log(msg: str) -> None:
@@ -63,6 +88,21 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def scale_table(tbl, s: int):
+    """`tbl` with every run length (and threshold) multiplied by s: every
+    rank coordinate scales by s while r and the LF structure stay, so the
+    int64 oracle runs it exactly (the trick of tests/test_query_wide.py)."""
+    from colbwt_tpu.ops import oracle as O
+
+    out = O.build_lf_table(np.asarray(tbl.char),
+                           np.asarray(tbl.length, dtype=np.int64) * s)
+    out.col_id = tbl.col_id
+    out.threshold = (None if tbl.threshold is None
+                     else np.asarray(tbl.threshold, dtype=np.int64) * s)
+    out.bwt_r = tbl.bwt_r
+    return out
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
@@ -287,6 +327,111 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
     torch.cuda.empty_cache()
 
 
+def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
+                       long_reads, chk: Checks):
+    """Build the mega and mega-wide indexes from the scaled tables (saved
+    for phases 6-7), then hold K5 and K6a-K6c equal to their plain versions
+    at the shapes of those phases; returns the wide index."""
+    from colbwt_tpu.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops import query_mega_wide as TW
+
+    t0 = time.perf_counter()
+    mega = ColPmlIndex.build(mega_tbl, ff_bound=2)
+    wide = ColPmlIndex.build(wide_tbl, ff_bound=2)
+    require(not mega.wide and wide.wide, "scaled indexes: wrong width")
+    mega.save(WORK / "mega.colpml")  # the CLI loads PREFIX.colpml.npz
+    wide.save(WORK / "megawide.colpml")
+    log(f"[index] scaled indexes in {time.perf_counter() - t0:.1f}s: mega "
+        f"n={mega.n} r={mega.r} ff_bound={mega.ff_bound}; mega-wide "
+        f"n={wide.n} r={wide.r} ff_bound={wide.ff_bound}; full wide table "
+        f"{TW.wide_table_bytes(wide)} B")
+
+    # K6b: every char block of both layouts; K6c: the shared table
+    a = TW.run_arrays(wide, dev)
+    meta = TW._meta(wide)
+    rows = (wide.sigma + 1) * wide.r
+    tables = {}
+    for compact in (False, True):
+        layout = "compact" if compact else "full"
+        got = torch.empty((rows, 10 if compact else 16), dtype=torch.int32,
+                          device=dev)
+        want = torch.empty_like(got)
+        for c in range(wide.sigma + 1):
+            args = (c, a, to_device(wide.succ_jump[c], dev),
+                    to_device(wide.pred_jump[c], dev), meta["n_lo"],
+                    meta["n_hi"], wide.ff_bound, compact)
+            TW.fill_block(got, *args)
+            TW.fill_block_ref(want, *args)
+            if c == 0:
+                args0 = args
+        chk.equal("fill_block_wide", got, want,
+                  f"{layout}, all {wide.sigma + 1} blocks")
+        chk.time("fill_block_wide", lambda: TW.fill_block(got, *args0),
+                 lambda: TW.fill_block_ref(want, *args0),
+                 f"{layout} block c=0, {wide.r} rows")
+        tables[layout] = got
+        del want
+    shared = TW.shared_table(a)
+    chk.equal("shared_table_wide", shared, TW.shared_table_ref(a),
+              f"{wide.r} rows")
+    chk.time("shared_table_wide", lambda: TW.shared_table(a),
+             lambda: TW.shared_table_ref(a), f"{wide.r} rows")
+    base = {"length": a["length"], **meta}
+    scans = [("query_chunk_mega", "mega", mega,
+              TM.build_mega_table(mega, device=dev), TM.query_chunk_mega,
+              TM.query_chunk_mega_ref, TM.initial_state),
+             ("query_chunk_mega_wide", "wide full", wide,
+              {"mega": tables["full"], **base}, TW.query_chunk_mega_wide,
+              TW.query_chunk_mega_wide_ref, TW.initial_state_wide),
+             ("query_chunk_mega_wide", "wide compact", wide,
+              {"shared": shared, "percha": tables["compact"], **base},
+              TW.query_chunk_mega_wide, TW.query_chunk_mega_wide_ref,
+              TW.initial_state_wide)]
+    del tables, shared
+
+    # K5, K6a: the dispatch batch (8,192 reads, 255 columns, uint8, fresh
+    # state, u16 plane); one long-read chunk (16 x 2,048, masked, int32
+    # packed plane, step_offset 2,048, state carried from the first chunk);
+    # K5 also with two planes
+    sample = reads[:8192 - 256] + n_reads[:256]
+    for name, label, idx, mt, kern, ref, init in scans:
+        enc, ln = idx.encode_patterns(sample, 255)
+        disp = (mt, to_device(enc, dev, np.uint8), to_device(ln, dev),
+                init(mt, len(sample)), 0)
+        enc, ln = idx.encode_patterns(long_reads, 3 * 2048)
+        pat = to_device(enc, dev, np.uint8)
+        lt = to_device(ln, dev)
+        _, st = ref(mt, pat[:, 4096:].contiguous(), lt,
+                    init(mt, len(long_reads)), 0, ff_bound=idx.ff_bound,
+                    packed_out=True)
+        long = (mt, pat[:, 2048:4096].contiguous(), lt, st, 2048)
+        fresh = dict(ff_bound=idx.ff_bound, masked=False, packed_out=True,
+                     fresh_state=True)
+        cases = [(f"{label} dispatch 8192x255 u16", disp, fresh),
+                 (f"{label} long-read chunk 16x2048 masked int32 "
+                  f"step_offset 2048", long,
+                  dict(ff_bound=idx.ff_bound, masked=True, packed_out=True))]
+        if name == "query_chunk_mega":
+            cases.append((f"{label} dispatch 8192x255 two planes", disp,
+                          dict(fresh, packed_out=False)))
+        for what, args, kw in cases:
+            (gp, gc), gst = kern(*args, **kw)
+            (wp, wc), wst = ref(*args, **kw)
+            chk.equal(name, gp, wp, what)
+            require((gc is None) == (wc is None), f"{name} {what}: planes")
+            if gc is not None:
+                chk.equal(name, gc, wc, what + " cid")
+            for j, (g, w) in enumerate(zip(gst, wst)):
+                chk.equal(name, g, w, f"{what} state[{j}]")
+            chk.time(name, lambda: kern(*args, **kw),
+                     lambda: ref(*args, **kw), what)
+    del scans
+    torch.cuda.empty_cache()
+    return wide
+
+
 class Records(logging.Handler):
     """Collects the values query_pipeline attaches to its log records."""
 
@@ -307,13 +452,15 @@ def write_reads(path: Path, records: list[tuple[str, bytes]]) -> None:
                           for name, seq in records))
 
 
-def run_query(cli_main, argv: list[str]) -> dict:
+def run_query(query) -> dict:
+    """Run `query()` (a CLI call returning its exit code) and collect the
+    values its log records carry, with its wall time."""
     rec = Records()
     logger = logging.getLogger("colbwt_torch.query")
     logger.addHandler(rec)
     try:
         t0 = time.perf_counter()
-        rc = cli_main(argv)
+        rc = query()
         rec.values["wall_s"] = time.perf_counter() - t0
     finally:
         logger.removeHandler(rec)
@@ -321,8 +468,46 @@ def run_query(cli_main, argv: list[str]) -> dict:
     return rec.values
 
 
+def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
+               check, engine: str, needed: tuple[str, ...]):
+    """One query of a mega path with launch counts reset just before it:
+    the engine must be `engine`, every kernel in `needed` must have
+    launched, and `check(pmls, cids)` checks the records.  Returns the
+    metrics, the launch counts and the records."""
+    from colbwt_tpu.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    v = run_query(query)
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    require(v.get("engine") == engine,
+            f"phase {tag} engine {v.get('engine')}, expected {engine}")
+    for name in needed:
+        require(launches[name] > 0, f"{name} never launched in phase {tag}")
+    got_names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+    require(got_names == names, f"phase {tag}: record names/order differ")
+    t0 = time.perf_counter()
+    what = check(pmls, cids)
+    m = {"engine": v["engine"], "reads": len(names), "read_s": v["read_s"],
+         "table_build_s": v["table_build_s"], "scan_s": v["scan_s"],
+         "write_s": v["write_s"], "query_wall_s": v["wall_s"],
+         "reads_per_s": len(names) / v["wall_s"],
+         "scan_reads_per_s": len(names) / v["scan_s"],
+         "device_mem_peak_bytes": peak}
+    log(f"[phase {tag}] engine {v['engine']}: {len(names)} reads, table "
+        f"build {v['table_build_s']:.3f}s, scan {v['scan_s']:.3f}s, query "
+        f"wall {v['wall_s']:.3f}s -> {m['reads_per_s']:.0f} reads/s (scan "
+        f"only {m['scan_reads_per_s']:.0f} reads/s), device memory peak {peak} "
+        f"B; {what} ({time.perf_counter() - t0:.1f}s); launches "
+        f"{json.dumps(launches)}")
+    return m, launches, pmls, cids
+
+
 def run(torch) -> tuple[dict, list[dict]]:
-    """Phases 2-5 on the card; returns the main path's metrics and the
+    """Phases 2-7 on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
     from colbwt_tpu.io import formats as F
@@ -386,6 +571,13 @@ def run(torch) -> tuple[dict, list[dict]]:
     check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
     log(f"[phase 3] K1-K4 equal to their plain versions "
         f"({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    mega_tbl = scale_table(tbl, MEGA_SCALE)
+    wide_tbl = scale_table(tbl, WIDE_SCALE)
+    wide_index = check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads,
+                                    n_reads, long_reads, chk)
+    log(f"[phase 3] K5, K6a-K6c equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
 
     # phase 4: main path, a large query, through the CLI
     records = ([(f"r{i}", s) for i, s in enumerate(reads)]
@@ -395,7 +587,7 @@ def run(torch) -> tuple[dict, list[dict]]:
     write_reads(pat, records)
     K.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    v = run_query(cli_main, ["query", prefix, "-p", str(pat)])
+    v = run_query(lambda: cli_main(["query", prefix, "-p", str(pat)]))
     launches4 = dict(K.launches)
     peak = torch.cuda.max_memory_allocated()
     require(v.get("engine") == "pos(k=4)",
@@ -443,7 +635,7 @@ def run(torch) -> tuple[dict, list[dict]]:
     pat5 = WORK / "reads_small.fa"
     write_reads(pat5, [records[i] for i in sel])
     K.reset_launches()
-    v5 = run_query(cli_main, ["query", prefix, "-p", str(pat5)])
+    v5 = run_query(lambda: cli_main(["query", prefix, "-p", str(pat5)]))
     launches5 = dict(K.launches)
     require(v5.get("engine") == "xla",
             f"phase 5 engine {v5.get('engine')}, expected xla")
@@ -461,12 +653,72 @@ def run(torch) -> tuple[dict, list[dict]]:
         f"records equal phase 4's; launches {json.dumps(launches5)}")
     log("[main path] " + json.dumps(main_path))
 
+    # phases 6-7: the mega and mega-wide paths, the same reads through the
+    # CLI with the default engine choice on the scaled indexes
+    all_names = [r[0] for r in records]
+
+    def oracle_check(scaled):
+        def check(pm, ci):
+            for i in sample:
+                ep, ec = O.query_pml_oracle(scaled, records[i][1])
+                require(np.array_equal(pm[i], ep)
+                        and np.array_equal(ci[i], ec),
+                        f"record {records[i][0]} differs from the oracle")
+            return f"{len(sample)} sampled records equal the oracle"
+        return check
+
+    paths = {}
+    launches = [launches4, launches5]
+    for tag, name, engine, scaled, needed in (
+            ("6", "mega", "mega", mega_tbl, ("query_chunk_mega",)),
+            ("7", "megawide", "mega-wide", wide_tbl,
+             ("query_chunk_mega_wide", "fill_block_wide"))):
+        p = WORK / f"reads_{name}.fa"
+        shutil.copy(pat, p)
+        m, lc, pm, ci = mega_phase(
+            torch, tag, lambda: cli_main(["query", str(WORK / name), "-p",
+                                          str(p)]),
+            p, all_names, oracle_check(scaled), engine, needed)
+        paths[engine] = m
+        launches.append(lc)
+    pm7, ci7 = pm, ci
+    del mega_tbl, wide_tbl, pm, ci
+
+    # phase 7b: phase 5's small query on the mega-wide index through the
+    # library entry point, with a memory budget one byte under the full
+    # table, so the ladder builds the compact layout (K6b, K6c)
+    from colbwt_tpu_torch.ops.query_mega_wide import wide_table_bytes
+    from colbwt_tpu_torch.pipeline import query_pipeline
+
+    p7b = WORK / "reads_small_compact.fa"
+    shutil.copy(pat5, p7b)
+    cfg7b = ColBwtConfig(pos_hbm_budget=wide_table_bytes(wide_index) - 1)
+
+    def same_as_phase7(pm7b, ci7b):
+        for j, i in enumerate(sel):
+            require(np.array_equal(pm7b[j], pm7[i])
+                    and np.array_equal(ci7b[j], ci7[i]),
+                    f"phase 7b record {records[i][0]} differs from phase 7")
+        return "records equal phase 7's"
+
+    def query7b():
+        query_pipeline(str(WORK / "megawide"), str(p7b), cfg7b, device=dev)
+        return 0
+
+    m, lc, _, _ = mega_phase(
+        torch, "7b", query7b, p7b, [records[i][0] for i in sel],
+        same_as_phase7, "mega-wide",
+        ("query_chunk_mega_wide", "fill_block_wide", "shared_table_wide"))
+    paths["mega-wide compact"] = m
+    launches.append(lc)
+    log("[mega paths] " + json.dumps(paths))
+
     kernels = []
     for name, (tag, src, replaces) in KERNEL_INFO.items():
         ms, plain = chk.ms[name]
         kernels.append({"name": f"{tag} {name}", "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": launches4[name] + launches5[name],
+                        "launches": sum(lc[name] for lc in launches),
                         "max_abs_err": chk.err[name], "ms": ms,
                         "plain_ms": plain})
     return main_path, kernels

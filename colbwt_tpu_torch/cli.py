@@ -128,8 +128,9 @@ def main(argv: list[str] | None = None) -> int:
     q.add_argument("--engine", type=str, default="auto",
                    choices=["auto", "pos", "mega", "fused", "xla"],
                    help="query engine override (auto picks the fastest "
-                        "that fits device memory; mega and fused are not "
-                        "ported yet and fail)")
+                        "that fits device memory; mega needs a run-split "
+                        "index; fused is not ported yet and fails; wide "
+                        "indexes always use mega-wide)")
     q.add_argument("--device", type=str, default="cuda", help=device_help)
 
     args = parser.parse_args(argv)

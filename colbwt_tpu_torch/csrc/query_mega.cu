@@ -1,0 +1,329 @@
+// Mega-engine scans for Hopper (sm_90a): K5 and K6a.
+//
+// Replaces two jitted XLA programs:
+//   K5  colbwt_query_chunk_mega       <- colbwt_tpu/ops/query_mega.py:116
+//       query_chunk_mega (with query_batch_mega :212, initial_state :104)
+//   K6a colbwt_query_chunk_mega_wide  <- colbwt_tpu/ops/query_mega_wide.py:369
+//       query_chunk_mega_wide (with query_batch_mega_wide :486,
+//       initial_state_wide :352 and the limb comparison _lt :364)
+//
+// What bounds them on an H100: per read and character, one random gather of
+// a 64-byte table row at c * r + interval (in the wide compact layout a
+// 32-byte shared row plus a 40-byte per-char row), and ff_bound - 2 more
+// gathers into the r-sized length array.  Each row's address depends on the
+// row before it.  At r = 1.37M runs and sigma + 1 = 6 the table is 525 MB,
+// ten times the 50 MB L2, so nearly every row is a cold HBM read: the scan
+// is bound by memory latency times the steps of a read, not by bandwidth.
+//
+// The simple design: one thread per read, walking its M columns right to
+// left; a row is read with 16-byte (8-byte for the 40-byte row) vector
+// loads.  Latency is hidden only by the number of reads in flight (8,192 in
+// a dispatch batch); several reads per thread with interleaved loads is
+// later work.
+//
+// One templated scan serves three row readers: the narrow row with int32
+// positions, the wide full row whose base-2**30 position limbs are joined to
+// int64 at the gather, and the wide compact pair of rows.  Wide positions are
+// int64 inside the kernel and are split into limbs again only where the
+// state leaves it.  Narrow sums wrap as int32, as in the JAX program; wide
+// sums are exact, which equals the JAX limb arithmetic for every valid state
+// (offsets < 2**29, so one carry normalises).  Every row index is int64 and
+// clamped as jnp.take(..., mode="clip") does.
+//
+// Plain C interface (ctypes); each entry point launches on the caller's
+// stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int64_t kLimb = int64_t(1) << 30;
+
+__device__ __forceinline__ int64_t clip(int64_t i, int64_t size) {
+  return i < 0 ? 0 : (i >= size ? size - 1 : i);
+}
+
+// int32 addition with the two's-complement wrap of the JAX program
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int64_t join(int32_t lo, int32_t hi) {
+  return static_cast<int64_t>(hi) * kLimb + lo;
+}
+
+// What one step needs of the row(s) at (c, interval).
+struct Row {
+  bool match;
+  int32_t cid, di0, doff0, dlen0, s_int, s_off, p_int, p_off;
+  int64_t lf_pos0, thr, s_pos, p_pos;
+};
+
+// Narrow row (query_mega.py:8-17): [match, cid, di0, doff0, lf_pos0, dlen0,
+// thr, s_int, s_off, s_pos, p_int, p_off, p_pos, 0, 0, 0].
+struct NarrowRows {
+  static constexpr bool kWide = false;
+  const int4* __restrict__ mega;
+  int64_t rows, r;
+  __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
+    const int4* p = mega + 4 * clip(c * r + interval, rows);
+    const int4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
+    Row w;
+    w.match = a.x == 1;
+    w.cid = a.y;
+    w.di0 = a.z;
+    w.doff0 = a.w;
+    w.lf_pos0 = b.x;
+    w.dlen0 = b.y;
+    w.thr = b.z;
+    w.s_int = b.w;
+    w.s_off = d.x;
+    w.s_pos = d.y;
+    w.p_int = d.z;
+    w.p_off = d.w;
+    w.p_pos = __ldg(reinterpret_cast<const int32_t*>(p + 3));
+    return w;
+  }
+};
+
+// Wide full row (query_mega_wide.py:65-69): [match << 8 | cid, di0, doff0,
+// lf_lo, lf_hi, dlen0, thr_lo, thr_hi, s_int, s_off, s_lo, s_hi, p_int,
+// p_off, p_lo, p_hi].
+struct WideFullRows {
+  static constexpr bool kWide = true;
+  const int4* __restrict__ mega;
+  int64_t rows, r;
+  __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
+    const int4* p = mega + 4 * clip(c * r + interval, rows);
+    const int4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2),
+               e = __ldg(p + 3);
+    Row w;
+    w.match = (a.x >> 8) == 1;
+    w.cid = a.x & 0xFF;
+    w.di0 = a.y;
+    w.doff0 = a.z;
+    w.lf_pos0 = join(a.w, b.x);
+    w.dlen0 = b.y;
+    w.thr = join(b.z, b.w);
+    w.s_int = d.x;
+    w.s_off = d.y;
+    w.s_pos = join(d.z, d.w);
+    w.p_int = e.x;
+    w.p_off = e.y;
+    w.p_pos = join(e.z, e.w);
+    return w;
+  }
+};
+
+// Wide compact layout (query_mega_wide.py:71-78): shared row [char, cid,
+// di0, doff0, lf_lo, lf_hi, dlen0, 0] at interval, per-char row [thr_lo,
+// thr_hi, s_int, s_off, s_lo, s_hi, p_int, p_off, p_lo, p_hi] at c*r+interval.
+struct WideCompactRows {
+  static constexpr bool kWide = true;
+  const int4* __restrict__ shared;
+  const int2* __restrict__ percha;
+  int64_t rows, r;
+  __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
+    const int4* s = shared + 2 * clip(interval, r);
+    const int2* q = percha + 5 * clip(c * r + interval, rows);
+    const int4 a = __ldg(s), b = __ldg(s + 1);
+    const int2 t = __ldg(q), su = __ldg(q + 1), sp = __ldg(q + 2),
+               pu = __ldg(q + 3), pp = __ldg(q + 4);
+    Row w;
+    w.match = a.x == c;
+    w.cid = a.y;
+    w.di0 = a.z;
+    w.doff0 = a.w;
+    w.lf_pos0 = join(b.x, b.y);
+    w.dlen0 = b.z;
+    w.thr = join(t.x, t.y);
+    w.s_int = su.x;
+    w.s_off = su.y;
+    w.s_pos = join(sp.x, sp.y);
+    w.p_int = pu.x;
+    w.p_off = pu.y;
+    w.p_pos = join(pp.x, pp.y);
+    return w;
+  }
+};
+
+enum OutMode { kTwoPlanes = 0, kPackedI32 = 1, kPackedU16 = 2 };
+
+struct ScanArgs {
+  const int32_t* length;  // (r,) run lengths, for rounds past the first
+  int64_t r, n;
+  const uint8_t* patterns;  // (B, M) dense char ids, right-aligned
+  const int32_t* lengths;   // (B,) full read lengths
+  const int32_t *interval0, *offset0, *pos_lo0, *pos_hi0, *mlen0;
+  int64_t step_offset, B, M;
+  int ff_bound;
+  bool masked;
+  int out_mode;
+  void* out0;
+  int32_t* out1;
+  int32_t *interval1, *offset1, *pos_lo1, *pos_hi1, *mlen1;
+};
+
+// One thread per read: the read's columns right to left, state in registers.
+template <class Rows>
+__global__ void mega_scan_kernel(const Rows rows, const ScanArgs a) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= a.B) return;
+  int32_t interval = a.interval0[b];
+  int32_t offset = a.offset0[b];
+  int32_t mlen = a.mlen0[b];
+  int64_t pos = Rows::kWide ? join(a.pos_lo0[b], a.pos_hi0[b])
+                            : static_cast<int64_t>(a.pos_lo0[b]);
+  const int64_t len = a.lengths[b];
+  const uint8_t* pat = a.patterns + b * a.M;
+  for (int64_t s = 0; s < a.M; ++s) {
+    const int64_t col = a.M - 1 - s;
+    const int32_t c = pat[col];
+    const Row w = rows.load(c, interval);
+
+    // match / no-reposition path: LF, the first fast-forward round against
+    // the row's dlen0, then ff_bound - 2 rounds gathering the length array
+    int32_t doff = add32(w.doff0, offset);
+    const int64_t lf_pos =
+        Rows::kWide ? w.lf_pos0 + offset
+                    : add32(static_cast<int32_t>(w.lf_pos0), offset);
+    bool over = doff >= w.dlen0;
+    int32_t di = w.di0 + over;
+    doff -= over ? w.dlen0 : 0;
+    for (int t = 2; t < a.ff_bound; ++t) {
+      const int32_t ln = a.length[clip(di, a.r)];
+      over = doff >= ln;
+      di += over;
+      doff -= over ? ln : 0;
+    }
+
+    // threshold_step (include/col_bwt.hpp:531-574): pred if pos < thr and
+    // one exists; else succ if one exists (thr == n means none); else LF
+    const bool take_pred = !w.match && pos < w.thr && w.p_int >= 0;
+    const bool take_succ = !w.match && !take_pred && w.thr < a.n;
+    const int32_t new_len = w.match ? add32(mlen, 1) : 0;
+    uint32_t pml = static_cast<uint32_t>(new_len);
+    uint32_t cid = static_cast<uint32_t>(w.cid);
+    if (!a.masked || s + a.step_offset < len) {
+      interval = take_pred ? w.p_int : (take_succ ? w.s_int : di);
+      offset = take_pred ? w.p_off : (take_succ ? w.s_off : doff);
+      pos = take_pred ? w.p_pos : (take_succ ? w.s_pos : lf_pos);
+      mlen = new_len;
+    } else {  // masked lane past its end: frozen state, zero outputs
+      pml = 0;
+      cid = 0;
+    }
+    const int64_t o = b * a.M + col;
+    if (a.out_mode == kTwoPlanes) {
+      static_cast<int32_t*>(a.out0)[o] = static_cast<int32_t>(pml);
+      a.out1[o] = static_cast<int32_t>(cid);
+    } else if (a.out_mode == kPackedI32) {
+      static_cast<int32_t*>(a.out0)[o] = static_cast<int32_t>((pml << 8) | cid);
+    } else {
+      static_cast<uint16_t*>(a.out0)[o] =
+          static_cast<uint16_t>((pml << 8) | cid);
+    }
+  }
+  a.interval1[b] = interval;
+  a.offset1[b] = offset;
+  a.mlen1[b] = mlen;
+  if (Rows::kWide) {
+    a.pos_lo1[b] = static_cast<int32_t>(pos & (kLimb - 1));
+    a.pos_hi1[b] = static_cast<int32_t>(pos >> 30);
+  } else {
+    a.pos_lo1[b] = static_cast<int32_t>(pos);
+  }
+}
+
+template <class Rows>
+int launch(const Rows& rows, const ScanArgs& a, void* stream) {
+  const int64_t blocks = (a.B + kThreads - 1) / kThreads;
+  mega_scan_kernel<Rows><<<blocks < 1 ? 1 : blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(rows, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+ScanArgs scan_args(const void* length, int64_t r, int64_t n,
+                   const void* patterns, const void* lengths,
+                   const void* interval0, const void* offset0,
+                   const void* pos_lo0, const void* pos_hi0,
+                   const void* mlen0, int64_t step_offset, int64_t B,
+                   int64_t M, int64_t ff_bound, int64_t masked,
+                   int64_t out_mode, void* out0, void* out1, void* interval1,
+                   void* offset1, void* pos_lo1, void* pos_hi1, void* mlen1) {
+  ScanArgs a;
+  a.length = static_cast<const int32_t*>(length);
+  a.r = r;
+  a.n = n;
+  a.patterns = static_cast<const uint8_t*>(patterns);
+  a.lengths = static_cast<const int32_t*>(lengths);
+  a.interval0 = static_cast<const int32_t*>(interval0);
+  a.offset0 = static_cast<const int32_t*>(offset0);
+  a.pos_lo0 = static_cast<const int32_t*>(pos_lo0);
+  a.pos_hi0 = static_cast<const int32_t*>(pos_hi0);
+  a.mlen0 = static_cast<const int32_t*>(mlen0);
+  a.step_offset = step_offset;
+  a.B = B;
+  a.M = M;
+  a.ff_bound = static_cast<int>(ff_bound);
+  a.masked = masked != 0;
+  a.out_mode = static_cast<int>(out_mode);
+  a.out0 = out0;
+  a.out1 = static_cast<int32_t*>(out1);
+  a.interval1 = static_cast<int32_t*>(interval1);
+  a.offset1 = static_cast<int32_t*>(offset1);
+  a.pos_lo1 = static_cast<int32_t*>(pos_lo1);
+  a.pos_hi1 = static_cast<int32_t*>(pos_hi1);
+  a.mlen1 = static_cast<int32_t*>(mlen1);
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5: the narrow mega table ((sigma+1)*r, 16) int32; state (interval,
+// offset, pos, mlen), each (B,) int32.
+int colbwt_query_chunk_mega(
+    const void* mega, int64_t rows, const void* length, int64_t r, int64_t n,
+    const void* patterns, const void* lengths, const void* interval0,
+    const void* offset0, const void* pos0, const void* mlen0,
+    int64_t step_offset, int64_t B, int64_t M, int64_t ff_bound,
+    int64_t masked, int64_t out_mode, void* out0, void* out1, void* interval1,
+    void* offset1, void* pos1, void* mlen1, void* stream) {
+  const NarrowRows rd{static_cast<const int4*>(mega), rows, r};
+  return launch(rd, scan_args(length, r, n, patterns, lengths, interval0,
+                              offset0, pos0, nullptr, mlen0, step_offset, B,
+                              M, ff_bound, masked, out_mode, out0, out1,
+                              interval1, offset1, pos1, nullptr, mlen1),
+                stream);
+}
+
+// K6a: the wide tables, full ((sigma+1)*r, 16) when compact == 0, else
+// shared (r, 8) + per-char ((sigma+1)*r, 10); n is the joined int64 value;
+// state (interval, offset, pos_lo, pos_hi, mlen), each (B,) int32.
+int colbwt_query_chunk_mega_wide(
+    int64_t compact, const void* table, int64_t rows, const void* shared,
+    const void* length, int64_t r, int64_t n, const void* patterns,
+    const void* lengths, const void* interval0, const void* offset0,
+    const void* pos_lo0, const void* pos_hi0, const void* mlen0,
+    int64_t step_offset, int64_t B, int64_t M, int64_t ff_bound,
+    int64_t masked, int64_t out_mode, void* out0, void* out1, void* interval1,
+    void* offset1, void* pos_lo1, void* pos_hi1, void* mlen1, void* stream) {
+  const ScanArgs a = scan_args(
+      length, r, n, patterns, lengths, interval0, offset0, pos_lo0, pos_hi0,
+      mlen0, step_offset, B, M, ff_bound, masked, out_mode, out0, out1,
+      interval1, offset1, pos_lo1, pos_hi1, mlen1);
+  if (compact) {
+    const WideCompactRows rd{static_cast<const int4*>(shared),
+                             static_cast<const int2*>(table), rows, r};
+    return launch(rd, a, stream);
+  }
+  const WideFullRows rd{static_cast<const int4*>(table), rows, r};
+  return launch(rd, a, stream);
+}
+
+}  // extern "C"

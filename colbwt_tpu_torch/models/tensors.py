@@ -2,9 +2,11 @@
 
 `index_tensors` is the counterpart of colbwt_tpu/ops/query_xla.py:39
 `index_device_arrays`.  `pos_tables_from_numpy` / `pos_tables_to_numpy`
-convert between the JAX package's `build_pos_tables` dict and the port's
-(arrays go through `np.asarray`, so JAX arrays are accepted as they are),
-which lets tests feed tables built by one package into the other's scan.
+and `mega_table_from_numpy` / `mega_table_to_numpy` convert between the
+JAX package's `build_pos_tables` and `build_mega_table(_wide)` dicts and the
+port's (arrays go through `np.asarray`, so JAX arrays are accepted as they
+are), which lets tests feed tables built by one package into the other's
+scan.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ def to_device(a, device: torch.device, dtype=np.int32) -> torch.Tensor:
 def index_tensors(index: ColPmlIndex, device: torch.device) -> dict:
     """The index fields as int32 tensors on `device`, plus n and r."""
     if index.wide:
-        raise ValueError("n >= 2**31: int32 positions would overflow; the "
-                         "wide engine is not ported yet (ROADMAP Queue 1 "
-                         "item 6)")
+        raise ValueError("n >= 2**31: int32 positions would overflow — "
+                         "use ops.query_mega_wide")
     tb = {f: to_device(getattr(index, f), device) for f in SOA_FIELDS}
     tb["n"] = int(index.n)
     tb["r"] = int(index.r)
@@ -56,3 +57,20 @@ def pos_tables_to_numpy(pt: dict) -> dict:
     out["table"] = pt["table"].cpu().numpy()
     out["t1"] = None if pt["t1"] is None else pt["t1"].cpu().numpy()
     return out
+
+
+def mega_table_from_numpy(mt: dict, device: torch.device) -> dict:
+    """A `build_mega_table` / `build_mega_table_wide` dict (JAX or numpy
+    arrays) as the port's: arrays become int32 tensors on `device`,
+    scalars Python ints."""
+    out = {}
+    for key, v in mt.items():
+        arr = np.asarray(v)
+        out[key] = int(arr) if arr.ndim == 0 else to_device(arr, device)
+    return out
+
+
+def mega_table_to_numpy(mt: dict) -> dict:
+    """The port's mega-table dict with numpy arrays in place of tensors."""
+    return {key: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for key, v in mt.items()}

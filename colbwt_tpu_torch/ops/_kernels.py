@@ -8,8 +8,9 @@ source is rebuilt and an unchanged one is reused.
 
 Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
 code.  `launches` counts kernel launches per wrapper name (the wrappers in
-ops/query_pos.py and ops/query_xla.py add one where they launch, and
-nowhere else), so a run can show which kernels its path went through.
+ops/query_pos.py, ops/query_xla.py, ops/query_mega.py and
+ops/query_mega_wide.py add one where they launch, and nowhere else), so a
+run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
-           "query_batch_xla")
+           "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
+           "fill_block_wide", "shared_table_wide")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -45,6 +47,13 @@ _SIGNATURES = {
                                + [_P] * 4 + [_P]),
     "colbwt_query_batch_xla": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3
                               + [_P] * 2 + [_P],
+    "colbwt_query_chunk_mega": ([_P, _I, _P, _I, _I, _P, _P] + [_P] * 4
+                                + [_I] * 6 + [_P] * 6 + [_P]),
+    "colbwt_query_chunk_mega_wide": ([_I, _P, _I, _P, _P, _I, _I, _P, _P]
+                                     + [_P] * 5 + [_I] * 6 + [_P] * 7
+                                     + [_P]),
+    "colbwt_fill_block_wide": [_P, _I, _I] + [_P] * 11 + [_I] * 4 + [_P],
+    "colbwt_shared_table_wide": [_P] * 8 + [_I] + [_P],
 }
 
 
@@ -125,3 +134,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
+    """A table the kernel reads with nbytes-wide vector loads."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned")

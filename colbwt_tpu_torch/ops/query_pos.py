@@ -250,8 +250,8 @@ def build_pos_tables(index: ColPmlIndex, k: int | None = None,
     if k is None:
         k = choose_k(index, hbm_budget_bytes, alphabet)
         if k == 0:
-            raise ValueError("no k fits the memory budget; the mega engine "
-                             "is not ported yet (ROADMAP Queue 1 item 5)")
+            raise ValueError("no k fits the memory budget; use "
+                             "ops.query_mega")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}]")
     A_full = index.sigma + 1

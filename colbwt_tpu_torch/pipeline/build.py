@@ -140,9 +140,9 @@ def stage_colsplit(prefix: str, cfg: ColBwtConfig, logger):
 def stage_index(prefix: str, cfg: ColBwtConfig, logger,
                 device: torch.device):
     """Assemble the queryable index (the movi-split build role).  Run
-    splitting serves only the engines the port does not have yet, so it is
-    skipped, as in the JAX package, whenever the pos tables fit the budget
-    of `device`."""
+    splitting serves the mega and mega-wide engines, so it is skipped, as in
+    the JAX package, whenever the pos tables fit the budget of `device` and
+    the index is not wide."""
     fa = f"{prefix}.fa"
     out = Path(f"{prefix}.colpml.npz")
     col_pml_out = Path(f"{fa}.col_pml")

@@ -2,15 +2,19 @@
 colbwt_tpu/pipeline/engines.py.
 
 The selection logic is the JAX package's ladder (engines.py:28-91), kept
-as it is.  Two rungs are ported:
+as it is.  Four rungs are ported:
 
 - positional automaton (k chars per gather; ops/query_pos.py, kernels
   K1-K3), chosen for large workloads when its tables fit the budget;
+- mega-wide (n >= 2**31: two-limb positions, one row per char;
+  ops/query_mega_wide.py, kernels K6a-K6c), for every wide index;
+- mega (one row per char; ops/query_mega.py, kernel K5), for a run-split
+  narrow index the positional tables cannot serve;
 - compact engine (table-free; ops/query_xla.py, kernel K4).
 
-Where the ladder would choose the mega, fused or mega-wide engine, this
-raises NotImplementedError naming the ROADMAP item; it never substitutes
-another engine.  The persisted table cache (`table_dir`) is not ported yet
+Where the ladder would choose the fused engine, this raises
+NotImplementedError naming the ROADMAP item; it never substitutes another
+engine.  The persisted table cache (`table_dir`) is not ported yet
 (ROADMAP Queue 1 item 8) and is ignored.
 """
 
@@ -25,15 +29,12 @@ import torch
 from colbwt_tpu.models.index import ColPmlIndex
 from colbwt_tpu.utils.config import ColBwtConfig
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
-from colbwt_tpu_torch.ops import query_pos, query_xla
+from colbwt_tpu_torch.ops import (query_mega, query_mega_wide, query_pos,
+                                  query_xla)
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
 
-_NOT_PORTED = {
-    "mega-wide": "ROADMAP Queue 1 item 6",
-    "mega": "ROADMAP Queue 1 item 5",
-    "fused": "ROADMAP Queue 1 item 9",
-}
+_NOT_PORTED = {"fused": "ROADMAP Queue 1 item 9"}
 
 
 class QueryEngines:
@@ -62,6 +63,9 @@ class QueryEngines:
             if kq >= max(pos_k, 1):
                 pos_k, pos_alpha = kq, b"ACGT"
         self.pos_k = pos_k
+        # packed (pml << 8 | cid) planes need 8-bit cids; an id_bits > 8
+        # index gets two-plane outputs from the mega engines
+        self._cid8 = int(index.col_id.max(initial=0)) <= 0xFF
         self.use_pos = pos_k >= 1 and (cfg.engine == "pos" or large)
         self.use_wide = index.wide
         if self.use_wide and index.ff_bound < 2:
@@ -79,11 +83,18 @@ class QueryEngines:
                 f"({_NOT_PORTED[self.name]})")
         self.table_build_seconds = 0.0
         self.pt = None
+        self.mt = None
+        t0 = time.perf_counter()
         if self.use_pos:
-            t0 = time.perf_counter()
             self.pt = query_pos.build_pos_tables(
                 index, pos_k, hbm_budget_bytes=budget, alphabet=pos_alpha,
                 device=self.device)
+        elif self.use_wide:
+            self.mt = query_mega_wide.build_mega_table_wide(
+                index, hbm_budget_bytes=budget, device=self.device)
+        elif self.use_mega:
+            self.mt = query_mega.build_mega_table(index, device=self.device)
+        if self.pt is not None or self.mt is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.table_build_seconds = time.perf_counter() - t0
@@ -110,8 +121,8 @@ class QueryEngines:
     def dispatch(self, batch: list[bytes], padded: int):
         """Launch one device batch without waiting for it; returns
         (device_pml, device_cid, lens, fallback) for `materialize`.  On the
-        pos engine the pml side is one packed pml << 8 | cid plane and the
-        cid side is None."""
+        pos and mega engines the pml side may be one packed pml << 8 | cid
+        plane, and the cid side is then None."""
         index, pt, dev = self.index, self.pt, self.device
         if self.use_pos:
             # M must divide both k (key folding) and the digit-packing
@@ -143,6 +154,20 @@ class QueryEngines:
                         to_device(l2, dev), ff_bound=index.ff_bound)
                 return p, c, lens, (idxs, p2, c2)
             return p, c, lens, None
+        if self.use_wide or self.use_mega:
+            if padded > 255 and max(len(r) for r in batch) <= 255:
+                padded = 255  # keep the u16 packed plane for short reads
+                # whose power-of-2 bucket would round to 256
+            enc, lens = index.encode_patterns(batch, padded)
+            scan = (query_mega_wide.query_batch_mega_wide if self.use_wide
+                    else query_mega.query_batch_mega)
+            # uint8 dense ids up; one packed plane down (u16 at padded <=
+            # 255, else int32, lossless below the 2**23 pml guard with 8-bit
+            # cids), two planes otherwise
+            p, c = scan(self.mt, to_device(enc, dev, np.uint8),
+                        to_device(lens, dev), ff_bound=index.ff_bound,
+                        packed_out=self._cid8 and padded < (1 << 23))
+            return p, c, lens, None
         enc, lens = index.encode_patterns(batch, padded)
         p, c = query_xla.query_batch_device(
             self._compact_tables(), to_device(enc, dev), to_device(lens, dev),
@@ -171,9 +196,16 @@ class QueryEngines:
                          ) -> tuple[list[np.ndarray], list[np.ndarray]]:
         """Chunked carried-state scans for reads beyond cfg.long_read_len
         (the -l mode, src/pml_query.cpp:126-128)."""
+        chunk = self.cfg.long_read_chunk
         if self.use_pos:
-            return query_pos.query_long_reads(
-                self.index, reads, chunk=self.cfg.long_read_chunk, pt=self.pt)
+            return query_pos.query_long_reads(self.index, reads, chunk=chunk,
+                                              pt=self.pt)
+        if self.use_wide:
+            return query_mega_wide.query_long_reads(self.index, reads,
+                                                    chunk=chunk, mt=self.mt)
+        if self.use_mega:
+            return query_mega.query_long_reads(self.index, reads, chunk=chunk,
+                                               mt=self.mt)
         # the compact engine handles any length in one batch (no table
         # growth with M) — reuse dispatch at the padded length
         padded = 1 << (max(max(len(r) for r in reads), 1) - 1).bit_length()
@@ -183,4 +215,4 @@ class QueryEngines:
                 [c[i, W - int(lens[i]):] for i in range(len(reads))])
 
     def supports_long_streaming(self) -> bool:
-        return self.use_pos
+        return self.use_pos or self.use_mega or self.use_wide

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K6c against their plain PyTorch versions, on the card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import scale_table
 from colbwt_tpu.models.index import ColPmlIndex
 from colbwt_tpu.ops import oracle as O
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.ops import query_mega as TM
+from colbwt_tpu_torch.ops import query_mega_wide as TW
 from colbwt_tpu_torch.ops import query_pos as TQ
 from colbwt_tpu_torch.ops import query_xla as TX
 
@@ -191,3 +194,128 @@ def test_compact_scan(dev, case, ff):
     for b in range(0, len(reads), 37):
         ep, _ = O.query_pml_oracle(tbl, reads[b])
         np.testing.assert_array_equal(pml[b, 256 - len(reads[b]):], ep)
+
+
+# ---------------------------------------------------------------------------
+# K5-K6c: the mega engines, on the run-split index and on the same table
+# with run lengths scaled by 2**20 (n about 9.4e9, a wide index)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mega_case(dev, case):
+    tbl, _, reads = case
+    narrow = ColPmlIndex.build(tbl, ff_bound=2)
+    big = scale_table(tbl, 1 << 20)
+    wide = ColPmlIndex.build(big, ff_bound=2)
+    assert not narrow.wide and wide.wide
+    return tbl, big, narrow, wide, reads
+
+
+def _mega_tables(index, dev, layout):
+    if layout == "narrow":
+        return TM.build_mega_table(index, device=dev)
+    return TW.build_mega_table_wide(index, compact=layout == "compact",
+                                    device=dev)
+
+
+# (masked, packed_out, fresh_state, M, first): the smoke's shapes at a small
+# batch — the dispatch batch (255 columns, u16 plane), one long-read chunk
+# with carried state after a first chunk of `first` columns (int32 packed
+# plane), and two planes
+SETTINGS = {"dispatch": (False, True, True, 255, 0),
+            "long-chunk": (True, True, False, 256, 256),
+            "two-planes": (False, False, True, 255, 0)}
+
+
+@pytest.mark.parametrize("layout,setting", [
+    ("narrow", "dispatch"), ("narrow", "long-chunk"),
+    ("narrow", "two-planes"), ("full", "dispatch"), ("full", "long-chunk"),
+    ("compact", "dispatch"), ("compact", "long-chunk")])
+def test_mega_scan(dev, mega_case, layout, setting):
+    """K5 (narrow) and K6a (full and compact wide layouts) against their
+    plain versions: outputs, pad columns included, and the final state."""
+    _, _, narrow, wide, reads = mega_case
+    index = narrow if layout == "narrow" else wide
+    mt = _mega_tables(index, dev, layout)
+    mod = TM if layout == "narrow" else TW
+    kern = mod.query_chunk_mega if layout == "narrow" \
+        else mod.query_chunk_mega_wide
+    ref = mod.query_chunk_mega_ref if layout == "narrow" \
+        else mod.query_chunk_mega_wide_ref
+    init = TM.initial_state if layout == "narrow" else TW.initial_state_wide
+    masked, packed_out, fresh, M, first = SETTINGS[setting]
+    rs = ([r * 3 for r in reads] if first else reads)
+    enc, lens = index.encode_patterns([r[:M + first] for r in rs], M + first)
+    pat = to_device(enc, dev, np.uint8)
+    lens_t = to_device(lens, dev)
+    state = init(mt, pat.shape[0])
+    if first:
+        _, state = ref(mt, pat[:, M:].contiguous(), lens_t, state, 0,
+                       ff_bound=index.ff_bound)
+    args = (mt, pat[:, :M].contiguous(), lens_t, state, first)
+    kw = dict(ff_bound=index.ff_bound, masked=masked, packed_out=packed_out,
+              fresh_state=fresh)
+    name = "query_chunk_mega" if layout == "narrow" else \
+        "query_chunk_mega_wide"
+    before = K.launches[name]
+    (gp, gc), gstate = kern(*args, **kw)
+    assert K.launches[name] == before + 1
+    (wp, wc), wstate = ref(*args, **kw)
+    if gp.dtype == torch.uint16:
+        gp, wp = gp.view(torch.int16), wp.view(torch.int16)
+    _equal(gp, wp)
+    if packed_out:
+        assert gc is None and wc is None
+    else:
+        _equal(gc, wc)
+    for g, w in zip(gstate, wstate):
+        _equal(g, w)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_fill_block(dev, mega_case, compact):
+    """K6b for every char block, the all-sentinel block c = sigma
+    included, against the plain version (which recomputes the jump rows)."""
+    _, _, _, index, _ = mega_case
+    a = TW.run_arrays(index, dev)
+    meta = TW._meta(index)
+    width = 10 if compact else 16
+    r = index.r
+    for c in range(index.sigma + 1):
+        args = (c, a, to_device(index.succ_jump[c], dev),
+                to_device(index.pred_jump[c], dev), meta["n_lo"],
+                meta["n_hi"], index.ff_bound, compact)
+        got = TW.fill_block(torch.zeros(((index.sigma + 1) * r, width),
+                                        dtype=torch.int32, device=dev), *args)
+        want = TW.fill_block_ref(torch.zeros_like(got), *args)
+        _equal(got, want)
+
+
+def test_shared_table(dev, mega_case):
+    _, _, _, index, _ = mega_case
+    a = TW.run_arrays(index, dev)
+    _equal(TW.shared_table(a), TW.shared_table_ref(a))
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_wide_table_on_card_equals_cpu(dev, mega_case, compact):
+    _, _, _, index, _ = mega_case
+    got = TW.build_mega_table_wide(index, compact=compact, device=dev)
+    want = TW.build_mega_table_wide(index, compact=compact, device="cpu")
+    for key in ("mega", "shared", "percha", "length"):
+        if key in want:
+            _equal(got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("layout", ["narrow", "full", "compact"])
+def test_mega_query_batch_matches_oracle(dev, mega_case, layout):
+    tbl, big, narrow, wide, reads = mega_case
+    index = narrow if layout == "narrow" else wide
+    mt = _mega_tables(index, dev, layout)
+    mod = TM if layout == "narrow" else TW
+    pmls, cids = mod.query_batch(index, reads, mt=mt)
+    oracle_tbl = tbl if layout == "narrow" else big
+    for b in range(0, len(reads), 23):
+        ep, ec = O.query_pml_oracle(oracle_tbl, reads[b])
+        np.testing.assert_array_equal(pmls[b], ep)
+        np.testing.assert_array_equal(cids[b], ec)

@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from colbwt_tpu.io import formats as F
 from colbwt_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
 from colbwt_tpu.models.index import ColPmlIndex
 from colbwt_tpu.ops import colsplit_jax as CS
@@ -24,7 +25,7 @@ from colbwt_tpu_torch.ops.colsplit_host import col_split_tunneled_numpy
 from colbwt_tpu_torch.pipeline import build_pipeline, query_pipeline
 from colbwt_tpu_torch.pipeline.engines import QueryEngines
 from tests.conftest import random_docs
-from tests.test_query_xla import build_index
+from tests.test_query_xla import build_index, make_reads
 
 GOLD = Path(__file__).parent / "goldens"
 CFG = dict(min_mum=20, split_rate=10, rev_comp=True, keep_temp=True)
@@ -107,18 +108,126 @@ def test_cli_build_and_query_match_library(golden, tmp_path):
 
 
 @pytest.mark.parametrize("engine,wide,item", [
-    ("auto", None, "item 5"), ("fused", None, "item 9"),
-    ("auto", True, "item 6"),
-], ids=["mega", "fused", "mega-wide"])
+    ("fused", None, "item 9"),
+], ids=["fused"])
 def test_engines_not_ported_raise(engine, wide, item):
-    """Where the JAX ladder picks mega, fused or mega-wide, the port raises
-    naming the ROADMAP item instead of substituting another engine."""
+    """Where the JAX ladder picks the fused engine, the port raises naming
+    the ROADMAP item instead of substituting another engine."""
     tbl, _ = build_index(random_docs(np.random.default_rng(5), 2, lo=60,
                                      hi=90))
     split = ColPmlIndex.build(tbl, ff_bound=2, wide=wide)
     with pytest.raises(NotImplementedError, match=item):
         QueryEngines(split, ColBwtConfig(engine=engine), total_chars=10,
                      device="cpu")
+
+
+def test_unsplit_wide_index_refused():
+    tbl, _ = build_index(random_docs(np.random.default_rng(5), 2, lo=60,
+                                     hi=90))
+    wide = ColPmlIndex.from_table(tbl, wide=True)
+    with pytest.raises(ValueError, match="run splitting"):
+        QueryEngines(wide, ColBwtConfig(), total_chars=10, device="cpu")
+
+
+def _build_both(golden, tag, **cfg):
+    """The goldens' collection built by both packages under `cfg`."""
+    fastas = [str(golden / "seq1.fa"), str(golden / "seq2.fa")]
+    for pkg, build in (("jax", jax_build), ("torch", build_pipeline)):
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        build(fastas, str(golden / f"{tag}{pkg}"),
+              ColBwtConfig(**CFG, **cfg), **kw)
+
+
+def _oracle_table(prefix):
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    return O.build_col_pml(
+        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
+            f"{prefix}.fa.col_runs")),
+        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
+        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+
+
+def test_mega_pipeline_matches_jax_and_goldens(golden):
+    """An index built with run_split="always": a small query makes the
+    ladder pick the mega engine by itself (engines.py:62-69)."""
+    _build_both(golden, "split", run_split="always")
+    pat = {}
+    for pkg in ("jax", "torch"):
+        pat[pkg] = golden / f"mega.{pkg}.fa"
+        shutil.copy(golden / "pattern.fa", pat[pkg])
+        index = ColPmlIndex.load(golden / f"split{pkg}.colpml.npz")
+        assert index.ff_bound >= 2
+    eng = QueryEngines(index, ColBwtConfig(**CFG), total_chars=10_000,
+                       device="cpu")
+    assert eng.name == "mega" and eng.supports_long_streaming()
+    query_pipeline(str(golden / "splittorch"), str(pat["torch"]),
+                   ColBwtConfig(**CFG), write_text=True, device="cpu")
+    jax_query(str(golden / "splitjax"), str(pat["jax"]), ColBwtConfig(**CFG),
+              write_text=True)
+    for ext in ("split.pml.bin", "split.cid.bin", "pml", "cid"):
+        assert Path(f"{pat['torch']}.{ext}").read_bytes() == \
+            Path(f"{pat['jax']}.{ext}").read_bytes(), ext
+    assert Path(f"{pat['torch']}.pml").read_bytes() == \
+        (GOLD / "pattern.fa.pml.golden").read_bytes()
+    assert Path(f"{pat['torch']}.cid").read_bytes() == \
+        (GOLD / "pattern.fa.cid.golden").read_bytes()
+
+
+def test_wide_pipeline_matches_jax_and_oracle(golden):
+    """wide_n_limit=100 forces the whole wide path on the goldens: int64
+    fields, run-length capping, run splitting and the mega-wide engine, with
+    one long read through the chunked scan (long_read_len=128)."""
+    _build_both(golden, "wide", wide_n_limit=100)
+    docs = [r.seq for f in ("seq1.fa", "seq2.fa")
+            for r in read_fasta(golden / f)]
+    reads = [r.seq for r in read_fasta(golden / "pattern.fa")][:6] + [
+        docs[0][:380], docs[1][30:90] + b"N" + docs[1][91:200]]
+    qcfg = ColBwtConfig(**CFG, wide_n_limit=100, long_read_len=128)
+    out = {}
+    for pkg, query in (("jax", jax_query), ("torch", query_pipeline)):
+        pat = golden / f"wmix.{pkg}.fa"
+        write_fasta(pat, [FastaRecord(f"w{i}", s)
+                          for i, s in enumerate(reads)])
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        _, pmls, cids = query(str(golden / f"wide{pkg}"), str(pat), qcfg,
+                              **kw)
+        out[pkg] = [Path(f"{pat}.{ext}").read_bytes()
+                    for ext in ("split.pml.bin", "split.cid.bin")]
+    index = ColPmlIndex.load(golden / "widetorch.colpml.npz")
+    assert index.wide and index.ff_bound >= 2
+    assert out["torch"] == out["jax"]
+    tbl = _oracle_table(golden / "widetorch")
+    for s, pml, cid in zip(reads, pmls, cids):
+        ep, ec = O.query_pml_oracle(tbl, s)
+        np.testing.assert_array_equal(pml, ep, err_msg=repr(s))
+        np.testing.assert_array_equal(cid, ec, err_msg=repr(s))
+
+
+def test_wide_cids_take_two_planes_on_mega():
+    """An index whose col ids exceed 8 bits (an id_bits > 8 build) gets
+    exact two-plane outputs from the mega engine, equal to the JAX
+    package's (tests/test_review_fixes.py:192-225)."""
+    from colbwt_tpu.pipeline.engines import QueryEngines as JaxEngines
+
+    rng = np.random.default_rng(0xC1D)
+    base = bytes(rng.choice(list(b"ACGT"), 300).astype("uint8"))
+    docs = random_docs(rng, 3, mutate_from=base)
+    tbl, _ = build_index(docs)
+    index = ColPmlIndex.build(tbl, ff_bound=2)
+    index.col_id = index.col_id.copy()
+    index.col_id[index.col_id.argmax()] = 300
+    cfg = ColBwtConfig(engine="mega")
+    eng = QueryEngines(index, cfg, total_chars=10_000_000, device="cpu")
+    assert eng.use_mega and not eng._cid8
+    jeng = JaxEngines(index, cfg, total_chars=10_000_000)
+    reads = make_reads(rng, docs, 8)
+    for padded, batch in ((64, reads), (256, reads + [docs[0][:200]])):
+        p, c, lens = QueryEngines.materialize(eng.dispatch(batch, padded))
+        assert c is not None  # two-plane path, no truncating pack
+        jp, jc, jl = JaxEngines.materialize(jeng.dispatch(batch, padded))
+        np.testing.assert_array_equal(p, jp)
+        np.testing.assert_array_equal(c, jc)
+        np.testing.assert_array_equal(lens, jl)
 
 
 def test_chunked_sa_lane_not_ported_raises(tmp_path):
