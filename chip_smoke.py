@@ -3,21 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, `col-bwt-torch query`, on bench.py's index
-(4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each, min-MUM 20,
-split rate 10, tunnels mode) and on two indexes made from it by scaling
-every run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths),
-after checking every CUDA kernel of those paths against its plain PyTorch
-version on the card.  Phases:
+Drives the port's two entry points.  `col-bwt-torch build` on bench.py's
+collection (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each,
+min-MUM 20, split rate 10) and on a pangenome of 16 x 4.5 Mbp haplotypes
+(n = 72,000,016), in both SA lanes and both split modes; `col-bwt-torch
+query` on bench's index and on two indexes made from it by scaling every
+run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths).  Every
+CUDA kernel of those paths is checked against its plain PyTorch version
+on the card.  Phases:
 
 1. the card's name and power limit (nvidia-smi); exits nonzero without CUDA
-2. build the CUDA kernels from colbwt_tpu_torch/csrc
-3. build the index on the host (colbwt_tpu_torch.pipeline.build_pipeline),
-   then K1-K4 against their plain versions at the main path's shapes:
-   exact equality, and each kernel's time beside its plain version's; then
-   the scaled indexes (run lengths x256 and x1024, ColPmlIndex.build with
-   ff_bound 2, r = 1.37M) and K5, K6a-K6c likewise at the shapes of
-   phases 6-7
+2. build the CUDA kernels from colbwt_tpu_torch/csrc and the host library
+   of native/ (SA-IS, Kasai, the chunked SA lane)
+3. build bench's index with build_pipeline on the card (the device lane:
+   the one-shot multi-MUM scan K9, the tunnels walk K10a), and hold its
+   .col_mums, .col_runs and .col_ids against the host functions on the
+   same arrays (O.find_multi_mums; col_split_tunneled_numpy and the
+   find_col_runs_uniform sweep); K8-K10b against their plain versions at
+   bench's shapes; K1-K4 at the main path's shapes; then the scaled
+   indexes (run lengths x256 and x1024, ColPmlIndex.build with ff_bound 2,
+   r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7
 4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
    1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
    must be pos(k=4), 256 sampled records must equal the oracle
@@ -36,12 +41,25 @@ version on the card.  Phases:
    7b, phase 5's reads through query_pipeline with a memory budget one byte
    under the full table, so the compact layout is built: records equal
    phase 7's and K6a-K6c must have launched
+8. the build path at full size: `build -m tunnels -s 10 -l 20` of the
+   pangenome (one random base, seed 0xB11D, 90,000 substitutions a
+   haplotype, bench's 2% density): K8 runs two chunks of 2**26 with
+   N = 16, then K10a; both chunks equal the plain version, the oracle's
+   window conditions agree with the scan on 256 reported MUMs and 100,000
+   unreported window starts, and a query of 2,000 reads drawn from the
+   haplotypes answers, 64 sampled records equal to the oracle
+   8b. bench's collection through `build --sa-mode chunked --chunk-chars
+   1000000` (K8 through the in-process streamed driver): every artifact
+   byte-equal to phase 3's
+   8c. bench's collection through `build -m all` (K10b): .col_runs and
+   .col_ids byte-equal to the host col_split_all_numpy on the same MUMs
 
-Launch counts are reset just before each query and read just after it; a
-kernel's "launches" is the sum over all of them.  The last lines are the
-card line, one {"kernels": [...]} JSON line and {"ok": true, "device":
-{...}}.  Everything is written under build/chip_smoke/ of the checkout.
-Imports nothing of JAX.
+Launch counts are reset just before each build and query and read just
+after it; a kernel's "launches" is the sum over all of them.  The last
+lines are a [build path] line of stage seconds, the card line, one
+{"kernels": [...]} JSON line and {"ok": true, "device": {...}}.
+Everything is written under build/chip_smoke/ of the checkout.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,7 +94,21 @@ KERNEL_INFO = {
                         "colbwt_tpu/ops/query_mega_wide.py:160"),
     "shared_table_wide": ("K6c", "colbwt_tpu_torch/csrc/query_mega_wide.cu",
                           "colbwt_tpu/ops/query_mega_wide.py:183"),
+    "mum_window": ("K8/K9", "colbwt_tpu_torch/csrc/construct.cu",
+                   "colbwt_tpu/ops/construct_jax.py:245"),
+    "tunneled_walk": ("K10a", "colbwt_tpu_torch/csrc/colsplit.cu",
+                      "colbwt_tpu/ops/colsplit_jax.py:59"),
+    "all_walk": ("K10b", "colbwt_tpu_torch/csrc/colsplit.cu",
+                 "colbwt_tpu/ops/colsplit_jax.py:84"),
 }
+BUILD_KEYS = ("sa_lcp_s", "bwt_s", "mums_s", "thresholds_s", "colsplit_s",
+              "index_s", "build_s", "mums", "marks")
+QUERY_KEYS = ("engine", "read_s", "table_build_s", "scan_s", "write_s",
+              "query_s", "reads")
+# phase 8's pangenome: haplotypes, haplotype length, substitutions each
+PANGENOME = (16, 4_500_000, 90_000)
+ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
+             "lengths", "fa.col_runs", "fa.col_ids", "fa.col_pml")
 # run-length scales of the mega (n ~ 1.0e9) and mega-wide (n ~ 4.1e9) indexes
 MEGA_SCALE, WIDE_SCALE = 256, 1024
 
@@ -433,15 +465,15 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
 
 
 class Records(logging.Handler):
-    """Collects the values query_pipeline attaches to its log records."""
+    """Collects the values a pipeline attaches to its log records."""
 
-    def __init__(self):
+    def __init__(self, keys: tuple[str, ...]):
         super().__init__()
+        self.keys = keys
         self.values: dict = {}
 
     def emit(self, record: logging.LogRecord) -> None:
-        for key in ("engine", "read_s", "table_build_s", "scan_s",
-                    "write_s", "query_s", "reads"):
+        for key in self.keys:
             if hasattr(record, key):
                 self.values[key] = getattr(record, key)
 
@@ -452,20 +484,24 @@ def write_reads(path: Path, records: list[tuple[str, bytes]]) -> None:
                           for name, seq in records))
 
 
-def run_query(query) -> dict:
-    """Run `query()` (a CLI call returning its exit code) and collect the
-    values its log records carry, with its wall time."""
-    rec = Records()
-    logger = logging.getLogger("colbwt_torch.query")
+def run_logged(call, logger_name: str, keys: tuple[str, ...]) -> dict:
+    """Run `call()` (a CLI call returning its exit code) and collect the
+    values the records of `logger_name` carry, with its wall time."""
+    rec = Records(keys)
+    logger = logging.getLogger(logger_name)
     logger.addHandler(rec)
     try:
         t0 = time.perf_counter()
-        rc = query()
+        rc = call()
         rec.values["wall_s"] = time.perf_counter() - t0
     finally:
         logger.removeHandler(rec)
-    require(rc == 0, f"query exited {rc}")
+    require(rc == 0, f"{logger_name} call exited {rc}")
     return rec.values
+
+
+def run_query(query) -> dict:
+    return run_logged(query, "colbwt_torch.query", QUERY_KEYS)
 
 
 def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
@@ -506,13 +542,384 @@ def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
     return m, launches, pmls, cids
 
 
+class Capture:
+    """While active, keeps the arrays build_pipeline hands to the device
+    multi-MUM scan (ops/construct.find_multi_mums): (ranks, sa, lcp,
+    doc_ids), for the host checks on the build's own arrays."""
+
+    def __enter__(self):
+        from colbwt_tpu_torch.ops import construct as TC
+
+        self.args = None
+        self.real = TC.find_multi_mums
+
+        def capture(ranks, sa, lcp, doc_ids, *a, **kw):
+            self.args = (ranks, sa, lcp, doc_ids)
+            return self.real(ranks, sa, lcp, doc_ids, *a, **kw)
+
+        TC.find_multi_mums = capture
+        return self
+
+    def __exit__(self, *exc):
+        from colbwt_tpu_torch.ops import construct as TC
+
+        TC.find_multi_mums = self.real
+        return False
+
+
+def run_build(tag: str, call, needed: tuple[str, ...]) -> tuple[dict, dict]:
+    """One build with launch counts reset just before it: every kernel in
+    `needed` must have launched.  Returns the stage seconds and counts its
+    log records carry, and the launch counts."""
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    K.reset_launches()
+    v = run_logged(call, "colbwt_torch.build", BUILD_KEYS)
+    launches = dict(K.launches)
+    for name in needed:
+        require(launches[name] > 0, f"{name} never launched in phase {tag}")
+    log(f"[phase {tag}] build: " + json.dumps(v) + "; launches "
+        + json.dumps(launches))
+    return v, launches
+
+
+def write_col_files(out: Path, bits: np.ndarray, ids: np.ndarray, n: int
+                    ) -> None:
+    from colbwt_tpu.io import formats as F
+
+    bv = np.zeros(n, dtype=bool)
+    bv[bits] = True
+    F.write_sdsl_bit_vector(f"{out}.col_runs", bv)
+    F.write_col_ids(f"{out}.col_ids", ids, 1, 8)
+
+
+def same_bytes(a: str, b: str) -> bool:
+    return Path(a).read_bytes() == Path(b).read_bytes()
+
+
+def host_col_split(prefix: str, mode: str, out: Path) -> float:
+    """The host walk of `mode` on the MUMs of PREFIX.fa.col_mums with the
+    shared interval sweep, written to OUT.col_runs/.col_ids (split rate 10,
+    8-bit ids); returns its seconds."""
+    from colbwt_tpu.io import formats as F
+    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu.ops.colruns_vec import (find_col_runs_mixed,
+                                            find_col_runs_uniform)
+    from colbwt_tpu_torch.ops import colsplit as TCS
+
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    num_docs, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    t0 = time.perf_counter()
+    fl = O.build_fl_table(heads, lens)
+    walk = (TCS.col_split_tunneled_numpy if mode == "tunnels"
+            else TCS.col_split_all_numpy)
+    mpos, mids, mhts = walk(fl, ml, mp, num_docs, 10, 8)
+    if mhts.size and (mhts == mhts[0]).all():
+        bits, ids = find_col_runs_uniform(mpos, mids, int(mhts[0]),
+                                          fl.l_heads, fl.n)
+    else:
+        bits, ids = find_col_runs_mixed(mpos, mids, mhts, fl.l_heads, fl.n)
+    secs = time.perf_counter() - t0
+    write_col_files(out, bits, ids, fl.n)
+    for ext in ("col_runs", "col_ids"):
+        require(same_bytes(f"{out}.{ext}", f"{prefix}.fa.{ext}"),
+                f"{prefix}.fa.{ext} differs from the host {mode} walk")
+    return secs
+
+
+def host_lane(prefix: str, arrays, num_docs: int) -> dict:
+    """Phase 3's host lane on the build's own arrays: O.find_multi_mums
+    must reproduce .col_mums, and the host tunnels walk with the shared
+    sweep .col_runs/.col_ids, byte for byte.  Returns their seconds."""
+    from colbwt_tpu.io import formats as F
+    from colbwt_tpu.ops import oracle as O
+
+    ranks, sa, lcp, doc_ids = arrays
+    t0 = time.perf_counter()
+    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs, 20)
+    mums_s = time.perf_counter() - t0
+    _, dml, dmp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    require(np.array_equal(ml, dml) and np.array_equal(mp, dmp),
+            "device multi-MUMs differ from O.find_multi_mums")
+    colsplit_s = host_col_split(prefix, "tunnels", WORK / "host_tunnels")
+    return {"mums_s": mums_s, "colsplit_s": colsplit_s, "mums": int(ml.size)}
+
+
+def scan_inputs(arrays) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lcp int32, per-rank document ids, run-change marks) as
+    ops/construct.find_multi_mums derives them."""
+    ranks, sa, lcp, doc_ids = arrays
+    prev_rank = np.asarray(ranks)[sa - 1]
+    run_change = np.ones(sa.size, dtype=np.uint8)
+    run_change[1:] = prev_rank[1:] != prev_rank[:-1]
+    return (np.asarray(lcp, dtype=np.int32),
+            np.asarray(doc_ids)[sa].astype(np.int32), run_change)
+
+
+def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
+                 what: str) -> None:
+    """mum_window equal to its plain version on every chunk of C positions
+    (the slices find_multi_mums_chunked feeds it); the first is timed."""
+    from colbwt_tpu_torch.ops import construct as TC
+
+    lcp, sa_docs, rc = scan_inputs(arrays)
+    n, N = lcp.size, num_docs
+    halo = 2 * N + 2
+
+    def sl(a, s, fill, dtype):
+        x = a[s:s + C + halo].astype(dtype)
+        return torch.from_numpy(np.concatenate(
+            [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
+
+    for k, s in enumerate(range(0, n, C)):
+        args = (sl(lcp, s, 0, np.int32), sl(sa_docs, s, 65535, np.uint16),
+                sl(rc, s, 1, np.uint8), min(n - N - s, C), 20, N)
+        label = f"{what} chunk {k} (C = {C}, N = {N}, uint16 documents)"
+        got = TC.mum_scan_chunk(*args)
+        want = TC.mum_scan_chunk_ref(*args)
+        chk.equal("mum_window", got[0], want[0], label + " hits")
+        chk.equal("mum_window", got[1], want[1], label + " ell")
+        if k == 0:
+            chk.time("mum_window", lambda: TC.mum_scan_chunk(*args),
+                     lambda: TC.mum_scan_chunk_ref(*args), label)
+        del got, want, args
+    torch.cuda.empty_cache()
+
+
+def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
+                        ) -> None:
+    """K8-K10b against their plain versions at bench's shapes: the K9
+    route over the whole array, K8 over four chunks of 2**20 (whose hits
+    must equal the one-shot scan's), and both walks on the first bucket of
+    bench's MUMs."""
+    from colbwt_tpu.io import formats as F
+    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu_torch.ops import colsplit as TCS
+    from colbwt_tpu_torch.ops import construct as TC
+
+    num_docs, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    lcp, sa_docs, rc = scan_inputs(arrays)
+    prev_rank = np.asarray(arrays[0])[arrays[1] - 1].astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (lcp, sa_docs, prev_rank)]
+    got = TC.multi_mum_scan(*t, num_docs, 20)
+    want = TC.multi_mum_scan_ref(*t, num_docs, 20)
+    what = f"K9 route, n = {lcp.size}, N = {num_docs}"
+    chk.equal("mum_window", got[0], want[0], what + " is_mum")
+    chk.equal("mum_window", got[1], want[1], what + " ell")
+    chk.time("mum_window", lambda: TC.multi_mum_scan(*t, num_docs, 20),
+             lambda: TC.multi_mum_scan_ref(*t, num_docs, 20), what)
+    del got, want, t
+    check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk, "bench")
+    cl, cp = TC.find_multi_mums_chunked(lcp, sa_docs, rc, num_docs, 20,
+                                        chunk=1 << 20, device=dev)
+    require(np.array_equal(cl, ml) and np.array_equal(cp, mp),
+            "K8 over chunks of 2**20 differs from the one-shot scan")
+
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    fl = O.build_fl_table(heads, lens)
+    fd = TCS.fl_tensors(fl, dev)
+    order = np.argsort(mp, kind="stable")
+    ls = ml[order]
+    sel = next(TCS.buckets(ls, np.argsort(ls, kind="stable"), True,
+                           num_docs, 1 << 24))
+    T = int(ls[sel].max())
+    p0 = torch.from_numpy(mp[order][sel].astype(np.int32)).to(dev)
+    lt = torch.from_numpy(ls[sel].astype(np.int32)).to(dev)
+    what = f"first bucket, {sel.size} of {ml.size} MUMs, T = {T}"
+    for name, kern, ref, rate in (
+            ("tunneled_walk", TCS.tunneled_walk, TCS.tunneled_walk_ref, 10),
+            ("all_walk", TCS.all_walk, TCS.all_walk_ref, 10)):
+        got = kern(fd, p0, lt, T, rate, num_docs)
+        want = ref(fd, p0, lt, T, rate, num_docs)
+        for j, (g, w) in enumerate(zip(got, want)):
+            chk.equal(name, g, w, f"{what}, rate {rate}, output {j}")
+        chk.time(name, lambda: kern(fd, p0, lt, T, rate, num_docs),
+                 lambda: ref(fd, p0, lt, T, rate, num_docs),
+                 f"{what}, rate {rate}, N = {num_docs}")
+    torch.cuda.empty_cache()
+
+
+def window_conditions(arrays, starts: np.ndarray, N: int, min_mum: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """The oracle's window test (colbwt_tpu/ops/oracle.py:390-403) at the
+    given window starts, vectorised: (is multi-MUM, ell)."""
+    ranks, sa, lcp, doc_ids = arrays
+    starts = np.asarray(starts, dtype=np.int64)
+    lcp_ext = np.r_[np.asarray(lcp, dtype=np.int64), 0]
+    off = np.arange(N)
+    win = starts[:, None] + off[None, :]
+    ell = lcp_ext[win[:, 1:]].min(axis=1)
+    uniq = (lcp_ext[starts] < ell) & (lcp_ext[starts + N] < ell)
+    docs = np.sort(np.asarray(doc_ids)[sa[win]], axis=1)
+    distinct = (docs[:, 1:] != docs[:, :-1]).all(axis=1)
+    pc = np.asarray(ranks)[sa[win] - 1]
+    left_max = (pc != pc[:, :1]).any(axis=1)
+    return (ell >= min_mum) & uniq & distinct & left_max, ell
+
+
+def pangenome_docs() -> list[bytes]:
+    """Phase 8's haplotypes, made as bench.make_docs makes its own: one
+    random base sequence and random substitutions per haplotype."""
+    n_haps, length, subs = PANGENOME
+    rng = np.random.default_rng(0xB11D)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = rng.choice(acgt, length)
+    docs = []
+    for _ in range(n_haps):
+        a = base.copy()
+        a[rng.integers(0, length, subs)] = rng.choice(acgt, subs)
+        docs.append(a.tobytes())
+    return docs
+
+
+def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
+    """The build path at full size on the pangenome, then its checks."""
+    from colbwt_tpu.io import formats as F
+    from colbwt_tpu.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu.ops import oracle as O
+
+    t0 = time.perf_counter()
+    docs = pangenome_docs()
+    fastas = []
+    for i, d in enumerate(docs):
+        fastas.append(str(WORK / f"pan{i}.fa"))
+        write_reads(Path(fastas[-1]), [(f"hap{i}", d)])
+    prefix = str(WORK / "pangenome")
+    N = len(docs)
+    log(f"[phase 8] {N} haplotypes of {len(docs[0])} bp made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    with Capture() as cap:
+        v, launches = run_build("8", lambda: cli_main(
+            ["build", "-o", prefix, "-m", "tunnels", "-s", "10", "-l", "20",
+             "--device", str(dev), *fastas]),
+            ("mum_window", "tunneled_walk"))
+    require(cap.args is not None, "phase 8 did not run the device scan")
+    n = cap.args[1].size
+    require(n > 1 << 26, f"phase 8 n = {n} must exceed 2**26")
+    # the chunk size find_multi_mums_chunked takes at this n
+    C = min(1 << 26, 1 << max(13, (n - 1).bit_length()))
+    check_chunks(torch, dev, cap.args, N, C, chk, "pangenome")
+
+    t0 = time.perf_counter()
+    _, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    rng = np.random.default_rng(0x8C8C)
+    pick = rng.choice(mp.size, min(256, mp.size), replace=False)
+    ok, ell = window_conditions(cap.args, mp[pick], N, 20)
+    require(ok.all() and np.array_equal(ell, ml[pick]),
+            "reported MUMs fail the oracle's window conditions")
+    cand = rng.integers(0, n - N + 1, 150_000)
+    cand = np.unique(cand[~np.isin(cand, mp)])[:100_000]
+    require(cand.size == 100_000, "too few unreported window starts")
+    ok, _ = window_conditions(cap.args, cand, N, 20)
+    require(not ok.any(), f"{int(ok.sum())} unreported window starts pass "
+            "the oracle's window conditions")
+    spot_s = time.perf_counter() - t0
+    del cap
+    log(f"[phase 8] n={n}: {ml.size} multi-MUMs; the oracle's window "
+        f"conditions agree on {pick.size} reported and {cand.size} "
+        f"unreported starts ({spot_s:.1f}s)")
+
+    reads = []
+    for i in range(2000):
+        d = docs[int(rng.integers(N))]
+        s = int(rng.integers(0, len(d) - 150))
+        arr = bytearray(d[s:s + 150])
+        if i % 2:
+            arr[int(rng.integers(150))] = int(rng.choice(list(b"ACGT")))
+        reads.append((f"p{i}", bytes(arr)))
+    pat = WORK / "pangenome_reads.fa"
+    write_reads(pat, reads)
+    q = run_query(lambda: cli_main(["query", prefix, "-p", str(pat),
+                                           "--device", str(dev)]))
+    names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+    require(names == [r[0] for r in reads], "phase 8 query names differ")
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    tbl = O.build_col_pml(
+        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
+            f"{prefix}.fa.col_runs")),
+        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
+        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+    for i in rng.choice(len(reads), 64, replace=False):
+        ep, ec = O.query_pml_oracle(tbl, reads[i][1])
+        require(np.array_equal(pmls[i], ep) and np.array_equal(cids[i], ec),
+                f"phase 8 record {reads[i][0]} differs from the oracle")
+    log(f"[phase 8] query of {len(reads)} reads (engine "
+        f"{q.get('engine')}, {q['wall_s']:.3f}s): 64 sampled "
+        "records equal the oracle")
+    v["n"] = int(n)
+    v["query_wall_s"] = q["wall_s"]
+    return v, launches
+
+
+def phase8bc(dev, cli_main, fastas: list[str], bench_prefix: str
+             ) -> tuple[dict, list[dict]]:
+    """Bench's collection through the chunked SA lane (8b) and in all mode
+    (8c), held against phase 3's artifacts and the host all-mode walk."""
+    v, launches = {}, []
+    pre_b = str(WORK / "bench_chunked")
+    v["8b"], lc = run_build("8b", lambda: cli_main(
+        ["build", "-o", pre_b, "-m", "tunnels", "-s", "10", "-l", "20",
+         "--sa-mode", "chunked", "--chunk-chars", "1000000", "--keep",
+         "--device", str(dev), *fastas]), ("mum_window", "tunneled_walk"))
+    launches.append(lc)
+    for ext in ARTIFACTS:
+        require(same_bytes(f"{pre_b}.{ext}", f"{bench_prefix}.{ext}"),
+                f"phase 8b: .{ext} differs from phase 3's")
+    a, b = np.load(f"{pre_b}.colpml.npz"), np.load(f"{bench_prefix}.colpml.npz")
+    require(sorted(a.files) == sorted(b.files)
+            and all(np.array_equal(a[k], b[k]) for k in a.files),
+            "phase 8b: the index differs from phase 3's")
+    log(f"[phase 8b] chunked SA lane: {len(ARTIFACTS)} artifacts and the "
+        "index byte-equal to phase 3's")
+
+    pre_c = str(WORK / "bench_all")
+    v["8c"], lc = run_build("8c", lambda: cli_main(
+        ["build", "-o", pre_c, "-m", "all", "-s", "10", "-l", "20",
+         "--device", str(dev), *fastas]), ("mum_window", "all_walk"))
+    launches.append(lc)
+    v["8c"]["host_colsplit_s"] = host_col_split(pre_c, "all",
+                                                WORK / "host_all")
+    log("[phase 8c] all mode: .col_runs and .col_ids byte-equal to the "
+        "host col_split_all_numpy")
+    return v, launches
+
+
+def start_native_build() -> subprocess.Popen | None:
+    """Start compiling the host library of native/ (SA-IS, Kasai and the
+    chunked SA lane of the build; colbwt_tpu/io/native.py) with the
+    Makefile's command, unless it is there; `finish_native_build` waits."""
+    src = REPO / "native"
+    if (src / "libcolbwt_native.so").exists():
+        return None
+    cxx = shutil.which("g++") or shutil.which("c++")
+    require(cxx is not None, "no C++ compiler for native/")
+    cmd = [cxx, "-O3", "-march=native", "-std=c++17", "-Wall", "-fPIC",
+           "-fopenmp", "-shared", "-o", str(src / "libcolbwt_native.so"),
+           *(str(src / f) for f in ("colbwt_native.cpp", "sais.cpp",
+                                    "chunked.cpp"))]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_native_build(proc: subprocess.Popen | None) -> None:
+    from colbwt_tpu.io import native as native_lib
+
+    if proc is not None:
+        _, err = proc.communicate()
+        require(proc.returncode == 0,
+                f"native build failed: {' '.join(proc.args)}\n{err[-4000:]}")
+    require(native_lib.available(), "native library not loadable")
+
+
 def run(torch) -> tuple[dict, list[dict]]:
-    """Phases 2-7 on the card; returns the main path's metrics and the
+    """Phases 2-8c on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
     from colbwt_tpu.io import formats as F
     from colbwt_tpu.io.fasta import FastaRecord, write_fasta
     from colbwt_tpu.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu.models.index import ColPmlIndex
     from colbwt_tpu.ops import oracle as O
     from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
     from colbwt_tpu_torch.cli import main as cli_main
@@ -520,13 +927,18 @@ def run(torch) -> tuple[dict, list[dict]]:
     from colbwt_tpu_torch.pipeline import build_pipeline
 
     dev = torch.device("cuda")
-    # phase 2: kernels
+    # phase 2: the kernels and the host library, built side by side
     t0 = time.perf_counter()
+    native = start_native_build()
     K.load()
     log(f"[phase 2] CUDA kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f}s ({K.library_path().name})")
+    finish_native_build(native)
+    log(f"[phase 2] native host library "
+        f"{'built' if native else 'present'} and loaded after "
+        f"{time.perf_counter() - t0:.1f}s")
 
-    # phase 3: index (host) and kernel checks
+    # phase 3: bench's index on the device lane, the host lane, kernel checks
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     docs = make_docs()
@@ -537,16 +949,34 @@ def run(torch) -> tuple[dict, list[dict]]:
     cfg = ColBwtConfig(mode=SplitMode.TUNNELS, split_rate=10, min_mum=20,
                        keep_temp=True)
     prefix = str(WORK / "bench")
+
+    def build3():
+        build_pipeline(fastas, prefix, cfg, device=dev)
+        return 0
+
+    with Capture() as cap:
+        v3, lc3 = run_build("3", build3, ("mum_window", "tunneled_walk"))
+    require(cap.args is not None, "phase 3 did not run the device scan")
+    build_s = v3["wall_s"]
+    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+    host3 = host_lane(prefix, cap.args, len(docs))
+    log(f"[phase 3] device lane equals the host lane: multi-MUMs "
+        f"{v3['mums_s']:.3f}s on the card vs {host3['mums_s']:.3f}s "
+        f"O.find_multi_mums; col-split {v3['colsplit_s']:.3f}s vs "
+        f"{host3['colsplit_s']:.3f}s host walk + sweep")
+    chk = Checks(torch)
     t0 = time.perf_counter()
-    index = build_pipeline(fastas, prefix, cfg, device=dev)
-    build_s = time.perf_counter() - t0
+    check_build_kernels(torch, dev, prefix, cap.args, chk)
+    del cap
+    log(f"[phase 3] K8-K10b equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
     heads, lens = F.read_rlbwt(f"{prefix}.fa")
     tbl = O.build_col_pml(
         heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
             f"{prefix}.fa.col_runs")),
         F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
         F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
-    log(f"[phase 3] host index build {build_s:.1f}s: n={index.n} "
+    log(f"[phase 3] index build {build_s:.1f}s: n={index.n} "
         f"r={index.r} bwt_r={index.bwt_r} sigma={index.sigma} "
         f"ff_bound={index.ff_bound}")
 
@@ -566,7 +996,6 @@ def run(torch) -> tuple[dict, list[dict]]:
         long_reads.append(bytes(arr))
     log(f"[phase 3] reads made in {time.perf_counter() - t0:.1f}s")
 
-    chk = Checks(torch)
     t0 = time.perf_counter()
     check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
     log(f"[phase 3] K1-K4 equal to their plain versions "
@@ -615,7 +1044,7 @@ def run(torch) -> tuple[dict, list[dict]]:
         "reads_per_s": n_total / v["wall_s"],
         "scan_reads_per_s": n_total / v["scan_s"],
         "device_mem_peak_bytes": peak,
-        "host_index_build_s": build_s,
+        "index_build_s": build_s,
     }
     log(f"[phase 4] engine {v['engine']}: {n_total} reads, table build "
         f"{v['table_build_s']:.3f}s, scan {v['scan_s']:.3f}s, CLI wall "
@@ -712,6 +1141,14 @@ def run(torch) -> tuple[dict, list[dict]]:
     paths["mega-wide compact"] = m
     launches.append(lc)
     log("[mega paths] " + json.dumps(paths))
+
+    # phases 8-8c: the build path through the CLI
+    v8, lc8 = phase8(torch, dev, cli_main, chk)
+    v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
+    launches += [lc3, lc8, *lc8bc]
+    log("[build path] " + json.dumps(
+        {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
+         "phase8b": v8bc["8b"], "phase8c": v8bc["8c"]}))
 
     kernels = []
     for name, (tag, src, replaces) in KERNEL_INFO.items():

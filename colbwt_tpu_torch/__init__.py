@@ -1,17 +1,19 @@
 """colbwt_tpu_torch — the PyTorch/CUDA port of colbwt_tpu.
 
-Answers per-base PML (pseudo matching length) and CID (multi-MUM column id)
-queries for reads against a run-length BWT index of a genome collection,
-with the query's device programs written by hand in CUDA C++ for Hopper
+Builds a run-length BWT index of a genome collection and answers per-base
+PML (pseudo matching length) and CID (multi-MUM column id) queries for
+reads against it, with the device programs of the query and of the build
+(multi-MUM scan, col-split walk) written by hand in CUDA C++ for Hopper
 (sm_90a).  The JAX package `colbwt_tpu` is the reference: every module here
 mirrors the one of the same name there and must give byte-identical
 results.
 
-- ``colbwt_tpu_torch.ops``      query engines: CUDA kernels (csrc/) with a
-                                plain PyTorch version beside each
+- ``colbwt_tpu_torch.ops``      query engines and build stages: CUDA
+                                kernels (csrc/) with a plain PyTorch
+                                version beside each
 - ``colbwt_tpu_torch.models``   the index as a dict of device tensors
-- ``colbwt_tpu_torch.pipeline`` host build lane, engine selection, the
-                                one-shot query pipeline
+- ``colbwt_tpu_torch.pipeline`` the build pipeline, engine selection,
+                                the one-shot query pipeline
 - ``colbwt_tpu_torch.utils``    device selection and memory budgets
 
 The device defaults to ``cuda`` everywhere and raises when CUDA is absent;

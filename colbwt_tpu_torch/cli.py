@@ -3,12 +3,16 @@
 
     col-bwt-torch build [-i INPUT] -o OUTPUT [-r] [-m MODE] [-s SUB_SAMPLE]
                         [-l MIN_MUM] [-v] [--force] [--keep] [--clean]
-                        [--device DEV] [fastas ...]
+                        [--sa-mode M] [--chunk-chars C] [--device DEV]
+                        [fastas ...]
     col-bwt-torch query INDEX -p PATTERN [--text] [-l] [--engine E]
                         [--batch-size B] [--device DEV]
 
 The device defaults to cuda and the run fails when CUDA is absent; pass
---device cpu to run the plain PyTorch path.  --stream is not ported yet.
+--device cpu to run the plain PyTorch path.  `build` finds the multi-MUMs
+and walks the col-split on the device in both SA lanes (--sa-mode
+monolithic, or chunked for collections beyond the host SA budget).
+`query --stream` is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ def _build(args: argparse.Namespace) -> int:
         mode=SplitMode(args.mode), split_rate=args.sub_sample,
         min_mum=args.min_mum, rev_comp=args.rev_comp, verbose=args.verbose,
         force=args.force, keep_temp=args.keep,
-        sa_mode=args.sa_mode)
+        sa_mode=args.sa_mode, chunk_chars=args.chunk_chars)
     build_pipeline(args.fastas, args.output, cfg, filelist=args.input,
                    device=args.device)
     if args.clean:
@@ -101,9 +105,14 @@ def main(argv: list[str] | None = None) -> int:
     b.add_argument("--clean", action="store_true",
                    help="remove all intermediate files")
     b.add_argument("--sa-mode", type=str, default="auto",
-                   choices=["auto", "monolithic"],
-                   help="suffix-array construction lane (the chunked lane "
-                        "is not ported yet)")
+                   choices=["auto", "monolithic", "chunked"],
+                   help="suffix-array construction lane: 'chunked' builds "
+                        "the RLBWT by per-chunk SA-IS + rank merge (no "
+                        "global SA) and streams the multi-MUM scan; 'auto' "
+                        "switches to it when n exceeds the host SA budget")
+    b.add_argument("--chunk-chars", type=int, default=0,
+                   help="chunk size (characters) for --sa-mode chunked; "
+                        "0 = auto (half the monolithic SA RAM budget)")
     b.add_argument("--no-prewarm", action="store_true",
                    help="does nothing: accepted for col-bwt flag "
                         "compatibility; the port has no prewarm yet")

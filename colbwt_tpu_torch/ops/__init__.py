@@ -1,2 +1,3 @@
-"""Query engines: hand-written CUDA kernels with a plain PyTorch version
-beside each, plus the host col-split copy."""
+"""Query engines and the build's device stages (multi-MUM scan, col-split
+walk): hand-written CUDA kernels with a plain PyTorch version beside each,
+plus the host col-split walkers."""

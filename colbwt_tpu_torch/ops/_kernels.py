@@ -1,16 +1,17 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes: no PyTorch headers, so a cold build takes
-seconds.  The library is built at first use into build/colbwt_kernels/ at
+The sources compile with nvcc, one process per source side by side, into
+one shared library with a plain C interface, loaded with ctypes: no
+PyTorch headers, so a cold build takes seconds.  The library is built at first use into build/colbwt_kernels/ at
 the checkout root, named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused.
 
 Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
 code.  `launches` counts kernel launches per wrapper name (the wrappers in
-ops/query_pos.py, ops/query_xla.py, ops/query_mega.py and
-ops/query_mega_wide.py add one where they launch, and nowhere else), so a
-run can show which kernels its path went through.
+ops/query_pos.py, ops/query_xla.py, ops/query_mega.py,
+ops/query_mega_wide.py, ops/construct.py and ops/colsplit.py add one where
+they launch, and nowhere else), so a run can show which kernels its path
+went through.
 """
 
 from __future__ import annotations
@@ -31,11 +32,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "colbwt_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
-           "fill_block_wide", "shared_table_wide")
+           "fill_block_wide", "shared_table_wide", "mum_window",
+           "tunneled_walk", "all_walk")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -54,6 +56,11 @@ _SIGNATURES = {
                                      + [_P]),
     "colbwt_fill_block_wide": [_P, _I, _I] + [_P] * 11 + [_I] * 4 + [_P],
     "colbwt_shared_table_wide": [_P] * 8 + [_I] + [_P],
+    "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
+    "colbwt_tunneled_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
+                            + [_P],
+    "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
+                       + [_P],
 }
 
 
@@ -80,6 +87,19 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raises with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}")
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
@@ -97,17 +117,17 @@ def load() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build to a private name, then rename: a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            Path(tmp).unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+        # build in a private directory, then rename: a concurrent process
+        # never loads a half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+            # one nvcc per source, all started together, then the link
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                      for obj, src in zip(objs, _sources())])
+            so = str(Path(tmp) / "lib.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+            os.replace(so, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,0 +1,332 @@
+"""Multi-MUM scan — port of the multi-MUM half of
+colbwt_tpu/ops/construct_jax.py.
+
+A multi-MUM of N documents is a height-N window [i, i+N) of the suffix
+array whose suffixes come one from each document, share a prefix of length
+ell = min lcp[i+1 .. i+N-1] >= min_mum that neither neighbour shares
+(lcp[i] < ell, lcp[i+N] < ell), and are left-maximal (the preceding
+characters are not all equal).  oracle.find_multi_mums is the definition.
+
+One kernel carries both device forms, `mum_window` in csrc/construct.cu:
+
+- K8 (replaces construct_jax.py:245 `_mum_scan_chunk`): the window test
+  on one chunk of C positions with a 2N+2 halo; `find_multi_mums_chunked`
+  streams fixed-size chunks from (possibly memmapped) host arrays, so
+  device memory is O(C) at any n;
+- K9 (replaces construct_jax.py:193 `multi_mum_scan`): the test over the
+  whole array, padded as one chunk.  Its plain version keeps JAX's
+  argsort-built next-same-doc array, so kernel = plain at K9's shape also
+  checks the capped-distance rewrite.
+
+`find_multi_mums` routes as `find_multi_mums_jax` does: the one-shot scan
+below _CHUNKED_SCAN_MIN_N, the chunked one from there.  Each wrapper runs
+its plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.utils.device import resolve_device
+
+# above this n, stream fixed-size chunks instead of the one-shot scan
+# (construct_jax.py:463): O(C) device memory at any n
+_CHUNKED_SCAN_MIN_N = 1 << 22
+
+
+def _shift_left(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """y[i] = x[i+k] with y[i >= n-k] = fill."""
+    if k == 0:
+        return x
+    if k >= x.shape[0]:
+        return torch.full_like(x, fill)
+    return torch.cat([x[k:], x.new_full((k,), fill)])
+
+
+def sliding_min_ref(x: torch.Tensor, w: int) -> torch.Tensor:
+    """out[i] = min(x[i : i+w]), x[>= n] read as +inf (w >= 1); both
+    regimes of construct_jax.py:158 `_sliding_min`: binary doubling for
+    w < 128, van Herk/Gil-Werman block cummins from there."""
+    if w == 1:
+        return x
+    n = x.shape[0]
+    big = torch.iinfo(x.dtype).max
+    if w < 128:
+        f = x
+        s = 1
+        while 2 * s <= w:
+            f = torch.minimum(f, _shift_left(f, s, big))
+            s *= 2
+        return torch.minimum(f, _shift_left(f, w - s, big))
+    pad = (-n) % w + w  # round up + one spare block
+    blocks = torch.cat([x, x.new_full((pad,), big)]).reshape(-1, w)
+    p = torch.cummin(blocks, dim=1).values.reshape(-1)
+    s = torch.cummin(blocks.flip(1), dim=1).values.flip(1).reshape(-1)
+    return torch.minimum(s[:n], p[w - 1:n + w - 1])
+
+
+def packbits_little(bits: torch.Tensor) -> torch.Tensor:
+    """jnp.packbits(bits, bitorder="little"): ceil(len/8) uint8."""
+    n = bits.shape[0]
+    b = torch.zeros(-(-n // 8) * 8, dtype=torch.uint8, device=bits.device)
+    b[:n] = bits.to(torch.uint8)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=bits.device)
+    return (b.reshape(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)
+
+
+def unpackbits_little(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n bits of little-bit-order `packed`, as bool."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:n].bool()
+
+
+def multi_mum_scan_ref(lcp: torch.Tensor, sa_docs: torch.Tensor,
+                       prev_rank: torch.Tensor, num_docs: int, min_mum: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K9: (is_mum bool (n), ell int32 (n)) over int32 lcp, per-rank
+    document ids and preceding-character ranks, as construct_jax.py:193-242
+    computes them (next-same-doc array built by a stable argsort)."""
+    n = lcp.shape[0]
+    N = num_docs
+    dev = lcp.device
+    lcp_ext = torch.cat([lcp, lcp.new_zeros(N)])  # lcp[>= n] = 0
+    ell = sliding_min_ref(lcp_ext[1:], N - 1)[:n]
+    uniq = (lcp_ext[:n] < ell) & (lcp_ext[N:N + n] < ell)
+
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    order = torch.sort(sa_docs, stable=True).indices
+    pos_sorted = pos[order]
+    doc_sorted = sa_docs[order]
+    nxt_sorted = torch.cat([pos_sorted[1:], pos.new_full((1,), n)])
+    same_doc = torch.cat([doc_sorted[1:] == doc_sorted[:-1],
+                          torch.zeros(1, dtype=torch.bool, device=dev)])
+    nxt_sorted = torch.where(same_doc, nxt_sorted, n)
+    nxt = torch.zeros(n, dtype=torch.int32, device=dev)
+    nxt[order] = nxt_sorted
+    covers = sliding_min_ref(nxt, N) >= pos + N
+
+    run_change = torch.ones(n, dtype=torch.int32, device=dev)
+    run_change[1:] = (prev_rank[1:] != prev_rank[:-1]).to(torch.int32)
+    run_id = torch.cumsum(run_change, 0, dtype=torch.int32)
+    last = torch.cat([run_id[N - 1:], run_id.new_full((N - 1,), -1)])
+    left_max = run_id != last
+
+    is_mum = (ell >= min_mum) & uniq & covers & left_max & (pos <= n - N)
+    return is_mum, ell
+
+
+def mum_scan_chunk_ref(lcp_s: torch.Tensor, docs_s: torch.Tensor,
+                       chg_s: torch.Tensor, limit: int, min_mum: int,
+                       num_docs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain K8, construct_jax.py:245-301: (hits packed little-endian,
+    ceil(C/8) uint8; ell int32 (C)) for one chunk of C = len - (2N+2)
+    window starts.  lcp_s int32, docs_s uint16 or int32 (widened here:
+    torch has little uint16 arithmetic), chg_s uint8 run-change marks;
+    window starts past `limit` are out of range."""
+    N = num_docs
+    C = lcp_s.shape[0] - (2 * N + 2)
+    dev = lcp_s.device
+    ell = sliding_min_ref(lcp_s[1:1 + C + N], N - 1)[:C]
+    uniq = (lcp_s[:C] < ell) & (lcp_s[N:N + C] < ell)
+
+    # capped next-same-doc distances: d[j] = least t in [1, N+1] with
+    # docs[j+t] == docs[j], else N+1 (exact: a longer distance never breaks
+    # a window), then min over the window of j + d[j] must reach i + N
+    docs = docs_s.to(torch.int32)
+    probe_len = C + N
+    d = torch.full((probe_len,), N + 1, dtype=torch.int32, device=dev)
+    for t in range(1, N + 2):
+        match = docs[t:t + probe_len] == docs[:probe_len]
+        d = torch.where(match & (d == N + 1), t, d)
+    y = torch.arange(probe_len, dtype=torch.int32, device=dev) + d
+    i_local = torch.arange(C, dtype=torch.int32, device=dev)
+    covers = sliding_min_ref(y, N)[:C] >= i_local + N
+
+    # left-maximality: a run change in (i, i+N-1]
+    neg_chg = -chg_s[1:1 + C + N].to(torch.int32)
+    left_max = sliding_min_ref(neg_chg, N - 1)[:C] < 0
+
+    is_mum = ((ell >= min_mum) & uniq & covers & left_max
+              & (i_local <= limit))
+    return packbits_little(is_mum), ell
+
+
+def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
+                   chg_s: torch.Tensor, limit: int, min_mum: int,
+                   num_docs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 (replaces colbwt_tpu/ops/construct_jax.py:245 _mum_scan_chunk):
+    the window test on one chunk, outputs as `mum_scan_chunk_ref`.  CPU
+    tensors take the plain version; CUDA tensors launch `mum_window`."""
+    if lcp_s.device.type == "cpu":
+        return mum_scan_chunk_ref(lcp_s, docs_s, chg_s, limit, min_mum,
+                                  num_docs)
+    dev = lcp_s.device
+    N = int(num_docs)
+    L = lcp_s.shape[0]
+    C = L - (2 * N + 2)
+    if N < 2 or C < 1 or L >= 2**31:
+        raise ValueError(f"need num_docs >= 2 and 1 <= C, C + 2N + 2 < 2**31 "
+                         f"(num_docs={N}, length {L})")
+    K.require(lcp_s, "lcp_s", torch.int32, dev)
+    if docs_s.dtype not in (torch.uint16, torch.int32):
+        raise ValueError(f"docs_s has dtype {docs_s.dtype}, expected uint16 "
+                         "or int32")
+    K.require(docs_s, "docs_s", docs_s.dtype, dev)
+    K.require(chg_s, "chg_s", torch.uint8, dev)
+    if docs_s.shape != (L,) or chg_s.shape != (L,):
+        raise ValueError(f"lcp_s, docs_s and chg_s must all have shape ({L},)")
+    # whole 32-bit ballot words; the tail past ceil(C/8) bytes is dropped
+    packed = torch.empty(-(-C // 32) * 4, dtype=torch.uint8, device=dev)
+    ell = torch.empty(C, dtype=torch.int32, device=dev)
+    scratch = torch.empty(C + N, dtype=torch.int32, device=dev)
+    limit = max(min(int(limit), C), -1)  # in-chunk arithmetic is int32
+    code = K.load().colbwt_mum_window(
+        lcp_s.data_ptr(), docs_s.data_ptr(),
+        1 if docs_s.dtype == torch.uint16 else 0, chg_s.data_ptr(), C, N,
+        limit, int(min_mum), scratch.data_ptr(), packed.data_ptr(),
+        ell.data_ptr(), K.stream_handle(dev))
+    K.check("mum_window", code)
+    K.launches["mum_window"] += 1
+    return packed[:-(-C // 8)], ell
+
+
+def multi_mum_scan(lcp: torch.Tensor, sa_docs: torch.Tensor,
+                   prev_rank: torch.Tensor, num_docs: int, min_mum: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9 (replaces construct_jax.py:193 multi_mum_scan): (is_mum, ell) over
+    the whole array.  CPU tensors take the plain version; on CUDA the whole
+    array is padded as one chunk (lcp 0, documents -1, run changes 1 past
+    n) and `mum_window` runs once."""
+    if lcp.device.type == "cpu":
+        return multi_mum_scan_ref(lcp, sa_docs, prev_rank, num_docs, min_mum)
+    n = lcp.shape[0]
+    N = num_docs
+    dev = lcp.device
+    L = n + 2 * N + 2
+    lcp_s = torch.zeros(L, dtype=torch.int32, device=dev)
+    lcp_s[:n] = lcp
+    docs_s = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    docs_s[:n] = sa_docs
+    chg_s = torch.ones(L, dtype=torch.uint8, device=dev)
+    chg_s[1:n] = (prev_rank[1:] != prev_rank[:-1]).to(torch.uint8)
+    packed, ell = mum_scan_chunk(lcp_s, docs_s, chg_s, n - N, min_mum, N)
+    return unpackbits_little(packed, n), ell
+
+
+def _slice_padded(arr, s: int, size: int, fill: int, dtype) -> np.ndarray:
+    sl = np.array(arr[s:s + size], dtype=dtype)  # a writable copy
+    if sl.size < size:
+        sl = np.concatenate([sl, np.full(size - sl.size, fill, dtype)])
+    return sl
+
+
+def _run_change_slice(run_change, s: int, size: int, n: int) -> np.ndarray:
+    """Bits [s, s+size) of little-endian packed run-change marks as uint8,
+    1 past n.  Any s: the slice starts at byte s >> 3, bit s & 7."""
+    b0, off = s >> 3, s & 7
+    nb = (off + size + 7) >> 3
+    raw = np.asarray(run_change[b0:b0 + nb])
+    if raw.size < nb:
+        raw = np.concatenate([raw, np.full(nb - raw.size, 0xFF, np.uint8)])
+    bits = np.unpackbits(raw, bitorder="little")[off:off + size]
+    if s + size > n:
+        bits[max(0, n - s):] = 1
+    return bits
+
+
+def find_multi_mums_chunked(lcp, sa_docs, run_change, num_docs: int,
+                            min_mum: int, chunk: int = 1 << 26, log=None,
+                            run_change_packed: bool = False,
+                            start_chunk: int = 0,
+                            max_chunks: int | None = None,
+                            info: dict | None = None, device=None
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    """The multi-MUM scan streamed through `device` (default cuda) in chunks
+    of C = min(chunk, next power of two >= n, at least 8192) positions; the
+    outputs of oracle.find_multi_mums, (lengths, positions) int64.
+
+    Inputs may be memmaps: one chunk slice (plus its 2N+2 halo) is read at
+    a time.  With `run_change_packed`, `run_change` holds little-endian
+    bit-packed marks (mum_scan_stream.write_run_change_bits).
+    `start_chunk`/`max_chunks` scan a sub-range (positions stay global) and
+    `info["next_chunk"]` reports the first chunk not scanned."""
+    import time
+
+    dev = resolve_device(device)
+    n = int(lcp.shape[0])
+    N = num_docs
+    halo = 2 * N + 2
+    C = min(chunk, 1 << max(13, (max(n, 2) - 1).bit_length()))
+    use_u16 = N < 65535
+    docs_dtype = np.uint16 if use_u16 else np.int32
+    docs_fill = 65535 if use_u16 else -1
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    out_lens: list[np.ndarray] = []
+    out_pos: list[np.ndarray] = []
+    t0 = time.perf_counter()
+    n_chunks = -(-n // C)
+    k_end = (n_chunks if max_chunks is None
+             else min(n_chunks, start_chunk + max_chunks))
+    for k in range(start_chunk, k_end):
+        s = k * C
+        rc = (_run_change_slice(run_change, s, C + halo, n)
+              if run_change_packed
+              else _slice_padded(run_change, s, C + halo, 1, np.uint8))
+        packed, ell = mum_scan_chunk(
+            upload(_slice_padded(lcp, s, C + halo, 0, np.int32)),
+            upload(_slice_padded(sa_docs, s, C + halo, docs_fill,
+                                 docs_dtype)),
+            upload(rc), min(n - N - s, C), min_mum, N)
+        bits = np.unpackbits(packed.cpu().numpy(), bitorder="little")[:C]
+        pos_local = np.flatnonzero(bits)
+        # ell at the hits, indices clipped as construct_jax._gather_i32
+        idx = torch.from_numpy(pos_local).to(dev).clamp(0, C - 1)
+        out_lens.append(ell[idx].cpu().numpy().astype(np.int64))
+        out_pos.append(pos_local.astype(np.int64) + s)
+    if info is not None:
+        info["next_chunk"] = k_end
+    if log:
+        log(f"mum-scan chunks [{start_chunk},{k_end}) of {n_chunks} "
+            f"(C = {C:,}, N = {N}): {time.perf_counter() - t0:.1f}s")
+    if not out_pos:
+        z = np.empty(0, dtype=np.int64)
+        return z, z.copy()
+    return np.concatenate(out_lens), np.concatenate(out_pos)
+
+
+def find_multi_mums(ranks: np.ndarray, sa: np.ndarray, lcp: np.ndarray,
+                    doc_ids: np.ndarray, num_docs: int, min_mum: int = 1,
+                    log=None, device=None) -> tuple[np.ndarray, np.ndarray]:
+    """oracle.find_multi_mums' signature and outputs on `device` (default
+    cuda), routed as construct_jax.find_multi_mums_jax: the one-shot scan
+    (K9) below _CHUNKED_SCAN_MIN_N, the chunked scan (K8) from there."""
+    dev = resolve_device(device)
+    if num_docs < 2:
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+    sa = np.asarray(sa)
+    prev_rank = np.asarray(ranks)[sa - 1]
+    sa_docs = np.asarray(doc_ids)[sa]
+    if sa.shape[0] >= _CHUNKED_SCAN_MIN_N:
+        run_change = np.ones(sa.shape[0], dtype=np.uint8)
+        np.not_equal(prev_rank[1:], prev_rank[:-1],
+                     out=run_change[1:].view(bool))
+        return find_multi_mums_chunked(lcp, sa_docs.astype(np.int32),
+                                       run_change, num_docs, min_mum,
+                                       log=log, device=dev)
+
+    def up(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    is_mum, ell = multi_mum_scan(up(lcp), up(sa_docs), up(prev_rank),
+                                 num_docs, min_mum)
+    pos = torch.nonzero(is_mum).reshape(-1)
+    return (ell[pos].cpu().numpy().astype(np.int64),
+            pos.cpu().numpy().astype(np.int64))

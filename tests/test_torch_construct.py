@@ -1,0 +1,267 @@
+"""The port's multi-MUM scan (colbwt_tpu_torch/ops/construct.py and
+ops/mum_scan_stream.py) against the JAX package's (ops/construct_jax.py)
+and the host oracle, on the CPU, where the plain PyTorch versions of K8
+and K9 run.  Every value is an integer or a bit, so every comparison is
+exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colbwt_tpu.ops import construct_chunked as CC
+from colbwt_tpu.ops import construct_jax as CJ
+from colbwt_tpu.ops import mum_scan_stream as JMS
+from colbwt_tpu.ops import oracle as O
+from colbwt_tpu_torch.ops import construct as TC
+from colbwt_tpu_torch.ops import mum_scan_stream as TMS
+from tests.conftest import random_docs
+
+CPU = "cpu"
+
+
+def _t(a, dtype=np.int32):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=dtype)))
+
+
+def _arrays(docs):
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    return text, ranks, doc_ids, sa, lcp
+
+
+def _scan_inputs(rng, ndocs, doclen, muts=20):
+    """Noisy copies of one random base, as tests/test_mum_stream.py."""
+    base = rng.choice(np.frombuffer(b"ACGT", np.uint8), doclen)
+    docs = []
+    for _ in range(ndocs):
+        a = base.copy()
+        a[rng.integers(0, doclen, muts)] = rng.choice(
+            np.frombuffer(b"ACGT", np.uint8), muts)
+        docs.append(a.tobytes())
+    text, ranks, doc_ids, sa, lcp = _arrays(docs)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    return (heads, lens, lcp.astype(np.int32), doc_ids[sa].astype(np.uint16),
+            CC.run_change_from_runs(heads, lens))
+
+
+def _planted_cores(rng, N):
+    """N documents sharing two conserved cores (40 and 25 bp) between
+    random arms (tests/test_construct_jax.py:198)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    core1, core2 = rng.choice(acgt, 40), rng.choice(acgt, 25)
+    return [np.concatenate([rng.choice(acgt, 30), core1, rng.choice(acgt, 20),
+                            core2, rng.choice(acgt, 10)]).tobytes()
+            for _ in range(N)]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 8, 127, 128, 129, 300])
+def test_sliding_min_matches_jax(rng, w):
+    for n in (1, 5, 64, 257, 1000):
+        x = rng.integers(-50, 50, n).astype(np.int32)
+        want = np.asarray(CJ._sliding_min(jnp.asarray(x), w))
+        got = TC.sliding_min_ref(_t(x), w).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"n={n} w={w}")
+
+
+@pytest.mark.parametrize("n_docs", [2, 3, 5, 8])
+def test_multi_mum_scan_matches_jax(rng, n_docs):
+    base = bytes(rng.choice(list(b"ACGT"), 150).astype("uint8"))
+    _, ranks, doc_ids, sa, lcp = _arrays(random_docs(rng, n_docs,
+                                                     mutate_from=base))
+    prev_rank = ranks[sa - 1]
+    sa_docs = doc_ids[sa]
+    for min_mum in (4, 10):
+        want = CJ.multi_mum_scan(jnp.asarray(lcp, jnp.int32),
+                                 jnp.asarray(sa_docs.astype(np.int32)),
+                                 jnp.asarray(prev_rank.astype(np.int32)),
+                                 n_docs, min_mum)
+        for fn in (TC.multi_mum_scan_ref, TC.multi_mum_scan):
+            got = fn(_t(lcp), _t(sa_docs), _t(prev_rank), n_docs, min_mum)
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert bool(got[0].any())
+
+
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+def test_mum_scan_chunk_matches_jax(rng, u16):
+    """Chunk by chunk at C = 2**13 with the 2N+2 halo, uint16 documents
+    (fill 65535) or int32 (fill -1), as find_multi_mums_chunked feeds them;
+    the plain version widens uint16 to int32."""
+    _, _, lcp, sa_docs, rc = _scan_inputs(rng, 5, 3500)
+    n, N, C = lcp.size, 5, 1 << 13
+    halo = 2 * N + 2
+    dt, fill = (np.uint16, 65535) if u16 else (np.int32, -1)
+    hits = 0
+    for s in range(0, n, C):
+        def sl(a, f, dtype):
+            x = np.asarray(a[s:s + C + halo]).astype(dtype)
+            return np.concatenate([x, np.full(C + halo - x.size, f, dtype)])
+        args = (sl(lcp, 0, np.int32), sl(sa_docs, fill, dt),
+                sl(rc, 1, np.uint8))
+        limit = min(n - N - s, C)
+        wp, we = CJ._mum_scan_chunk(*(jnp.asarray(a) for a in args),
+                                    jnp.int32(limit), jnp.int32(12),
+                                    num_docs=N)
+        for fn in (TC.mum_scan_chunk_ref, TC.mum_scan_chunk):
+            gp, ge = fn(*(torch.from_numpy(a) for a in args), limit, 12, N)
+            assert gp.dtype == torch.uint8 and ge.dtype == torch.int32
+            np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+            np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
+        hits += int(np.unpackbits(np.asarray(wp)).sum())
+    assert hits > 0
+
+
+def test_find_multi_mums_chunked_route_matches_jax(rng, monkeypatch):
+    """_CHUNKED_SCAN_MIN_N lowered in both packages: several chunks of
+    C = 2**13 run, and both equal the oracle."""
+    monkeypatch.setattr(CJ, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+    monkeypatch.setattr(TC, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+    base = bytes(rng.choice(list(b"ACGT"), 4000).astype("uint8"))
+    docs = random_docs(rng, 6, mutate_from=base)
+    _, ranks, doc_ids, sa, lcp = _arrays(docs)
+    assert sa.size > 2 * (1 << 13)
+    for min_mum in (5, 12):
+        want = O.find_multi_mums(ranks, sa, lcp, doc_ids, 6, min_mum)
+        jax_got = CJ.find_multi_mums_jax(ranks, sa, lcp, doc_ids, 6, min_mum)
+        got = TC.find_multi_mums(ranks, sa, lcp, doc_ids, 6, min_mum,
+                                 device=CPU)
+        for g, j, w in zip(got, jax_got, want):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(j, w)
+        assert want[0].size > 0
+
+
+@pytest.mark.parametrize("n_docs", [2, 3, 8])
+def test_find_multi_mums_one_shot_route_matches_oracle(rng, n_docs):
+    base = bytes(rng.choice(list(b"ACGT"), 200).astype("uint8"))
+    _, ranks, doc_ids, sa, lcp = _arrays(random_docs(rng, n_docs,
+                                                     mutate_from=base))
+    want = O.find_multi_mums(ranks, sa, lcp, doc_ids, n_docs, 6)
+    got = TC.find_multi_mums(ranks, sa, lcp, doc_ids, n_docs, 6, device=CPU)
+    for g, w, j in zip(got, want, CJ.find_multi_mums_jax(
+            ranks, sa, lcp, doc_ids, n_docs, 6)):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(j, w)
+
+
+def test_planted_cores_high_n(rng, monkeypatch):
+    """N = 400 (the van Herk regime of the window minima): exactly the two
+    planted cores, on the one-shot route and on the chunked one."""
+    N = 400
+    _, ranks, doc_ids, sa, lcp = _arrays(_planted_cores(rng, N))
+    want = O.find_multi_mums(ranks, sa, lcp, doc_ids, N, 8)
+    assert sorted(want[0].tolist()) == [25, 40]
+    for chunked in (False, True):
+        if chunked:
+            monkeypatch.setattr(TC, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+        got = TC.find_multi_mums(ranks, sa, lcp, doc_ids, N, 8, device=CPU)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    for g, w in zip(CJ.find_multi_mums_jax(ranks, sa, lcp, doc_ids, N, 8),
+                    want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_packed_memmap_chunks_resume(rng, tmp_path):
+    """Memmapped inputs with packed run-change bits, scanned one chunk per
+    call through start_chunk/max_chunks, compose to the one-shot scan
+    (tests/test_mum_stream.py:49); a chunk size that is not a multiple of
+    8 reads the packed bits at a bit offset."""
+    heads, lens, lcp, sa_docs, rc = _scan_inputs(rng, 5, 3500)
+    N = 5
+    want = CJ.find_multi_mums_chunked(lcp, sa_docs, rc, N, 12, chunk=1 << 13)
+    np.save(tmp_path / "lcp.npy", lcp)
+    np.save(tmp_path / "doc.npy", sa_docs)
+    JMS.write_run_change_bits(heads, lens, tmp_path / "rc.npy")
+    lcp_m, doc_m, rc_m = (np.load(tmp_path / f, mmap_mode="r")
+                          for f in ("lcp.npy", "doc.npy", "rc.npy"))
+    for chunk in (1 << 13, 777):
+        n_chunks = -(-lcp.size // chunk)
+        parts = []
+        k = 0
+        while k < n_chunks:
+            info = {}
+            parts.append(TC.find_multi_mums_chunked(
+                lcp_m, doc_m, rc_m, N, 12, chunk=chunk,
+                run_change_packed=True, start_chunk=k, max_chunks=1,
+                info=info, device=CPU))
+            assert info["next_chunk"] == k + 1
+            k = info["next_chunk"]
+        for j in (0, 1):
+            np.testing.assert_array_equal(
+                np.concatenate([p[j] for p in parts]), want[j])
+    assert want[0].size > 0
+
+
+def _stream_files(rng, tmp_path):
+    heads, lens, lcp, sa_docs, rc = _scan_inputs(rng, 4, 5000)
+    np.save(tmp_path / "lcp.npy", lcp)
+    np.save(tmp_path / "doc.npy", sa_docs)
+    JMS.write_run_change_bits(heads, lens, tmp_path / "rc.npy")
+    want = CJ.find_multi_mums_chunked(lcp, sa_docs, rc, 4, 15, chunk=1 << 13)
+    files = [tmp_path / f for f in ("lcp.npy", "doc.npy", "rc.npy")]
+    return files, want, -(-lcp.size // (1 << 13))
+
+
+def test_streamed_driver_resumes_after_interruption(rng, tmp_path,
+                                                   monkeypatch):
+    """A scan killed after two chunks keeps its progress; the rerun starts
+    at chunk 2, equals the one-shot scan and removes the progress file."""
+    files, want, n_chunks = _stream_files(rng, tmp_path)
+    assert n_chunks >= 3
+    real = TC.find_multi_mums_chunked
+    starts = []
+
+    def dies_at_2(*a, start_chunk=0, **kw):
+        if start_chunk == 2:
+            raise KeyboardInterrupt("killed")
+        starts.append(start_chunk)
+        return real(*a, start_chunk=start_chunk, **kw)
+
+    monkeypatch.setattr(TC, "find_multi_mums_chunked", dies_at_2)
+    with pytest.raises(KeyboardInterrupt):
+        TMS.find_multi_mums_streamed(*files, 4, 15, chunk=1 << 13,
+                                     device=CPU)
+    progress = tmp_path / "mumscan_progress.npz"
+    assert progress.exists() and starts == [0, 1]
+
+    def counts(*a, start_chunk=0, **kw):
+        starts.append(start_chunk)
+        return real(*a, start_chunk=start_chunk, **kw)
+
+    monkeypatch.setattr(TC, "find_multi_mums_chunked", counts)
+    logs = []
+    got = TMS.find_multi_mums_streamed(*files, 4, 15, chunk=1 << 13,
+                                       log=logs.append, device=CPU)
+    assert starts == list(range(n_chunks))
+    assert any("resumes at chunk 2" in m for m in logs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not progress.exists()
+
+
+@pytest.mark.parametrize("other", ["num_docs", "min_mum", "chunk"])
+def test_streamed_driver_ignores_progress_of_another_scan(rng, tmp_path,
+                                                          other):
+    """A progress file keyed for another (N, min_mum, C) is not resumed
+    from: the scan starts at chunk 0 and gives the one-shot result."""
+    files, want, n_chunks = _stream_files(rng, tmp_path)
+    key = {"num_docs": [3, 15, 1 << 13], "min_mum": [4, 20, 1 << 13],
+           "chunk": [4, 15, 1 << 14]}[other]
+    n = int(np.load(files[0], mmap_mode="r").shape[0])
+    progress = tmp_path / "p.npz"
+    bogus = np.array([123], dtype=np.int64)
+    np.savez(progress, key=np.array([n, *key], dtype=np.int64),
+             next_chunk=n_chunks - 1, ml=bogus, mp=bogus)
+    logs = []
+    got = TMS.find_multi_mums_streamed(*files, 4, 15, progress_path=progress,
+                                       chunk=1 << 13, log=logs.append,
+                                       device=CPU)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert any("another scan" in m for m in logs)
+    assert not progress.exists()

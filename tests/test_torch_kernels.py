@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K6c against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K10b against their plain PyTorch versions, on the card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -18,6 +18,8 @@ from colbwt_tpu.models.index import ColPmlIndex
 from colbwt_tpu.ops import oracle as O
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.ops import colsplit as TCS
+from colbwt_tpu_torch.ops import construct as TC
 from colbwt_tpu_torch.ops import query_mega as TM
 from colbwt_tpu_torch.ops import query_mega_wide as TW
 from colbwt_tpu_torch.ops import query_pos as TQ
@@ -319,3 +321,120 @@ def test_mega_query_batch_matches_oracle(dev, mega_case, layout):
         ep, ec = O.query_pml_oracle(oracle_tbl, reads[b])
         np.testing.assert_array_equal(pmls[b], ep)
         np.testing.assert_array_equal(cids[b], ec)
+
+
+# ---------------------------------------------------------------------------
+# K8-K10b: the build's multi-MUM window test and col-split walks
+# ---------------------------------------------------------------------------
+
+def _build_arrays(num_docs, base_len, seed):
+    """Noisy copies of one random base (one substitution per 20 bases, one
+    a copy beyond 8 copies, so that multi-MUMs survive):
+    (ranks, sa, lcp, doc_ids, FL table)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, base_len)
+    docs = []
+    for _ in range(num_docs):
+        a = base.copy()
+        k = 1 if num_docs > 8 else base_len // 20
+        a[rng.integers(0, base_len, k)] = rng.choice(acgt, k)
+        docs.append(a.tobytes())
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    return ranks, sa, lcp, doc_ids, O.build_fl_table(heads, lens)
+
+
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+@pytest.mark.parametrize("num_docs,base_len", [(2, 3000), (4, 2000),
+                                                (16, 600), (130, 600)])
+def test_mum_window(dev, num_docs, base_len, u16):
+    """K8 chunk by chunk (C = 2**13 with the 2N+2 halo) and K9 (the whole
+    array as one chunk) against their plain versions, and the device
+    find_multi_mums against the oracle."""
+    ranks, sa, lcp, doc_ids, _ = _build_arrays(num_docs, base_len, num_docs)
+    N, C = num_docs, 1 << 13
+    halo = 2 * N + 2
+    n = sa.size
+    prev_rank = ranks[sa - 1]
+    sa_docs = doc_ids[sa]
+    rc = np.ones(n, dtype=np.uint8)
+    rc[1:] = prev_rank[1:] != prev_rank[:-1]
+    dt, fill = (np.uint16, 65535) if u16 else (np.int32, -1)
+    for s in range(0, n, C):
+        def sl(a, f, dtype):
+            x = np.asarray(a[s:s + C + halo]).astype(dtype)
+            return torch.from_numpy(np.concatenate(
+                [x, np.full(C + halo - x.size, f, dtype)])).to(dev)
+        args = (sl(lcp, 0, np.int32), sl(sa_docs, fill, dt),
+                sl(rc, 1, np.uint8), min(n - N - s, C), 8, N)
+        before = K.launches["mum_window"]
+        got = TC.mum_scan_chunk(*args)
+        assert K.launches["mum_window"] == before + 1
+        want = TC.mum_scan_chunk_ref(*args)
+        for g, w in zip(got, want):
+            _equal(g, w)
+    t = [to_device(a, dev) for a in (lcp, sa_docs, prev_rank)]
+    got = TC.multi_mum_scan(*t, N, 8)
+    want = TC.multi_mum_scan_ref(*t, N, 8)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, N, 8)
+    assert ml.size > 0
+    for g, w in zip(TC.find_multi_mums(ranks, sa, lcp, doc_ids, N, 8,
+                                       device=dev), (ml, mp)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_mum_window_chunked_route(dev, monkeypatch):
+    """find_multi_mums with the chunked route forced (several chunks of
+    C = 2**13) equals the oracle."""
+    monkeypatch.setattr(TC, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+    ranks, sa, lcp, doc_ids, _ = _build_arrays(5, 5000, 7)
+    assert sa.size > 2 * (1 << 13)
+    want = O.find_multi_mums(ranks, sa, lcp, doc_ids, 5, 10)
+    got = TC.find_multi_mums(ranks, sa, lcp, doc_ids, 5, 10, device=dev)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _walk_case(dev, num_docs, base_len, min_mum):
+    ranks, sa, lcp, doc_ids, fl = _build_arrays(num_docs, base_len,
+                                                100 + num_docs)
+    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs, min_mum)
+    assert ml.size > 0
+    order = np.argsort(mp, kind="stable")
+    return (fl, ml, mp, TCS.fl_tensors(fl, dev), to_device(mp[order], dev),
+            to_device(ml[order], dev), int(ml.max()))
+
+
+@pytest.mark.parametrize("rate", [1, 10])
+def test_tunneled_walk(dev, rate):
+    fl, ml, mp, fd, p0, lens, T = _walk_case(dev, 4, 3000, 8)
+    before = K.launches["tunneled_walk"]
+    got = TCS.tunneled_walk(fd, p0, lens, T + 5, rate, 4)
+    assert K.launches["tunneled_walk"] == before + 1
+    for g, w in zip(got, TCS.tunneled_walk_ref(fd, p0, lens, T + 5, rate,
+                                               4)):
+        _equal(g, w)
+    want = O.col_split_oracle(fl, ml, mp, 4, rate, "tunnels")
+    for g, w in zip(TCS.col_split(fl, ml, mp, 4, rate, "tunnels",
+                                  device=dev), want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("num_docs,base_len", [(3, 2000), (33, 300),
+                                                (64, 200)])
+def test_all_walk(dev, num_docs, base_len):
+    fl, ml, mp, fd, p0, lens, T = _walk_case(dev, num_docs, base_len, 6)
+    before = K.launches["all_walk"]
+    got = TCS.all_walk(fd, p0, lens, T, 2, num_docs)
+    assert K.launches["all_walk"] == before + 1
+    for g, w in zip(got, TCS.all_walk_ref(fd, p0, lens, T, 2, num_docs)):
+        _equal(g, w)
+    want = O.col_split_oracle(fl, ml, mp, num_docs, 2, "all")
+    for g, w in zip(TCS.col_split(fl, ml, mp, num_docs, 2, "all",
+                                  device=dev), want):
+        np.testing.assert_array_equal(g, w)

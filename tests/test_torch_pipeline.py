@@ -1,6 +1,7 @@
-"""The PyTorch port's slice as a whole against the JAX package: the host
-build lane's artifacts, the query pipeline's output files (binary and text,
-against the committed goldens too), the CLI, and the host col-split copy.
+"""The PyTorch port's slice as a whole against the JAX package: the build's
+artifacts (the host lane, the device lane with the cut-off lowered, the
+chunked SA lane), the query pipeline's output files (binary and text,
+against the committed goldens too) and the CLI.
 
 The port runs its plain PyTorch path on the CPU (device="cpu").  Every
 compared value is an integer or a byte, so every comparison is exact.
@@ -15,13 +16,13 @@ import pytest
 from colbwt_tpu.io import formats as F
 from colbwt_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
 from colbwt_tpu.models.index import ColPmlIndex
-from colbwt_tpu.ops import colsplit_jax as CS
+import colbwt_tpu.pipeline.build as JB
+import colbwt_tpu_torch.pipeline.build as TB
 from colbwt_tpu.ops import oracle as O
 from colbwt_tpu.pipeline import build_pipeline as jax_build
 from colbwt_tpu.pipeline import query_pipeline as jax_query
-from colbwt_tpu.utils.config import ColBwtConfig
+from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
 from colbwt_tpu_torch.cli import main as torch_cli
-from colbwt_tpu_torch.ops.colsplit_host import col_split_tunneled_numpy
 from colbwt_tpu_torch.pipeline import build_pipeline, query_pipeline
 from colbwt_tpu_torch.pipeline.engines import QueryEngines
 from tests.conftest import random_docs
@@ -230,12 +231,98 @@ def test_wide_cids_take_two_planes_on_mega():
         np.testing.assert_array_equal(lens, jl)
 
 
-def test_chunked_sa_lane_not_ported_raises(tmp_path):
-    shutil.copy(GOLD / "seq1.fa", tmp_path / "seq1.fa")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        build_pipeline([str(tmp_path / "seq1.fa")], str(tmp_path / "c"),
-                       ColBwtConfig(sa_mode="chunked"), device="cpu")
-    assert not list(tmp_path.glob("c.*"))
+@pytest.fixture(scope="module")
+def lanes(golden):
+    """The goldens' collection built by both packages on the device lane
+    (_DEVICE_MIN_N = 0 in both: the device multi-MUM scan and col-split,
+    the plain PyTorch versions here; the host oracle's scan and walk raise
+    if either package reaches them) in tunnels and all mode, and by the
+    port's chunked SA lane, whose artifacts must equal the JAX package's
+    monolithic build (`golden`'s jax.*)."""
+    fastas = [str(golden / "seq1.fa"), str(golden / "seq2.fa")]
+
+    def host_route(*a, **kw):
+        raise AssertionError("the host oracle ran on the device lane")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JB, "_DEVICE_MIN_N", 0)
+        mp.setattr(TB, "_DEVICE_MIN_N", 0)
+        mp.setattr(O, "find_multi_mums", host_route)
+        mp.setattr(O, "col_split_oracle", host_route)
+        for mode in ("tunnels", "all"):
+            cfg = ColBwtConfig(**CFG, mode=SplitMode(mode))
+            jax_build(fastas, str(golden / f"dev_{mode}.jax"), cfg)
+            build_pipeline(fastas, str(golden / f"dev_{mode}.torch"), cfg,
+                           device="cpu")
+    build_pipeline(fastas, str(golden / "chunked.torch"),
+                   ColBwtConfig(**CFG, sa_mode="chunked", chunk_chars=1000),
+                   device="cpu")
+    assert not (golden / "chunked.torch.chunked_cache").exists()
+    return golden
+
+
+LANES = {"device-tunnels": ("dev_tunnels.torch", "dev_tunnels.jax"),
+         "device-all": ("dev_all.torch", "dev_all.jax"),
+         "chunked": ("chunked.torch", "jax")}
+
+
+@pytest.mark.parametrize("ext", ARTIFACTS)
+@pytest.mark.parametrize("lane", list(LANES))
+def test_lane_artifacts_match_jax(lanes, lane, ext):
+    got, want = LANES[lane]
+    assert (lanes / f"{got}.{ext}").read_bytes() == \
+        (lanes / f"{want}.{ext}").read_bytes()
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_lane_index_arrays_match_jax(lanes, lane):
+    got, want = LANES[lane]
+    a = np.load(lanes / f"{got}.colpml.npz")
+    b = np.load(lanes / f"{want}.colpml.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_all_mode_device_lane_differs_from_tunnels(lanes):
+    """The two modes' walks mark differently on this collection, so the
+    all-mode comparison above is not the tunnels one twice."""
+    assert (lanes / "dev_all.torch.fa.col_ids").read_bytes() != \
+        (lanes / "dev_tunnels.torch.fa.col_ids").read_bytes()
+
+
+def test_cli_chunked_lane_matches_library(golden, tmp_path):
+    fastas = [str(golden / "seq1.fa"), str(golden / "seq2.fa")]
+    out = str(tmp_path / "cli")
+    assert torch_cli(["build", "-o", out, "-r", "-l", "20", "-s", "10",
+                      "--sa-mode", "chunked", "--chunk-chars", "1000",
+                      "--device", "cpu", *fastas]) == 0
+    for ext in ARTIFACTS[:-1]:  # .fa.col_pml goes with --keep only
+        assert Path(f"{out}.{ext}").read_bytes() == \
+            (golden / f"torch.{ext}").read_bytes(), ext
+
+
+def test_build_logs_stage_seconds(golden, tmp_path, caplog):
+    """build_pipeline attaches each stage's seconds and the MUM and mark
+    counts to its log records."""
+    import logging
+
+    fastas = [str(golden / "seq1.fa"), str(golden / "seq2.fa")]
+    with caplog.at_level(logging.INFO, logger="colbwt_torch.build"):
+        build_pipeline(fastas, str(tmp_path / "t"), ColBwtConfig(**CFG),
+                       device="cpu")
+    values = {}
+    for rec in caplog.records:
+        for key in ("sa_lcp_s", "bwt_s", "mums_s", "thresholds_s",
+                    "colsplit_s", "index_s", "build_s", "mums", "marks"):
+            if hasattr(rec, key):
+                values[key] = getattr(rec, key)
+    assert set(values) == {"sa_lcp_s", "bwt_s", "mums_s", "thresholds_s",
+                           "colsplit_s", "index_s", "build_s", "mums",
+                           "marks"}
+    num_docs, ml, _ = F.read_col_mums(str(tmp_path / "t.fa.col_mums"))
+    assert values["mums"] == ml.size > 0
+    assert all(values[k] >= 0 for k in values)
 
 
 def test_n_reads_through_pos_pipeline_match_jax(golden, tmp_path):
@@ -254,23 +341,3 @@ def test_n_reads_through_pos_pipeline_match_jax(golden, tmp_path):
     for read, p, c, a, b in zip(reads, pmls, cids, jp, jc):
         np.testing.assert_array_equal(p, a, err_msg=repr(read))
         np.testing.assert_array_equal(c, b, err_msg=repr(read))
-
-
-@pytest.mark.parametrize("seed,num_docs,rate", [(1, 2, 2), (2, 3, 3),
-                                                (3, 4, 1)])
-def test_colsplit_host_matches_jax_and_oracle(seed, num_docs, rate):
-    rng = np.random.default_rng(seed)
-    base = bytes(rng.choice(list(b"ACGT"), 300).astype("uint8"))
-    docs = random_docs(rng, num_docs, mutate_from=base)
-    text, ranks, doc_ids = O.concat_collection(docs)
-    sa = O.suffix_array(ranks)
-    lcp = O.lcp_kasai(ranks, sa)
-    heads, lens = O.rle(O.bwt_from_sa(text, sa))
-    fl = O.build_fl_table(heads, lens)
-    ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs, 8)
-    assert ml.size > 0
-    got = col_split_tunneled_numpy(fl, ml, mp, num_docs, rate)
-    for want in (CS.col_split_tunneled_numpy(fl, ml, mp, num_docs, rate),
-                 O.col_split_oracle(fl, ml, mp, num_docs, rate, "tunnels")):
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
