@@ -7,10 +7,11 @@ Drives the port's two entry points.  `col-bwt-torch build` on bench.py's
 collection (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each,
 min-MUM 20, split rate 10) and on a pangenome of 16 x 4.5 Mbp haplotypes
 (n = 72,000,016), in both SA lanes and both split modes; `col-bwt-torch
-query` on bench's index and on two indexes made from it by scaling every
-run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths).  Every
-CUDA kernel of those paths is checked against its plain PyTorch version
-on the card.  Phases:
+query` on bench's index, on two indexes made from it by scaling every
+run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths) and on
+two run-split builds of it (the fused path), one-shot and `--stream`.
+Every CUDA kernel of those paths is checked against its plain PyTorch
+version on the card.  Phases:
 
 1. the card's name and power limit (nvidia-smi); exits nonzero without CUDA
 2. build the CUDA kernels from colbwt_tpu_torch/csrc and the host library
@@ -22,7 +23,11 @@ on the card.  Phases:
    find_col_runs_uniform sweep); K8-K10b against their plain versions at
    bench's shapes; K1-K4 at the main path's shapes; then the scaled
    indexes (run lengths x256 and x1024, ColPmlIndex.build with ff_bound 2,
-   r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7
+   r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7; then bench's
+   table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
+   the fused path's shapes (8,192 x 256 and 16 x 8,192) on both, and K14
+   on the ff_bound 2 jump rows (byte-equal to the plain copy, timed beside
+   one pinned copy_ of the same bytes)
 4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
    1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
    must be pos(k=4), 256 sampled records must equal the oracle
@@ -53,13 +58,23 @@ on the card.  Phases:
    byte-equal to phase 3's
    8c. bench's collection through `build -m all` (K10b): .col_runs and
    .col_ids byte-equal to the host col_split_all_numpy on the same MUMs
+9. the fused path (run after 7b): phase 4's reads through `query --engine
+   fused` on the ff_bound 2 index: the engine must be fused, the 256
+   sampled records must equal the oracle on the unsplit table, and K7 and
+   K14 must have launched
+   9b. phase 5's reads under the default engine on the ff_bound 1 index:
+   the ladder must pick fused, records equal phase 5's
+10. `query --stream` of phase 4's reads on bench's index (pos, k=4): both
+   files byte-equal to phase 4's, reads/s beside phase 4's; 10b the same
+   with --engine fused on phase 9's index, byte-equal to phase 9's
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
 lines are a [build path] line of stage seconds, the card line, one
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}.
 Everything is written under build/chip_smoke/ of the checkout.  Imports
-nothing of JAX.
+nothing of JAX and nothing of the JAX package colbwt_tpu (from bench.py
+only make_docs and make_reads, which need numpy alone).
 """
 
 from __future__ import annotations
@@ -100,11 +115,23 @@ KERNEL_INFO = {
                       "colbwt_tpu/ops/colsplit_jax.py:59"),
     "all_walk": ("K10b", "colbwt_tpu_torch/csrc/colsplit.cu",
                  "colbwt_tpu/ops/colsplit_jax.py:84"),
+    "query_batch_fused": ("K7", "colbwt_tpu_torch/csrc/query_fused.cu",
+                          "colbwt_tpu/ops/query_fused.py:108"),
+    "upload_rows": ("K14", "colbwt_tpu_torch/csrc/xfer.cu",
+                    "colbwt_tpu/utils/xfer.py:27"),
 }
+# the least time of a kernel's work: its bytes (each input read once, each
+# output written once; a gathered table counted at the bytes its gathers
+# take, at most the whole table) over the H100 SXM's 3.35 TB/s, or its
+# integer operations over 67e12 a second (the data sheet's rate outside the
+# tensor cores; these kernels do int32 ALU work), whichever is longer
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 BUILD_KEYS = ("sa_lcp_s", "bwt_s", "mums_s", "thresholds_s", "colsplit_s",
               "index_s", "build_s", "mums", "marks")
 QUERY_KEYS = ("engine", "read_s", "table_build_s", "scan_s", "write_s",
               "query_s", "reads")
+STREAM_KEYS = ("engine", "table_build_s", "reads", "query_s")
 # phase 8's pangenome: haplotypes, haplotype length, substitutions each
 PANGENOME = (16, 4_500_000, 90_000)
 ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
@@ -126,7 +153,7 @@ def scale_table(tbl, s: int):
     """`tbl` with every run length (and threshold) multiplied by s: every
     rank coordinate scales by s while r and the LF structure stay, so the
     int64 oracle runs it exactly (the trick of tests/test_query_wide.py)."""
-    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu_torch.ops import oracle as O
 
     out = O.build_lf_table(np.asarray(tbl.char),
                            np.asarray(tbl.length, dtype=np.int64) * s)
@@ -135,6 +162,26 @@ def scale_table(tbl, s: int):
                      else np.asarray(tbl.threshold, dtype=np.int64) * s)
     out.bwt_r = tbl.bwt_r
     return out
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors and arrays in `xs` (dicts and tuples walked;
+    other values count 0)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif hasattr(x, "nbytes"):
+            total += int(x.nbytes)
+    return total
+
+
+def gathered(table, gathers: int, row_bytes: int) -> int:
+    """The bytes a gather scan needs from `table`: its gathers' bytes, at
+    most the whole table."""
+    return min(nbytes(table), int(gathers) * row_bytes)
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
@@ -152,7 +199,8 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
 
 
 class Checks:
-    """Per-kernel max |kernel - plain| and the timed pair."""
+    """Per-kernel max |kernel - plain|, the timed pair, the bound and the
+    library call's time at the first timed shape."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -182,16 +230,39 @@ class Checks:
                 f"version (max abs err {err})")
 
     def time(self, name: str, kernel_fn, plain_fn, what: str,
-             reps: int = 3) -> None:
+             reps: int = 3, bound: tuple[int, int] | None = None,
+             bound_ms: float | None = None,
+             library_ms: float | None = None) -> None:
+        """Time the kernel and its plain version; `bound` is (bytes, integer
+        operations) of the work, or `bound_ms` a measured least time;
+        `library_ms` the time of one PyTorch call computing the same
+        function.  The first timed shape of each kernel goes in the JSON
+        line."""
         ms = cuda_ms(self.torch, kernel_fn, reps)
         plain = cuda_ms(self.torch, plain_fn, reps)
-        log(f"[time] {name} {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        self.ms.setdefault(name, (ms, plain))  # the first shape goes in JSON
+        lib = library_ms
+        by = "bytes"
+        if bound is not None:
+            t_bytes = bound[0] / HBM_BYTES_PER_S * 1e3
+            t_ops = bound[1] / ALU_OPS_PER_S * 1e3
+            bound_ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                            else (t_ops, "operations"))
+        log(f"[time] {name} {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms"
+            + ("" if bound_ms is None else
+               f", bound {bound_ms:.4f} ms ({by}"
+               + (f", {bound[0]} B, {bound[1]} ops)" if bound else ")"))
+            + ("" if lib is None else f", library call {lib:.4f} ms"))
+        if name not in self.ms:
+            require(bound_ms is not None,
+                    f"{name}: the first timed shape needs its bound")
+            self.ms[name] = {"ms": ms, "plain_ms": plain,
+                             "bound_ms": bound_ms, "bound_by": by,
+                             "library_ms": lib}
 
 
 def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
                   ) -> None:
-    from colbwt_tpu.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import index_tensors, to_device
     from colbwt_tpu_torch.ops import query_pos as TQ
     from colbwt_tpu_torch.ops import query_xla as TX
@@ -220,7 +291,8 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
             chk.time("build_t1_chunk",
                      lambda: TQ.build_t1_chunk(buf, *args),
                      lambda: TQ.build_t1_chunk_ref(buf, *args),
-                     f"one chunk of C={C} positions")
+                     f"one chunk of C={C} positions",
+                     bound=(nbytes(args) + C * 8, C * 40))
     C2 = min(n, 1 << 20)
     a2 = TQ.t1_inputs(index, C2, dev)
     for c in (int(digits[0]), A_full - 1):
@@ -250,7 +322,8 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
     torch.cuda.empty_cache()
     chk.time("compose_tables", lambda: TQ.compose_tables(t2, t2, n, 4, 2, 2),
              lambda: TQ.compose_tables_ref(t2, t2, n, 4, 2, 2),
-             f"(2,2): T4 of {4 ** 4 * n} rows", reps=1)
+             f"(2,2): T4 of {4 ** 4 * n} rows", reps=1,
+             bound=(nbytes(t2, t4), 4 ** 4 * n * 10))
     torch.cuda.empty_cache()
     t3 = TQ.compose_tables(t2, t1, n, 4, 2, 1)
     tables = {1: t1, 2: t2, 3: t3, 4: t4}
@@ -307,10 +380,13 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
         chk.equal("query_chunk_pos", gp, wp, f"k=4 {label}")
         chk.equal("query_chunk_pos", gpos, wpos, f"k=4 {label} pos")
         chk.equal("query_chunk_pos", gml, wml, f"k=4 {label} mlen")
+        steps = int(np.ceil(np.minimum(lens[:b], dg.shape[1]) / 4).sum())
         chk.time("query_chunk_pos",
                  lambda: TQ.query_chunk_pos(*args, **kw),
                  lambda: TQ.query_chunk_pos_ref(*args, **kw),
-                 f"k=4 {label}")
+                 f"k=4 {label}",
+                 bound=(nbytes(args[2:6], gp, gpos, gml)
+                        + gathered(t4, steps, 8), steps * 20))
     del tables, t1, t2, t3, t4
     torch.cuda.empty_cache()
 
@@ -330,8 +406,11 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
     chk.equal("query_chunk_pos", gc, wc, what + " cid")
     chk.equal("query_chunk_pos", gpos, wpos, what + " pos")
     chk.equal("query_chunk_pos", gml, wml, what + " mlen")
+    steps = int(np.minimum(ln, 252).sum())
     chk.time("query_chunk_pos", lambda: TQ.query_chunk_pos(*args, **kw),
-             lambda: TQ.query_chunk_pos_ref(*args, **kw), what)
+             lambda: TQ.query_chunk_pos_ref(*args, **kw), what,
+             bound=(nbytes(args[2:6], gp, gc, gpos, gml)
+                    + gathered(tg, steps, 8), steps * 20))
     del tg, args
     torch.cuda.empty_cache()
 
@@ -352,11 +431,17 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
         chk.equal("query_batch_xla", got[0], want[0], what + " pml")
         chk.equal("query_batch_xla", got[1], want[1], what + " cid")
         if idx is index:
+            # about ten 4-byte gathers a valid step (the fast-forward's
+            # data-dependent length reads counted as one)
+            steps = int(np.minimum(ln, 256).sum())
             chk.time("query_batch_xla",
                      lambda: TX.query_batch_device(*args, ff_bound=0),
                      lambda: TX.query_batch_device_ref(*args, ff_bound=0),
-                     "main-path batch 8192x256, unsplit, ff_bound=0")
+                     "main-path batch 8192x256, unsplit, ff_bound=0",
+                     bound=(nbytes(args[1:], got) + gathered(tb, steps, 40),
+                            steps * 30))
     torch.cuda.empty_cache()
+    return split
 
 
 def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
@@ -364,7 +449,7 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
     """Build the mega and mega-wide indexes from the scaled tables (saved
     for phases 6-7), then hold K5 and K6a-K6c equal to their plain versions
     at the shapes of those phases; returns the wide index."""
-    from colbwt_tpu.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import to_device
     from colbwt_tpu_torch.ops import query_mega as TM
     from colbwt_tpu_torch.ops import query_mega_wide as TW
@@ -402,14 +487,17 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
                   f"{layout}, all {wide.sigma + 1} blocks")
         chk.time("fill_block_wide", lambda: TW.fill_block(got, *args0),
                  lambda: TW.fill_block_ref(want, *args0),
-                 f"{layout} block c=0, {wide.r} rows")
+                 f"{layout} block c=0, {wide.r} rows",
+                 bound=(nbytes(args0) + wide.r * got.shape[1] * 4,
+                        wide.r * 40))
         tables[layout] = got
         del want
     shared = TW.shared_table(a)
     chk.equal("shared_table_wide", shared, TW.shared_table_ref(a),
               f"{wide.r} rows")
     chk.time("shared_table_wide", lambda: TW.shared_table(a),
-             lambda: TW.shared_table_ref(a), f"{wide.r} rows")
+             lambda: TW.shared_table_ref(a), f"{wide.r} rows",
+             bound=(nbytes(a, shared), wide.r * 20))
     base = {"length": a["length"], **meta}
     scans = [("query_chunk_mega", "mega", mega,
               TM.build_mega_table(mega, device=dev), TM.query_chunk_mega,
@@ -457,11 +545,81 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
                 chk.equal(name, gc, wc, what + " cid")
             for j, (g, w) in enumerate(zip(gst, wst)):
                 chk.equal(name, g, w, f"{what} state[{j}]")
+            # one row a valid step: 64 B (narrow, wide full), or a 40 B
+            # char row and a shared row (wide compact)
+            steps = int((args[2].long() - args[4]).clamp(
+                0, args[1].shape[1]).sum())
+            row = (40 + args[0]["shared"].shape[1] * 4
+                   if "shared" in args[0] else 64)
             chk.time(name, lambda: kern(*args, **kw),
-                     lambda: ref(*args, **kw), what)
+                     lambda: ref(*args, **kw), what,
+                     bound=(nbytes(args[1:4], gp, gc, gst)
+                            + gathered(args[0], steps, row), steps * 25))
     del scans
     torch.cuda.empty_cache()
     return wide
+
+
+def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
+                        chk: Checks) -> None:
+    """K7 against its plain version at the fused path's shapes (the
+    dispatch batch, 8,192 x 256, and the 16 x 8,192 batch the long reads
+    take) on the ff_bound 2 index `split` and on an ff_bound 1 build; K14
+    against the plain copy on jump_rows, with one pinned copy_ of the same
+    bytes beside it.  Saves both indexes for phases 9-10."""
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import query_fused as TF
+    from colbwt_tpu_torch.utils.xfer import upload_chunked, upload_chunked_ref
+
+    t0 = time.perf_counter()
+    ff1 = ColPmlIndex.build(tbl, ff_bound=1)
+    split.save(WORK / "fused.colpml")
+    ff1.save(WORK / "fused1.colpml")
+    log(f"[index] fused indexes: r={split.r} ff_bound={split.ff_bound}; "
+        f"r={ff1.r} ff_bound={ff1.ff_bound} ({time.perf_counter() - t0:.1f}s)")
+
+    # K14 on the largest table the fused path uploads
+    _, jump_rows = TF.fused_rows(split)
+    got = upload_chunked(jump_rows, dev)
+    want = upload_chunked_ref(jump_rows, dev)
+    chk.equal("upload_rows", got, want, f"jump_rows {jump_rows.shape}")
+    pinned = torch.from_numpy(jump_rows).pin_memory()
+    pin_ms = cuda_ms(torch, lambda: got.copy_(pinned, non_blocking=True))
+    chk.time("upload_rows", lambda: upload_chunked(jump_rows, dev),
+             lambda: upload_chunked_ref(jump_rows, dev),
+             f"jump_rows {jump_rows.shape}, {jump_rows.nbytes} B, 16 MB "
+             f"slices (one pinned copy_ {pin_ms:.4f} ms = "
+             f"{jump_rows.nbytes / pin_ms / 1e6:.1f} GB/s)",
+             bound_ms=pin_ms, library_ms=pin_ms)
+    del got, want, pinned
+
+    sample = reads[:8192 - 256] + n_reads[:256]
+    for idx in (split, ff1):
+        ft = TF.build_fused_tables(idx, dev)
+        for label, batch, M, reps in (("dispatch", sample, 256, 3),
+                                      ("long reads", long_reads, 8192, 1)):
+            enc, ln = idx.encode_patterns(batch, M)
+            args = (ft, to_device(enc, dev), to_device(ln, dev))
+            kw = dict(ff_bound=idx.ff_bound)
+            gp, gc = TF.query_batch_fused(*args, **kw)
+            wp, wc = TF.query_batch_fused_ref(*args, **kw)
+            what = (f"ff_bound={idx.ff_bound} r={idx.r} {label} "
+                    f"{len(batch)}x{M}")
+            chk.equal("query_batch_fused", gp, wp, what + " pml")
+            chk.equal("query_batch_fused", gc, wc, what + " cid")
+            # a run row and a jump row (32 B each) and ff_bound - 1 run
+            # lengths a valid step
+            steps = int(np.minimum(ln, M).sum())
+            chk.time("query_batch_fused",
+                     lambda: TF.query_batch_fused(*args, **kw),
+                     lambda: TF.query_batch_fused_ref(*args, **kw), what,
+                     reps=reps,
+                     bound=(nbytes(args[1:], gp, gc) + gathered(
+                         ft, steps, 64 + 4 * (idx.ff_bound - 1)),
+                         steps * 30))
+        del ft
+    torch.cuda.empty_cache()
 
 
 class Records(logging.Handler):
@@ -510,7 +668,7 @@ def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
     the engine must be `engine`, every kernel in `needed` must have
     launched, and `check(pmls, cids)` checks the records.  Returns the
     metrics, the launch counts and the records."""
-    from colbwt_tpu.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
     from colbwt_tpu_torch.ops import _kernels as K
 
     K.reset_launches()
@@ -540,6 +698,41 @@ def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
         f"B; {what} ({time.perf_counter() - t0:.1f}s); launches "
         f"{json.dumps(launches)}")
     return m, launches, pmls, cids
+
+
+def stream_phase(torch, tag: str, query, pat: Path, ref: Path, engine: str,
+                 needed: tuple[str, ...], one_shot_reads_per_s: float
+                 ) -> tuple[dict, dict]:
+    """One `query --stream` with launch counts reset just before it: the
+    engine must be `engine`, every kernel in `needed` must have launched,
+    and its two files must be byte-equal to the one-shot query's of
+    `ref`.  Returns the metrics and the launch counts."""
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    v = run_logged(query, "colbwt_torch.stream", STREAM_KEYS)
+    launches = dict(K.launches)
+    require(v.get("engine") == engine,
+            f"phase {tag} engine {v.get('engine')}, expected {engine}")
+    for name in needed:
+        require(launches[name] > 0, f"{name} never launched in phase {tag}")
+    for ext in ("pml", "cid"):
+        require(same_bytes(f"{pat}.split.{ext}.bin",
+                           f"{ref}.split.{ext}.bin"),
+                f"phase {tag}: .split.{ext}.bin differs from {ref.name}'s")
+    m = {"engine": v["engine"], "reads": v["reads"],
+         "table_build_s": v["table_build_s"], "query_wall_s": v["wall_s"],
+         "reads_per_s": v["reads"] / v["wall_s"],
+         "one_shot_reads_per_s": one_shot_reads_per_s,
+         "device_mem_peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[phase {tag}] --stream, engine {v['engine']}: {v['reads']} reads "
+        f"in {v['wall_s']:.3f}s -> {m['reads_per_s']:.0f} reads/s (phase "
+        f"4's one-shot query {one_shot_reads_per_s:.0f} reads/s), table "
+        f"build {v['table_build_s']:.3f}s, device memory peak "
+        f"{m['device_mem_peak_bytes']} B; files byte-equal to {ref.name}'s; "
+        f"launches {json.dumps(launches)}")
+    return m, launches
 
 
 class Capture:
@@ -585,7 +778,7 @@ def run_build(tag: str, call, needed: tuple[str, ...]) -> tuple[dict, dict]:
 
 def write_col_files(out: Path, bits: np.ndarray, ids: np.ndarray, n: int
                     ) -> None:
-    from colbwt_tpu.io import formats as F
+    from colbwt_tpu_torch.io import formats as F
 
     bv = np.zeros(n, dtype=bool)
     bv[bits] = True
@@ -601,10 +794,10 @@ def host_col_split(prefix: str, mode: str, out: Path) -> float:
     """The host walk of `mode` on the MUMs of PREFIX.fa.col_mums with the
     shared interval sweep, written to OUT.col_runs/.col_ids (split rate 10,
     8-bit ids); returns its seconds."""
-    from colbwt_tpu.io import formats as F
-    from colbwt_tpu.ops import oracle as O
-    from colbwt_tpu.ops.colruns_vec import (find_col_runs_mixed,
-                                            find_col_runs_uniform)
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import oracle as O
+    from colbwt_tpu_torch.ops.colruns_vec import (find_col_runs_mixed,
+                                                  find_col_runs_uniform)
     from colbwt_tpu_torch.ops import colsplit as TCS
 
     heads, lens = F.read_rlbwt(f"{prefix}.fa")
@@ -631,8 +824,8 @@ def host_lane(prefix: str, arrays, num_docs: int) -> dict:
     """Phase 3's host lane on the build's own arrays: O.find_multi_mums
     must reproduce .col_mums, and the host tunnels walk with the shared
     sweep .col_runs/.col_ids, byte for byte.  Returns their seconds."""
-    from colbwt_tpu.io import formats as F
-    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import oracle as O
 
     ranks, sa, lcp, doc_ids = arrays
     t0 = time.perf_counter()
@@ -681,7 +874,8 @@ def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
         chk.equal("mum_window", got[1], want[1], label + " ell")
         if k == 0:
             chk.time("mum_window", lambda: TC.mum_scan_chunk(*args),
-                     lambda: TC.mum_scan_chunk_ref(*args), label)
+                     lambda: TC.mum_scan_chunk_ref(*args), label,
+                     bound=(nbytes(args[:3], got), args[3] * 6 * N))
         del got, want, args
     torch.cuda.empty_cache()
 
@@ -692,8 +886,8 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
     route over the whole array, K8 over four chunks of 2**20 (whose hits
     must equal the one-shot scan's), and both walks on the first bucket of
     bench's MUMs."""
-    from colbwt_tpu.io import formats as F
-    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import oracle as O
     from colbwt_tpu_torch.ops import colsplit as TCS
     from colbwt_tpu_torch.ops import construct as TC
 
@@ -707,7 +901,8 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
     chk.equal("mum_window", got[0], want[0], what + " is_mum")
     chk.equal("mum_window", got[1], want[1], what + " ell")
     chk.time("mum_window", lambda: TC.multi_mum_scan(*t, num_docs, 20),
-             lambda: TC.multi_mum_scan_ref(*t, num_docs, 20), what)
+             lambda: TC.multi_mum_scan_ref(*t, num_docs, 20), what,
+             bound=(nbytes(t, got), lcp.size * 6 * num_docs))
     del got, want, t
     check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk, "bench")
     cl, cp = TC.find_multi_mums_chunked(lcp, sa_docs, rc, num_docs, 20,
@@ -733,9 +928,11 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
         want = ref(fd, p0, lt, T, rate, num_docs)
         for j, (g, w) in enumerate(zip(got, want)):
             chk.equal(name, g, w, f"{what}, rate {rate}, output {j}")
+        walkers = sel.size * (num_docs if name == "all_walk" else 1)
         chk.time(name, lambda: kern(fd, p0, lt, T, rate, num_docs),
                  lambda: ref(fd, p0, lt, T, rate, num_docs),
-                 f"{what}, rate {rate}, N = {num_docs}")
+                 f"{what}, rate {rate}, N = {num_docs}",
+                 bound=(nbytes(fd, p0, lt, got), walkers * T * 100))
     torch.cuda.empty_cache()
 
 
@@ -774,9 +971,9 @@ def pangenome_docs() -> list[bytes]:
 
 def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
     """The build path at full size on the pangenome, then its checks."""
-    from colbwt_tpu.io import formats as F
-    from colbwt_tpu.io.pml_out import read_pml_cid_binary
-    from colbwt_tpu.ops import oracle as O
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.ops import oracle as O
 
     t0 = time.perf_counter()
     docs = pangenome_docs()
@@ -903,7 +1100,7 @@ def start_native_build() -> subprocess.Popen | None:
 
 
 def finish_native_build(proc: subprocess.Popen | None) -> None:
-    from colbwt_tpu.io import native as native_lib
+    from colbwt_tpu_torch.io import native as native_lib
 
     if proc is not None:
         _, err = proc.communicate()
@@ -916,12 +1113,12 @@ def run(torch) -> tuple[dict, list[dict]]:
     """Phases 2-8c on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
-    from colbwt_tpu.io import formats as F
-    from colbwt_tpu.io.fasta import FastaRecord, write_fasta
-    from colbwt_tpu.io.pml_out import read_pml_cid_binary
-    from colbwt_tpu.models.index import ColPmlIndex
-    from colbwt_tpu.ops import oracle as O
-    from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import oracle as O
+    from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
     from colbwt_tpu_torch.cli import main as cli_main
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.pipeline import build_pipeline
@@ -997,8 +1194,14 @@ def run(torch) -> tuple[dict, list[dict]]:
     log(f"[phase 3] reads made in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
+    split = check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
     log(f"[phase 3] K1-K4 equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
+                        chk)
+    del split
+    log(f"[phase 3] K7, K14 equal to their plain versions "
         f"({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     mega_tbl = scale_table(tbl, MEGA_SCALE)
@@ -1142,6 +1345,54 @@ def run(torch) -> tuple[dict, list[dict]]:
     launches.append(lc)
     log("[mega paths] " + json.dumps(paths))
 
+    # phase 9: the fused engine at full size through the CLI, on bench's
+    # table run-split with ff_bound 2 (saved in phase 3)
+    p9 = WORK / "reads_fused.fa"
+    shutil.copy(pat, p9)
+    fused = {}
+    fused["9"], lc, _, _ = mega_phase(
+        torch, "9", lambda: cli_main(["query", str(WORK / "fused"), "-p",
+                                      str(p9), "--engine", "fused"]),
+        p9, all_names, oracle_check(tbl), "fused",
+        ("query_batch_fused", "upload_rows"))
+    launches.append(lc)
+
+    # phase 9b: phase 5's small query under the default engine on the
+    # ff_bound 1 index: the ladder picks the fused engine by itself
+    p9b = WORK / "reads_small_fused.fa"
+    shutil.copy(pat5, p9b)
+
+    def same_as_phase5(pm, ci):
+        for j, i in enumerate(sel):
+            require(np.array_equal(pm[j], pmls5[j])
+                    and np.array_equal(ci[j], cids5[j]),
+                    f"phase 9b record {records[i][0]} differs from phase 5")
+        return "records equal phase 5's"
+
+    fused["9b"], lc, _, _ = mega_phase(
+        torch, "9b", lambda: cli_main(["query", str(WORK / "fused1"), "-p",
+                                       str(p9b)]),
+        p9b, [records[i][0] for i in sel], same_as_phase5, "fused",
+        ("query_batch_fused", "upload_rows"))
+    launches.append(lc)
+
+    # phase 10: `query --stream` over phase 4's reads, on bench's index
+    # (pos, k=4) and with --engine fused on phase 9's: the files must be
+    # byte-equal to phases 4 and 9
+    for tag, index_prefix, extra, ref, engine, needed in (
+            ("10", prefix, [], pat, "pos(k=4)",
+             ("build_t1_chunk", "compose_tables", "query_chunk_pos")),
+            ("10b", str(WORK / "fused"), ["--engine", "fused"], p9, "fused",
+             ("query_batch_fused", "upload_rows"))):
+        p10 = WORK / f"reads_stream{tag}.fa"
+        shutil.copy(pat, p10)
+        fused[tag], lc = stream_phase(
+            torch, tag, lambda: cli_main(["query", index_prefix, "-p",
+                                          str(p10), "--stream", *extra]),
+            p10, ref, engine, needed, main_path["reads_per_s"])
+        launches.append(lc)
+    log("[fused and stream paths] " + json.dumps(fused))
+
     # phases 8-8c: the build path through the CLI
     v8, lc8 = phase8(torch, dev, cli_main, chk)
     v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
@@ -1152,12 +1403,10 @@ def run(torch) -> tuple[dict, list[dict]]:
 
     kernels = []
     for name, (tag, src, replaces) in KERNEL_INFO.items():
-        ms, plain = chk.ms[name]
         kernels.append({"name": f"{tag} {name}", "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": sum(lc[name] for lc in launches),
-                        "max_abs_err": chk.err[name], "ms": ms,
-                        "plain_ms": plain})
+                        "max_abs_err": chk.err[name], **chk.ms[name]})
     return main_path, kernels
 
 

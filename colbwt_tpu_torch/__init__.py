@@ -10,15 +10,20 @@ results.
 
 - ``colbwt_tpu_torch.ops``      query engines and build stages: CUDA
                                 kernels (csrc/) with a plain PyTorch
-                                version beside each
-- ``colbwt_tpu_torch.models``   the index as a dict of device tensors
+                                version beside each; the NumPy oracle
+- ``colbwt_tpu_torch.models``   the index (ColPmlIndex) and its device
+                                tensors
 - ``colbwt_tpu_torch.pipeline`` the build pipeline, engine selection,
-                                the one-shot query pipeline
-- ``colbwt_tpu_torch.utils``    device selection and memory budgets
+                                the one-shot and streaming queries
+- ``colbwt_tpu_torch.io``       file formats, FASTA, PML/CID writers, the
+                                native host library
+- ``colbwt_tpu_torch.utils``    configuration, logging, device selection,
+                                memory budgets, the chunked upload
 
 The device defaults to ``cuda`` everywhere and raises when CUDA is absent;
 the plain PyTorch path runs only when a caller passes ``device="cpu"``.
-This package imports torch and never jax.
+This package imports torch and never jax, and nothing of colbwt_tpu: the
+host layer it shares with the JAX package is its own copy.
 """
 
 __version__ = "0.1.0"

@@ -5,14 +5,15 @@
                         [-l MIN_MUM] [-v] [--force] [--keep] [--clean]
                         [--sa-mode M] [--chunk-chars C] [--device DEV]
                         [fastas ...]
-    col-bwt-torch query INDEX -p PATTERN [--text] [-l] [--engine E]
-                        [--batch-size B] [--device DEV]
+    col-bwt-torch query INDEX -p PATTERN [--text] [-l] [--stream]
+                        [--engine E] [--batch-size B] [--device DEV]
 
 The device defaults to cuda and the run fails when CUDA is absent; pass
 --device cpu to run the plain PyTorch path.  `build` finds the multi-MUMs
 and walks the col-split on the device in both SA lanes (--sa-mode
 monolithic, or chunked for collections beyond the host SA budget).
-`query --stream` is not ported yet.
+`query --stream` is the bounded-memory lane (pipeline/stream.py), with
+batches of 32768 reads unless --batch-size says otherwise.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import argparse
 import sys
 from pathlib import Path
 
-from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
+from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
 
 CLEAN_EXTS = ["bwt", "thr_pos", "col_mums", "bwt.heads", "bwt.len",
               "col_ids", "col_runs", "col_pml"]
@@ -51,23 +52,31 @@ def _build(args: argparse.Namespace) -> int:
 
 
 def _query(args: argparse.Namespace) -> int:
-    from colbwt_tpu_torch.pipeline.build import query_pipeline
+    from colbwt_tpu_torch.pipeline import query_pipeline, query_stream
 
     if args.batch_size < 0:
         print("Error: --batch-size must be >= 0 (0 = config default).",
               file=sys.stderr)
         return 1
-    if args.stream:
-        print("Error: --stream is not ported to PyTorch yet (ROADMAP Queue 1 "
-              "item 7); run without it.", file=sys.stderr)
-        return 1
     cfg = ColBwtConfig(verbose=args.verbose, engine=args.engine)
     if args.batch_size:
         cfg.batch_size = args.batch_size
-    query_pipeline(args.index, args.pattern, cfg,
-                   write_text=args.text and not args.long,
-                   write_text_long=args.text and args.long,
-                   device=args.device)
+    elif args.stream:
+        # bulk streaming defaults to deeper batches, as col-bwt does
+        # (colbwt_tpu/cli.py:63-69): per-batch costs amortize, and
+        # first-output latency does not matter for a bulk run
+        cfg.batch_size = 32768
+    if args.stream:
+        if args.text:
+            print("Error: --stream writes binary outputs only.",
+                  file=sys.stderr)
+            return 1
+        query_stream(args.index, args.pattern, cfg, device=args.device)
+    else:
+        query_pipeline(args.index, args.pattern, cfg,
+                       write_text=args.text and not args.long,
+                       write_text_long=args.text and args.long,
+                       device=args.device)
     print(f"Output at {args.pattern}.split.pml.bin and "
           f"{args.pattern}.split.cid.bin")
     return 0
@@ -130,16 +139,17 @@ def main(argv: list[str] | None = None) -> int:
                         "(src/pml_query.cpp:32-63)")
     q.add_argument("-v", "--verbose", action="store_true")
     q.add_argument("--stream", action="store_true",
-                   help="bounded-memory streaming mode (not ported yet; "
-                        "fails)")
+                   help="bounded-memory streaming mode for huge pattern "
+                        "files (binary outputs only)")
     q.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device batch (0 = config default 8192)")
+                   help="reads per device batch (0 = config default 8192; "
+                        "32768 with --stream)")
     q.add_argument("--engine", type=str, default="auto",
                    choices=["auto", "pos", "mega", "fused", "xla"],
                    help="query engine override (auto picks the fastest "
-                        "that fits device memory; mega needs a run-split "
-                        "index; fused is not ported yet and fails; wide "
-                        "indexes always use mega-wide)")
+                        "that fits device memory; mega and fused need a "
+                        "run-split index; wide indexes always use "
+                        "mega-wide)")
     q.add_argument("--device", type=str, default="cuda", help=device_help)
 
     args = parser.parse_args(argv)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from colbwt_tpu.models.index import ColPmlIndex
+from colbwt_tpu_torch.models.index import ColPmlIndex
 
 SOA_FIELDS = ("char", "idx", "length", "dest_interval", "dest_offset",
               "col_id", "threshold", "pred_jump", "succ_jump")

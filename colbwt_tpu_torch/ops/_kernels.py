@@ -9,9 +9,9 @@ source is rebuilt and an unchanged one is reused.
 Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
 code.  `launches` counts kernel launches per wrapper name (the wrappers in
 ops/query_pos.py, ops/query_xla.py, ops/query_mega.py,
-ops/query_mega_wide.py, ops/construct.py and ops/colsplit.py add one where
-they launch, and nowhere else), so a run can show which kernels its path
-went through.
+ops/query_mega_wide.py, ops/query_fused.py, ops/construct.py,
+ops/colsplit.py and utils/xfer.py add one where they launch, and nowhere
+else), so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
-           "fill_block_wide", "shared_table_wide", "mum_window",
-           "tunneled_walk", "all_walk")
+           "fill_block_wide", "shared_table_wide", "query_batch_fused",
+           "mum_window", "tunneled_walk", "all_walk", "upload_rows")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -56,6 +56,9 @@ _SIGNATURES = {
                                      + [_P]),
     "colbwt_fill_block_wide": [_P, _I, _I] + [_P] * 11 + [_I] * 4 + [_P],
     "colbwt_shared_table_wide": [_P] * 8 + [_I] + [_P],
+    "colbwt_query_batch_fused": [_P] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 3
+                                + [_P] * 2 + [_P],
+    "colbwt_upload_rows": [_P, _P, _I, _I, _P],
     "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
     "colbwt_tunneled_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],

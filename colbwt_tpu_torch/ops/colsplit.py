@@ -29,7 +29,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
-from colbwt_tpu.ops.oracle import FLTableArrays
+from colbwt_tpu_torch.ops.oracle import FLTableArrays
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.utils.device import resolve_device
 

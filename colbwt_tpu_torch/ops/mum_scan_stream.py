@@ -3,24 +3,80 @@ colbwt_tpu/ops/mum_scan_stream.py.
 
 The scan's three n-sized inputs live on disk as .npy files (lcp int32, the
 per-rank document id, the run-change marks bit-packed by
-colbwt_tpu.ops.mum_scan_stream.write_run_change_bits) and are sliced one
-chunk at a time, so the scanning process stays O(chunk) resident at any n.
+`write_run_change_bits`) and are sliced one chunk at a time, so the
+scanning process stays O(chunk) resident at any n.
 The scan runs in this process, chunk by chunk through
 ops/construct.find_multi_mums_chunked (kernel K8).  After every chunk the
 hits so far are saved to a progress file (temp name, then rename), so a
 killed build resumes after the last finished chunk.  The progress file
 records the scan it belongs to, (n, N, min_mum, C): one written for another
 collection, document count, minimum length or chunk size is ignored.
+`write_run_change_bits` and `extract_npz_member`, which write two of those
+inputs, are copied from the JAX module as they are.
 """
 
 from __future__ import annotations
 
+import shutil
+import zipfile
 from pathlib import Path
 
 import numpy as np
 
 from colbwt_tpu_torch.ops import construct as TC
+from colbwt_tpu_torch.utils.config import TERMINATOR
 from colbwt_tpu_torch.utils.device import resolve_device
+
+
+def write_run_change_bits(heads: np.ndarray, lens: np.ndarray,
+                          path: str | Path, block: int = 1 << 26) -> None:
+    """Bit-packed (little-endian) equivalent of
+    construct_chunked.run_change_from_runs, written blockwise: run starts
+    are 1, and every position of a terminator run is 1 (terminators are
+    pairwise-distinct ranks).  n/8 bytes on disk instead of n bytes in
+    RAM."""
+    heads = np.asarray(heads)
+    lens = np.asarray(lens, dtype=np.int64)
+    n = int(lens.sum())
+    starts = np.zeros(heads.size, dtype=np.int64)
+    if heads.size > 1:
+        np.cumsum(lens[:-1], out=starts[1:])
+    term = np.flatnonzero(heads == TERMINATOR)
+    term_lo = starts[term]
+    term_hi = term_lo + lens[term]
+    assert block % 8 == 0
+    path = Path(path)
+    tmp = path.with_suffix(".tmp.npy")
+    with open(tmp, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "|u1", "fortran_order": False,
+                "shape": ((n + 7) // 8,)})
+        for bs in range(0, n, block):
+            be = min(bs + block, n)
+            buf = np.zeros(be - bs, dtype=np.uint8)
+            i0 = int(np.searchsorted(starts, bs))
+            i1 = int(np.searchsorted(starts, be))
+            buf[starts[i0:i1] - bs] = 1
+            j0 = int(np.searchsorted(term_hi, bs, side="right"))
+            j1 = int(np.searchsorted(term_lo, be))
+            for lo, hi in zip(term_lo[j0:j1], term_hi[j0:j1]):
+                buf[max(int(lo) - bs, 0):int(hi) - bs] = 1
+            f.write(np.packbits(buf, bitorder="little").tobytes())
+    tmp.rename(path)
+
+
+def extract_npz_member(npz_path: str | Path, member: str,
+                       out_path: str | Path, block: int = 1 << 24) -> None:
+    """Stream one member of an (uncompressed) .npz out to a standalone
+    .npy file in O(block) memory — np.load would materialize the whole
+    array just to re-save it."""
+    out_path = Path(out_path)
+    tmp = out_path.with_suffix(".tmp.npy")
+    with zipfile.ZipFile(npz_path) as zf:
+        with zf.open(member) as src, open(tmp, "wb") as dst:
+            shutil.copyfileobj(src, dst, block)
+    tmp.rename(out_path)
+    np.load(out_path, mmap_mode="r")  # validate the .npy header
 
 
 def _load_progress(path: Path, key: np.ndarray, log=None

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from colbwt_tpu.models.index import ColPmlIndex
+from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.models.tensors import to_device
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.ops.query_xla import _gather

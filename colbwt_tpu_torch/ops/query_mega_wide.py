@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from colbwt_tpu.models.index import MAX_WIDE_RUN_LEN, ColPmlIndex
+from colbwt_tpu_torch.models.index import MAX_WIDE_RUN_LEN, ColPmlIndex
 from colbwt_tpu_torch.models.tensors import to_device
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.ops.query_mega import (check_scan_args, fast_forward,

@@ -15,9 +15,9 @@ package does, the device stages on `device` (default cuda):
                   host oracle; thresholds on the host.
                   chunked lane (sa_mode="chunked", or "auto" beyond the
                   host SA budget): chunked RLBWT + LCP on the host
-                  (colbwt_tpu.ops.construct_chunked), multi-MUMs by the
+                  (ops/construct_chunked.py), multi-MUMs by the
                   in-process streamed K8 scan (ops/mum_scan_stream.py)
-  stage_bwt       shared with the JAX package
+  stage_bwt       the plain BWT file, as the JAX package writes it
   stage_colsplit  n >= 2**31: the host int64 walkers; else, when
                   n >= _DEVICE_MIN_N or there are more than 256 MUMs,
                   ops/colsplit.col_split on the device (K10a tunnels, K10b
@@ -42,14 +42,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from colbwt_tpu.io import formats as F
-from colbwt_tpu.io.fasta import read_fasta
-from colbwt_tpu.io.pml_out import write_pml_cid_binary, write_pml_cid_text
-from colbwt_tpu.models.index import ColPmlIndex
-from colbwt_tpu.ops import oracle as O
-from colbwt_tpu.pipeline.build import load_documents, stage_bwt
-from colbwt_tpu.utils.config import ColBwtConfig
-from colbwt_tpu.utils.log import Timer, get_logger, status
+from colbwt_tpu_torch.io import formats as F
+from colbwt_tpu_torch.io.fasta import read_fasta, reverse_complement
+from colbwt_tpu_torch.io.pml_out import (write_pml_cid_binary,
+                                         write_pml_cid_text,
+                                         write_pml_cid_text_long)
+from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.ops import oracle as O
+from colbwt_tpu_torch.utils.config import ColBwtConfig
+from colbwt_tpu_torch.utils.log import (Timer, device_mem_peak, get_logger,
+                                        status)
 from colbwt_tpu_torch.ops import construct as TC
 from colbwt_tpu_torch.ops import colsplit as TCS
 from colbwt_tpu_torch.utils.device import resolve_device
@@ -79,6 +81,26 @@ def _timed(logger, key: str, what: str):
     logger.info("%s in %.3fs", what, s, extra={key: s})
 
 
+def load_documents(fastas: list[str], filelist: str | None,
+                   rev_comp: bool) -> list[bytes]:
+    """Collect one document per FASTA file (records concatenated), with
+    optional reverse complements appended (scripts/col-bwt.py:109-139);
+    colbwt_tpu/pipeline/build.py:52 as it is."""
+    files = list(fastas)
+    if filelist:
+        files = []
+        for line in Path(filelist).read_text().splitlines():
+            if line.strip():
+                files.append(line.split()[0])
+    docs = []
+    for f in files:
+        seq = b"".join(rec.seq for rec in read_fasta(f))
+        if rev_comp:
+            seq = seq + reverse_complement(seq)
+        docs.append(seq.upper())
+    return docs
+
+
 def _write_mums_artifacts(fa: str, prefix: str, docs: list[bytes], heads,
                           lens, thr, ml, mp, cfg: ColBwtConfig) -> None:
     F.write_rlbwt(fa, heads, lens, cfg.rw_bytes)
@@ -100,7 +122,7 @@ def stage_mums(docs: list[bytes], prefix: str, cfg: ColBwtConfig, logger,
         logger.info("[mums] artifacts exist, skipping")
         return
     try:
-        from colbwt_tpu.io import native as native_lib
+        from colbwt_tpu_torch.io import native as native_lib
 
         n_total = sum(len(d) + 1 for d in docs)
         sa_budget = resolve_sa_budget_chars(cfg.sa_ram_chars)
@@ -152,9 +174,8 @@ def _stage_mums_chunked(docs: list[bytes], prefix: str, cfg: ColBwtConfig,
     RLBWT and LCP sub-stages cache their results under
     PREFIX.chunked_cache (temp name, then rename), so a killed build
     resumes; the cache goes once the stage's artifacts are written."""
-    from colbwt_tpu.ops import construct_chunked as CC
-    from colbwt_tpu.ops import mum_scan_stream as JMS
-    from colbwt_tpu_torch.ops.mum_scan_stream import find_multi_mums_streamed
+    from colbwt_tpu_torch.ops import construct_chunked as CC
+    from colbwt_tpu_torch.ops import mum_scan_stream as MS
 
     fa = f"{prefix}.fa"
     n_total = sum(len(d) + 1 for d in docs)
@@ -224,10 +245,10 @@ def _stage_mums_chunked(docs: list[bytes], prefix: str, cfg: ColBwtConfig,
             doc_f = ck / f"doc_of.{fprint}.u16.npy"
             rc_f = ck / f"rc.{fprint}.bits.npy"
             if not rc_f.exists():
-                JMS.write_run_change_bits(heads, lens, rc_f)
+                MS.write_run_change_bits(heads, lens, rc_f)
             if not doc_f.exists():
-                JMS.extract_npz_member(rle_f, "doc_of.npy", doc_f)
-            ml, mp = find_multi_mums_streamed(
+                MS.extract_npz_member(rle_f, "doc_of.npy", doc_f)
+            ml, mp = MS.find_multi_mums_streamed(
                 lcp_f, doc_f, rc_f, len(docs), cfg.min_mum,
                 progress_path=ck / f"mumscan.{fprint}.npz",
                 log=lambda m: logger.info("[mums] %s", m), device=device)
@@ -241,13 +262,29 @@ def _stage_mums_chunked(docs: list[bytes], prefix: str, cfg: ColBwtConfig,
                 heads.size, ml.size, extra={"mums": int(ml.size)})
 
 
+def stage_bwt(prefix: str, cfg: ColBwtConfig, logger):
+    """Expand the RLBWT to PREFIX.fa.bwt (src/rlbwt_to_bwt.cpp:22-27);
+    colbwt_tpu/pipeline/build.py:262 as it is."""
+    fa = f"{prefix}.fa"
+    out = Path(f"{fa}.bwt")
+    if out.exists() and not cfg.force:
+        logger.info("[bwt] exists, skipping")
+        return
+    try:
+        heads, lens = F.read_rlbwt(fa, cfg.rw_bytes)
+        F.write_plain_bwt(out, heads, lens)
+    except Exception:
+        _cleanup([out])
+        raise
+
+
 def stage_colsplit(prefix: str, cfg: ColBwtConfig, logger,
                    device: torch.device):
     """FL walk + interval sweep -> .col_runs + .col_ids
     (src/col_split.cpp:62-141), routed as colbwt_tpu/pipeline/build.py:277
     stage_colsplit."""
-    from colbwt_tpu.ops.colruns_vec import (find_col_runs_mixed,
-                                            find_col_runs_uniform)
+    from colbwt_tpu_torch.ops.colruns_vec import (find_col_runs_mixed,
+                                                  find_col_runs_uniform)
 
     fa = f"{prefix}.fa"
     outs = [Path(f"{fa}.col_runs"), Path(f"{fa}.col_ids")]
@@ -387,7 +424,9 @@ def query_pipeline(index_prefix: str, pattern_file: str,
     Logs where the time went, with each value also attached to its log
     record: `read_s` (index load + FASTA parse), `engine`,
     `table_build_s`, `scan_s` (encode, device scans, copies back),
-    `write_s` (output files), `query_s` (all of it) and `reads`."""
+    `write_s` (output files), `query_s` (all of it), `reads` and
+    `device_mem_peak_bytes` (the CUDA allocator's peak; None on the
+    CPU)."""
     from colbwt_tpu_torch.pipeline.engines import QueryEngines
 
     cfg = cfg or ColBwtConfig()
@@ -457,8 +496,6 @@ def query_pipeline(index_prefix: str, pattern_file: str,
         write_pml_cid_text(f"{pattern_file}.pml", f"{pattern_file}.cid",
                            names, pmls, cids)
     if write_text_long:
-        from colbwt_tpu.io.pml_out import write_pml_cid_text_long
-
         write_pml_cid_text_long(f"{pattern_file}.pml", f"{pattern_file}.cid",
                                 names, pmls, cids)
     write_s = time.perf_counter() - t_write
@@ -467,5 +504,6 @@ def query_pipeline(index_prefix: str, pattern_file: str,
                 "%.3fs)", timer.start_duration,
                 len(reads) / max(timer.start_duration, 1e-9), write_s,
                 extra={"query_s": timer.start_duration, "reads": len(reads),
-                       "write_s": write_s})
+                       "write_s": write_s,
+                       "device_mem_peak_bytes": device_mem_peak(dev)})
     return names, pmls, cids

@@ -2,7 +2,7 @@
 colbwt_tpu/pipeline/engines.py.
 
 The selection logic is the JAX package's ladder (engines.py:28-91), kept
-as it is.  Four rungs are ported:
+as it is, with all five rungs:
 
 - positional automaton (k chars per gather; ops/query_pos.py, kernels
   K1-K3), chosen for large workloads when its tables fit the budget;
@@ -10,12 +10,17 @@ as it is.  Four rungs are ported:
   ops/query_mega_wide.py, kernels K6a-K6c), for every wide index;
 - mega (one row per char; ops/query_mega.py, kernel K5), for a run-split
   narrow index the positional tables cannot serve;
+- fused (K+1 gathers a char, for a run-split index with ff_bound >= 1;
+  ops/query_fused.py, kernel K7, tables uploaded by K14);
 - compact engine (table-free; ops/query_xla.py, kernel K4).
 
-Where the ladder would choose the fused engine, this raises
-NotImplementedError naming the ROADMAP item; it never substitutes another
-engine.  The persisted table cache (`table_dir`) is not ported yet
-(ROADMAP Queue 1 item 8) and is ignored.
+On CUDA a batch goes up from pinned host memory without blocking (through
+utils/xfer.upload_chunked, K14, when it is larger than one chunk), its
+outputs come down into pinned host tensors without blocking, and an event
+recorded after them is what `materialize` waits on: the device is never
+synchronized, so the streaming query's next batch runs while the host
+drains this one.  The persisted table cache (`table_dir`) is not ported
+yet (ROADMAP Queue 1 item 8) and is ignored.
 """
 
 from __future__ import annotations
@@ -26,15 +31,14 @@ import time
 import numpy as np
 import torch
 
-from colbwt_tpu.models.index import ColPmlIndex
-from colbwt_tpu.utils.config import ColBwtConfig
+from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
-from colbwt_tpu_torch.ops import (query_mega, query_mega_wide, query_pos,
-                                  query_xla)
+from colbwt_tpu_torch.ops import (query_fused, query_mega, query_mega_wide,
+                                  query_pos, query_xla)
+from colbwt_tpu_torch.utils.config import ColBwtConfig
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
-
-_NOT_PORTED = {"fused": "ROADMAP Queue 1 item 9"}
+from colbwt_tpu_torch.utils.xfer import CHUNK_BYTES, upload_chunked
 
 
 class QueryEngines:
@@ -77,13 +81,10 @@ class QueryEngines:
         self.use_fused = (not self.use_pos and not self.use_wide
                           and not self.use_mega and index.ff_bound >= 1
                           and cfg.engine in ("auto", "fused"))
-        if self.name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the {self.name} engine is not ported to PyTorch yet "
-                f"({_NOT_PORTED[self.name]})")
         self.table_build_seconds = 0.0
         self.pt = None
         self.mt = None
+        self.ft = None
         t0 = time.perf_counter()
         if self.use_pos:
             self.pt = query_pos.build_pos_tables(
@@ -94,7 +95,9 @@ class QueryEngines:
                 index, hbm_budget_bytes=budget, device=self.device)
         elif self.use_mega:
             self.mt = query_mega.build_mega_table(index, device=self.device)
-        if self.pt is not None or self.mt is not None:
+        elif self.use_fused:
+            self.ft = query_fused.build_fused_tables(index, self.device)
+        if self.use_pos or self.use_wide or self.use_mega or self.use_fused:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.table_build_seconds = time.perf_counter() - t0
@@ -117,13 +120,49 @@ class QueryEngines:
             self._xla_tb = index_tensors(self.index, self.device)
         return self._xla_tb
 
+    def _up(self, a: np.ndarray, dtype=np.int32) -> torch.Tensor:
+        """A host array on the device without blocking: from pinned memory,
+        or through upload_chunked (K14) when larger than one chunk."""
+        if self.device.type == "cpu":
+            return to_device(a, self.device, dtype)
+        a = np.ascontiguousarray(a, dtype=dtype)
+        if a.nbytes > CHUNK_BYTES:
+            return upload_chunked(a, self.device)
+        return torch.from_numpy(a).pin_memory().to(self.device,
+                                                   non_blocking=True)
+
+    def _down(self, t: torch.Tensor | None) -> torch.Tensor | None:
+        """A device output copied into pinned host memory without blocking
+        (a CPU tensor stays as it is)."""
+        if t is None or self.device.type == "cpu":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
     # ------------------------------------------------------------------
     def dispatch(self, batch: list[bytes], padded: int):
-        """Launch one device batch without waiting for it; returns
-        (device_pml, device_cid, lens, fallback) for `materialize`.  On the
-        pos and mega engines the pml side may be one packed pml << 8 | cid
-        plane, and the cid side is then None."""
-        index, pt, dev = self.index, self.pt, self.device
+        """Launch one device batch without waiting for it; returns (pml,
+        cid, lens, fallback, event) for `materialize`: the outputs on their
+        way into pinned host tensors and the CUDA event recorded after
+        those copies (None on the CPU).  On the pos and mega engines the pml
+        side may be one packed pml << 8 | cid plane, and the cid side is
+        then None."""
+        p, c, lens, fallback = self._scan(batch, padded)
+        p, c = self._down(p), self._down(c)
+        if fallback is not None:
+            idxs, p2, c2 = fallback
+            fallback = (idxs, self._down(p2), self._down(c2))
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return p, c, lens, fallback, event
+
+    def _scan(self, batch: list[bytes], padded: int):
+        """Encode, upload and launch one batch: (device pml, device cid,
+        lens, fallback)."""
+        index, pt = self.index, self.pt
         if self.use_pos:
             # M must divide both k (key folding) and the digit-packing
             # group (4 digits/byte at A <= 4, 2 at A <= 16)
@@ -137,21 +176,20 @@ class QueryEngines:
             dig, lens, bad = query_pos._encode_digits(index, pt, batch, padded)
             dig, pack = query_pos.pack_digits(dig, pt["A"])
             p, c = query_pos.query_batch_pos(
-                pt["table"], pt["n"], to_device(dig, dev, np.uint8),
-                to_device(lens, dev), k=self.pos_k, A=pt["A"],
-                packed_out=True, pack=pack)
+                pt["table"], pt["n"], self._up(dig, np.uint8), self._up(lens),
+                k=self.pos_k, A=pt["A"], packed_out=True, pack=pack)
             if bad.any():  # reads with non-key bytes: general k=1 fallback
                 idxs = np.flatnonzero(bad)
                 e2, l2 = index.encode_patterns([batch[i] for i in idxs],
                                                padded)
                 if pt["t1"] is not None:
                     p2, c2 = query_pos.query_batch_pos(
-                        pt["t1"], pt["n"], to_device(e2, dev, np.uint8),
-                        to_device(l2, dev), k=1, A=pt["A_full"])
+                        pt["t1"], pt["n"], self._up(e2, np.uint8),
+                        self._up(l2), k=1, A=pt["A_full"])
                 else:  # general T1 does not fit: compact engine
                     p2, c2 = query_xla.query_batch_device(
-                        self._compact_tables(), to_device(e2, dev),
-                        to_device(l2, dev), ff_bound=index.ff_bound)
+                        self._compact_tables(), self._up(e2), self._up(l2),
+                        ff_bound=index.ff_bound)
                 return p, c, lens, (idxs, p2, c2)
             return p, c, lens, None
         if self.use_wide or self.use_mega:
@@ -164,31 +202,39 @@ class QueryEngines:
             # uint8 dense ids up; one packed plane down (u16 at padded <=
             # 255, else int32, lossless below the 2**23 pml guard with 8-bit
             # cids), two planes otherwise
-            p, c = scan(self.mt, to_device(enc, dev, np.uint8),
-                        to_device(lens, dev), ff_bound=index.ff_bound,
+            p, c = scan(self.mt, self._up(enc, np.uint8), self._up(lens),
+                        ff_bound=index.ff_bound,
                         packed_out=self._cid8 and padded < (1 << 23))
             return p, c, lens, None
         enc, lens = index.encode_patterns(batch, padded)
-        p, c = query_xla.query_batch_device(
-            self._compact_tables(), to_device(enc, dev), to_device(lens, dev),
-            ff_bound=index.ff_bound)
+        if self.use_fused:
+            p, c = query_fused.query_batch_fused(
+                self.ft, self._up(enc), self._up(lens),
+                ff_bound=index.ff_bound)
+        else:
+            p, c = query_xla.query_batch_device(
+                self._compact_tables(), self._up(enc), self._up(lens),
+                ff_bound=index.ff_bound)
         return p, c, lens, None
 
     @staticmethod
     def materialize(result) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Wait for a dispatch() result; returns (pml (B, W), cid (B, W),
-        lens (B,)) with any fallback reads spliced back in.  A packed plane
-        (cid side None) is split on the host."""
-        p_dev, c_dev, lens, fallback = result
-        if c_dev is None:
-            p, c = query_pos.unpack_pml_cid(p_dev.cpu().numpy())
+        """Wait for a dispatch() result's event (not for the device);
+        returns (pml (B, W), cid (B, W), lens (B,)) with any fallback reads
+        spliced back in.  A packed plane (cid side None) is split on the
+        host."""
+        p_host, c_host, lens, fallback, event = result
+        if event is not None:
+            event.synchronize()
+        if c_host is None:
+            p, c = query_pos.unpack_pml_cid(p_host.numpy())
         else:
-            p = p_dev.cpu().numpy()
-            c = c_dev.cpu().numpy()
+            p = p_host.numpy()
+            c = c_host.numpy()
         if fallback is not None:
-            idxs, p2_dev, c2_dev = fallback
-            p[idxs] = p2_dev.cpu().numpy()
-            c[idxs] = c2_dev.cpu().numpy()
+            idxs, p2, c2 = fallback
+            p[idxs] = p2.numpy()
+            c[idxs] = c2.numpy()
         return p, c, np.asarray(lens)
 
     # ------------------------------------------------------------------
@@ -206,8 +252,8 @@ class QueryEngines:
         if self.use_mega:
             return query_mega.query_long_reads(self.index, reads, chunk=chunk,
                                                mt=self.mt)
-        # the compact engine handles any length in one batch (no table
-        # growth with M) — reuse dispatch at the padded length
+        # the fused and compact engines handle any length in one batch (no
+        # table growth with M) — reuse dispatch at the padded length
         padded = 1 << (max(max(len(r) for r in reads), 1) - 1).bit_length()
         p, c, lens = self.materialize(self.dispatch(reads, padded))
         W = p.shape[1]

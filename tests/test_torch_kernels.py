@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K10b against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K10b, K7 and K14 against their plain PyTorch versions,
+on the card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -14,16 +15,18 @@ import pytest
 import torch
 
 from chip_smoke import scale_table
-from colbwt_tpu.models.index import ColPmlIndex
-from colbwt_tpu.ops import oracle as O
+from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.ops import oracle as O
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.ops import colsplit as TCS
 from colbwt_tpu_torch.ops import construct as TC
+from colbwt_tpu_torch.ops import query_fused as TF
 from colbwt_tpu_torch.ops import query_mega as TM
 from colbwt_tpu_torch.ops import query_mega_wide as TW
 from colbwt_tpu_torch.ops import query_pos as TQ
 from colbwt_tpu_torch.ops import query_xla as TX
+from colbwt_tpu_torch.utils import xfer as TXF
 
 pytestmark = pytest.mark.cuda
 
@@ -438,3 +441,49 @@ def test_all_walk(dev, num_docs, base_len):
     for g, w in zip(TCS.col_split(fl, ml, mp, num_docs, 2, "all",
                                   device=dev), want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused scan; K14: the chunked upload
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ff", [1, 2, 4])
+def test_fused_scan(dev, case, ff):
+    """K7 against its plain version on run-split indexes, reads of mixed
+    lengths padded into one batch (N reads included), and the oracle."""
+    tbl, _, reads = case
+    index = ColPmlIndex.build(tbl, ff_bound=ff)
+    ft = TF.build_fused_tables(index, dev)
+    enc, lens = index.encode_patterns(reads, 256)
+    args = (ft, to_device(enc, dev), to_device(lens, dev))
+    before = K.launches["query_batch_fused"]
+    got = TF.query_batch_fused(*args, ff_bound=index.ff_bound)
+    assert K.launches["query_batch_fused"] == before + 1
+    want = TF.query_batch_fused_ref(*args, ff_bound=index.ff_bound)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    pml, cid = (t.cpu().numpy() for t in got)
+    for b in range(0, len(reads), 37):
+        ep, ec = O.query_pml_oracle(tbl, reads[b])
+        np.testing.assert_array_equal(pml[b, 256 - len(reads[b]):], ep)
+        np.testing.assert_array_equal(cid[b, 256 - len(reads[b]):], ec)
+
+
+@pytest.mark.parametrize("shape,dtype,cast", [
+    ((1000, 8), np.int32, None), ((12345,), np.uint8, None),
+    ((777, 3), np.int64, np.int32), ((5,), np.uint16, None)])
+def test_upload_rows(dev, tmp_path, shape, dtype, cast):
+    """K14 equals the plain version byte for byte, from a memory map too,
+    with chunks far smaller than the array."""
+    rng = np.random.default_rng(14)
+    a = rng.integers(0, 200, shape).astype(dtype)
+    np.save(tmp_path / "a.npy", a)
+    for src in (a, np.load(tmp_path / "a.npy", mmap_mode="r")):
+        before = K.launches["upload_rows"]
+        got = TXF.upload_chunked(src, dev, chunk_bytes=1000, dtype=cast)
+        assert K.launches["upload_rows"] > before
+        want = TXF.upload_chunked_ref(src, dev, chunk_bytes=1000, dtype=cast)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      a.astype(cast or dtype))

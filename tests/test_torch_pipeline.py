@@ -18,6 +18,7 @@ from colbwt_tpu.io.fasta import FastaRecord, read_fasta, write_fasta
 from colbwt_tpu.models.index import ColPmlIndex
 import colbwt_tpu.pipeline.build as JB
 import colbwt_tpu_torch.pipeline.build as TB
+from colbwt_tpu_torch.ops import oracle as TO
 from colbwt_tpu.ops import oracle as O
 from colbwt_tpu.pipeline import build_pipeline as jax_build
 from colbwt_tpu.pipeline import query_pipeline as jax_query
@@ -104,22 +105,29 @@ def test_cli_build_and_query_match_library(golden, tmp_path):
                       "--device", "cpu"]) == 0
     assert (tmp_path / "pattern.fa.pml").read_bytes() == \
         (GOLD / "pattern.fa.pml.golden").read_bytes()
+    outs = [tmp_path / f"pattern.fa.split.{x}.bin" for x in ("pml", "cid")]
+    one_shot = [f.read_bytes() for f in outs]
     assert torch_cli(["query", out, "-p", str(pat), "--stream",
-                      "--device", "cpu"]) == 1
+                      "--device", "cpu"]) == 0
+    assert [f.read_bytes() for f in outs] == one_shot
 
 
 @pytest.mark.parametrize("engine,wide,item", [
     ("fused", None, "item 9"),
 ], ids=["fused"])
 def test_engines_not_ported_raise(engine, wide, item):
-    """Where the JAX ladder picks the fused engine, the port raises naming
-    the ROADMAP item instead of substituting another engine."""
+    """Every engine is ported now (the fused one, ROADMAP Queue 1 `item`,
+    last): where the JAX ladder picks the fused engine the port picks it
+    too, raises nothing and substitutes no other engine."""
+    from colbwt_tpu.pipeline.engines import QueryEngines as JaxEngines
+
     tbl, _ = build_index(random_docs(np.random.default_rng(5), 2, lo=60,
                                      hi=90))
     split = ColPmlIndex.build(tbl, ff_bound=2, wide=wide)
-    with pytest.raises(NotImplementedError, match=item):
-        QueryEngines(split, ColBwtConfig(engine=engine), total_chars=10,
-                     device="cpu")
+    cfg = ColBwtConfig(engine=engine)
+    eng = QueryEngines(split, cfg, total_chars=10, device="cpu")
+    assert eng.name == JaxEngines(split, cfg, total_chars=10).name == engine
+    assert eng.ft is not None
 
 
 def test_unsplit_wide_index_refused():
@@ -247,8 +255,9 @@ def lanes(golden):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JB, "_DEVICE_MIN_N", 0)
         mp.setattr(TB, "_DEVICE_MIN_N", 0)
-        mp.setattr(O, "find_multi_mums", host_route)
-        mp.setattr(O, "col_split_oracle", host_route)
+        for oracle in (O, TO):
+            mp.setattr(oracle, "find_multi_mums", host_route)
+            mp.setattr(oracle, "col_split_oracle", host_route)
         for mode in ("tunnels", "all"):
             cfg = ColBwtConfig(**CFG, mode=SplitMode(mode))
             jax_build(fastas, str(golden / f"dev_{mode}.jax"), cfg)
