@@ -6,7 +6,8 @@
 Drives the port's two entry points.  `col-bwt-torch build` on bench.py's
 collection (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each,
 min-MUM 20, split rate 10) and on a pangenome of 16 x 4.5 Mbp haplotypes
-(n = 72,000,016), in both SA lanes and both split modes; `col-bwt-torch
+(n = 72,000,016), in both SA lanes and both split modes, with the native
+library and without it (the device suffix array); `col-bwt-torch
 query` on bench's index, on two indexes made from it by scaling every
 run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths) and on
 two run-split builds of it (the fused path), one-shot and `--stream`.
@@ -27,7 +28,11 @@ version on the card.  Phases:
    table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
    the fused path's shapes (8,192 x 256 and 16 x 8,192) on both, and K14
    on the ff_bound 2 jump rows (byte-equal to the plain copy, timed beside
-   one pinned copy_ of the same bytes)
+   one pinned copy_ of the same bytes); K11a every round of bench's suffix
+   array (order, ranks and largest rank; the sort timed beside one stable
+   torch.sort of the same packed keys), K11b's LCP and K12's thresholds
+   against their plain versions, the native Kasai LCP and
+   O.compute_thresholds_fast
 4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
    1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
    must be pos(k=4), 256 sampled records must equal the oracle
@@ -67,6 +72,15 @@ version on the card.  Phases:
 10. `query --stream` of phase 4's reads on bench's index (pos, k=4): both
    files byte-equal to phase 4's, reads/s beside phase 4's; 10b the same
    with --engine fused on phase 9's index, byte-equal to phase 9's
+11. the build without the native library (`native.available` patched to
+   False for the phase, as on a host without native/): bench's collection
+   through `build -m tunnels -s 10 -l 20` (K11a, K11b; every artifact and
+   the index byte-equal to phase 3's); 11b phase 8's pangenome through
+   stage_mums (its four artifacts byte-equal to phase 8's; rounds,
+   sa_lcp_s and the device memory peak logged); 11c bench.py's index-build
+   sequence (bench.py:83-98) through the port's ops, thresholds by K12
+   (the table equal to phase 3's field by field, the ff_bound-2 index to
+   phase 3's)
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
@@ -119,6 +133,12 @@ KERNEL_INFO = {
                           "colbwt_tpu/ops/query_fused.py:108"),
     "upload_rows": ("K14", "colbwt_tpu_torch/csrc/xfer.cu",
                     "colbwt_tpu/utils/xfer.py:27"),
+    "doubling_round": ("K11a", "colbwt_tpu_torch/csrc/suffix.cu",
+                       "colbwt_tpu/ops/construct_jax.py:51"),
+    "lcp_lift": ("K11b", "colbwt_tpu_torch/csrc/suffix.cu",
+                 "colbwt_tpu/ops/construct_jax.py:106"),
+    "segmented_argmin": ("K12", "colbwt_tpu_torch/csrc/suffix.cu",
+                         "colbwt_tpu/ops/construct_jax.py:494"),
 }
 # the least time of a kernel's work: its bytes (each input read once, each
 # output written once; a gathered table counted at the bytes its gathers
@@ -936,6 +956,96 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
     torch.cuda.empty_cache()
 
 
+def pair_keys(torch, rank, k: int, lo_bits: int):
+    """The packed keys K11a sorts, as int64: rank[i] << lo_bits |
+    (rank[i + k] + 1, or 0 past the end)."""
+    r = rank.to(torch.int64)
+    nxt = torch.zeros_like(r)
+    if k < r.shape[0]:
+        nxt[:r.shape[0] - k] = r[k:] + 1
+    return (r << lo_bits) | nxt
+
+
+def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
+    """K11a on every round of bench's suffix array, K11b on its pyramid and
+    K12 on every character of its BWT, against their plain versions at
+    bench's shapes; the suffix array, LCP and thresholds also against the
+    native SA-IS and Kasai arrays phase 3 built with, and its .thr_pos."""
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import construct as TC
+    from colbwt_tpu_torch.ops import oracle as O
+
+    ranks, sa_native, lcp_native, _ = arrays
+    n = ranks.size
+    r0 = torch.from_numpy(ranks.astype(np.int32)).to(dev)
+    rank, max_rank, k, pyramid = r0, int(ranks.max()), 1, []
+    rounds = []  # (input ranks, k, their largest rank, radix passes)
+    for rnd in range(1, int(np.ceil(np.log2(n))) + 1):
+        got = TC.doubling_round(rank, k, max_rank)
+        want = TC.doubling_round_ref(rank, k)
+        for j, (g, w) in enumerate(zip(got, want)):
+            chk.equal("doubling_round", g, w, f"round {rnd} (k = {k}) "
+                      f"output {j}")
+        lo_bits = (max_rank + 1).bit_length()
+        rounds.append((rank, k, max_rank,
+                       -(-(max_rank.bit_length() + lo_bits) // 8)))
+        sa, rank, top = got
+        pyramid.append(rank)
+        max_rank, k = int(top), 2 * k
+        if max_rank == n - 1:
+            break
+    require(np.array_equal(sa.cpu().numpy(), sa_native),
+            "K11a's suffix array differs from native SA-IS")
+    R = len(pyramid)
+    # timed: the first round whose keys are the widest (the most passes)
+    passes = max(p for *_, p in rounds)
+    rnd = next(j for j, r in enumerate(rounds) if r[3] == passes)
+    args = rounds[rnd][:3]
+    keys = pair_keys(torch, args[0], args[1],
+                     (args[2] + 1).bit_length())
+    lib = cuda_ms(torch, lambda: torch.sort(keys, stable=True))
+    chk.time("doubling_round", lambda: TC.doubling_round(*args),
+             lambda: TC.doubling_round_ref(*args[:2]),
+             f"round {rnd + 1} of {R}, n = {n}, k = {args[1]}, {passes} "
+             "radix passes", bound=(12 * n + 4, 8 * passes * n),
+             library_ms=lib)
+    del keys, rounds
+    lcp = TC.lcp_from_pyramid(r0, sa, pyramid)
+    chk.equal("lcp_lift", lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid),
+              f"n = {n}, R = {R}")
+    require(np.array_equal(lcp.cpu().numpy(), lcp_native),
+            "K11b's LCP differs from native Kasai")
+    chk.time("lcp_lift", lambda: TC.lcp_from_pyramid(r0, sa, pyramid),
+             lambda: TC.lcp_from_pyramid_ref(r0, sa, pyramid),
+             f"n = {n}, R = {R}",
+             bound=((R + 3) * 4 * n, 10 * (R + 1) * n))
+    del pyramid, rank
+
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    segs = [(torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
+            for _, lo, hi in TC.threshold_segments(heads, lens)]
+    for c, (lo, hi) in enumerate(segs):
+        chk.equal("segmented_argmin", TC.segmented_argmin(lcp, lo, hi),
+                  TC.segmented_argmin_ref(lcp, lo, hi),
+                  f"character {c}, {lo.shape[0]} segments")
+    thr = TC.compute_thresholds(heads, lens, lcp_native, device=dev)
+    require(np.array_equal(thr, O.compute_thresholds_fast(heads, lens,
+                                                          lcp_native))
+            and np.array_equal(thr, F.read_thresholds_file(
+                f"{prefix}.fa.thr_pos")),
+            "K12's thresholds differ from O.compute_thresholds_fast")
+    covered = sum(int((hi - lo + 1).sum()) for lo, hi in segs)
+    m = sum(lo.shape[0] for lo, _ in segs)
+    chk.time("segmented_argmin",
+             lambda: [TC.segmented_argmin(lcp, lo, hi) for lo, hi in segs],
+             lambda: [TC.segmented_argmin_ref(lcp, lo, hi)
+                      for lo, hi in segs],
+             f"{len(segs)} characters, {m} segments over {covered} "
+             "positions",
+             bound=(4 * covered + 24 * m, 4 * covered))
+    torch.cuda.empty_cache()
+
+
 def window_conditions(arrays, starts: np.ndarray, N: int, min_mum: int
                       ) -> tuple[np.ndarray, np.ndarray]:
     """The oracle's window test (colbwt_tpu/ops/oracle.py:390-403) at the
@@ -1063,9 +1173,7 @@ def phase8bc(dev, cli_main, fastas: list[str], bench_prefix: str
     for ext in ARTIFACTS:
         require(same_bytes(f"{pre_b}.{ext}", f"{bench_prefix}.{ext}"),
                 f"phase 8b: .{ext} differs from phase 3's")
-    a, b = np.load(f"{pre_b}.colpml.npz"), np.load(f"{bench_prefix}.colpml.npz")
-    require(sorted(a.files) == sorted(b.files)
-            and all(np.array_equal(a[k], b[k]) for k in a.files),
+    require(same_index(f"{pre_b}.colpml.npz", f"{bench_prefix}.colpml.npz"),
             "phase 8b: the index differs from phase 3's")
     log(f"[phase 8b] chunked SA lane: {len(ARTIFACTS)} artifacts and the "
         "index byte-equal to phase 3's")
@@ -1079,6 +1187,155 @@ def phase8bc(dev, cli_main, fastas: list[str], bench_prefix: str
                                                 WORK / "host_all")
     log("[phase 8c] all mode: .col_runs and .col_ids byte-equal to the "
         "host col_split_all_numpy")
+    return v, launches
+
+
+class NoNative:
+    """While active, the port sees no native library (every caller asks
+    colbwt_tpu_torch.io.native.available), as on a host without native/:
+    the FASTA reader parses in Python and stage_mums takes the device
+    suffix array."""
+
+    def __enter__(self):
+        from colbwt_tpu_torch.io import native
+
+        self.real = native.available
+        native.available = lambda: False
+        return self
+
+    def __exit__(self, *exc):
+        from colbwt_tpu_torch.io import native
+
+        native.available = self.real
+        return False
+
+
+def same_index(a: str, b: str) -> bool:
+    za, zb = np.load(a), np.load(b)
+    return (sorted(za.files) == sorted(zb.files)
+            and all(np.array_equal(za[k], zb[k]) for k in za.files))
+
+
+def phase11(dev, cli_main, fastas: list[str], bench_prefix: str,
+            v3: dict) -> tuple[dict, dict]:
+    """Bench's collection through the CLI build without the native
+    library: every artifact and the index byte-equal to phase 3's."""
+    pre = str(WORK / "bench_nonative")
+    with NoNative():
+        v, launches = run_build("11", lambda: cli_main(
+            ["build", "-o", pre, "-m", "tunnels", "-s", "10", "-l", "20",
+             "--keep", "--device", str(dev), *fastas]),
+            ("doubling_round", "lcp_lift", "mum_window", "tunneled_walk"))
+    for ext in ARTIFACTS:
+        require(same_bytes(f"{pre}.{ext}", f"{bench_prefix}.{ext}"),
+                f"phase 11: .{ext} differs from phase 3's")
+    require(same_index(f"{pre}.colpml.npz", f"{bench_prefix}.colpml.npz"),
+            "phase 11: the index differs from phase 3's")
+    v["rounds"] = launches["doubling_round"]
+    log(f"[phase 11] no native library: {len(ARTIFACTS)} artifacts and "
+        f"the index byte-equal to phase 3's; {v['rounds']} doubling rounds, "
+        f"sa_lcp_s {v['sa_lcp_s']:.3f} on the card against phase 3's "
+        f"{v3['sa_lcp_s']:.3f} (native SA-IS + Kasai)")
+    return v, launches
+
+
+def phase11b(torch, dev, pan_prefix: str, v8: dict) -> tuple[dict, dict]:
+    """Phase 8's pangenome through stage_mums without the native library
+    (the full-size device suffix array): its four artifacts byte-equal to
+    phase 8's."""
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.pipeline import build as TB
+    from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
+    from colbwt_tpu_torch.utils.log import get_logger
+
+    docs = pangenome_docs()
+    pre = str(WORK / "pangenome_nonative")
+    cfg = ColBwtConfig(mode=SplitMode.TUNNELS, split_rate=10, min_mum=20)
+    logger = get_logger("colbwt_torch.build")
+
+    def stage():
+        TB.stage_mums(docs, pre, cfg, logger, dev)
+        return 0
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with NoNative():
+        v = run_logged(stage, "colbwt_torch.build", BUILD_KEYS)
+    launches = dict(K.launches)
+    for name in ("doubling_round", "lcp_lift", "mum_window"):
+        require(launches[name] > 0, f"{name} never launched in phase 11b")
+    for ext in ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums"):
+        require(same_bytes(f"{pre}.{ext}", f"{pan_prefix}.{ext}"),
+                f"phase 11b: .{ext} differs from phase 8's")
+    v["rounds"] = launches["doubling_round"]
+    v["device_mem_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[phase 11b] stage_mums without the native library, n = "
+        f"{v8['n']}: .bwt.heads, .bwt.len, .thr_pos, .col_mums byte-equal "
+        f"to phase 8's; {v['rounds']} doubling rounds, sa_lcp_s "
+        f"{v['sa_lcp_s']:.3f} on the card against phase 8's "
+        f"{v8['sa_lcp_s']:.3f} (native SA-IS + Kasai), device memory peak "
+        f"{v['device_mem_peak_bytes']} B; " + json.dumps(v)
+        + "; launches " + json.dumps(launches))
+    return v, launches
+
+
+def phase11c(torch, dev, docs: list[bytes], tbl3) -> tuple[dict, dict]:
+    """bench.py's index-build sequence (bench.py:83-98) through the port's
+    ops without the native library, thresholds by K12: the table equal to
+    phase 3's field by field and the ff_bound-2 index to phase 3's."""
+    import dataclasses
+
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import colsplit as TCS
+    from colbwt_tpu_torch.ops import construct as TC
+    from colbwt_tpu_torch.ops import oracle as O
+
+    N = len(docs)
+    K.reset_launches()
+    v = {}
+    with NoNative():
+        t0 = time.perf_counter()
+        text, ranks, doc_ids = O.concat_collection(docs)
+        sa_t, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=dev)
+        lcp = TC.lcp_from_pyramid(ranks, sa_t, pyr).cpu().numpy()
+        sa = sa_t.cpu().numpy()
+        del sa_t, pyr
+        v["sa_lcp_s"] = time.perf_counter() - t0
+        heads, lens = O.rle(O.bwt_from_sa(text, sa))
+        fl = O.build_fl_table(heads, lens)
+        ml, mp = TC.find_multi_mums(ranks, sa, lcp, doc_ids, N, 20,
+                                    device=dev)
+        mpos, mids, mhts = TCS.col_split(fl, ml, mp, N, 10, "tunnels",
+                                         device=dev)
+        bits, ids = O.find_col_runs_oracle(mpos, mids, mhts, fl.l_heads,
+                                           fl.n)
+        t1 = time.perf_counter()
+        thr = TC.compute_thresholds(heads, lens, lcp, device=dev)
+        v["thresholds_s"] = time.perf_counter() - t1
+        tbl = O.build_col_pml(heads, lens, bits, ids, thr)
+        index = ColPmlIndex.build(tbl, ff_bound=2)
+        v["sequence_s"] = time.perf_counter() - t0
+    launches = dict(K.launches)
+    for name in ("doubling_round", "lcp_lift", "mum_window", "tunneled_walk",
+                 "segmented_argmin"):
+        require(launches[name] > 0, f"{name} never launched in phase 11c")
+    for f in dataclasses.fields(tbl):
+        a, b = getattr(tbl, f.name), getattr(tbl3, f.name)
+        require((a is None) == (b is None)
+                and (a is None or np.array_equal(a, b)),
+                f"phase 11c: table field {f.name} differs from phase 3's")
+    index.save(WORK / "bench_sequence.colpml")
+    require(same_index(str(WORK / "bench_sequence.colpml.npz"),
+                       str(WORK / "fused.colpml.npz")),
+            "phase 11c: the ff_bound-2 index differs from phase 3's")
+    t0 = time.perf_counter()
+    O.compute_thresholds_fast(heads, lens, lcp)
+    v["host_thresholds_s"] = time.perf_counter() - t0
+    log(f"[phase 11c] bench.py's build sequence without the native "
+        f"library: table equal to phase 3's field by field, index to phase "
+        f"3's ff_bound-2 split; " + json.dumps(v) + "; launches "
+        + json.dumps(launches))
     return v, launches
 
 
@@ -1110,7 +1367,7 @@ def finish_native_build(proc: subprocess.Popen | None) -> None:
 
 
 def run(torch) -> tuple[dict, list[dict]]:
-    """Phases 2-8c on the card; returns the main path's metrics and the
+    """Phases 2-11c on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
     from colbwt_tpu_torch.io import formats as F
@@ -1164,8 +1421,13 @@ def run(torch) -> tuple[dict, list[dict]]:
     chk = Checks(torch)
     t0 = time.perf_counter()
     check_build_kernels(torch, dev, prefix, cap.args, chk)
-    del cap
     log(f"[phase 3] K8-K10b equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    check_sa_kernels(torch, dev, prefix, cap.args, chk)
+    del cap
+    log(f"[phase 3] K11a, K11b, K12 equal to their plain versions, the "
+        f"native SA and LCP and the host thresholds "
         f"({time.perf_counter() - t0:.1f}s)")
     heads, lens = F.read_rlbwt(f"{prefix}.fa")
     tbl = O.build_col_pml(
@@ -1393,13 +1655,18 @@ def run(torch) -> tuple[dict, list[dict]]:
         launches.append(lc)
     log("[fused and stream paths] " + json.dumps(fused))
 
-    # phases 8-8c: the build path through the CLI
+    # phases 8-8c: the build path through the CLI; 11-11c: without the
+    # native library
     v8, lc8 = phase8(torch, dev, cli_main, chk)
     v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
-    launches += [lc3, lc8, *lc8bc]
+    v11, lc11 = phase11(dev, cli_main, fastas, prefix, v3)
+    v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8)
+    v11c, lc11c = phase11c(torch, dev, docs, tbl)
+    launches += [lc3, lc8, *lc8bc, lc11, lc11b, lc11c]
     log("[build path] " + json.dumps(
         {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
-         "phase8b": v8bc["8b"], "phase8c": v8bc["8c"]}))
+         "phase8b": v8bc["8b"], "phase8c": v8bc["8c"], "phase11": v11,
+         "phase11b": v11b, "phase11c": v11c}))
 
     kernels = []
     for name, (tag, src, replaces) in KERNEL_INFO.items():

@@ -9,9 +9,10 @@ source is rebuilt and an unchanged one is reused.
 Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
 code.  `launches` counts kernel launches per wrapper name (the wrappers in
 ops/query_pos.py, ops/query_xla.py, ops/query_mega.py,
-ops/query_mega_wide.py, ops/query_fused.py, ops/construct.py,
-ops/colsplit.py and utils/xfer.py add one where they launch, and nowhere
-else), so a run can show which kernels its path went through.
+ops/query_mega_wide.py, ops/query_fused.py, ops/construct.py (the
+multi-MUM scan, the suffix array, LCP and thresholds), ops/colsplit.py and
+utils/xfer.py add one where they launch, and nowhere else), so a run can
+show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
            "fill_block_wide", "shared_table_wide", "query_batch_fused",
-           "mum_window", "tunneled_walk", "all_walk", "upload_rows")
+           "mum_window", "tunneled_walk", "all_walk", "upload_rows",
+           "doubling_round", "lcp_lift", "segmented_argmin")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -64,6 +66,9 @@ _SIGNATURES = {
                             + [_P],
     "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
                        + [_P],
+    "colbwt_doubling_round": [_P] + [_I] * 4 + [_P] * 9 + [_P],
+    "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] + [_P],
+    "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
 }
 
 

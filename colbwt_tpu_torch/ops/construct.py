@@ -1,5 +1,21 @@
-"""Multi-MUM scan — port of the multi-MUM half of
-colbwt_tpu/ops/construct_jax.py.
+"""Device index construction — port of colbwt_tpu/ops/construct_jax.py:
+the suffix array and LCP (the build's route without the native library),
+the multi-MUM scan and the thresholds.
+
+Suffix array, LCP and thresholds, kernels in csrc/suffix.cu:
+
+- K11a `doubling_round` (replaces construct_jax.py:51 `_doubling_round`
+  and :39 `_rerank`): one prefix-doubling round, sort by (rank, rank at
+  i+k) and dense re-rank.  The kernel radix-sorts one packed uint64 key
+  stably; the plain version keeps JAX's two stable argsorts.
+  `suffix_array` (construct_jax.py:70) drives the rounds with JAX's early
+  exit and keeps the per-round ranks (the pyramid) on the device.
+- K11b `lcp_lift` (replaces construct_jax.py:106 `lcp_from_pyramid`):
+  the LCP of SA neighbours by power-of-two probes through the pyramid.
+- K12 `segmented_argmin` (replaces construct_jax.py:494
+  `_segmented_argmin`): the first argmin of the LCP over each segment
+  between two runs of one character; `compute_thresholds`
+  (construct_jax.py:505) drives it, one launch a character.
 
 A multi-MUM of N documents is a height-N window [i, i+N) of the suffix
 array whose suffixes come one from each document, share a prefix of length
@@ -26,15 +42,24 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
 
 from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.ops.oracle import normalize_heads
 from colbwt_tpu_torch.utils.device import resolve_device
 
 # above this n, stream fixed-size chunks instead of the one-shot scan
 # (construct_jax.py:463): O(C) device memory at any n
 _CHUNKED_SCAN_MIN_N = 1 << 22
+# csrc/suffix.cu: positions a radix-sort block owns, counts a scan block
+# owns, pyramid levels a launch takes
+_RADIX_TILE = 4096
+_SCAN_TILE = 4096
+_MAX_LEVELS = 32
 
 
 def _shift_left(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -44,6 +69,275 @@ def _shift_left(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
     if k >= x.shape[0]:
         return torch.full_like(x, fill)
     return torch.cat([x[k:], x.new_full((k,), fill)])
+
+
+def _int32_on(x, dev: torch.device) -> torch.Tensor:
+    """An array or a tensor as an int32 tensor on `dev`."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev, torch.int32)
+
+
+def _check_n(n: int) -> None:
+    if n < 1 or n >= 2**31:
+        raise ValueError(f"n = {n}: the int32 construction needs "
+                         "1 <= n < 2**31")
+
+
+# ---------------------------------------------------------------------------
+# suffix array by prefix doubling (K11a), LCP by lifting (K11b)
+# ---------------------------------------------------------------------------
+
+
+def doubling_round_ref(rank: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K11a, construct_jax.py:51-67: sort by (rank, next_rank) with
+    next_rank[i] = rank[i+k] (-1 where i >= n-k) by two stable argsorts,
+    then re-rank densely.  (order int32, new_rank int32, max rank as a
+    0-d int32 tensor)."""
+    next_rank = _shift_left(rank, k, -1)
+    o1 = torch.sort(next_rank, stable=True).indices
+    order = o1[torch.sort(rank[o1], stable=True).indices]
+    hi_s, lo_s = rank[order], next_rank[order]
+    changed = torch.ones(rank.shape[0], dtype=torch.int32, device=rank.device)
+    changed[1:] = ((hi_s[1:] != hi_s[:-1])
+                   | (lo_s[1:] != lo_s[:-1])).to(torch.int32)
+    ranks_sorted = torch.cumsum(changed, 0, dtype=torch.int32) - 1
+    new_rank = torch.empty_like(ranks_sorted)
+    new_rank[order] = ranks_sorted
+    return order.to(torch.int32), new_rank, ranks_sorted[-1]
+
+
+def _scan_scratch_len(m: int) -> int:
+    """Block totals of csrc/suffix.cu's recursive exclusive scan of m
+    counts: ceil(m / 4096) + ceil(m / 4096**2) + ... down to one block."""
+    total = 0
+    while True:
+        m = -(-m // _SCAN_TILE)
+        total += m
+        if m == 1:
+            return total
+
+
+def doubling_round(rank: torch.Tensor, k: int, max_rank: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11a: one prefix-doubling round, outputs as `doubling_round_ref`.
+    CPU tensors take the plain version; CUDA tensors launch
+    `doubling_round`, which sorts keys of bit_length(max_rank) +
+    bit_length(max_rank + 1) bits: `max_rank` must be the largest value of
+    `rank` (the previous round's, which `suffix_array` reads back
+    anyway)."""
+    if rank.device.type == "cpu":
+        return doubling_round_ref(rank, k)
+    dev = rank.device
+    K.require(rank, "rank", torch.int32, dev)
+    n = rank.shape[0]
+    _check_n(n)
+    lo_bits = int(max_rank + 1).bit_length()
+    bits = int(max_rank).bit_length() + lo_bits
+    if max_rank < 0 or bits > 64:
+        raise ValueError(f"max_rank = {max_rank}: keys need 0 <= ranks and "
+                         "at most 64 bits")
+    tiles = -(-n // _RADIX_TILE)
+    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scan_scratch_len(max(256 * tiles, n)),
+                          dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    new_rank = torch.empty(n, dtype=torch.int32, device=dev)
+    top = torch.empty((), dtype=torch.int32, device=dev)
+    code = K.load().colbwt_doubling_round(
+        rank.data_ptr(), n, int(k), lo_bits, -(-bits // 8),
+        keys[0].data_ptr(), keys[1].data_ptr(), vals[0].data_ptr(),
+        vals[1].data_ptr(), hist.data_ptr(), scratch.data_ptr(),
+        order.data_ptr(), new_rank.data_ptr(), top.data_ptr(),
+        K.stream_handle(dev))
+    K.check("doubling_round", code)
+    K.launches["doubling_round"] += 1
+    return order, new_rank, top
+
+
+def suffix_array(ranks0: np.ndarray, with_pyramid: bool = False,
+                 device=None):
+    """Prefix-doubling suffix array on `device` (default cuda), the rounds
+    of construct_jax.py:70 suffix_array_jax: ceil(log2(max(n, 2))) rounds
+    at most, k doubling, stopping once the largest rank is n - 1 (read back
+    once a round).  Returns int32 tensors (sa, rank[, pyramid]); pyramid[j]
+    ranks the substrings of length 2**(j+1) and stays on the device."""
+    dev = resolve_device(device)
+    r0 = np.asarray(ranks0)
+    n = int(r0.size)
+    _check_n(n)
+    num_rounds = max(1, math.ceil(math.log2(max(n, 2))))
+    rank = torch.from_numpy(r0.astype(np.int32)).to(dev)
+    max_rank = int(r0.max())
+    pyramid = []
+    k = 1
+    for _ in range(num_rounds):
+        sa, rank, top = doubling_round(rank, k, max_rank)
+        if with_pyramid:
+            pyramid.append(rank)
+        k *= 2
+        max_rank = int(top)
+        if max_rank == n - 1:
+            break
+    if with_pyramid:
+        return sa, rank, pyramid
+    return sa, rank
+
+
+def lcp_from_pyramid_ref(ranks0: torch.Tensor, sa: torch.Tensor,
+                         pyramid: list[torch.Tensor]) -> torch.Tensor:
+    """Plain K11b, construct_jax.py:106-134: lcp[i] = LCE(sa[i-1], sa[i])
+    by probes of widths 2**R ... 2 (pyramid[R-1] ... pyramid[0]) and 1
+    (ranks0); out-of-range probes read -1 for a and -2 for b.  int32."""
+    n = sa.shape[0]
+    a = sa[:-1].to(torch.int64)
+    b = sa[1:].to(torch.int64)
+    h = torch.zeros_like(a)
+
+    def probe(level, width):
+        pa, pb = a + h, b + h
+        ra = torch.where(pa < n, level[pa.clamp(max=n - 1)], -1)
+        rb = torch.where(pb < n, level[pb.clamp(max=n - 1)], -2)
+        return h + torch.where(ra == rb, width, 0)
+
+    for j in range(len(pyramid) - 1, -1, -1):
+        h = probe(pyramid[j], 1 << (j + 1))
+    h = probe(ranks0, 1)
+    lcp = torch.zeros(n, dtype=torch.int32, device=sa.device)
+    lcp[1:] = h.to(torch.int32)
+    return lcp
+
+
+def lcp_from_pyramid(ranks0, sa: torch.Tensor, pyramid: list[torch.Tensor]
+                     ) -> torch.Tensor:
+    """K11b (replaces construct_jax.py:106 lcp_from_pyramid and :137
+    lcp_jax): the int32 LCP array from `suffix_array`'s sa and pyramid;
+    `ranks0` (an array or a tensor) goes to sa's device as int32.  CPU
+    tensors take the plain version; CUDA tensors launch `lcp_lift`."""
+    dev = sa.device
+    r0 = _int32_on(ranks0, dev)
+    if dev.type == "cpu":
+        return lcp_from_pyramid_ref(r0, sa, pyramid)
+    n = sa.shape[0]
+    _check_n(n)
+    if len(pyramid) > _MAX_LEVELS:
+        raise ValueError(f"{len(pyramid)} pyramid levels; the kernel takes "
+                         f"at most {_MAX_LEVELS}")
+    named = [("sa", sa), ("ranks0", r0),
+             *((f"pyramid[{j}]", p) for j, p in enumerate(pyramid))]
+    for name, t in named:
+        K.require(t, name, torch.int32, dev)
+        if t.shape != (n,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected ({n},)")
+    levels = (ctypes.c_void_p * len(pyramid))(*(p.data_ptr()
+                                                for p in pyramid))
+    lcp = torch.empty(n, dtype=torch.int32, device=dev)
+    code = K.load().colbwt_lcp_lift(r0.data_ptr(), sa.data_ptr(), levels,
+                                    len(pyramid), n, lcp.data_ptr(),
+                                    K.stream_handle(dev))
+    K.check("lcp_lift", code)
+    K.launches["lcp_lift"] += 1
+    return lcp
+
+
+# ---------------------------------------------------------------------------
+# thresholds by segmented first argmin (K12)
+# ---------------------------------------------------------------------------
+
+
+def segmented_argmin_ref(lcp: torch.Tensor, lo: torch.Tensor,
+                         hi: torch.Tensor) -> torch.Tensor:
+    """Plain K12, construct_jax.py:494-502 with the segment ids of :527-535:
+    for m disjoint ascending segments [lo[s], hi[s]] (int64, inclusive) the
+    first position of the minimum of `lcp` (int32) in each, by two
+    segment-min passes over a per-position segment id.  int64 (m)."""
+    n, m = lcp.shape[0], lo.shape[0]
+    dev = lcp.device
+    big = torch.iinfo(torch.int32).max
+    bounds = torch.stack([lo, hi + 1], dim=1).reshape(-1)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    pos_seg = torch.searchsorted(bounds, pos, right=True)
+    seg_id = torch.where(pos_seg % 2 == 1, pos_seg // 2, m)  # m: the rest
+    mins = torch.full((m + 1,), big, dtype=torch.int32, device=dev)
+    mins = mins.scatter_reduce(0, seg_id, lcp, "amin")
+    cand = torch.where(lcp == mins[seg_id], pos, big)
+    first = torch.full((m + 1,), big, dtype=torch.int64, device=dev)
+    return first.scatter_reduce(0, seg_id, cand, "amin")[:m]
+
+
+def segmented_argmin(lcp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+                     ) -> torch.Tensor:
+    """K12: outputs as `segmented_argmin_ref`.  CPU tensors take the plain
+    version; CUDA tensors launch `segmented_argmin`, one warp a segment."""
+    if lcp.device.type == "cpu":
+        return segmented_argmin_ref(lcp, lo, hi)
+    dev = lcp.device
+    _check_n(lcp.shape[0])
+    K.require(lcp, "lcp", torch.int32, dev)
+    K.require(lo, "lo", torch.int64, dev)
+    K.require(hi, "hi", torch.int64, dev)
+    m = lo.shape[0]
+    if hi.shape != (m,):
+        raise ValueError("lo and hi must have the same shape")
+    out = torch.empty(m, dtype=torch.int64, device=dev)
+    if m == 0:
+        return out
+    code = K.load().colbwt_segmented_argmin(lcp.data_ptr(), lo.data_ptr(),
+                                            hi.data_ptr(), m, out.data_ptr(),
+                                            K.stream_handle(dev))
+    K.check("segmented_argmin", code)
+    K.launches["segmented_argmin"] += 1
+    return out
+
+
+def threshold_segments(heads: np.ndarray, lens: np.ndarray
+                       ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """(runs, lo, hi) for each character with two runs or more: run
+    runs[s] takes its threshold over (end of the previous run of its
+    character, its own start], int64, as construct_jax.py:522-528."""
+    heads = normalize_heads(heads)
+    lens = np.asarray(lens, dtype=np.int64)
+    starts = np.zeros(heads.size, dtype=np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    ends = starts + lens - 1
+    segs = []
+    for c in np.unique(heads):
+        runs_c = np.flatnonzero(heads == c)
+        if runs_c.size >= 2:
+            segs.append((runs_c[1:], ends[runs_c[:-1]] + 1,
+                         starts[runs_c[1:]]))
+    return segs
+
+
+def compute_thresholds(heads: np.ndarray, lens: np.ndarray, lcp,
+                       device=None) -> np.ndarray:
+    """Thresholds on `device` (default cuda), the contract of
+    oracle.compute_thresholds and construct_jax.py:505
+    compute_thresholds_jax: run i of character c gets the first position of
+    the minimum LCP over (end of the previous c-run, start of run i]; 0 for
+    the first c-run.  `lcp` is an array or a tensor.  int64 (r)."""
+    dev = resolve_device(device)
+    lens = np.asarray(lens, dtype=np.int64)
+    n = int(lens.sum())
+    if n >= 2**31:
+        raise ValueError(f"n = {n}: the device thresholds need n < 2**31 "
+                         "(oracle.compute_thresholds_fast takes any n)")
+    lcp_t = _int32_on(lcp, dev)
+    thresholds = np.zeros(lens.size, dtype=np.int64)
+    for runs, lo, hi in threshold_segments(heads, lens):
+        arg = segmented_argmin(lcp_t, torch.from_numpy(lo).to(dev),
+                               torch.from_numpy(hi).to(dev))
+        thresholds[runs] = arg.cpu().numpy()
+    return thresholds
+
+
+# ---------------------------------------------------------------------------
+# multi-MUM scan (K8, K9)
+# ---------------------------------------------------------------------------
 
 
 def sliding_min_ref(x: torch.Tensor, w: int) -> torch.Tensor:

@@ -7,8 +7,11 @@ PREFIX.fa.col_runs/.col_ids, PREFIX.fa.col_pml, PREFIX.colpml.npz), with
 the same stage skipping and cleanup, and routes every stage as the JAX
 package does, the device stages on `device` (default cuda):
 
-  stage_mums      monolithic lane: native SA-IS + Kasai on the host (the
-                  oracle SA without the native library); multi-MUMs by
+  stage_mums      monolithic lane: SA and LCP by native SA-IS + Kasai on
+                  the host; without the native library, by
+                  ops/construct.suffix_array and lcp_from_pyramid on the
+                  device when n >= _DEVICE_MIN_N (kernels K11a, K11b),
+                  else by the host oracle; multi-MUMs by
                   ops/construct.find_multi_mums on the device when
                   n >= _DEVICE_MIN_N and N >= 2 (kernel K9 below
                   construct._CHUNKED_SCAN_MIN_N, K8 from there), else the
@@ -139,9 +142,17 @@ def stage_mums(docs: list[bytes], prefix: str, cfg: ColBwtConfig, logger,
         n = text.size
         use_device = n >= _DEVICE_MIN_N
         with _timed(logger, "sa_lcp_s", "[mums] suffix array + LCP"):
+            # native SA-IS, then the device's prefix doubling, then the
+            # host oracle (colbwt_tpu/pipeline/build.py:100-116)
             if native_lib.available():
                 sa = native_lib.suffix_array_sais(ranks)
                 lcp = native_lib.lcp_kasai(ranks, sa)
+            elif use_device:
+                sa_t, _, pyr = TC.suffix_array(ranks, with_pyramid=True,
+                                               device=device)
+                lcp = TC.lcp_from_pyramid(ranks, sa_t, pyr).cpu().numpy()
+                sa = sa_t.cpu().numpy()
+                del sa_t, pyr
             else:
                 sa = O.suffix_array(ranks)
                 lcp = O.lcp_kasai(ranks, sa)

@@ -1,0 +1,287 @@
+"""The port's suffix array, LCP and thresholds (colbwt_tpu_torch/ops/
+construct.py: K11a, K11b and K12) against the JAX package's
+(ops/construct_jax.py) and the host oracle, on the CPU, where their plain
+PyTorch versions run; then the build's route without the native library:
+both packages' build_pipeline with `native.available` patched to False
+must write the same bytes, the port through its device suffix array from
+_DEVICE_MIN_N and through the oracle below it; and bench.py's index-build
+sequence through the port's ops against the same sequence in JAX.  Every
+value is an integer, so every comparison is exact.
+"""
+
+import shutil
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import colbwt_tpu.io.native as JN
+import colbwt_tpu.pipeline.build as JB
+import colbwt_tpu_torch.io.native as TN
+import colbwt_tpu_torch.ops.oracle as TO
+import colbwt_tpu_torch.pipeline.build as TB
+from colbwt_tpu.models.index import ColPmlIndex as JIndex
+from colbwt_tpu.ops import construct_jax as CJ
+from colbwt_tpu.ops import oracle as O
+from colbwt_tpu.ops.colsplit_jax import col_split_jax
+from colbwt_tpu.pipeline import build_pipeline as jax_build
+from colbwt_tpu.utils.config import ColBwtConfig
+from colbwt_tpu_torch.models.index import ColPmlIndex as TIndex
+from colbwt_tpu_torch.ops import colsplit as TCS
+from colbwt_tpu_torch.ops import construct as TC
+from colbwt_tpu_torch.pipeline import build_pipeline
+from tests.conftest import random_docs
+
+CPU = "cpu"
+GOLD = Path(__file__).parent / "goldens"
+CFG = dict(min_mum=20, split_rate=10, rev_comp=True, keep_temp=True)
+ARTIFACTS = ["fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
+             "lengths", "fa.col_runs", "fa.col_ids", "fa.col_pml"]
+# tests/test_construct_jax.py:41, heavy repeats for the lifting
+REPETITIVE = [b"ACGT" * 30, b"ACGT" * 30 + b"A", b"ACGTACGT" * 15]
+
+
+def _ranks(docs):
+    return O.concat_collection(docs)[1]
+
+
+def _collection(seed):
+    rng = np.random.default_rng(seed)
+    return random_docs(rng, int(rng.integers(1, 6)), lo=20, hi=150)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 64, "n", "n+3"])
+def test_doubling_round_matches_jax(rng, k):
+    """One round from the base ranks and one from dense ranks, for k below
+    n and k >= n (every next rank -1): order, new ranks, largest rank."""
+    ranks = _ranks(random_docs(rng, 3, lo=30, hi=90)).astype(np.int32)
+    n = ranks.size
+    k = {"n": n, "n+3": n + 3}.get(k, k)
+    dense = np.asarray(CJ._doubling_round(jnp.asarray(ranks),
+                                          jnp.int32(1))[1])
+    for rank in (ranks, dense):
+        want = CJ._doubling_round(jnp.asarray(rank), jnp.int32(k))
+        for fn in (TC.doubling_round_ref,
+                   lambda r, k: TC.doubling_round(r, k, int(r.max()))):
+            got = fn(torch.from_numpy(rank.copy()), k)
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int32
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 3, "repetitive", "one doc"])
+def test_suffix_array_matches_jax(case):
+    """sa, rank, the number of rounds and every pyramid level."""
+    docs = {"repetitive": REPETITIVE,
+            "one doc": [b"GATTACA" * 9]}.get(case) or _collection(case)
+    ranks = _ranks(docs)
+    sa_j, rank_j, pyr_j = CJ.suffix_array_jax(ranks, with_pyramid=True)
+    sa, rank, pyr = TC.suffix_array(ranks, with_pyramid=True, device=CPU)
+    assert sa.dtype == rank.dtype == torch.int32
+    np.testing.assert_array_equal(sa.numpy(), sa_j)
+    np.testing.assert_array_equal(rank.numpy(), rank_j)
+    assert len(pyr) == len(pyr_j)
+    for j, (p, w) in enumerate(zip(pyr, pyr_j)):
+        np.testing.assert_array_equal(p.numpy(), w, err_msg=f"level {j}")
+    np.testing.assert_array_equal(sa.numpy(), O.suffix_array(ranks))
+    sa2, rank2 = TC.suffix_array(ranks, device=CPU)
+    assert torch.equal(sa2, sa) and torch.equal(rank2, rank)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_suffix_array_tiny(n):
+    """n = 1 (one empty document), 2 and 3: one round, as in JAX."""
+    ranks = _ranks([[b"", b"A", b"AC"][n - 1]])
+    assert ranks.size == n
+    sa_j, _, pyr_j = CJ.suffix_array_jax(ranks, with_pyramid=True)
+    sa, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=CPU)
+    np.testing.assert_array_equal(sa.numpy(), sa_j)
+    assert len(pyr) == len(pyr_j)
+    lcp = TC.lcp_from_pyramid(ranks, sa, pyr)
+    np.testing.assert_array_equal(lcp.numpy(), CJ.lcp_jax(ranks, sa_j, pyr_j))
+
+
+@pytest.mark.parametrize("case", [0, 1, "repetitive"])
+def test_lcp_from_pyramid_matches_jax_and_kasai(case):
+    docs = REPETITIVE if case == "repetitive" else _collection(10 + case)
+    ranks = _ranks(docs)
+    sa_j, _, pyr_j = CJ.suffix_array_jax(ranks, with_pyramid=True)
+    want = CJ.lcp_jax(ranks, sa_j, pyr_j)
+    sa, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=CPU)
+    for r0 in (ranks, torch.from_numpy(ranks.astype(np.int32))):
+        got = TC.lcp_from_pyramid(r0, sa, pyr)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        TC.lcp_from_pyramid_ref(torch.from_numpy(ranks.astype(np.int32)),
+                                sa, pyr).numpy(), want)
+    np.testing.assert_array_equal(want, O.lcp_kasai(ranks, sa_j))
+
+
+def _bwt_case(docs):
+    text, ranks, _ = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    return heads, lens, lcp
+
+
+def test_segmented_argmin_matches_jax(rng):
+    """One character's segments, as compute_thresholds_jax builds them:
+    the plain two segment-min passes against JAX's, ties included."""
+    heads, lens, lcp = _bwt_case(random_docs(rng, 3, lo=60, hi=120))
+    checked = 0
+    for runs, lo, hi in TC.threshold_segments(heads, lens):
+        n = int(lens.sum())
+        seg_bounds = np.empty(2 * lo.size, dtype=np.int64)
+        seg_bounds[0::2], seg_bounds[1::2] = lo, hi + 1
+        pos_seg = np.searchsorted(seg_bounds, np.arange(n), side="right")
+        seg_id = np.where(pos_seg % 2 == 1, pos_seg // 2, lo.size)
+        want = np.asarray(CJ._segmented_argmin(
+            jnp.asarray(lcp, jnp.int32), jnp.asarray(seg_id, jnp.int32),
+            lo.size + 1))[:lo.size]
+        lcp_t = torch.from_numpy(lcp.astype(np.int32))
+        for fn in (TC.segmented_argmin_ref, TC.segmented_argmin):
+            got = fn(lcp_t, torch.from_numpy(lo), torch.from_numpy(hi))
+            assert got.dtype == torch.int64
+            np.testing.assert_array_equal(got.numpy(), want)
+        checked += lo.size
+    assert checked > 0
+
+
+@pytest.mark.parametrize("case", [0, 1, "single run"])
+def test_compute_thresholds_matches_jax_and_oracle(case):
+    if case == "single run":
+        # 'G' (71) has one run: skipped, threshold 0; ties in the lcp
+        heads = np.array([65, 67, 65, 71, 67, 1, 65, 67], dtype=np.uint8)
+        lens = np.array([2, 3, 1, 2, 2, 1, 3, 1], dtype=np.int64)
+        lcp = np.array([0, 2, 1, 1, 3, 0, 0, 2, 4, 2, 1, 1, 5, 1, 0],
+                       dtype=np.int64)
+    else:
+        heads, lens, lcp = _bwt_case(_collection(20 + case))
+    want = O.compute_thresholds(heads, lens, lcp)
+    np.testing.assert_array_equal(CJ.compute_thresholds_jax(heads, lens, lcp),
+                                  want)
+    for arg in (lcp, torch.from_numpy(lcp)):
+        got = TC.compute_thresholds(heads, lens, arg, device=CPU)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+
+
+def test_compute_thresholds_refuses_wide_n():
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        TC.compute_thresholds(np.array([65, 67], np.uint8),
+                              np.array([2**31 - 1, 1], np.int64),
+                              np.zeros(4, np.int32), device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# the build's route without the native library
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def no_native(tmp_path_factory):
+    """The goldens' collection built by both packages with the native
+    library hidden and _DEVICE_MIN_N lowered below its n (JAX's device
+    suffix array, the port's TC.suffix_array with its plain versions), and
+    by the port with _DEVICE_MIN_N above its n (the oracle).  Returns the
+    directory and the calls each route made."""
+    tmp = tmp_path_factory.mktemp("no_native")
+    for f in ("seq1.fa", "seq2.fa"):
+        shutil.copy(GOLD / f, tmp / f)
+    fastas = [str(tmp / "seq1.fa"), str(tmp / "seq2.fa")]
+    calls = {"device": [], "oracle": []}
+    real_sa, real_oracle = TC.suffix_array, TO.suffix_array
+
+    def device_sa(ranks, *a, **kw):
+        calls["device"].append(np.asarray(ranks).size)
+        return real_sa(ranks, *a, **kw)
+
+    def oracle_sa(ranks):
+        calls["oracle"].append(np.asarray(ranks).size)
+        return real_oracle(ranks)
+
+    with pytest.MonkeyPatch.context() as mp:
+        for lib in (JN, TN):
+            mp.setattr(lib, "available", lambda: False)
+        mp.setattr(TC, "suffix_array", device_sa)
+        mp.setattr(TO, "suffix_array", oracle_sa)
+        for mod in (JB, TB):
+            mp.setattr(mod, "_DEVICE_MIN_N", 1 << 10)
+        jax_build(fastas, str(tmp / "jax"), ColBwtConfig(**CFG))
+        build_pipeline(fastas, str(tmp / "torch"), ColBwtConfig(**CFG),
+                       device=CPU)
+        routed = {k: list(v) for k, v in calls.items()}
+        mp.setattr(TB, "_DEVICE_MIN_N", 1 << 20)
+        build_pipeline(fastas, str(tmp / "small"), ColBwtConfig(**CFG),
+                       device=CPU)
+    return tmp, routed, calls
+
+
+@pytest.mark.parametrize("ext", ARTIFACTS)
+def test_no_native_artifacts_match_jax(no_native, ext):
+    tmp, _, _ = no_native
+    want = (tmp / f"jax.{ext}").read_bytes()
+    assert (tmp / f"torch.{ext}").read_bytes() == want
+    assert (tmp / f"small.{ext}").read_bytes() == want
+
+
+def test_no_native_index_arrays_match_jax(no_native):
+    tmp, _, _ = no_native
+    a = np.load(tmp / "torch.colpml.npz")
+    b = np.load(tmp / "jax.colpml.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_no_native_routes(no_native):
+    """From _DEVICE_MIN_N the port's build went through TC.suffix_array
+    and never the oracle; below it, through the oracle alone."""
+    _, routed, calls = no_native
+    assert len(routed["device"]) == 1 and routed["device"][0] >= 1 << 10
+    assert routed["oracle"] == []
+    assert calls["device"] == routed["device"]
+    assert calls["oracle"] == routed["device"]
+
+
+def test_bench_build_sequence_matches_jax(rng, tmp_path):
+    """bench.py:83-98 with the native library absent, at a small size: the
+    device SA and LCP, multi-MUMs, col-split, run sweep, device thresholds
+    and the ff_bound-2 index, through the port's ops and through JAX's."""
+    base = bytes(rng.choice(list(b"ACGT"), 600).astype("uint8"))
+    docs = random_docs(rng, 4, mutate_from=base)
+    text, ranks, doc_ids = O.concat_collection(docs)
+
+    def sequence(sa, lcp, mums, col_split, thresholds, index_cls):
+        heads, lens = O.rle(O.bwt_from_sa(text, sa))
+        fl = O.build_fl_table(heads, lens)
+        ml, mp = mums(ranks, sa, lcp, doc_ids, 4, 8)
+        assert ml.size > 0
+        mpos, mids, mhts = col_split(fl, ml, mp, 4, 10, "tunnels")
+        bits, ids = O.find_col_runs_oracle(mpos, mids, mhts, fl.l_heads,
+                                           fl.n)
+        tbl = O.build_col_pml(heads, lens, bits, ids,
+                              thresholds(heads, lens, lcp))
+        return index_cls.build(tbl, ff_bound=2)
+
+    sa_j, _, pyr_j = CJ.suffix_array_jax(ranks, with_pyramid=True)
+    want = sequence(sa_j, CJ.lcp_jax(ranks, sa_j, pyr_j),
+                    CJ.find_multi_mums_jax, col_split_jax,
+                    CJ.compute_thresholds_jax, JIndex)
+    sa_t, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=CPU)
+    lcp = TC.lcp_from_pyramid(ranks, sa_t, pyr).numpy()
+    got = sequence(
+        sa_t.numpy(), lcp,
+        lambda *a: TC.find_multi_mums(*a, device=CPU),
+        lambda *a: TCS.col_split(*a, device=CPU),
+        lambda *a: TC.compute_thresholds(*a, device=CPU), TIndex)
+    want.save(tmp_path / "jax")
+    got.save(tmp_path / "torch")
+    a, b = np.load(tmp_path / "torch.npz"), np.load(tmp_path / "jax.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K10b, K7 and K14 against their plain PyTorch versions,
-on the card.
+"""CUDA kernels K1-K14 against their plain PyTorch versions, on the
+card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -487,3 +487,88 @@ def test_upload_rows(dev, tmp_path, shape, dtype, cast):
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       a.astype(cast or dtype))
+
+
+# ---------------------------------------------------------------------------
+# K11a, K11b: the suffix array by prefix doubling and the LCP by lifting;
+# K12: the thresholds' segmented first argmin
+# ---------------------------------------------------------------------------
+
+def _round_equal(rank, k, max_rank):
+    before = K.launches["doubling_round"]
+    got = TC.doubling_round(rank, k, max_rank)
+    assert K.launches["doubling_round"] == before + 1
+    want = TC.doubling_round_ref(rank, k)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 2, 4096, 4097, 3 * 4096 + 5,
+                               (1 << 24) + 7])
+def test_doubling_round(dev, n):
+    """K11a against its plain version on ranks with many ties: n = 1, 2, one
+    radix tile, a tile plus one, several tiles, and past 4096**2 positions
+    (a three-level scan of the change flags); k below n and k >= n."""
+    rng = np.random.default_rng(n)
+    for top in (7, n):
+        rank = to_device(rng.integers(0, top, n), dev)
+        for k in sorted({1, 2, max(1, n // 3), n, n + 1}):
+            _round_equal(rank, k, int(rank.max()))
+
+
+def test_suffix_array_rounds(dev):
+    """Every round of a full sequence held against the plain version on the
+    same input, then the suffix array against the oracle's and K11b's LCP
+    against its plain version and Kasai's."""
+    rng = np.random.default_rng(0x11A)
+    base = rng.choice(np.frombuffer(b"ACGT", np.uint8), 5000)
+    docs = [base.tobytes(), base[::-1].tobytes(), base[1000:].tobytes()]
+    _, ranks, _ = O.concat_collection(docs)
+    n = ranks.size
+    rank = to_device(ranks, dev)
+    max_rank, k, pyramid = int(ranks.max()), 1, []
+    for _ in range(int(np.ceil(np.log2(n)))):
+        sa, rank, top = _round_equal(rank, k, max_rank)
+        pyramid.append(rank)
+        max_rank, k = int(top), 2 * k
+        if max_rank == n - 1:
+            break
+    assert max_rank == n - 1 and len(pyramid) > 8  # long repeats
+    got_sa, _, got_pyr = TC.suffix_array(ranks, with_pyramid=True,
+                                         device=dev)
+    _equal(got_sa, sa)
+    assert len(got_pyr) == len(pyramid)
+    want_sa = O.suffix_array(ranks)
+    np.testing.assert_array_equal(sa.cpu().numpy(), want_sa)
+    r0 = to_device(ranks, dev)
+    before = K.launches["lcp_lift"]
+    lcp = TC.lcp_from_pyramid(r0, sa, pyramid)
+    assert K.launches["lcp_lift"] == before + 1
+    _equal(lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid))
+    np.testing.assert_array_equal(lcp.cpu().numpy(),
+                                  O.lcp_kasai(ranks, want_sa))
+
+
+@pytest.mark.parametrize("lcp_top", [4, 1 << 20])
+def test_segmented_argmin(dev, case, lcp_top):
+    """K12 against its plain version for every character's segments of the
+    case's BWT, with an lcp of few values (many ties) and of many; then
+    compute_thresholds on the card against the oracle."""
+    tbl, _, _ = case
+    heads, lens = tbl.char, tbl.length
+    n = int(lens.sum())
+    lcp = np.random.default_rng(lcp_top).integers(0, lcp_top, n)
+    lcp_t = to_device(lcp, dev)
+    segs = TC.threshold_segments(heads, lens)
+    assert max(int((hi - lo).max()) for _, lo, hi in segs) > 64
+    for _, lo, hi in segs:
+        args = (lcp_t, to_device(lo, dev, np.int64),
+                to_device(hi, dev, np.int64))
+        before = K.launches["segmented_argmin"]
+        got = TC.segmented_argmin(*args)
+        assert K.launches["segmented_argmin"] == before + 1
+        _equal(got, TC.segmented_argmin_ref(*args))
+    np.testing.assert_array_equal(
+        TC.compute_thresholds(heads, lens, lcp, device=dev),
+        O.compute_thresholds(heads, lens, lcp))
