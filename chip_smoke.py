@@ -81,6 +81,16 @@ version on the card.  Phases:
    sequence (bench.py:83-98) through the port's ops, thresholds by K12
    (the table equal to phase 3's field by field, the ff_bound-2 index to
    phase 3's)
+12. the sharded query API (colbwt_tpu_torch/parallel/), its ip shards as
+   separate tensors on the one card (make_mesh over ["cuda:0"] * dp·ip):
+   phase 4's 263,168 reads of <= 152 bp in one batch at (dp, ip) = (1, 2)
+   through sharded-pos (k = 3 on bench's index: K1, K13d, the fetch, K13e),
+   sharded compact (K13a) and sharded-mega (K13b) on phase 9's ff_bound-2
+   split, and sharded-mega-wide (K6b slices, K13c) on phase 7's index at
+   (1, 2), (2, 2) and (1, 4), with the 16 long reads in chunks of 2,048;
+   every output equal to the single-card engine's on the same reads (phase
+   4's pos records, K4, K5, phase 7's mega-wide records); each new kernel
+   equal to its plain version call by call (K13a on 8,192 of the reads)
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
@@ -139,6 +149,17 @@ KERNEL_INFO = {
                  "colbwt_tpu/ops/construct_jax.py:106"),
     "segmented_argmin": ("K12", "colbwt_tpu_torch/csrc/suffix.cu",
                          "colbwt_tpu/ops/construct_jax.py:494"),
+    "sharded_fetch": ("K13a/b/c/e", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                      "colbwt_tpu/parallel/query_sharded.py:33"),
+    "sharded_step_compact": ("K13a", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                             "colbwt_tpu/parallel/query_sharded.py:54"),
+    "sharded_step_mega": ("K13b/K13c",
+                          "colbwt_tpu_torch/csrc/query_sharded.cu",
+                          "colbwt_tpu/parallel/query_sharded_mega.py:51"),
+    "compose_sharded_tk": ("K13d", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                           "colbwt_tpu/parallel/query_sharded_pos.py:66"),
+    "sharded_step_pos": ("K13e", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                         "colbwt_tpu/parallel/query_sharded_pos.py:162"),
 }
 # the least time of a kernel's work: its bytes (each input read once, each
 # output written once; a gathered table counted at the bytes its gathers
@@ -498,7 +519,7 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
         for c in range(wide.sigma + 1):
             args = (c, a, to_device(wide.succ_jump[c], dev),
                     to_device(wide.pred_jump[c], dev), meta["n_lo"],
-                    meta["n_hi"], wide.ff_bound, compact)
+                    meta["n_hi"], wide.ff_bound, compact, c * wide.r)
             TW.fill_block(got, *args)
             TW.fill_block_ref(want, *args)
             if c == 0:
@@ -1339,6 +1360,268 @@ def phase11c(torch, dev, docs: list[bytes], tbl3) -> tuple[dict, dict]:
     return v, launches
 
 
+def clone_args(torch, args, shared=()):
+    """Tensors cloned, tuples walked, anything else as it is; the arguments
+    at the positions `shared` (read-only tables) are kept as they are."""
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return tuple(clone(x) for x in a) if isinstance(a, tuple) else a
+
+    return tuple(a if j in shared else clone(a) for j, a in enumerate(args))
+
+
+class Twins:
+    """While active, each wrapped kernel wrapper (a module attribute) runs
+    as itself, and with `check` also as its plain version on clones of its
+    arguments: its result and every tensor argument (the outputs it writes
+    in place) must then be equal.  Keeps clones of the arguments of call
+    number `nth` (from 0) of each (kernel, tag, key) for the timings."""
+
+    def __init__(self, torch, chk: Checks, check: bool):
+        self.torch, self.chk, self.check = torch, chk, check
+        self.tag = ""
+        self.calls: dict = {}
+        self.first: dict = {}
+        self.undo = []
+
+    def wrap(self, module, name: str, ref, key=lambda args: None,
+             shared=(), nth: int = 8) -> None:
+        kern = getattr(module, name)
+        torch = self.torch
+
+        def both(*args):
+            k = (name, self.tag, key(args))
+            self.calls[k] = self.calls.get(k, -1) + 1
+            if self.calls[k] == nth:
+                self.first[k] = clone_args(torch, args, shared)
+            if not self.check:
+                return kern(*args)
+            twins = clone_args(torch, args, shared)
+            out = kern(*args)
+            want = ref(*twins)
+            pairs = [(out, want)] if out is not None else []
+            for a, b in zip(args, twins):
+                pairs += (list(zip(a, b)) if isinstance(a, tuple)
+                          else [(a, b)])
+            for a, b in pairs:
+                if isinstance(a, torch.Tensor) and a is not b:
+                    self.chk.equal(name, a, b, f"{self.tag} call")
+            return out
+
+        setattr(module, name, both)
+        self.undo.append((module, name, kern))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, kern in reversed(self.undo):
+            setattr(module, name, kern)
+        return False
+
+
+def phase12(torch, dev, index, wide, batch: list[bytes],
+            long_reads: list[bytes], ref4, ref7, chk: Checks
+            ) -> tuple[dict, list[dict]]:
+    """The sharded query API on the card, the ip shards as separate tensors
+    on cuda:0.  `batch` is phase 4's 263,168 reads of <= 152 bp, `ref4` and
+    `ref7` phase 4's and phase 7's (pmls, cids) of all its records.  Each
+    engine runs once with launch counts reset just before it, its outputs
+    held to the single-card engine's, then again with every kernel call
+    held to its plain version.  Returns the walls and the launch counts."""
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops import query_xla as TX
+    from colbwt_tpu_torch.parallel import make_mesh
+    from colbwt_tpu_torch.parallel import mesh as PM
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    split = ColPmlIndex.load(WORK / "fused.colpml.npz")
+    B = len(batch)
+    launches, walls = [], {}
+
+    def mesh(dp, ip):
+        return make_mesh(dp, ip, devices=["cuda:0"] * (dp * ip))
+
+    def twins(check: bool) -> Twins:
+        tw = Twins(torch, chk, check)
+        tw.wrap(PM, "sharded_fetch", PM.sharded_fetch_ref,
+                key=lambda a: (a[0].shape[1], a[2] is None,
+                               a[1].numel() > 1, a[3]),
+                shared=(0,))
+        tw.wrap(TS, "sharded_step_compact", TS.sharded_step_compact_ref,
+                key=lambda a: a[0])
+        tw.wrap(TSM, "sharded_step_mega", TSM.sharded_step_mega_ref,
+                shared=(1,))
+        tw.wrap(TSP, "sharded_step_pos", TSP.sharded_step_pos_ref)
+        tw.wrap(TSP, "compose_sharded_tk", TSP.compose_sharded_tk_ref,
+                shared=(0,), nth=0)
+        return tw
+
+    def counted(tw: Twins, tag: str, needed: tuple[str, ...], fn):
+        tw.tag = tag
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        lc = dict(K.launches)
+        for name in needed:
+            require(lc[name] > 0, f"{name} never launched in phase 12 {tag}")
+        launches.append(lc)
+        log(f"[phase 12] {tag}: {walls[tag]:.3f}s; launches "
+            + json.dumps({k: v for k, v in lc.items() if v}))
+        return out
+
+    def same(got, ref, lo: int, hi: int, what: str) -> None:
+        (gp, gc), (wp, wc) = got, ref
+        require([len(x) for x in gp] == [len(x) for x in wp[lo:hi]]
+                and np.array_equal(np.concatenate(gp),
+                                   np.concatenate(wp[lo:hi]))
+                and np.array_equal(np.concatenate(gc),
+                                   np.concatenate(wc[lo:hi])),
+                f"phase 12 {what}: outputs differ from the single-card "
+                f"engine's")
+
+    m12 = mesh(1, 2)
+    # K13d, K13e: sharded-pos on bench's index; k = 3 at ip = 2
+    k = TSP.choose_k_sharded(index, 2)
+    require(k == 3, f"choose_k_sharded gave k={k} at ip=2, expected 3")
+    with twins(False) as cap:
+        def pos_run():
+            st = TSP.shard_pos_tables(index, m12)
+            return TSP.query_batch_sharded_pos(index, batch, mesh=m12, st=st)
+
+        got = counted(cap, "sharded-pos (1,2) k=3", (
+            "build_t1_chunk", "compose_sharded_tk", "sharded_fetch",
+            "sharded_step_pos"), pos_run)
+        same(got, ref4, 0, B, "sharded-pos")
+        got = counted(cap, "sharded-compact (1,2)",
+                      ("sharded_fetch", "sharded_step_compact"),
+                      lambda: TS.query_batch_sharded(split, batch, mesh=m12))
+        same(got, TX.query_batch(split, batch, device=dev), 0, B,
+             "sharded compact")
+        t0 = time.perf_counter()
+        mt = TM.build_mega_table(split, device="cpu")  # host NumPy, as JAX
+        st_mega = TSM.shard_mega(split, m12, mt=mt)
+        log(f"[phase 12] mega table (host) and its shards in "
+            f"{time.perf_counter() - t0:.3f}s")
+        got = counted(cap, "sharded-mega (1,2)", (
+            "sharded_fetch", "sharded_step_mega"),
+            lambda: TSM.query_batch_sharded_mega(split, batch, mesh=m12,
+                                                 st=st_mega))
+        mt_dev = {key: v.to(dev) if isinstance(v, torch.Tensor) else v
+                  for key, v in mt.items()}
+        same(got, TM.query_batch(split, batch, mt=mt_dev), 0, B,
+             "sharded-mega")
+        del mt, mt_dev
+        for dp, ip in ((1, 2), (2, 2), (1, 4)):
+            mw = mesh(dp, ip)
+            tag = f"sharded-mega-wide ({dp},{ip})"
+
+            def wide_run():
+                st = TSW.shard_mega_wide(wide, mw)
+                return (TSW.query_batch_sharded_mega_wide(wide, batch,
+                                                          mesh=mw, st=st),
+                        TSW.query_long_reads_sharded_mega_wide(
+                            wide, long_reads, mesh=mw, chunk=2048, st=st))
+
+            got, got_long = counted(cap, tag, (
+                "fill_block_wide", "sharded_fetch", "sharded_step_mega"),
+                wide_run)
+            same(got, ref7, 0, B, tag)
+            same(got_long, ref7, B, B + len(long_reads), tag + " long reads")
+    log("[phase 12] every sharded engine equals the single-card engine")
+
+    # every kernel call against its plain version: the full batch (K13a:
+    # its first 8,192 reads), the tables rebuilt under the check
+    t0 = time.perf_counter()
+    with twins(True) as tw:
+        tw.tag = "pos"
+        TSP.query_batch_sharded_pos(index, batch, mesh=m12)
+        tw.tag = "compact"
+        TS.query_batch_sharded(split, batch[:8192], mesh=m12)
+        tw.tag = "mega"
+        TSM.query_batch_sharded_mega(split, batch, mesh=m12, st=st_mega)
+        tw.tag = "wide"
+        TSW.query_batch_sharded_mega_wide(wide, batch, mesh=m12)
+    del st_mega
+    torch.cuda.empty_cache()
+    log(f"[phase 12] K13a-K13e equal to their plain versions call by call "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # times at the counted runs' shapes: each kernel's ninth call (step 8;
+    # shard 0 for the fetch), K13d its first
+    first = cap.first
+
+    def arg(name, tag, key=None):
+        return first[(name, tag, key)]
+
+    for tag, key, what in (
+            ("sharded-mega (1,2)", (16, True, True, 0), "mega rows"),
+            ("sharded-pos (1,2) k=3", (2, False, True, 0),
+             "pos rows, key selector"),
+            ("sharded-compact (1,2)", (8, True, True, 0), "compact run rows"),
+            ("sharded-mega-wide (1,2)", (16, True, True, 0), "wide rows")):
+        a = arg("sharded_fetch", tag, key)
+        table, g, s, lo, L, _ = a
+        W = table.shape[1]
+        owned = int(((g >= lo) & (g < lo + L)).sum())
+        chk.time("sharded_fetch", lambda: PM.sharded_fetch(*a),
+                 lambda: PM.sharded_fetch_ref(*a),
+                 f"{what}: one shard of {tuple(table.shape)}, {g.shape[0]} "
+                 f"lanes, {owned} owned",
+                 bound=(nbytes(g, s) + g.shape[0] * W * 4
+                        + min(table.nbytes, owned * W * 4),
+                        g.shape[0] * W * 4))
+    a = arg("compose_sharded_tk", "sharded-pos (1,2) k=3")
+    t1, n, n_local, lo, A, kk = a
+    rows = A ** kk * n_local
+    chk.time("compose_sharded_tk", lambda: TSP.compose_sharded_tk(*a),
+             lambda: TSP.compose_sharded_tk_ref(*a),
+             f"shard 0 of T{kk}: {rows} rows, A={A}, n_local={n_local}",
+             bound=(rows * 8 + gathered(t1, rows * kk, 8), rows * kk * 12))
+    a = arg("sharded_step_pos", "sharded-pos (1,2) k=3")
+    Bs = a[0].shape[0]
+    chk.time("sharded_step_pos", lambda: TSP.sharded_step_pos(*a),
+             lambda: TSP.sharded_step_pos_ref(*a),
+             f"one step of {Bs} lanes, k={kk}",
+             bound=(a[0].nbytes + 2 * nbytes(a[1], a[2]) + Bs * kk * 5
+                    + nbytes(a[8], a[9]), Bs * kk * 10))
+    for tag in ("sharded-mega (1,2)", "sharded-mega-wide (1,2)"):
+        a = arg("sharded_step_mega", tag)
+        Bs = a[0].shape[0]
+        chk.time("sharded_step_mega", lambda: TSM.sharded_step_mega(*a),
+                 lambda: TSM.sharded_step_mega_ref(*a),
+                 f"{tag}: one step of {Bs} lanes",
+                 bound=(nbytes(a[0], a[7]) + 2 * nbytes(a[5]) + Bs * 14,
+                        Bs * 40))
+    caps = [arg("sharded_step_compact", "sharded-compact (1,2)", rnd)
+            for rnd in (1, 2, 3, 4)]
+    Bs = caps[0][2].shape[0]
+    # the bytes of one character step: the fetched rows, the state read and
+    # written, lengths, the pattern column and the pml/cid writes (not the
+    # scratch and next-index traffic between one launch a round)
+    chk.time("sharded_step_compact",
+             lambda: [TS.sharded_step_compact(*c) for c in caps],
+             lambda: [TS.sharded_step_compact_ref(*c) for c in caps],
+             f"one character step (rounds 1-4) of {Bs} lanes",
+             bound=(sum(nbytes(c[2], c[3]) for c in caps)
+                    + Bs * (16 * 2 + 4 + 1 + 8), Bs * 60))
+    del cap, first, caps, a
+    torch.cuda.empty_cache()
+    log(f"[phase 12] done in {time.perf_counter() - t_phase:.1f}s")
+    return walls, launches
+
+
 def start_native_build() -> subprocess.Popen | None:
     """Start compiling the host library of native/ (SA-IS, Kasai and the
     chunked SA lane of the build; colbwt_tpu/io/native.py) with the
@@ -1367,7 +1650,7 @@ def finish_native_build(proc: subprocess.Popen | None) -> None:
 
 
 def run(torch) -> tuple[dict, list[dict]]:
-    """Phases 2-11c on the card; returns the main path's metrics and the
+    """Phases 2-12 on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
     from colbwt_tpu_torch.io import formats as F
@@ -1663,6 +1946,13 @@ def run(torch) -> tuple[dict, list[dict]]:
     v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8)
     v11c, lc11c = phase11c(torch, dev, docs, tbl)
     launches += [lc3, lc8, *lc8bc, lc11, lc11b, lc11c]
+
+    # phase 12: the sharded query API, ip shards on the one card
+    walls12, lc12 = phase12(torch, dev, index, wide_index,
+                            reads + n_reads, long_reads, (pmls, cids),
+                            (pm7, ci7), chk)
+    launches += lc12
+    log("[sharded paths] " + json.dumps(walls12))
     log("[build path] " + json.dumps(
         {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
          "phase8b": v8bc["8b"], "phase8c": v8bc["8c"], "phase11": v11,

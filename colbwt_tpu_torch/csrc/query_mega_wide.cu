@@ -7,7 +7,8 @@
 //   K6c colbwt_shared_table_wide  <- _shared_table (:183)
 //
 // K6b writes char block c, one row per run, into the preallocated table at
-// row c * r: the full layout's 16 columns, or the compact layout's 10
+// row c * r (or at any row0: the sharded engine fills an ip shard's slice of
+// the table, parallel/query_sharded_mega_wide.py): the full layout's 16 columns, or the compact layout's 10
 // per-char columns.  JAX recomputes the succ/pred jump rows on the device
 // (a reverse cummin and a cummax over the char array) only so as not to ship
 // them through its slow host link (query_mega_wide.py:22-31).  They are the
@@ -83,10 +84,11 @@ __device__ __forceinline__ Landing resolve(const RunArrays& a, int64_t run0,
   return out;
 }
 
-// K6b: rows [c * r, (c + 1) * r) of the full (compact == false, 16 columns)
-// or per-char (compact, 10 columns) table.
+// K6b: char block c of the full (compact == false, 16 columns) or per-char
+// (compact, 10 columns) table, written at rows [row0, row0 + r) of buf:
+// row0 = c * r in a whole table, another offset in an ip shard's slice.
 __global__ void fill_block_kernel(int32_t* __restrict__ buf, bool compact,
-                                  int32_t c, const RunArrays a,
+                                  int32_t c, int64_t row0, const RunArrays a,
                                   const int32_t* __restrict__ succ_row,
                                   const int32_t* __restrict__ pred_row,
                                   int32_t n_lo, int32_t n_hi, int ff_bound) {
@@ -104,7 +106,7 @@ __global__ void fill_block_kernel(int32_t* __restrict__ buf, bool compact,
     const Landing p =
         resolve(a, pr, int64_t(a.length[clip(pr, a.r)]) - 1, has_pred,
                 ff_bound);
-    const int64_t row = static_cast<int64_t>(c) * a.r + i;
+    const int64_t row = row0 + i;
     if (compact) {
       int2* q = reinterpret_cast<int2*>(buf + 10 * row);
       q[0] = make_int2(t_lo, t_hi);
@@ -176,7 +178,7 @@ RunArrays run_arrays(const void* run_char, const void* col_id, const void* di,
 extern "C" {
 
 int colbwt_fill_block_wide(void* buf, int64_t compact, int64_t c,
-                           const void* run_char, const void* col_id,
+                           int64_t row0, const void* run_char, const void* col_id,
                            const void* di, const void* doff,
                            const void* length, const void* idx_lo,
                            const void* idx_hi, const void* thr_lo,
@@ -185,7 +187,7 @@ int colbwt_fill_block_wide(void* buf, int64_t compact, int64_t c,
                            int64_t n_hi, int64_t ff_bound, void* stream) {
   fill_block_kernel<<<grid_for(r), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(buf), compact != 0, static_cast<int32_t>(c),
+      static_cast<int32_t*>(buf), compact != 0, static_cast<int32_t>(c), row0,
       run_arrays(run_char, col_id, di, doff, length, idx_lo, idx_hi, thr_lo,
                  thr_hi, r),
       static_cast<const int32_t*>(succ_row),

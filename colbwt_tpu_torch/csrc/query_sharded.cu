@@ -1,0 +1,485 @@
+// Sharded query engines for Hopper (sm_90a): K13a-K13e.
+//
+// Replaces the shard_map programs of colbwt_tpu/parallel/:
+//   colbwt_sharded_fetch        <- the masked gathers that every program does
+//       (query_sharded.py:33 _local_gathers, query_sharded_mega.py:62,
+//       query_sharded_mega_wide.py:117, query_sharded_pos.py:169 fetch)
+//   K13a colbwt_sharded_step_compact <- query_sharded.py:54 _sharded_query
+//       (the recurrence of colbwt_tpu/ops/query_xla.py:89 query_step)
+//   K13b/K13c colbwt_sharded_step_mega <- query_sharded_mega.py:51
+//       _sharded_mega_query (narrow) and query_sharded_mega_wide.py:99
+//       _sharded_mega_wide_chunk (wide: two limbs in base 2**30)
+//   K13d colbwt_compose_sharded_tk <- query_sharded_pos.py:66
+//       _build_sharded_tk
+//   K13e colbwt_sharded_step_pos <- query_sharded_pos.py:162
+//       _sharded_pos_query
+//
+// The table shards over "ip" in contiguous blocks.  A table access is a
+// gather masked to the shard that owns the row (0 elsewhere), then a sum over
+// the ip shards: on one process the wrapper adds the shards' outputs, across
+// processes it is torch.distributed's all_reduce over the ip group (the
+// counterpart of XLA's psum over ICI).  So the fetch is one kernel, and each
+// recurrence is a step kernel that consumes the summed rows, applies one step
+// (or one dependent gather round of a step), writes the step's outputs and
+// emits the next fetch's global indices.  No kernel reads a table row outside
+// its own shard.
+//
+// What bounds them on an H100: per read and step, a fetch of one row per
+// shard (64 B mega, 8 B pos, 32 B and 8 B compact) whose address depends on
+// the step before: memory latency, as in K3-K6a, plus a launch per fetch and
+// step (a few microseconds each) that the single-card scans do not pay.  The
+// simple design: one thread per output element in the fetch (neighbouring
+// threads read one row's neighbouring words), one thread per read in the
+// steps, state in (B,) int32 arrays between launches; K13d one thread per
+// table row with k chained T1 gathers, as K2.
+//
+// Arithmetic is the JAX programs' int32 arithmetic (sums wrap as there, shifts
+// on uint32 where JAX shifts into bit 31); every gather index is int64 and
+// clamped as jnp.take(..., mode="clip") does.
+//
+// Plain C interface (ctypes); each entry point launches on the caller's
+// stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int32_t kLimb = int32_t(1) << 30;
+
+__device__ __forceinline__ int64_t clip(int64_t i, int64_t size) {
+  return i < 0 ? 0 : (i >= size ? size - 1 : i);
+}
+
+// int32 addition with the two's-complement wrap of the JAX programs
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t mul32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) *
+                              static_cast<uint32_t>(b));
+}
+
+// (a_hi, a_lo) < (b_hi, b_lo): value order for limbs
+__device__ __forceinline__ bool lt(int32_t a_hi, int32_t a_lo, int32_t b_hi,
+                                   int32_t b_lo) {
+  return a_hi < b_hi || (a_hi == b_hi && a_lo < b_lo);
+}
+
+int64_t grid_for(int64_t work) {
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = int64_t(1) << 20;  // grid-stride loops cover the rest
+  return blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+}
+
+// ---------------------------------------------------------------------------
+// the masked gather: out[b, w] = table[s[b] * stride + g[b] - block_start, w]
+// where 0 <= g[b] - block_start < L, else 0
+
+__global__ void sharded_fetch_kernel(const int32_t* __restrict__ table,
+                                     int64_t rows, int64_t W,
+                                     const int32_t* __restrict__ g,
+                                     const int32_t* __restrict__ s, int64_t B,
+                                     int64_t block_start, int64_t L,
+                                     int64_t stride,
+                                     int32_t* __restrict__ out) {
+  const int64_t total = B * W;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = e / W;
+    const int64_t j = static_cast<int64_t>(g[b]) - block_start;
+    int32_t v = 0;
+    if (j >= 0 && j < L) {
+      const int64_t sel = s == nullptr ? 0 : s[b];
+      v = table[clip(sel * stride + j, rows) * W + (e - b * W)];
+    }
+    out[e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K13d: rows [key * n_local, (key + 1) * n_local) of one shard's T_k block,
+// positions [lo, lo + n_local), from the replicated T1 ((A * n, 2), match flag
+// at bit 31).  The first processed char is the key's high digit; its match
+// bit goes to pos_bits(k) and its col id to byte 0.
+
+__global__ void compose_sharded_tk_kernel(const int2* __restrict__ t1,
+                                          int64_t t1_rows, int64_t n,
+                                          int64_t n_local, int64_t lo,
+                                          int64_t A, int k, int64_t total,
+                                          int2* __restrict__ out) {
+  const int pb = 32 - k;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t key = e / n_local;
+    const int64_t gpos = lo + (e - key * n_local);
+    int64_t digit[4];
+    int64_t rem = key;
+    for (int j = k - 1; j >= 0; --j) {
+      digit[j] = rem % A;
+      rem /= A;
+    }
+    const int64_t gp = gpos < n - 1 ? gpos : n - 1;
+    const int2 first = t1[clip(digit[0] * n + gp, t1_rows)];
+    uint32_t pos = static_cast<uint32_t>(first.x) & 0x7FFFFFFFu;
+    uint32_t w0 = ((static_cast<uint32_t>(first.x) >> 31) & 1u) << pb;
+    uint32_t w1 = static_cast<uint32_t>(first.y);
+    for (int j = 1; j < k; ++j) {
+      const int2 nxt = t1[clip(digit[j] * n + pos, t1_rows)];
+      pos = static_cast<uint32_t>(nxt.x) & 0x7FFFFFFFu;
+      w0 |= ((static_cast<uint32_t>(nxt.x) >> 31) & 1u) << (pb + j);
+      w1 |= (static_cast<uint32_t>(nxt.y) & 0xFFu) << (8 * j);
+    }
+    w0 |= pos;
+    if (gpos >= n) {  // ip padding: an inert self-loop, never reached
+      w0 = static_cast<uint32_t>(gp);
+      w1 = 0;
+    }
+    out[e] = make_int2(static_cast<int32_t>(w0), static_cast<int32_t>(w1));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K13e: step t of the positional scan, k characters from one (B, 2) row.
+// Writes the packed outputs ln << 8 | cid of processed chars t*k .. t*k+k-1
+// (columns M-1-q); the state runs on past a read's end, as in JAX; emits the
+// next step's position and key.
+
+__global__ void sharded_step_pos_kernel(const int2* __restrict__ rows,
+                                        int32_t* __restrict__ pos,
+                                        int32_t* __restrict__ mlen,
+                                        const uint8_t* __restrict__ patterns,
+                                        int64_t B, int64_t M, int64_t t, int k,
+                                        int32_t A, int32_t* __restrict__ packed,
+                                        int32_t* __restrict__ g_next,
+                                        int32_t* __restrict__ s_next) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  const int pb = 32 - k;
+  const int2 w = rows[b];
+  const uint32_t w0 = static_cast<uint32_t>(w.x);
+  const uint32_t w1 = static_cast<uint32_t>(w.y);
+  uint32_t ln = static_cast<uint32_t>(mlen[b]);
+  const uint8_t* pat = patterns + b * M;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t m = (w0 >> (pb + j)) & 1u;
+    ln = (ln + 1u) * m;
+    const int64_t col = M - 1 - (t * k + j);
+    packed[b * M + col] =
+        static_cast<int32_t>((ln << 8) | ((w1 >> (8 * j)) & 0xFFu));
+  }
+  const int32_t npos = static_cast<int32_t>(w0 & ((1u << pb) - 1u));
+  pos[b] = npos;
+  mlen[b] = static_cast<int32_t>(ln);
+  if ((t + 1) * k < M) {
+    int32_t key = 0;
+    for (int j = 0; j < k; ++j) {
+      key = add32(mul32(key, A), pat[M - 1 - ((t + 1) * k + j)]);
+    }
+    g_next[b] = npos;
+    s_next[b] = key;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K13b (narrow) and K13c (wide): one step of the mega recurrence from the
+// summed (B, 16) row at c * r + interval.  Lanes past their read's end
+// (step_offset + s >= lengths) keep their state and write zeros.  Emits the
+// next step's row index.
+
+struct MegaState {
+  int32_t *interval, *offset, *pos_lo, *pos_hi, *mlen;
+};
+
+template <bool kWide>
+__global__ void sharded_step_mega_kernel(
+    const int4* __restrict__ rows, const int32_t* __restrict__ length,
+    int64_t r, int32_t n_lo, int32_t n_hi, MegaState st,
+    const uint8_t* __restrict__ patterns, const int32_t* __restrict__ lengths,
+    int64_t B, int64_t M, int64_t s, int64_t step_offset, int ff_bound,
+    int32_t* __restrict__ pml, int32_t* __restrict__ cid,
+    int32_t* __restrict__ g_next) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  const int4* p = rows + 4 * b;
+  const int4 q0 = p[0], q1 = p[1], q2 = p[2], q3 = p[3];
+  const int32_t w[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                         q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
+  const int32_t interval = st.interval[b];
+  const int32_t offset = st.offset[b];
+  const int32_t pos_lo = st.pos_lo[b];
+  const int32_t pos_hi = kWide ? st.pos_hi[b] : 0;
+  const int32_t mlen = st.mlen[b];
+
+  bool match;
+  int32_t cid_out, di, doff, lf_lo, lf_hi = 0, dlen0;
+  bool take_pred, take_succ;
+  if (kWide) {  // query_mega_wide.py:65-69 columns
+    match = (w[0] >> 8) == 1;
+    cid_out = w[0] & 0xFF;
+    di = w[1];
+    doff = add32(w[2], offset);
+    lf_lo = add32(w[3], offset);
+    const int32_t carry = lf_lo >= kLimb;
+    lf_lo -= carry * kLimb;
+    lf_hi = add32(w[4], carry);
+    dlen0 = w[5];
+    take_pred = !match && lt(pos_hi, pos_lo, w[7], w[6]) && w[12] >= 0;
+    take_succ = !match && !take_pred && lt(w[7], w[6], n_hi, n_lo);
+  } else {  // query_mega.py:8-17 columns
+    match = w[0] == 1;
+    cid_out = w[1];
+    di = w[2];
+    doff = add32(w[3], offset);
+    lf_lo = add32(w[4], offset);
+    dlen0 = w[5];
+    take_pred = !match && pos_lo < w[6] && w[10] >= 0;
+    take_succ = !match && !take_pred && w[6] < n_lo;
+  }
+  bool over = doff >= dlen0;
+  di = add32(di, over);
+  doff = add32(doff, over ? -dlen0 : 0);
+  for (int t = 2; t < ff_bound; ++t) {
+    const int32_t ln = length[clip(di, r)];
+    over = doff >= ln;
+    di = add32(di, over);
+    doff = add32(doff, over ? -ln : 0);
+  }
+  // threshold_step (include/col_bwt.hpp:531-574): pred, else succ, else LF
+  const int P = kWide ? 12 : 10, S = kWide ? 8 : 7;
+  const int32_t ni = take_pred ? w[P] : (take_succ ? w[S] : di);
+  const int32_t no = take_pred ? w[P + 1] : (take_succ ? w[S + 1] : doff);
+  const int32_t nlo = take_pred ? w[P + 2] : (take_succ ? w[S + 2] : lf_lo);
+  const int32_t nhi = kWide ? (take_pred ? w[15] : (take_succ ? w[11] : lf_hi))
+                            : 0;
+  const int32_t nlen = match ? add32(mlen, 1) : 0;
+  const bool valid = s + step_offset < lengths[b];
+  const int32_t new_interval = valid ? ni : interval;
+  if (valid) {
+    st.interval[b] = ni;
+    st.offset[b] = no;
+    st.pos_lo[b] = nlo;
+    if (kWide) st.pos_hi[b] = nhi;
+    st.mlen[b] = nlen;
+  }
+  const int64_t col = M - 1 - s;
+  pml[b * M + col] = valid ? nlen : 0;
+  cid[b * M + col] = valid ? cid_out : 0;
+  if (s + 1 < M) {
+    g_next[b] = add32(mul32(patterns[b * M + col - 1], static_cast<int32_t>(r)),
+                      new_interval);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K13a: one dependent gather round of query_step.  The packed SoA row is
+// [char, idx, length, dest_interval, dest_offset, col_id, threshold, 0]; the
+// jump row at (c, interval) is [succ, pred].  Rounds:
+//   1 rows soa[interval], jump[c, interval]: cid, match, si, pi
+//   2 rows soa[si], soa[pi]: threshold reposition -> new interval/offset/len
+//   3 row soa[new interval]: di, doff
+//   4 row soa[di]: pos = idx + doff, then the first fast-forward round
+//   5 row soa[di]: one more fast-forward round (ff_bound - 2 of them)
+// The last round writes the step's outputs and state (lanes past their
+// read's end keep theirs) and emits round 1's indices of the next step.
+
+enum { kChar = 0, kIdx, kLen, kDi, kDoff, kCid, kThr, kSoaWidth = 8 };
+enum { sCid = 0, sMatch, sSi, sPi, sNoff, sNlen, sDi, sDoff, sNpos };
+
+__global__ void sharded_step_compact_kernel(
+    int rnd, bool last, const int32_t* __restrict__ row_a,
+    const int32_t* __restrict__ row_b, int32_t* __restrict__ scratch,
+    int32_t* __restrict__ interval, int32_t* __restrict__ offset,
+    int32_t* __restrict__ pos, int32_t* __restrict__ length,
+    const uint8_t* __restrict__ patterns, const int32_t* __restrict__ lengths,
+    int64_t B, int64_t M, int64_t i, int32_t r, int32_t n, int ff_bound,
+    int32_t* __restrict__ pml, int32_t* __restrict__ cid,
+    int32_t* __restrict__ g_a, int32_t* __restrict__ g_b,
+    int32_t* __restrict__ s_b) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  int32_t* sc = scratch + b;  // column-major (9, B)
+  const int32_t* a = row_a + kSoaWidth * b;
+  if (rnd == 1) {
+    const int32_t c = patterns[b * M + M - 1 - i];
+    const int32_t si = row_b[2 * b], pi = row_b[2 * b + 1];
+    sc[sCid * B] = a[kCid];
+    sc[sMatch * B] = a[kChar] == c;
+    sc[sSi * B] = si;
+    sc[sPi * B] = pi;
+    g_a[b] = si;
+    g_b[b] = pi;
+    return;
+  }
+  if (rnd == 2) {
+    const int32_t si = sc[sSi * B], pi = sc[sPi * B];
+    const int32_t cur = interval[b], off = offset[b];
+    const bool has_succ = si < r, has_pred = pi >= 0;
+    const int32_t thr = has_succ ? a[kThr] : n;
+    const bool use_pred = pos[b] < thr && has_pred;
+    const int32_t ti = use_pred ? pi : (has_succ ? si : cur);
+    const int32_t toff =
+        use_pred ? add32(row_b[kSoaWidth * b + kLen], -1) : (has_succ ? 0 : off);
+    const bool match = sc[sMatch * B] != 0;
+    sc[sNoff * B] = match ? off : toff;
+    sc[sNlen * B] = match ? add32(length[b], 1) : 0;
+    g_a[b] = match ? cur : ti;
+    return;
+  }
+  int32_t di, doff;
+  if (rnd == 3) {
+    di = a[kDi];
+    doff = add32(a[kDoff], sc[sNoff * B]);
+  } else {
+    di = sc[sDi * B];
+    doff = sc[sDoff * B];
+    if (rnd == 4) sc[sNpos * B] = add32(a[kIdx], doff);
+    if (rnd == 5 || ff_bound >= 2) {  // a fast-forward round on this row
+      const int32_t ln = a[kLen];
+      const bool over = doff >= ln;
+      di = add32(di, over);
+      doff = add32(doff, over ? -ln : 0);
+    }
+  }
+  sc[sDi * B] = di;
+  sc[sDoff * B] = doff;
+  g_a[b] = di;
+  if (!last) return;
+  const bool valid = i < lengths[b];
+  const int32_t nlen = sc[sNlen * B];
+  if (valid) {
+    interval[b] = di;
+    offset[b] = doff;
+    pos[b] = sc[sNpos * B];
+    length[b] = nlen;
+  }
+  pml[b * M + M - 1 - i] = valid ? nlen : 0;
+  cid[b * M + M - 1 - i] = valid ? sc[sCid * B] : 0;
+  if (i + 1 < M) {
+    g_a[b] = interval[b];
+    g_b[b] = interval[b];
+    s_b[b] = patterns[b * M + M - 2 - i];
+  }
+}
+
+int blocks_for(int64_t B) {
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  return static_cast<int>(blocks < 1 ? 1 : blocks);
+}
+
+}  // namespace
+
+extern "C" {
+
+// table (rows, W) int32; g, s (B,) int32 (s may be null: selector 0);
+// out (B, W) int32.
+int colbwt_sharded_fetch(const void* table, int64_t rows, int64_t W,
+                         const void* g, const void* s, int64_t B,
+                         int64_t block_start, int64_t L, int64_t stride,
+                         void* out, void* stream) {
+  sharded_fetch_kernel<<<grid_for(B * W), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), rows, W,
+      static_cast<const int32_t*>(g), static_cast<const int32_t*>(s), B,
+      block_start, L, stride, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t1 (t1_rows, 2) int32; out (A**k * n_local, 2) int32.
+int colbwt_compose_sharded_tk(const void* t1, int64_t t1_rows, int64_t n,
+                              int64_t n_local, int64_t lo, int64_t A,
+                              int64_t k, void* out, void* stream) {
+  int64_t keys = 1;
+  for (int64_t j = 0; j < k; ++j) keys *= A;
+  const int64_t total = keys * n_local;
+  compose_sharded_tk_kernel<<<grid_for(total), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(t1), t1_rows, n, n_local, lo, A,
+      static_cast<int>(k), total, static_cast<int2*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows (B, 2); pos, mlen (B,) updated in place; patterns (B, M) uint8;
+// packed (B, M) int32; g_next, s_next (B,) int32.
+int colbwt_sharded_step_pos(const void* rows, void* pos, void* mlen,
+                            const void* patterns, int64_t B, int64_t M,
+                            int64_t t, int64_t k, int64_t A, void* packed,
+                            void* g_next, void* s_next, void* stream) {
+  sharded_step_pos_kernel<<<blocks_for(B), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(rows), static_cast<int32_t*>(pos),
+      static_cast<int32_t*>(mlen), static_cast<const uint8_t*>(patterns), B,
+      M, t, static_cast<int>(k), static_cast<int32_t>(A),
+      static_cast<int32_t*>(packed), static_cast<int32_t*>(g_next),
+      static_cast<int32_t*>(s_next));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows (B, 16) int32; length (r,) int32; the state arrays (B,) int32 are
+// updated in place (pos_hi null when narrow); narrow n in n_lo; pml, cid
+// (B, M) int32; g_next (B,) int32.
+int colbwt_sharded_step_mega(int64_t wide, const void* rows,
+                             const void* length, int64_t r, int64_t n_lo,
+                             int64_t n_hi, void* interval, void* offset,
+                             void* pos_lo, void* pos_hi, void* mlen,
+                             const void* patterns, const void* lengths,
+                             int64_t B, int64_t M, int64_t s,
+                             int64_t step_offset, int64_t ff_bound, void* pml,
+                             void* cid, void* g_next, void* stream) {
+  const MegaState st{static_cast<int32_t*>(interval),
+                     static_cast<int32_t*>(offset),
+                     static_cast<int32_t*>(pos_lo),
+                     static_cast<int32_t*>(pos_hi),
+                     static_cast<int32_t*>(mlen)};
+  auto* rw = static_cast<const int4*>(rows);
+  auto* ln = static_cast<const int32_t*>(length);
+  auto* pat = static_cast<const uint8_t*>(patterns);
+  auto* lens = static_cast<const int32_t*>(lengths);
+  auto* pm = static_cast<int32_t*>(pml);
+  auto* ci = static_cast<int32_t*>(cid);
+  auto* gn = static_cast<int32_t*>(g_next);
+  auto strm = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    sharded_step_mega_kernel<true><<<blocks_for(B), kThreads, 0, strm>>>(
+        rw, ln, r, static_cast<int32_t>(n_lo), static_cast<int32_t>(n_hi), st,
+        pat, lens, B, M, s, step_offset, static_cast<int>(ff_bound), pm, ci,
+        gn);
+  } else {
+    sharded_step_mega_kernel<false><<<blocks_for(B), kThreads, 0, strm>>>(
+        rw, ln, r, static_cast<int32_t>(n_lo), 0, st, pat, lens, B, M, s,
+        step_offset, static_cast<int>(ff_bound), pm, ci, gn);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// row_a (B, 8); row_b (B, 2) in round 1, (B, 8) in round 2, else unused;
+// scratch (9, B); the state arrays (B,) updated in place; pml, cid (B, M);
+// g_a, g_b, s_b (B,) written.
+int colbwt_sharded_step_compact(int64_t rnd, int64_t last, const void* row_a,
+                                const void* row_b, void* scratch,
+                                void* interval, void* offset, void* pos,
+                                void* length, const void* patterns,
+                                const void* lengths, int64_t B, int64_t M,
+                                int64_t i, int64_t r, int64_t n,
+                                int64_t ff_bound, void* pml, void* cid,
+                                void* g_a, void* g_b, void* s_b,
+                                void* stream) {
+  sharded_step_compact_kernel<<<blocks_for(B), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int>(rnd), last != 0, static_cast<const int32_t*>(row_a),
+      static_cast<const int32_t*>(row_b), static_cast<int32_t*>(scratch),
+      static_cast<int32_t*>(interval), static_cast<int32_t*>(offset),
+      static_cast<int32_t*>(pos), static_cast<int32_t*>(length),
+      static_cast<const uint8_t*>(patterns),
+      static_cast<const int32_t*>(lengths), B, M, i,
+      static_cast<int32_t>(r), static_cast<int32_t>(n),
+      static_cast<int>(ff_bound), static_cast<int32_t*>(pml),
+      static_cast<int32_t*>(cid), static_cast<int32_t*>(g_a),
+      static_cast<int32_t*>(g_b), static_cast<int32_t*>(s_b));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

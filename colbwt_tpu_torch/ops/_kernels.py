@@ -6,13 +6,15 @@ PyTorch headers, so a cold build takes seconds.  The library is built at first u
 the checkout root, named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused.
 
-Every C entry point returns cudaGetLastError(); `check` raises on a nonzero
-code.  `launches` counts kernel launches per wrapper name (the wrappers in
-ops/query_pos.py, ops/query_xla.py, ops/query_mega.py,
-ops/query_mega_wide.py, ops/query_fused.py, ops/construct.py (the
-multi-MUM scan, the suffix array, LCP and thresholds), ops/colsplit.py and
-utils/xfer.py add one where they launch, and nowhere else), so a run can
-show which kernels its path went through.
+The wrappers call an entry point through `on(device)`, which makes the
+tensors' card the current device for the launch.  Every C entry point
+returns cudaGetLastError(); `check` raises on a nonzero code.  `launches`
+counts kernel launches per wrapper name (the wrappers in ops/query_pos.py,
+ops/query_xla.py, ops/query_mega.py, ops/query_mega_wide.py,
+ops/query_fused.py, ops/construct.py (the multi-MUM scan, the suffix
+array, LCP and thresholds), ops/colsplit.py, utils/xfer.py and the sharded
+engines of parallel/ add one where they launch, and nowhere else), so a
+run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
            "fill_block_wide", "shared_table_wide", "query_batch_fused",
            "mum_window", "tunneled_walk", "all_walk", "upload_rows",
-           "doubling_round", "lcp_lift", "segmented_argmin")
+           "doubling_round", "lcp_lift", "segmented_argmin",
+           "sharded_fetch", "compose_sharded_tk", "sharded_step_pos",
+           "sharded_step_mega", "sharded_step_compact")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -56,7 +60,7 @@ _SIGNATURES = {
     "colbwt_query_chunk_mega_wide": ([_I, _P, _I, _P, _P, _I, _I, _P, _P]
                                      + [_P] * 5 + [_I] * 6 + [_P] * 7
                                      + [_P]),
-    "colbwt_fill_block_wide": [_P, _I, _I] + [_P] * 11 + [_I] * 4 + [_P],
+    "colbwt_fill_block_wide": [_P, _I, _I, _I] + [_P] * 11 + [_I] * 4 + [_P],
     "colbwt_shared_table_wide": [_P] * 8 + [_I] + [_P],
     "colbwt_query_batch_fused": [_P] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 3
                                 + [_P] * 2 + [_P],
@@ -69,6 +73,13 @@ _SIGNATURES = {
     "colbwt_doubling_round": [_P] + [_I] * 4 + [_P] * 9 + [_P],
     "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] + [_P],
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
+    "colbwt_sharded_fetch": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P],
+    "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
+    "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
+    "colbwt_sharded_step_mega": ([_I, _P, _P] + [_I] * 3 + [_P] * 7
+                                 + [_I] * 5 + [_P] * 3 + [_P]),
+    "colbwt_sharded_step_compact": ([_I, _I] + [_P] * 9 + [_I] * 6
+                                    + [_P] * 5 + [_P]),
 }
 
 
@@ -142,6 +153,28 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+class _OnDevice:
+    """The library's entry points, each called with `device` the current
+    CUDA device: a launch into a stream of another card than the current
+    one fails or reads the wrong card's memory."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+
+    def __getattr__(self, name: str):
+        fn = getattr(load(), name)
+
+        def call(*args):
+            with torch.cuda.device(self._device):
+                return fn(*args)
+        return call
+
+
+def on(device: torch.device) -> _OnDevice:
+    """The kernel library, its launches made on `device`."""
+    return _OnDevice(device)
 
 
 def check(name: str, code: int) -> None:

@@ -142,7 +142,7 @@ def tunneled_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
     pos = torch.empty((num_steps, M), dtype=torch.int32, device=dev)
     valid = torch.empty((num_steps, M), dtype=torch.bool, device=dev)
     if M and num_steps:
-        code = K.load().colbwt_tunneled_walk(
+        code = K.on(dev).colbwt_tunneled_walk(
             *(fd[f].data_ptr() for f in FL_FIELDS), r, p0.data_ptr(),
             lens.data_ptr(), M, int(num_steps), int(rate), int(num_docs),
             pos.data_ptr(), valid.data_ptr(), K.stream_handle(dev))
@@ -169,7 +169,7 @@ def all_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
     height = torch.empty(shape, dtype=torch.int32, device=dev)
     valid = torch.empty(shape, dtype=torch.bool, device=dev)
     if M and num_steps:
-        code = K.load().colbwt_all_walk(
+        code = K.on(dev).colbwt_all_walk(
             *(fd[f].data_ptr() for f in FL_FIELDS), r, p0.data_ptr(),
             lens.data_ptr(), M, int(num_steps), int(rate), int(num_docs),
             pos.data_ptr(), height.data_ptr(), valid.data_ptr(),

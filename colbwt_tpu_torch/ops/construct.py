@@ -147,7 +147,7 @@ def doubling_round(rank: torch.Tensor, k: int, max_rank: int
     order = torch.empty(n, dtype=torch.int32, device=dev)
     new_rank = torch.empty(n, dtype=torch.int32, device=dev)
     top = torch.empty((), dtype=torch.int32, device=dev)
-    code = K.load().colbwt_doubling_round(
+    code = K.on(dev).colbwt_doubling_round(
         rank.data_ptr(), n, int(k), lo_bits, -(-bits // 8),
         keys[0].data_ptr(), keys[1].data_ptr(), vals[0].data_ptr(),
         vals[1].data_ptr(), hist.data_ptr(), scratch.data_ptr(),
@@ -236,9 +236,9 @@ def lcp_from_pyramid(ranks0, sa: torch.Tensor, pyramid: list[torch.Tensor]
     levels = (ctypes.c_void_p * len(pyramid))(*(p.data_ptr()
                                                 for p in pyramid))
     lcp = torch.empty(n, dtype=torch.int32, device=dev)
-    code = K.load().colbwt_lcp_lift(r0.data_ptr(), sa.data_ptr(), levels,
-                                    len(pyramid), n, lcp.data_ptr(),
-                                    K.stream_handle(dev))
+    code = K.on(dev).colbwt_lcp_lift(r0.data_ptr(), sa.data_ptr(), levels,
+                                     len(pyramid), n, lcp.data_ptr(),
+                                     K.stream_handle(dev))
     K.check("lcp_lift", code)
     K.launches["lcp_lift"] += 1
     return lcp
@@ -286,9 +286,9 @@ def segmented_argmin(lcp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
     out = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return out
-    code = K.load().colbwt_segmented_argmin(lcp.data_ptr(), lo.data_ptr(),
-                                            hi.data_ptr(), m, out.data_ptr(),
-                                            K.stream_handle(dev))
+    code = K.on(dev).colbwt_segmented_argmin(lcp.data_ptr(), lo.data_ptr(),
+                                             hi.data_ptr(), m, out.data_ptr(),
+                                             K.stream_handle(dev))
     K.check("segmented_argmin", code)
     K.launches["segmented_argmin"] += 1
     return out
@@ -479,7 +479,7 @@ def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
     ell = torch.empty(C, dtype=torch.int32, device=dev)
     scratch = torch.empty(C + N, dtype=torch.int32, device=dev)
     limit = max(min(int(limit), C), -1)  # in-chunk arithmetic is int32
-    code = K.load().colbwt_mum_window(
+    code = K.on(dev).colbwt_mum_window(
         lcp_s.data_ptr(), docs_s.data_ptr(),
         1 if docs_s.dtype == torch.uint16 else 0, chg_s.data_ptr(), C, N,
         limit, int(min_mum), scratch.data_ptr(), packed.data_ptr(),

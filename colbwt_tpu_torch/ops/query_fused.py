@@ -184,7 +184,7 @@ def query_batch_fused(ft: dict, patterns: torch.Tensor, lengths: torch.Tensor,
     pml = torch.empty((B, M), dtype=torch.int32, device=dev)
     cid = torch.empty((B, M), dtype=torch.int32, device=dev)
     if B and M:
-        code = K.load().colbwt_query_batch_fused(
+        code = K.on(dev).colbwt_query_batch_fused(
             ft["run_rows"].data_ptr(), ft["jump_rows"].data_ptr(),
             ft["length"].data_ptr(), r, ft["jump_rows"].shape[0], ft["n"],
             patterns.data_ptr(), lengths.data_ptr(), B, M, int(ff_bound),

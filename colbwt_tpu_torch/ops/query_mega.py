@@ -241,7 +241,7 @@ def query_chunk_mega(mt: dict, patterns, lengths, state, step_offset: int,
     final = tuple(torch.empty(B, dtype=torch.int32, device=dev)
                   for _ in range(4))
     if B:
-        code = K.load().colbwt_query_chunk_mega(
+        code = K.on(dev).colbwt_query_chunk_mega(
             mega.data_ptr(), mega.shape[0], length.data_ptr(), mt["r"],
             mt["n"], patterns.data_ptr(), lengths.data_ptr(),
             *(t.data_ptr() for t in state), int(step_offset), B, M,

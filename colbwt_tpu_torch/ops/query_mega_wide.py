@@ -167,7 +167,7 @@ def _block_cols_ref(c: int, a: dict, n_lo: int, n_hi: int, ff_bound: int):
 
 
 def fill_block_ref(buf, c: int, a: dict, succ_row, pred_row, n_lo: int,
-                   n_hi: int, ff_bound: int, compact: bool):
+                   n_hi: int, ff_bound: int, compact: bool, row0: int):
     """Plain PyTorch K6b; same contract as `fill_block`.  succ_row and
     pred_row go unused: this version recomputes them, as JAX does."""
     del succ_row, pred_row
@@ -178,39 +178,40 @@ def fill_block_ref(buf, c: int, a: dict, succ_row, pred_row, n_lo: int,
         mc = (cols[0] << 8) | cols[1]  # match bit 8 | cid bits 0..7
         block = torch.stack((mc,) + cols[2:], dim=1)
     r = a["char"].shape[0]
-    buf[c * r:(c + 1) * r] = block
+    buf[row0:row0 + r] = block
     return buf
 
 
 def fill_block(buf, c: int, a: dict, succ_row, pred_row, n_lo: int,
-               n_hi: int, ff_bound: int, compact: bool):
+               n_hi: int, ff_bound: int, compact: bool, row0: int):
     """K6b (replaces colbwt_tpu/ops/query_mega_wide.py:160
-    _fill_block_full and :172 _fill_block_compact): write char block c —
-    rows [c·r, (c+1)·r) — of the full (16 columns) or compact per-char (10
-    columns) table `buf` in place, from the per-run arrays `a`
-    (run_arrays).  succ_row and pred_row are the index's succ_jump[c] and
-    pred_jump[c], which the kernel reads in place of JAX's cummin/cummax
-    pass.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    _fill_block_full and :172 _fill_block_compact): write char block c of
+    the full (16 columns) or compact per-char (10 columns) table into rows
+    [row0, row0 + r) of `buf` in place (c·r in the whole table, another
+    offset in an ip shard's slice), from the per-run arrays `a` (run_arrays).
+    succ_row and pred_row are the index's succ_jump[c] and pred_jump[c],
+    which the kernel reads in place of JAX's cummin/cummax pass.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if buf.device.type == "cpu":
         return fill_block_ref(buf, c, a, succ_row, pred_row, n_lo, n_hi,
-                              ff_bound, compact)
+                              ff_bound, compact, row0)
     dev = buf.device
     r = a["char"].shape[0]
     width = _PC_WIDTH if compact else _WIDTH
     K.require(buf, "buf", torch.int32, dev)
     K.require_aligned(buf, "buf", 16)
-    if buf.shape[1:] != (width,) or c < 0 or (c + 1) * r > buf.shape[0]:
-        raise ValueError(f"block {c} of r={r} rows does not fit buf "
-                         f"{tuple(buf.shape)} (width {width})")
+    if (buf.shape[1:] != (width,) or c < 0 or row0 < 0
+            or row0 + r > buf.shape[0]):
+        raise ValueError(f"block {c} of r={r} rows at row {row0} does not "
+                         f"fit buf {tuple(buf.shape)} (width {width})")
     named = [(f, a[f]) for f in RUN_FIELDS] + [("succ_row", succ_row),
                                                ("pred_row", pred_row)]
     for name, t in named:
         K.require(t, name, torch.int32, dev)
         if t.shape != (r,):
             raise ValueError(f"{name} must have shape ({r},)")
-    code = K.load().colbwt_fill_block_wide(
-        buf.data_ptr(), int(compact), int(c),
+    code = K.on(dev).colbwt_fill_block_wide(
+        buf.data_ptr(), int(compact), int(c), int(row0),
         *(t.data_ptr() for _, t in named), r, int(n_lo), int(n_hi),
         int(ff_bound), K.stream_handle(dev))
     K.check("fill_block_wide", code)
@@ -245,7 +246,7 @@ def shared_table(a: dict) -> torch.Tensor:
         if a[f].shape != (r,):
             raise ValueError(f"{f} must have shape ({r},)")
     out = torch.empty((r, _SH_WIDTH), dtype=torch.int32, device=dev)
-    code = K.load().colbwt_shared_table_wide(
+    code = K.on(dev).colbwt_shared_table_wide(
         out.data_ptr(), *(a[f].data_ptr() for f in fields), r,
         K.stream_handle(dev))
     K.check("shared_table_wide", code)
@@ -276,7 +277,7 @@ def build_mega_table_wide(index: ColPmlIndex, compact: bool | None = None,
     for c in range(index.sigma + 1):
         fill_block(buf, c, a, to_device(index.succ_jump[c], dev),
                    to_device(index.pred_jump[c], dev), meta["n_lo"],
-                   meta["n_hi"], index.ff_bound, compact)
+                   meta["n_hi"], index.ff_bound, compact, c * r)
     out = ({"shared": shared_table(a), "percha": buf} if compact
            else {"mega": buf})
     out["length"] = a["length"]
@@ -391,7 +392,7 @@ def query_chunk_mega_wide(mt: dict, patterns, lengths, state,
     final = tuple(torch.empty(B, dtype=torch.int32, device=dev)
                   for _ in range(5))
     if B:
-        code = K.load().colbwt_query_chunk_mega_wide(
+        code = K.on(dev).colbwt_query_chunk_mega_wide(
             int(compact), table.data_ptr(), table.shape[0],
             mt["shared"].data_ptr() if compact else None,
             mt["length"].data_ptr(), mt["r"], mt["n_hi"] * LIMB + mt["n_lo"],

@@ -140,7 +140,7 @@ def build_t1_chunk(buf, char, idx_pad, length, lf_pos0, threshold, pred_row,
             and row0 + C <= buf.shape[0] and idx_pad.shape[0] >= r):
         raise ValueError(f"T1 chunk out of range: s={s} C={C} n={n} "
                          f"row0={row0} rows={buf.shape[0]}")
-    code = K.load().colbwt_build_t1_chunk(
+    code = K.on(dev).colbwt_build_t1_chunk(
         *(t.data_ptr() for t in args.values()), r, int(c), int(row0),
         int(s), int(n), int(C), K.stream_handle(dev))
     K.check("build_t1_chunk", code)
@@ -231,7 +231,7 @@ def compose_tables(ta: torch.Tensor, tb: torch.Tensor, n: int, A: int,
                          f"need {A ** ka * n}/{A ** kb * n}")
     total = A ** (ka + kb) * n
     out = torch.empty((total, 2), dtype=torch.int32, device=dev)
-    code = K.load().colbwt_compose_tables(
+    code = K.on(dev).colbwt_compose_tables(
         out.data_ptr(), ta.data_ptr(), tb.data_ptr(), tb.shape[0], int(n),
         A ** kb, total, ka, kb, K.stream_handle(dev))
     K.check("compose_tables", code)
@@ -423,7 +423,7 @@ def query_chunk_pos(table, n: int, patterns, lengths, pos0, mlen0,
     pos_out = torch.empty(B, dtype=torch.int32, device=dev)
     mlen_out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        code = K.load().colbwt_query_chunk_pos(
+        code = K.on(dev).colbwt_query_chunk_pos(
             table.data_ptr(), table.shape[0], int(n), patterns.data_ptr(), W,
             lengths.data_ptr(), pos0.data_ptr(), mlen0.data_ptr(),
             int(step_offset), B, M, int(k), int(A), pack, int(masked), mode,

@@ -124,7 +124,7 @@ def query_batch_device(tb: dict, patterns: torch.Tensor,
     pml = torch.empty((B, M), dtype=torch.int32, device=dev)
     cid = torch.empty((B, M), dtype=torch.int32, device=dev)
     if B and M:
-        code = K.load().colbwt_query_batch_xla(
+        code = K.on(dev).colbwt_query_batch_xla(
             *(tb[f].data_ptr() for f in SOA_FIELDS), tb["r"],
             tb["pred_jump"].numel(), tb["n"], patterns.data_ptr(),
             lengths.data_ptr(), B, M, int(ff_bound), pml.data_ptr(),

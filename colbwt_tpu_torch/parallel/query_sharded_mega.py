@@ -1,0 +1,221 @@
+"""Interval-sharded mega engine: dp×ip mesh, one sum over "ip" per
+character step — port of colbwt_tpu/parallel/query_sharded_mega.py.
+
+The mega table ((sigma+1)·r × 16, ops/query_mega.py) splits into contiguous
+row blocks over "ip"; each step every shard answers the batch's row fetch at
+c·r + interval from its block (the masked gather of parallel/mesh.py) and
+the sum over "ip" assembles the (B, 16) rows.  Run lengths, which the
+fast-forward rounds past the first read, are replicated.  Reads split over
+"dp" and never communicate.
+
+K13b/K13c `sharded_step_mega` (csrc/query_sharded.cu) applies one step of
+the mega recurrence to the summed rows, narrow (this engine) or wide in
+two limbs (parallel/query_sharded_mega_wide.py), with the plain PyTorch
+version `sharded_step_mega_ref` beside it.  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.models.tensors import to_device
+from colbwt_tpu_torch.ops import _kernels as K
+from colbwt_tpu_torch.ops import query_mega
+from colbwt_tpu_torch.ops.query_mega_wide import LIMB, _lt
+from colbwt_tpu_torch.ops.query_xla import _gather
+from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
+                                            shard_reads, unpad)
+
+
+def shard_mega(index: ColPmlIndex, mesh: Mesh, mt: dict | None = None
+               ) -> dict:
+    """Pad the mega table to an ip multiple with zero rows and place it on
+    the mesh: shard i holds rows [i·rows_local, (i+1)·rows_local).  `mt` is
+    a `build_mega_table` dict of either package (default: the port's, built
+    on the host)."""
+    mt = mt or query_mega.build_mega_table(index, device="cpu")
+
+    def host_array(a) -> np.ndarray:
+        return (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a))
+
+    mega = host_array(mt["mega"])
+    ip = mesh.ip
+    rows = mega.shape[0]
+    pad = (-rows) % ip
+    if pad:
+        mega = np.concatenate(
+            [mega, np.zeros((pad, mega.shape[1]), mega.dtype)])
+    rl = mega.shape[0] // ip
+    length = host_array(mt["length"])
+    return {
+        "mega": mesh.shard(lambda i, dev: to_device(
+            mega[i * rl:(i + 1) * rl], dev)),
+        # run lengths replicated (4 B/run) for the fast-forward rounds
+        # beyond the precomputed first one
+        "length": mesh.replicate(lambda dev: to_device(length, dev)),
+        "rows_padded": mega.shape[0],
+        "n": int(np.asarray(mt["n"])),
+        "r": int(np.asarray(mt["r"])),
+        "last_len": int(np.asarray(mt["last_len"])),
+    }
+
+
+def sharded_step_mega_ref(rows, length, r: int, n_lo: int, n_hi: int, state,
+                          patterns, lengths, s: int, step_offset: int,
+                          ff_bound: int, pml, cid, g_next,
+                          wide: bool) -> None:
+    """Plain PyTorch K13b/K13c; same contract as `sharded_step_mega`."""
+    B, M = patterns.shape
+    col = M - 1 - s
+    if wide:  # colbwt_tpu/parallel/query_sharded_mega_wide.py:127-172
+        interval, offset, pos_lo, pos_hi, mlen = state
+        mc = rows[:, 0]
+        match = (mc >> 8) == 1
+        cid_out = mc & 0xFF
+        doff = rows[:, 2] + offset
+        lf_lo = rows[:, 3] + offset
+        carry = (lf_lo >= LIMB).to(torch.int32)
+        lf_lo = lf_lo - carry * LIMB
+        lf_hi = rows[:, 4] + carry
+        di0 = rows[:, 1]
+        take_pred = (~match & _lt(pos_hi, pos_lo, rows[:, 7], rows[:, 6])
+                     & (rows[:, 12] >= 0))
+        take_succ = ~match & ~take_pred & _lt(rows[:, 7], rows[:, 6], n_hi,
+                                              n_lo)
+        P, S = 12, 8
+    else:  # colbwt_tpu/parallel/query_sharded_mega.py:76-112
+        interval, offset, pos_lo, mlen = state
+        match = rows[:, 0] == 1
+        cid_out = rows[:, 1]
+        doff = rows[:, 3] + offset
+        lf_lo = rows[:, 4] + offset
+        di0 = rows[:, 2]
+        take_pred = ~match & (pos_lo < rows[:, 6]) & (rows[:, 10] >= 0)
+        take_succ = ~match & ~take_pred & (rows[:, 6] < n_lo)
+        P, S = 10, 7
+    over = doff >= rows[:, 5]
+    di = di0 + over.to(torch.int32)
+    doff = doff - torch.where(over, rows[:, 5], 0)
+    for _ in range(ff_bound - 2):
+        ln = _gather(length, di)
+        over = doff >= ln
+        di = di + over.to(torch.int32)
+        doff = doff - torch.where(over, ln, 0)
+
+    def pick(j, lf):
+        return torch.where(take_pred, rows[:, P + j],
+                           torch.where(take_succ, rows[:, S + j], lf))
+
+    new = [pick(0, di), pick(1, doff), pick(2, lf_lo)]
+    if wide:
+        new.append(pick(3, lf_hi))
+    nlen = torch.where(match, mlen + 1, 0)
+    new.append(nlen)
+    valid = s + step_offset < lengths
+    for t, v in zip(state, new):
+        t.copy_(torch.where(valid, v, t))
+    pml[:, col] = torch.where(valid, nlen, 0)
+    cid[:, col] = torch.where(valid, cid_out, 0)
+    if s + 1 < M:
+        g_next.copy_(patterns[:, col - 1].to(torch.int32) * r + state[0])
+
+
+def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,
+                      patterns, lengths, s: int, step_offset: int,
+                      ff_bound: int, pml, cid, g_next, wide: bool) -> None:
+    """K13b/K13c (replaces colbwt_tpu/parallel/query_sharded_mega.py:51
+    _sharded_mega_query and query_sharded_mega_wide.py:99
+    _sharded_mega_wide_chunk): step s of a chunk's backward scan from the
+    summed (B, 16) rows at c·r + interval.  `state` is (interval, offset,
+    pos, mlen) narrow or (interval, offset, pos_lo, pos_hi, mlen) wide,
+    updated in place where step_offset + s < lengths; column M-1-s of pml
+    and cid is written (0 past a read's end); g_next gets the next step's
+    row index.  n is (n_lo, n_hi) limbs wide, n_lo alone narrow.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if patterns.device.type == "cpu":
+        return sharded_step_mega_ref(rows, length, r, n_lo, n_hi, state,
+                                     patterns, lengths, s, step_offset,
+                                     ff_bound, pml, cid, g_next, wide)
+    dev = patterns.device
+    B, M = patterns.shape
+    K.require(patterns, "patterns", torch.uint8, dev)
+    K.require(rows, "rows", torch.int32, dev)
+    K.require_aligned(rows, "rows", 16)
+    if rows.shape != (B, 16):
+        raise ValueError(f"rows must have shape ({B}, 16)")
+    K.require(length, "length", torch.int32, dev)
+    if len(state) != (5 if wide else 4):
+        raise ValueError("state has the wrong arity")
+    for name, t in ((("lengths", lengths), ("g_next", g_next))
+                    + tuple((f"state[{j}]", x) for j, x in enumerate(state))):
+        K.require(t, name, torch.int32, dev)
+        if t.shape != (B,):
+            raise ValueError(f"{name} must have shape ({B},)")
+    for name, t in (("pml", pml), ("cid", cid)):
+        K.require(t, name, torch.int32, dev)
+        if t.shape != (B, M):
+            raise ValueError(f"{name} must have shape ({B}, {M})")
+    if not 0 <= s < M:
+        raise ValueError(f"step {s} of {M}")
+    ptrs = [t.data_ptr() for t in state]
+    if not wide:
+        ptrs.insert(3, None)  # no pos_hi
+    if B:
+        code = K.on(dev).colbwt_sharded_step_mega(
+            int(wide), rows.data_ptr(), length.data_ptr(), int(r), int(n_lo),
+            int(n_hi), *ptrs, patterns.data_ptr(), lengths.data_ptr(), B, M,
+            int(s), int(step_offset), int(ff_bound), pml.data_ptr(),
+            cid.data_ptr(), g_next.data_ptr(), K.stream_handle(dev))
+        K.check("sharded_step_mega", code)
+        K.launches["sharded_step_mega"] += 1
+
+
+def scan_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
+               lengths: torch.Tensor, state, step_offset: int, ff_bound: int,
+               wide: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of dp row d's backward scan (uint8 (B, C) dense ids on the
+    row's device) with the carried `state`, updated in place; steps count
+    from step_offset.  Returns (pml, cid), each (B, C) int32."""
+    dev = patterns.device
+    B, C = patterns.shape
+    pml = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    cid = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    if B == 0 or C == 0:
+        return pml, cid
+    L = st["rows_padded"] // mesh.ip
+    r = st["r"]
+    n_lo, n_hi = (st["n_lo"], st["n_hi"]) if wide else (st["n"], 0)
+    length = st["length"][str(dev)]
+    g = patterns[:, C - 1].to(torch.int32) * r + state[0]
+    for s in range(C):
+        rows = mesh.gather(st["mega"], d, L, g)  # the one summed fetch
+        sharded_step_mega(rows, length, r, n_lo, n_hi, state, patterns,
+                          lengths, s, step_offset, ff_bound, pml, cid, g,
+                          wide)
+    return pml, cid
+
+
+def query_batch_sharded_mega(index: ColPmlIndex, patterns: list[bytes],
+                             mesh: Mesh | None = None, dp: int | None = None,
+                             ip: int = 1, max_len: int | None = None,
+                             st: dict | None = None
+                             ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    mesh = resolve_mesh(mesh, dp, ip)
+    st = st or shard_mega(index, mesh)
+    enc, lens = pad_batch(index, patterns, mesh.dp, max_len)
+    outs = {}
+    for d, (p, ln) in shard_reads(enc, lens, mesh).items():
+        def full(v):
+            return torch.full((p.shape[0],), v, dtype=torch.int32,
+                              device=p.device)
+
+        state = (full(st["r"] - 1), full(st["last_len"] - 1),
+                 full(st["n"] - 1), full(0))
+        outs[d] = scan_chunk(mesh, st, d, p, ln, state, 0, index.ff_bound,
+                             wide=False)
+    pml, cid = mesh.collect(outs)
+    return unpad(pml, cid, lens, len(patterns))

@@ -64,6 +64,9 @@ from colbwt_tpu_torch.utils.hbm import (resolve_pos_budget,
 # below this n the host oracle beats device dispatch for construction
 # (colbwt_tpu/pipeline/build.py:40)
 _DEVICE_MIN_N = 1 << 18
+# the one-shot query warns from this many reads held in host memory
+# (colbwt_tpu/pipeline/build.py:487-491)
+LARGE_QUERY_READS = 1_000_000
 
 
 def _exists(*paths: Path) -> bool:
@@ -454,6 +457,11 @@ def query_pipeline(index_prefix: str, pattern_file: str,
     read_s = time.perf_counter() - t_read
     logger.info("querying %d reads against r=%d index (loaded in %.3fs)",
                 len(reads), index.r, read_s, extra={"read_s": read_s})
+    if len(reads) >= LARGE_QUERY_READS:
+        logger.warning(
+            "%d reads held in host memory by the one-shot query path — "
+            "use --stream for bounded-memory streaming at this scale",
+            len(reads))
 
     total_chars = sum(len(rd) for rd in reads)
     eng = QueryEngines(index, cfg, total_chars, device=dev)

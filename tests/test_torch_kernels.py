@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K14 against their plain PyTorch versions, on the
-card.
+"""CUDA kernels K1-K14 (K13a-K13e among them) against their plain PyTorch
+versions, on the card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -289,7 +289,7 @@ def test_fill_block(dev, mega_case, compact):
     for c in range(index.sigma + 1):
         args = (c, a, to_device(index.succ_jump[c], dev),
                 to_device(index.pred_jump[c], dev), meta["n_lo"],
-                meta["n_hi"], index.ff_bound, compact)
+                meta["n_hi"], index.ff_bound, compact, c * r)
         got = TW.fill_block(torch.zeros(((index.sigma + 1) * r, width),
                                         dtype=torch.int32, device=dev), *args)
         want = TW.fill_block_ref(torch.zeros_like(got), *args)
@@ -572,3 +572,320 @@ def test_segmented_argmin(dev, case, lcp_top):
     np.testing.assert_array_equal(
         TC.compute_thresholds(heads, lens, lcp, device=dev),
         O.compute_thresholds(heads, lens, lcp))
+
+
+# ---------------------------------------------------------------------------
+# K13a-K13e: the sharded engines, their ip shards as separate tensors on the
+# one card (make_mesh over ["cuda:0"] * ip)
+# ---------------------------------------------------------------------------
+
+def _mesh(ip, dp=1):
+    from colbwt_tpu_torch.parallel import make_mesh
+
+    return make_mesh(dp, ip, devices=["cuda:0"] * (dp * ip))
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("W,jump", [(2, False), (16, False), (2, True),
+                                    (8, True)])
+def test_sharded_fetch(dev, ip, W, jump):
+    """The masked gather of each shard, some lanes owned by none (below 0,
+    past the last shard) and a selector with a stride; the shards' sum is
+    the whole table's gather."""
+    from colbwt_tpu_torch.parallel.mesh import (sharded_fetch,
+                                                sharded_fetch_ref)
+
+    rng = np.random.default_rng(ip * 131 + W + jump)
+    L, B, sel = -(-1000 // ip), 4096, 3
+    full = rng.integers(-2**31, 2**31 - 1, (sel, L * ip, W), dtype=np.int64)
+    full = torch.from_numpy(full.astype(np.int32))
+    g = to_device(rng.integers(-7, L * ip + 7, B), dev)
+    s = to_device(rng.integers(0, sel, B), dev) if jump else None
+    total = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    for i in range(ip):
+        blk = full[:, i * L:(i + 1) * L] if jump else full[0, i * L:(i + 1) * L]
+        table = blk.reshape(-1, W).contiguous().to(dev)
+        args = (table, g, s, i * L, L, L if jump else 0)
+        before = K.launches["sharded_fetch"]
+        got = sharded_fetch(*args)
+        assert K.launches["sharded_fetch"] == before + 1
+        _equal(got, sharded_fetch_ref(*args))
+        total += got
+    gc = g.cpu().long()
+    ok = (gc >= 0) & (gc < L * ip)
+    assert 0 < int(ok.sum()) < B
+    want = full[s.cpu().long() if jump else 0, gc.clamp(0, L * ip - 1)]
+    _equal(total.cpu(), torch.where(ok[:, None], want, 0))
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_compose_sharded_tk(dev, case, ip, k):
+    """K13d for every shard of T_k; ip = 2 and 4 do not divide n, so the
+    last shard holds padding rows (self-loops)."""
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    _, index, _ = case
+    n, A = index.n, index.sigma + 1
+    C = min(n, TQ._T1_CHUNK)
+    t1 = TQ.build_t1(index, np.arange(A), TQ.t1_inputs(index, C, dev), C)
+    n_local = -(-n // ip)
+    assert ip == 1 or n % ip
+    for i in range(ip):
+        args = (t1, n, n_local, i * n_local, A, k)
+        got = TSP.compose_sharded_tk(*args)
+        _equal(got, TSP.compose_sharded_tk_ref(*args))
+    pad = n_local * ip - n
+    if pad:
+        tail = got.view(A ** k, n_local, 2)[:, n_local - pad:]
+        assert bool((tail[..., 0] == n - 1).all() and (tail[..., 1] == 0).all())
+
+
+def _twin(monkeypatch, module, name, ref):
+    """Run every call of module.name as the kernel and, on clones of its
+    arguments, as the plain version `ref`; hold every argument (the
+    outputs written in place) equal afterwards."""
+    kern = getattr(module, name)
+    calls = []
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return tuple(clone(x) for x in a) if isinstance(a, tuple) else a
+
+    def both(*args):
+        twins = [clone(a) for a in args]
+        kern(*args)
+        ref(*twins)
+        for a, b in zip(args, twins):
+            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+                if isinstance(x, torch.Tensor):
+                    _equal(x, y)
+        calls.append(args[0])
+
+    monkeypatch.setattr(module, name, both)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def shard_case(dev, case):
+    tbl, unsplit, reads = case
+    sample = reads[:48] + [r for r in reads if b"N" in r][:16]
+    return (tbl, unsplit, {ff: ColPmlIndex.build(tbl, ff_bound=ff)
+                           for ff in (2, 3)},
+            ColPmlIndex.build(scale_table(tbl, 1 << 20), ff_bound=2), sample)
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("ff", [2, 3])
+def test_sharded_compact_rounds(dev, shard_case, monkeypatch, ip, ff):
+    """K13a: every gather round (1-4, and 5 at ff_bound 3) equal to its
+    plain version on the card; the outputs equal the single-card compact
+    engine's."""
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+
+    _, _, split, _, reads = shard_case
+    index = split[ff]
+    calls = _twin(monkeypatch, TS, "sharded_step_compact",
+                  TS.sharded_step_compact_ref)
+    got = TS.query_batch_sharded(index, reads, mesh=_mesh(ip))
+    assert set(calls) == set(TS.rounds(index.ff_bound))
+    ref = TX.query_batch(index, reads, device=dev)
+    for j in range(len(reads)):
+        np.testing.assert_array_equal(got[0][j], ref[0][j])
+        np.testing.assert_array_equal(got[1][j], ref[1][j])
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("engine", ["mega", "wide", "wide-long", "pos"])
+def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
+    """K13b/K13c (narrow and wide steps, the wide one also over 64-column
+    chunks with carried state) and K13e (k = 3) equal to their plain
+    versions step by step; the outputs equal the single-card engines."""
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    _, unsplit, split, wide, reads = shard_case
+    mesh = _mesh(ip)
+    if engine == "pos":
+        calls = _twin(monkeypatch, TSP, "sharded_step_pos",
+                      TSP.sharded_step_pos_ref)
+        got = TSP.query_batch_sharded_pos(unsplit, reads, mesh=mesh, k=3)
+        ref = TQ.query_batch(unsplit, reads, k=3, device=dev)
+    else:
+        calls = _twin(monkeypatch, TSM, "sharded_step_mega",
+                      TSM.sharded_step_mega_ref)
+        if engine == "mega":
+            got = TSM.query_batch_sharded_mega(split[2], reads, mesh=mesh)
+            ref = TM.query_batch(split[2], reads, device=dev)
+        elif engine == "wide":
+            got = TSW.query_batch_sharded_mega_wide(wide, reads, mesh=mesh)
+            ref = TW.query_batch(wide, reads, device=dev)
+        else:
+            long = [r * 3 for r in reads[:8]]
+            got = TSW.query_long_reads_sharded_mega_wide(wide, long,
+                                                         mesh=mesh, chunk=64)
+            ref = TW.query_long_reads(wide, long, chunk=64, device=dev)
+    assert calls
+    for j in range(len(ref[0])):
+        np.testing.assert_array_equal(got[0][j], ref[0][j])
+        np.testing.assert_array_equal(got[1][j], ref[1][j])
+
+
+@pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
+def test_sharded_wide_slices_on_card(dev, shard_case, dp, ip):
+    """Each shard's slice, filled on the card from K6b blocks (the blocks
+    that straddle a slice's edge through an r-row temporary), equals the
+    full table's rows."""
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+
+    *_, wide, _ = shard_case
+    full = TW.build_mega_table_wide(wide, compact=False, device=dev)["mega"]
+    st = TSW.shard_mega_wide(wide, _mesh(ip, dp))
+    got = torch.cat([st["mega"][("cuda:0", i)] for i in range(ip)])
+    _equal(got[:full.shape[0]], full)
+    assert not bool(got[full.shape[0]:].any())
+
+
+# ---------------------------------------------------------------------------
+# The sharded engines over distinct cards: one process driving a mesh over
+# the default devices cuda:0.., and one process a rank over NCCL.  Each case
+# needs a card for every cell of its mesh and skips with fewer.
+# ---------------------------------------------------------------------------
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, have "
+                    f"{torch.cuda.device_count()}")
+
+
+def _engines(unsplit, split, wide, reads, mesh) -> dict:
+    """Every sharded engine's (pmls, cids) on `mesh`, by name."""
+    from colbwt_tpu_torch.parallel import query_batch_sharded_auto
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    long = [r * 3 for r in reads[:8]]
+    return {
+        "compact": TS.query_batch_sharded(split, reads, mesh=mesh),
+        "mega": TSM.query_batch_sharded_mega(split, reads, mesh=mesh),
+        "pos": TSP.query_batch_sharded_pos(unsplit, reads, mesh=mesh, k=3),
+        "wide": TSW.query_batch_sharded_mega_wide(wide, reads, mesh=mesh),
+        "wide-long": TSW.query_long_reads_sharded_mega_wide(
+            wide, long, mesh=mesh, chunk=64),
+        "auto": query_batch_sharded_auto(unsplit, reads, mesh=mesh)[:2],
+    }
+
+
+def _same_engines(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for name, (wp, wc) in want.items():
+        gp, gc = got[name]
+        assert len(gp) == len(wp), name
+        for j in range(len(wp)):
+            np.testing.assert_array_equal(gp[j], wp[j], err_msg=name)
+            np.testing.assert_array_equal(gc[j], wc[j], err_msg=name)
+
+
+@pytest.mark.parametrize("dp,ip", [(1, 2), (2, 1), (2, 2), (1, 4)])
+def test_sharded_engines_on_distinct_cards(dev, shard_case, dp, ip):
+    """A one-process mesh over make_mesh's default devices, a card a cell:
+    every launch lands on its tensors' card, and every engine equals the
+    same mesh held on cuda:0 alone."""
+    from colbwt_tpu_torch.parallel import make_mesh
+
+    _cards(dp * ip)
+    _, unsplit, split, wide, reads = shard_case
+    mesh = make_mesh(dp, ip)
+    assert len(mesh.devices()) == dp * ip and mesh.shards_per_device() == 1
+    _same_engines(_engines(unsplit, split[2], wide, reads, mesh),
+                  _engines(unsplit, split[2], wide, reads, _mesh(ip, dp)))
+
+
+NCCL_WORKER = """
+import sys
+
+import numpy as np
+import torch.distributed as dist
+
+from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.parallel import make_mesh
+from colbwt_tpu_torch.parallel.distributed import init_distributed
+from test_torch_kernels import _engines
+
+dp, ip, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rank, world = init_distributed(device="cuda")
+assert world == dp * ip and dist.get_backend() == "nccl"
+mesh = make_mesh(dp, ip)
+assert mesh.distributed
+idx = [ColPmlIndex.load(f"{work}/{f}.colpml.npz")
+       for f in ("unsplit", "split", "wide")]
+with open(f"{work}/reads.txt", "rb") as fh:
+    reads = fh.read().split(b"\\n")
+out = {}
+for name, (p, c) in _engines(*idx, reads, mesh).items():
+    out[name + "_len"] = np.array([len(x) for x in p])
+    out[name + "_pml"] = np.concatenate(p)
+    out[name + "_cid"] = np.concatenate(c)
+np.savez(f"{work}/rank{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("dp,ip", [(2, 1), (1, 2), (2, 2)])
+def test_sharded_engines_nccl_ranks(dev, shard_case, tmp_path, dp, ip):
+    """One process a rank over NCCL (torchrun's environment, a card a
+    rank): every rank's outputs of every engine equal the one-process mesh
+    on cuda:0.  Each process is killed when it runs over its timeout."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _cards(dp * ip)
+    _, unsplit, split, wide, reads = shard_case
+    for name, index in (("unsplit", unsplit), ("split", split[2]),
+                        ("wide", wide)):
+        index.save(tmp_path / f"{name}.colpml")
+    (tmp_path / "reads.txt").write_bytes(b"\n".join(reads))
+    (tmp_path / "worker.py").write_text(NCCL_WORKER)
+    K.load()  # built once, before the ranks start
+    repo = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "worker.py"), str(dp), str(ip),
+         str(tmp_path)], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                 WORLD_SIZE=str(dp * ip), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), PYTHONPATH=os.pathsep.join(
+                     [str(repo), str(repo / "tests"),
+                      os.environ.get("PYTHONPATH", "")])))
+        for rank in range(dp * ip)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=180)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{err[-4000:]}"
+    want = _engines(unsplit, split[2], wide, reads, _mesh(ip, dp))
+    for rank in range(dp * ip):
+        got = np.load(tmp_path / f"rank{rank}.npz")
+        for name, (wp, wc) in want.items():
+            np.testing.assert_array_equal(got[name + "_len"],
+                                          [len(x) for x in wp])
+            np.testing.assert_array_equal(got[name + "_pml"],
+                                          np.concatenate(wp), err_msg=name)
+            np.testing.assert_array_equal(got[name + "_cid"],
+                                          np.concatenate(wc), err_msg=name)

@@ -350,3 +350,35 @@ def test_n_reads_through_pos_pipeline_match_jax(golden, tmp_path):
     for read, p, c, a, b in zip(reads, pmls, cids, jp, jc):
         np.testing.assert_array_equal(p, a, err_msg=repr(read))
         np.testing.assert_array_equal(c, b, err_msg=repr(read))
+
+
+@pytest.mark.parametrize("threshold,warns", [(None, 1), ("n", 1),
+                                             ("n+1", 0)],
+                         ids=["lowered", "at-count", "above-count"])
+def test_large_query_warns_as_jax(golden, tmp_path, caplog, monkeypatch,
+                                  threshold, warns):
+    """The one-shot query warns from LARGE_QUERY_READS reads held in host
+    memory (the JAX package's 1,000,000, lowered here), with the JAX
+    package's text (colbwt_tpu/pipeline/build.py:query_pipeline)."""
+    import inspect
+    import logging
+
+    pat = tmp_path / "w.fa"
+    shutil.copy(golden / "pattern.fa", pat)
+    n = len(list(read_fasta(pat)))
+    assert TB.LARGE_QUERY_READS == 1_000_000 and n >= 3
+    limit = {None: 3, "n": n, "n+1": n + 1}[threshold]
+    monkeypatch.setattr(TB, "LARGE_QUERY_READS", limit)
+    with caplog.at_level(logging.INFO, logger="colbwt_torch.query"):
+        query_pipeline(str(golden / "torch"), str(pat), ColBwtConfig(**CFG),
+                       device="cpu")
+    got = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(got) == warns
+    if warns:
+        text = ("%d reads held in host memory by the one-shot query path — "
+                "use --stream for bounded-memory streaming at this scale")
+        assert got[0].msg == text and got[0].getMessage() == text % n
+        src = inspect.getsource(JB.query_pipeline)
+        assert "if len(reads) >= 1_000_000:" in src
+        for half in text.split("— "):
+            assert half.strip() in src
