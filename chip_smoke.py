@@ -27,12 +27,15 @@ version on the card.  Phases:
    r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7; then bench's
    table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
    the fused path's shapes (8,192 x 256 and 16 x 8,192) on both, and K14
-   on the ff_bound 2 jump rows (byte-equal to the plain copy, timed beside
-   one pinned copy_ of the same bytes); K11a every round of bench's suffix
-   array (order, ranks and largest rank; the sort timed beside one stable
-   torch.sort of the same packed keys), K11b's LCP and K12's thresholds
-   against their plain versions, the native Kasai LCP and
-   O.compute_thresholds_fast
+   on the ff_bound 2 jump rows, pageable and pinned (byte-equal to the
+   plain copy, timed beside one pinned and one pageable copy_ of the same
+   bytes and the host threads' memcpy alone); K11a every round of bench's
+   suffix array as suffix_array runs it (the previous order, one
+   workspace; rounds 2-3 also without the order), order, ranks and largest
+   rank; the widest round timed beside one stable torch.sort of PR 5's
+   packed keys and of the 32-bit ranks, every round's time logged; K11b's
+   LCP and K12's thresholds against their plain versions, the native Kasai
+   LCP and O.compute_thresholds_fast
 4. main path, a large query: `query` of bench.py's 262,144 x 150 bp reads,
    1,024 of them with one N inserted, and 16 reads of 5,000 bp; the engine
    must be pos(k=4), 256 sampled records must equal the oracle
@@ -610,8 +613,10 @@ def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
     bytes beside it.  Saves both indexes for phases 9-10."""
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.ops import query_fused as TF
-    from colbwt_tpu_torch.utils.xfer import upload_chunked, upload_chunked_ref
+    from colbwt_tpu_torch.utils.xfer import (CHUNK_BYTES, upload_chunked,
+                                             upload_chunked_ref)
 
     t0 = time.perf_counter()
     ff1 = ColPmlIndex.build(tbl, ff_bound=1)
@@ -626,12 +631,26 @@ def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
     want = upload_chunked_ref(jump_rows, dev)
     chk.equal("upload_rows", got, want, f"jump_rows {jump_rows.shape}")
     pinned = torch.from_numpy(jump_rows).pin_memory()
+    chk.equal("upload_rows", upload_chunked(pinned.numpy(), dev), want,
+              "jump_rows from pinned memory")
+    nb = jump_rows.nbytes
     pin_ms = cuda_ms(torch, lambda: got.copy_(pinned, non_blocking=True))
+    page_ms = cuda_ms(torch, lambda: got.copy_(torch.from_numpy(jump_rows)))
+    lib = K.on(dev)
+    threads = lib.colbwt_upload_threads()
+    stage_s = []
+    for _ in range(3):  # the pool's memcpy into its pinned staging alone
+        t0 = time.perf_counter()
+        K.check("host_stage", lib.colbwt_host_stage(
+            jump_rows.ctypes.data, nb, CHUNK_BYTES))
+        stage_s.append(time.perf_counter() - t0)
     chk.time("upload_rows", lambda: upload_chunked(jump_rows, dev),
              lambda: upload_chunked_ref(jump_rows, dev),
-             f"jump_rows {jump_rows.shape}, {jump_rows.nbytes} B, 16 MB "
-             f"slices (one pinned copy_ {pin_ms:.4f} ms = "
-             f"{jump_rows.nbytes / pin_ms / 1e6:.1f} GB/s)",
+             f"jump_rows {jump_rows.shape}, {nb} B, {threads} host threads, "
+             f"2 MB slices (host memcpy alone {min(stage_s) * 1e3:.4f} ms = "
+             f"{nb / min(stage_s) / 1e9:.1f} GB/s; one pinned copy_ "
+             f"{pin_ms:.4f} ms = {nb / pin_ms / 1e6:.1f} GB/s; one pageable "
+             f"copy_ {page_ms:.4f} ms = {nb / page_ms / 1e6:.1f} GB/s)",
              bound_ms=pin_ms, library_ms=pin_ms)
     del got, want, pinned
 
@@ -999,16 +1018,23 @@ def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
     ranks, sa_native, lcp_native, _ = arrays
     n = ranks.size
     r0 = torch.from_numpy(ranks.astype(np.int32)).to(dev)
-    rank, max_rank, k, pyramid = r0, int(ranks.max()), 1, []
-    rounds = []  # (input ranks, k, their largest rank, radix passes)
+    ws = TC.DoublingWorkspace(n, dev)
+    rank, max_rank, k, pyramid, sa = r0, int(ranks.max()), 1, [], None
+    rounds = []  # (input ranks, k, their largest rank, order, packed passes)
     for rnd in range(1, int(np.ceil(np.log2(n))) + 1):
-        got = TC.doubling_round(rank, k, max_rank)
+        # as suffix_array runs it: the previous order, one workspace
+        got = TC.doubling_round(rank, k, max_rank, sa, ws)
         want = TC.doubling_round_ref(rank, k)
         for j, (g, w) in enumerate(zip(got, want)):
             chk.equal("doubling_round", g, w, f"round {rnd} (k = {k}) "
                       f"output {j}")
+        if sa is not None and rnd <= 3:  # the kernel's own argsort
+            for j, (g, w) in enumerate(zip(
+                    TC.doubling_round(rank, k, max_rank), want)):
+                chk.equal("doubling_round", g, w, f"round {rnd} (k = {k}) "
+                          f"output {j}, no order given")
         lo_bits = (max_rank + 1).bit_length()
-        rounds.append((rank, k, max_rank,
+        rounds.append((rank, k, max_rank, sa,
                        -(-(max_rank.bit_length() + lo_bits) // 8)))
         sa, rank, top = got
         pyramid.append(rank)
@@ -1018,19 +1044,29 @@ def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
     require(np.array_equal(sa.cpu().numpy(), sa_native),
             "K11a's suffix array differs from native SA-IS")
     R = len(pyramid)
-    # timed: the first round whose keys are the widest (the most passes)
-    passes = max(p for *_, p in rounds)
-    rnd = next(j for j, r in enumerate(rounds) if r[3] == passes)
-    args = rounds[rnd][:3]
-    keys = pair_keys(torch, args[0], args[1],
-                     (args[2] + 1).bit_length())
+    # timed: the first round whose packed keys were the widest (the most
+    # passes of PR 5's design), as suffix_array runs it
+    packed = max(r[4] for r in rounds)
+    rnd = next(j for j, r in enumerate(rounds) if r[4] == packed)
+    rank_in, k_in, top_in, order_in, _ = rounds[rnd]
+    passes = TC.key_passes(top_in)
+    keys = pair_keys(torch, rank_in, k_in, (top_in + 1).bit_length())
     lib = cuda_ms(torch, lambda: torch.sort(keys, stable=True))
-    chk.time("doubling_round", lambda: TC.doubling_round(*args),
-             lambda: TC.doubling_round_ref(*args[:2]),
-             f"round {rnd + 1} of {R}, n = {n}, k = {args[1]}, {passes} "
-             "radix passes", bound=(12 * n + 4, 8 * passes * n),
-             library_ms=lib)
-    del keys, rounds
+    lib32 = cuda_ms(torch, lambda: torch.sort(rank_in, stable=True))
+    chk.time("doubling_round",
+             lambda: TC.doubling_round(rank_in, k_in, top_in, order_in, ws),
+             lambda: TC.doubling_round_ref(rank_in, k_in),
+             f"round {rnd + 1} of {R}, n = {n}, k = {k_in}, {passes} radix "
+             f"passes of 8 bits ({packed} for PR 5's packed key), "
+             f"{TC.round_launches(passes, True)} launches a round; stable "
+             f"torch.sort of the 32-bit ranks {lib32:.4f} ms",
+             bound=(12 * n + 4, 8 * packed * n), library_ms=lib)
+    for rank_in, k_in, top_in, order_in, _ in rounds:
+        ms = cuda_ms(torch, lambda: TC.doubling_round(rank_in, k_in, top_in,
+                                                      order_in, ws))
+        log(f"[time] doubling_round k = {k_in}: "
+            f"{TC.key_passes(top_in)} passes, {ms:.4f} ms")
+    del keys, rounds, ws
     lcp = TC.lcp_from_pyramid(r0, sa, pyramid)
     chk.equal("lcp_lift", lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid),
               f"n = {n}, R = {R}")

@@ -5,14 +5,28 @@
 //
 // - K11a `colbwt_doubling_round` (:51 _doubling_round, with :39 _rerank):
 //   one prefix-doubling round.  JAX sorts by (rank[i], rank[i+k]) with two
-//   stable argsorts; here one uint64 key packs (rank[i], rank[i+k] + 1, or 0
-//   past the end) and a hand-written LSD radix sort of (key, index) pairs
-//   sorts it, 8 bits a pass: per-tile digit histograms, an exclusive scan
-//   over digits x tiles, and a stable scatter.  The sort is stable and
-//   starts from the identity, so ties keep index order, as the two stable
-//   argsorts do, and `order` equals JAX's in every round.  The dense
-//   re-rank is a flag pass (key changed), an exclusive scan and a scatter
-//   that also writes the order and the largest rank.
+//   stable argsorts.  Here the previous round's order, the stable argsort
+//   of `rank`, gives the order by (rank[i+k], i) for free (Manber-Myers):
+//   the positions n-k .. n-1 (next rank -1) in index order, then
+//   order[j] - k for each j with order[j] >= k, in order.  One stable sort
+//   of that sequence by the 32-bit key rank[i] alone gives JAX's order.
+//   The sort is an LSD radix sort in the Onesweep design (Adinets and
+//   Merrill, 2022): one histogram kernel for every digit of the round, then
+//   one scatter kernel a digit.  A scatter block takes its tile from an
+//   atomic counter, ranks the tile's 4,096 keys stably in shared memory
+//   (match_any within a warp, counts a warp), publishes its digit counts and
+//   finds the counts of the tiles before it by decoupled look-back, then
+//   writes the tile out digit by digit, so a warp's stores land in few
+//   sectors.  Tiles are taken in order, so a block only waits for blocks
+//   already running.  The first pass reads the shifted order itself (the
+//   compaction above, the dropped positions skipped in the ranking) and
+//   gathers its keys from `rank`; the last writes `order`.  The dense
+//   re-rank is one more look-back scan: the change flag of sorted position
+//   j compares (rank, rank[o + k]) with j - 1's, and the scan's result is
+//   scattered to new_rank[o], the last one also to the largest rank.
+//   Without a given order the round first sorts the identity by rank the
+//   same way.  A round makes 3 + passes launches (a memset, the histogram,
+//   the scatters, the re-rank), 3 + 2 passes without an order.
 // - K11b `colbwt_lcp_lift` (:106 lcp_from_pyramid): one thread per adjacent
 //   pair (sa[i-1], sa[i]) probes widths 2^R ... 2 through the pyramid's
 //   levels R-1 ... 0, then width 1 through the base ranks.  An
@@ -24,15 +38,16 @@
 //   so the first position of the minimum wins, as np.argmin's does; JAX's
 //   two segment_min passes over a per-position segment id are not needed.
 //
-// What bounds them on an H100: all three move bytes.  K11a reads and
-// writes 12 bytes a position a pass (key and index) plus the histogram
-// read, with 2 * bit_length(n) key bits in 8-bit passes (6 passes at
-// n = 4M, 7 at n = 72M); the scatter's writes land in 256 streams a tile.
+// What bounds them on an H100: all three move bytes.  K11a's passes read
+// and write 8 bytes a position (a 4-byte key and a 4-byte index), with
+// ceil(bit_length(max rank) / 8) passes (3 at n = 4M, 4 at n = 72M), plus
+// three random 4-byte accesses a position: the first pass's key gather,
+// the re-rank's next-rank gather and its new_rank scatter, each a 32-byte
+// sector; at n = 4M the re-rank, mostly that scatter, takes over a third
+// of a round.
 // K11b makes R + 1 dependent pairs of random 4-byte gathers a position,
 // each a 32-byte sector from device memory.  K12 reads each position of
-// its segments once, coalesced within a warp.  The simple designs here
-// (one 8-bit digit a pass, one match_any rank a warp, a warp a segment)
-// are right first; making them fast is later work.
+// its segments once, coalesced within a warp.
 //
 // All positions are < 2^31 (the wrappers check n); ranks and offsets are
 // int32.  Plain C interface (ctypes); every entry launches on the caller's
@@ -43,187 +58,376 @@
 
 namespace {
 
-constexpr int kRadixThreads = 256;  // one thread a digit in the tile loops
-constexpr int kRadixWarps = kRadixThreads / 32;
-constexpr int64_t kRadixTile = 4096;  // positions a radix block owns
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;
-constexpr int64_t kScanTile = kScanThreads * kScanItems;
 constexpr int kMaxLevels = 32;
 
 // ---------------------------------------------------------------------------
-// exclusive scan of int32 counts, in place: one tile of 4,096 a block, the
-// block totals scanned recursively in `scratch`, then added back
+// K11a: Onesweep radix sort of 32-bit rank keys, look-back re-rank
 // ---------------------------------------------------------------------------
 
-__global__ void scan_tile_kernel(int32_t* __restrict__ data, int64_t m,
-                                 int32_t* __restrict__ sums) {
-  __shared__ int32_t warp_sums[kScanThreads / 32];
+constexpr int kSortThreads = 256;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = 16;  // a thread's keys, warp-striped
+constexpr int64_t kSortTile = kSortThreads * kSortItems;  // 4,096
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;  // one thread a digit
+constexpr int kMaxPasses = 4;           // 32-bit keys
+constexpr int kCounters = 16;           // tile counters: 2 sorts + re-rank
+constexpr uint32_t kUnranked = 0xffffffffu;
+// the state buffer: the histogram, the tile counters (both cleared each
+// round), then the look-back words, one a (tile, digit), zeroed once
+constexpr int64_t kHistBytes = kMaxPasses * kBins * 4;
+constexpr int64_t kStatusOffset = kHistBytes + kCounters * 4;
+// a look-back word: epoch << 33 | flag << 31 | count, count < 2^31.  Every
+// pass has its own epoch, so a word left by an earlier pass reads as not
+// yet published and the words never need clearing.
+constexpr uint64_t kAggregate = 1;
+constexpr uint64_t kPrefix = 2;
+
+__device__ __forceinline__ uint64_t lb_word(uint32_t epoch, uint64_t flag,
+                                            uint64_t count) {
+  return (static_cast<uint64_t>(epoch) << 33) | (flag << 31) | count;
+}
+
+__device__ __forceinline__ void lb_store(unsigned long long* p, uint64_t v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// the inclusive count of the tiles before `tile` (its own included once it
+// publishes), for one look-back chain `words[j * stride]`
+__device__ __forceinline__ uint64_t look_back(unsigned long long* words,
+                                              int64_t tile, int64_t stride,
+                                              uint32_t epoch) {
+  uint64_t sum = 0;
+  for (int64_t j = tile - 1; j >= 0;) {
+    const uint64_t w =
+        *reinterpret_cast<volatile unsigned long long*>(words + j * stride);
+    if ((w >> 33) != epoch) continue;  // tile j has not published yet
+    sum += w & 0x7fffffffu;
+    if (((w >> 31) & 3u) == kPrefix) break;
+    --j;
+  }
+  return sum;
+}
+
+// counts of every digit of every pass over rank[0 .. n), in shared memory
+// first (aggregating equal digits of a warp with match_any was slower)
+__global__ void rank_hist_kernel(const int32_t* __restrict__ rank, int64_t n,
+                                 int passes, uint32_t* __restrict__ hist) {
+  __shared__ uint32_t h[kMaxPasses * kBins];
+  for (int i = threadIdx.x; i < passes * kBins; i += blockDim.x) h[i] = 0;
+  __syncthreads();
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const uint32_t key = static_cast<uint32_t>(rank[i]);
+    for (int p = 0; p < passes; ++p)
+      atomicAdd(&h[p * kBins + ((key >> (kDigitBits * p)) & (kBins - 1))],
+                1u);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < passes * kBins; i += blockDim.x)
+    if (h[i] != 0) atomicAdd(&hist[i], h[i]);
+}
+
+struct PassArgs {
+  const uint32_t* keys_in;  // nullptr: the first pass, keys are rank[val]
+  const int32_t* vals_in;   // a later pass's input
+  const int32_t* order;     // first pass: the order to shift (null: 0..n-1)
+  const int32_t* rank;
+  int64_t len;   // input positions, the dropped ones included
+  int64_t n;
+  int64_t k;     // first pass: order[j] - k, dropped where order[j] < k
+  int64_t head;  // first pass: the positions n - head .. n - 1 come first
+  int shift;
+  const uint32_t* hist;  // this digit's counts over all n keys
+  uint32_t* tile_counter;
+  unsigned long long* status;  // a word a (tile, digit)
+  uint32_t epoch;
+  uint32_t* keys_out;  // nullptr: the sorted keys are not needed
+  int32_t* vals_out;
+};
+
+// exclusive scans of x and y over the block's 256 threads, and x's total
+__device__ __forceinline__ void block_scan2(uint32_t x, uint32_t y,
+                                            uint32_t* x_excl,
+                                            uint32_t* y_excl,
+                                            uint32_t* x_total,
+                                            uint32_t (*sums)[2]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  int32_t v[kScanItems];
-  int32_t s = 0;
-  for (int q = 0; q < kScanItems; ++q) {
-    v[q] = base + q < m ? data[base + q] : 0;
-    s += v[q];
-  }
-  int32_t x = s;  // inclusive scan of the thread sums within the warp
+  uint32_t xi = x;
+  uint32_t yi = y;
   for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = warp_sums[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
+    const uint32_t u = __shfl_up_sync(0xffffffffu, xi, o);
+    const uint32_t v = __shfl_up_sync(0xffffffffu, yi, o);
+    if (lane >= o) {
+      xi += u;
+      yi += v;
     }
-    warp_sums[lane] = w;
+  }
+  if (lane == 31) {
+    sums[warp][0] = xi;
+    sums[warp][1] = yi;
   }
   __syncthreads();
-  int32_t run = x - s + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int q = 0; q < kScanItems; ++q) {
-    if (base + q < m) data[base + q] = run;
-    run += v[q];
+  uint32_t xo = 0, yo = 0, xt = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    if (w < warp) {
+      xo += sums[w][0];
+      yo += sums[w][1];
+    }
+    xt += sums[w][0];
   }
-  if (threadIdx.x == kScanThreads - 1) sums[blockIdx.x] = run;
+  *x_excl = xo + xi - x;
+  *y_excl = yo + yi - y;
+  *x_total = xt;
 }
 
-__global__ void add_offsets_kernel(int32_t* __restrict__ data, int64_t m,
-                                   const int32_t* __restrict__ offsets) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i < m) data[i] += offsets[i / kScanTile];
-}
-
-// scratch holds ceil(m / 4096) + ceil(m / 4096^2) + ... entries (the
-// wrapper's _scan_scratch_len)
-cudaError_t exclusive_scan(int32_t* data, int64_t m, int32_t* scratch,
-                           cudaStream_t s) {
-  const int64_t blocks = (m + kScanTile - 1) / kScanTile;
-  scan_tile_kernel<<<blocks, kScanThreads, 0, s>>>(data, m, scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || blocks == 1) return err;
-  err = exclusive_scan(scratch, blocks, scratch + blocks, s);
-  if (err != cudaSuccess) return err;
-  add_offsets_kernel<<<(m + 255) / 256, 256, 0, s>>>(data, m, scratch);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K11a: key build, radix passes, re-rank
-// ---------------------------------------------------------------------------
-
-// key[i] = rank[i] << lo_bits | (rank[i + k] + 1, or 0 where i >= n - k);
-// val[i] = i
-__global__ void pair_keys_kernel(const int32_t* __restrict__ rank, int64_t n,
-                                 int64_t k, int lo_bits,
-                                 uint64_t* __restrict__ keys,
-                                 int32_t* __restrict__ vals) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const uint64_t lo =
-      i < n - k ? static_cast<uint64_t>(rank[i + k]) + 1u : 0u;
-  keys[i] = (static_cast<uint64_t>(rank[i]) << lo_bits) | lo;
-  vals[i] = static_cast<int32_t>(i);
-}
-
-// counts of each digit in each tile, digit-major: hist[d * tiles + t]
-__global__ void radix_hist_kernel(const uint64_t* __restrict__ keys,
-                                  int64_t n, int shift,
-                                  int32_t* __restrict__ hist, int64_t tiles) {
-  __shared__ int32_t counts[256];
-  counts[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kRadixTile;
-  const int64_t end = start + kRadixTile < n ? start + kRadixTile : n;
-  for (int64_t i = start + threadIdx.x; i < end; i += kRadixThreads) {
-    atomicAdd(&counts[(keys[i] >> shift) & 255u], 1);
-  }
-  __syncthreads();
-  hist[threadIdx.x * tiles + blockIdx.x] = counts[threadIdx.x];
-}
-
-// stable scatter of one tile, 256 positions at a time in index order: a
-// position goes to its digit's running offset, plus the same digit's count
-// in the earlier warps of this step, plus its rank among the equal digits
-// of its own warp (__match_any_sync)
-__global__ void radix_scatter_kernel(const uint64_t* __restrict__ keys_in,
-                                     const int32_t* __restrict__ vals_in,
-                                     int64_t n, int shift,
-                                     const int32_t* __restrict__ offsets,
-                                     int64_t tiles,
-                                     uint64_t* __restrict__ keys_out,
-                                     int32_t* __restrict__ vals_out) {
-  __shared__ int32_t running[256];
-  __shared__ int32_t warp_counts[kRadixWarps][256];
+// one stable scatter pass over one tile of 4,096 input positions
+__global__ void __launch_bounds__(kSortThreads)
+    onesweep_kernel(const PassArgs a) {
+  __shared__ uint32_t s_tile;
+  __shared__ uint32_t s_valid;
+  __shared__ uint32_t warp_counts[kSortWarps][kBins];
+  __shared__ uint32_t s_start[kBins];
+  __shared__ int64_t s_base[kBins];
+  __shared__ uint32_t s_sums[kSortWarps][2];
+  __shared__ uint32_t s_keys[kSortTile];
+  __shared__ int32_t s_vals[kSortTile];
   const int t = threadIdx.x;
+  const int lane = t & 31;
   const int warp = t >> 5;
-  const unsigned below = (1u << (t & 31)) - 1u;
-  running[t] = offsets[static_cast<int64_t>(t) * tiles + blockIdx.x];
-  for (int w = 0; w < kRadixWarps; ++w) warp_counts[w][t] = 0;
+  if (t == 0) s_tile = atomicAdd(a.tile_counter, 1u);
+  for (int w = 0; w < kSortWarps; ++w) warp_counts[w][t] = 0;
   __syncthreads();
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kRadixTile;
-  const int64_t end = start + kRadixTile < n ? start + kRadixTile : n;
-  for (int64_t c = start; c < end; c += kRadixThreads) {
-    const int64_t i = c + t;
-    const bool valid = i < end;
-    const uint64_t key = valid ? keys_in[i] : 0u;
-    const int32_t val = valid ? vals_in[i] : 0;
-    const int d = valid ? static_cast<int>((key >> shift) & 255u) : 256;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank_in_warp = __popc(peers & below);
-    if (valid && rank_in_warp == 0) warp_counts[warp][d] = __popc(peers);
-    __syncthreads();
+  const int64_t tile = s_tile;
+  const unsigned lower = (1u << lane) - 1u;
+  // warp w owns positions [w * 512, w * 512 + 512) of the tile, 32 a round
+  const int64_t first = tile * kSortTile + warp * (32 * kSortItems) + lane;
+  uint32_t key[kSortItems];
+  int32_t val[kSortItems];
+  uint32_t rnk[kSortItems];  // rank among the warp's equal digits so far
+  // every load first, so their latencies overlap (the ranking below syncs
+  // the warp each round, and loads do not move across that); what is read
+  // once is loaded evict-first, to keep `rank` in the L2 for the gathers
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const int64_t q = first + 32 * i;
+    bool valid = q < a.len;
+    uint32_t kk = 0;
+    int32_t v = 0;
     if (valid) {
-      int32_t off = running[d] + rank_in_warp;
-      for (int w = 0; w < warp; ++w) off += warp_counts[w][d];
-      keys_out[off] = key;
-      vals_out[off] = val;
+      if (a.keys_in != nullptr) {
+        kk = __ldcs(a.keys_in + q);
+        v = __ldcs(a.vals_in + q);
+      } else if (q < a.head) {
+        v = static_cast<int32_t>(a.n - a.head + q);
+      } else {
+        const int64_t o = a.order != nullptr ? __ldcs(a.order + (q - a.head))
+                                             : q - a.head;
+        valid = o >= a.k;
+        v = static_cast<int32_t>(o - a.k);
+      }
     }
-    __syncthreads();
-    int32_t total = 0;
-    for (int w = 0; w < kRadixWarps; ++w) {
-      total += warp_counts[w][t];
-      warp_counts[w][t] = 0;
-    }
-    running[t] += total;
-    __syncthreads();
+    key[i] = kk;
+    val[i] = v;
+    rnk[i] = valid ? 0u : kUnranked;
+  }
+  if (a.keys_in == nullptr) {
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i)
+      if (rnk[i] != kUnranked) key[i] = static_cast<uint32_t>(a.rank[val[i]]);
+  }
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const bool valid = rnk[i] != kUnranked;
+    const int d = valid ? static_cast<int>((key[i] >> a.shift) & (kBins - 1))
+                        : kBins;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const uint32_t before = valid ? warp_counts[warp][d] : 0u;
+    __syncwarp();
+    if (valid && (peers & lower) == 0)
+      warp_counts[warp][d] = before + __popc(peers);
+    __syncwarp();
+    rnk[i] = valid ? before + __popc(peers & lower) : kUnranked;
+  }
+  __syncthreads();
+  // digit t: the earlier warps' counts, and the tile's
+  uint32_t total = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    const uint32_t c = warp_counts[w][t];
+    warp_counts[w][t] = total;
+    total += c;
+  }
+  unsigned long long* mine = a.status + tile * kBins + t;
+  lb_store(mine, lb_word(a.epoch, tile == 0 ? kPrefix : kAggregate, total));
+  uint32_t tile_excl, glob_excl, tile_total;
+  block_scan2(total, a.hist[t], &tile_excl, &glob_excl, &tile_total, s_sums);
+  uint64_t before_tiles = 0;
+  if (tile > 0) {
+    before_tiles = look_back(a.status + t, tile, kBins, a.epoch);
+    lb_store(mine, lb_word(a.epoch, kPrefix, before_tiles + total));
+  }
+  s_start[t] = tile_excl;
+  s_base[t] = static_cast<int64_t>(glob_excl) +
+              static_cast<int64_t>(before_tiles) - tile_excl;
+  if (t == 0) s_valid = tile_total;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    if (rnk[i] == kUnranked) continue;
+    const int d = static_cast<int>((key[i] >> a.shift) & (kBins - 1));
+    const uint32_t s = s_start[d] + warp_counts[warp][d] + rnk[i];
+    s_keys[s] = key[i];
+    s_vals[s] = val[i];
+  }
+  __syncthreads();
+  // the tile in digit order: neighbouring threads write neighbouring words
+  for (uint32_t s = t; s < s_valid; s += kSortThreads) {
+    const uint32_t kk = s_keys[s];
+    const int64_t dst = s_base[(kk >> a.shift) & (kBins - 1)] + s;
+    if (a.keys_out != nullptr) a.keys_out[dst] = kk;
+    a.vals_out[dst] = s_vals[s];
   }
 }
 
-__device__ __forceinline__ int32_t key_changed(const uint64_t* keys,
-                                               int64_t j) {
-  return j == 0 || keys[j] != keys[j - 1] ? 1 : 0;
+__device__ __forceinline__ int32_t next_rank_at(const int32_t* rank,
+                                                int64_t o, int64_t k,
+                                                int64_t n) {
+  return o + k < n ? rank[o + k] : -1;
 }
 
-__global__ void change_flags_kernel(const uint64_t* __restrict__ keys,
-                                    int64_t n, int32_t* __restrict__ flags) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (j < n) flags[j] = key_changed(keys, j);
+struct RerankArgs {
+  const uint32_t* keys;  // rank[order[j]], sorted
+  const int32_t* order;
+  const int32_t* rank;
+  int64_t n;
+  int64_t k;
+  uint32_t* tile_counter;
+  unsigned long long* status;  // a word a tile
+  uint32_t epoch;
+  int32_t* new_rank;
+  int32_t* max_rank;
+};
+
+// new_rank[order[j]] = (positions j' <= j whose (rank, next rank) differs
+// from j' - 1's) - 1, by a look-back scan over tiles of 4,096
+__global__ void __launch_bounds__(kSortThreads)
+    rerank_kernel(const RerankArgs a) {
+  __shared__ uint32_t s_tile;
+  __shared__ uint32_t s_warp[kSortWarps];
+  __shared__ uint64_t s_prefix;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(a.tile_counter, 1u);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t wfirst = tile * kSortTile + warp * (32 * kSortItems);
+  // the key pair of the position before each lane's; lane 0 of round 0
+  // reads the one before the warp's first
+  uint32_t pk = 0;
+  int32_t pn = 0;
+  if (lane == 0 && wfirst > 0 && wfirst - 1 < a.n) {
+    pk = a.keys[wfirst - 1];
+    pn = next_rank_at(a.rank, a.order[wfirst - 1], a.k, a.n);
+  }
+  uint32_t incl[kSortItems];
+  int32_t ord[kSortItems];
+  int32_t nxt[kSortItems];
+  uint32_t kv[kSortItems];
+  // the loads and gathers first, so their latencies overlap; keys and
+  // order evict-first, to keep `rank` and `new_rank` in the L2
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const int64_t j = wfirst + 32 * i + lane;
+    kv[i] = j < a.n ? __ldcs(a.keys + j) : 0u;
+    ord[i] = j < a.n ? __ldcs(a.order + j) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const int64_t j = wfirst + 32 * i + lane;
+    nxt[i] = j < a.n ? next_rank_at(a.rank, ord[i], a.k, a.n) : 0;
+  }
+  uint32_t run = 0;
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const int64_t j = wfirst + 32 * i + lane;
+    // the pair before j: lane - 1 of this round, lane 31 of the last
+    uint32_t uk = __shfl_up_sync(0xffffffffu, kv[i], 1);
+    int32_t un = __shfl_up_sync(0xffffffffu, nxt[i], 1);
+    if (lane == 0) {
+      uk = pk;
+      un = pn;
+    }
+    pk = __shfl_sync(0xffffffffu, kv[i], 31);
+    pn = __shfl_sync(0xffffffffu, nxt[i], 31);
+    const bool changed =
+        j < a.n && (j == 0 || kv[i] != uk || nxt[i] != un);
+    const unsigned b = __ballot_sync(0xffffffffu, changed);
+    incl[i] = run + __popc(b & ((2u << lane) - 1u));
+    run += __popc(b);
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+  if (t == 0) {
+    uint64_t total = 0;
+    for (int w = 0; w < kSortWarps; ++w) total += s_warp[w];
+    unsigned long long* mine = a.status + tile;
+    lb_store(mine, lb_word(a.epoch, tile == 0 ? kPrefix : kAggregate, total));
+    uint64_t before = 0;
+    if (tile > 0) {
+      before = look_back(a.status, tile, 1, a.epoch);
+      lb_store(mine, lb_word(a.epoch, kPrefix, before + total));
+    }
+    s_prefix = before;
+  }
+  __syncthreads();
+  uint64_t base = s_prefix;
+  for (int w = 0; w < warp; ++w) base += s_warp[w];
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const int64_t j = wfirst + 32 * i + lane;
+    if (j >= a.n) continue;
+    const int32_t r = static_cast<int32_t>(base + incl[i]) - 1;
+    a.new_rank[ord[i]] = r;
+    if (j == a.n - 1) *a.max_rank = r;
+  }
 }
 
-// new_rank[order[j]] = (changes before j) + changed[j] - 1
-__global__ void rerank_kernel(const uint64_t* __restrict__ keys,
-                              const int32_t* __restrict__ vals,
-                              const int32_t* __restrict__ before, int64_t n,
-                              int32_t* __restrict__ order,
-                              int32_t* __restrict__ new_rank,
-                              int32_t* __restrict__ max_rank) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (j >= n) return;
-  const int32_t o = vals[j];
-  const int32_t r = before[j] + key_changed(keys, j) - 1;
-  order[j] = o;
-  new_rank[o] = r;
-  if (j == n - 1) *max_rank = r;
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// One stable sort of `passes` digits: the first pass's input as `first`
+// describes it, the later passes' through keys[p % 2] / vals[p % 2]; the
+// last pass writes `out_vals` (and keys[(passes - 1) % 2], unless
+// `keep_keys` is false).
+cudaError_t radix_sort(PassArgs first, int passes, bool keep_keys,
+                       uint32_t* const keys[2], int32_t* const vals[2],
+                       int32_t* out_vals, uint32_t* hist,
+                       uint32_t* counters, unsigned long long* status,
+                       uint32_t epoch, cudaStream_t s) {
+  const int64_t n = first.n;
+  for (int p = 0; p < passes; ++p) {
+    PassArgs a = first;
+    if (p > 0) {
+      a.keys_in = keys[(p - 1) % 2];
+      a.vals_in = vals[(p - 1) % 2];
+      a.order = nullptr;
+      a.len = n;
+    }
+    a.shift = kDigitBits * p;
+    a.hist = hist + p * kBins;
+    a.tile_counter = counters + p;
+    a.status = status;
+    a.epoch = epoch + static_cast<uint32_t>(p);
+    const bool last = p == passes - 1;
+    a.keys_out = last && !keep_keys ? nullptr : keys[p % 2];
+    a.vals_out = last ? out_vals : vals[p % 2];
+    onesweep_kernel<<<ceil_div(a.len, kSortTile), kSortThreads, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -291,61 +495,92 @@ __global__ void segmented_argmin_kernel(const int32_t* __restrict__ lcp,
   if (lane == 0) out[g] = where;
 }
 
+// The state buffer a round of n positions needs: the histogram, the tile
+// counters and a look-back word for each (tile, digit) of the longest pass
+// (the first pass reads up to 2n positions).
+int64_t doubling_state_bytes(int64_t n) {
+  return kStatusOffset + ceil_div(2 * n, kSortTile) * kBins * 8;
+}
+
 }  // namespace
 
 extern "C" {
 
 // One round: `order`, `new_rank` (int32, n) and `max_rank` (one int32).
-// keys_a/keys_b hold n uint64, vals_a/vals_b n int32, hist 256 * tiles
-// int32 (tiles = ceil(n / 4096)), scratch the scan's block totals for
-// max(256 * tiles, n) counts.  `passes` 8-bit digits cover the key's bits.
+// `order_in` is the stable argsort of `rank` (the previous round's order),
+// or null: the round sorts 0 .. n-1 by rank first.  `passes` 8-bit digits
+// cover bit_length of the largest rank; keys_a/keys_b hold n uint32,
+// vals_a/vals_b n int32, `state` doubling_state_bytes(n) bytes, zeroed
+// once before its first round; `epoch` starts at 1 and grows by the round's
+// sort passes + 1 every round.
 int colbwt_doubling_round(const void* rank, int64_t n, int64_t k,
-                          int64_t lo_bits, int64_t passes, void* keys_a,
+                          int64_t passes, const void* order_in, void* keys_a,
                           void* keys_b, void* vals_a, void* vals_b,
-                          void* hist, void* scratch, void* order,
-                          void* new_rank, void* max_rank, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint64_t* kin = static_cast<uint64_t*>(keys_a);
-  uint64_t* kout = static_cast<uint64_t*>(keys_b);
-  int32_t* vin = static_cast<int32_t*>(vals_a);
-  int32_t* vout = static_cast<int32_t*>(vals_b);
-  int32_t* h = static_cast<int32_t*>(hist);
-  int32_t* sc = static_cast<int32_t*>(scratch);
-  const int64_t tiles = (n + kRadixTile - 1) / kRadixTile;
-  const int64_t blocks = (n + 255) / 256;
-  pair_keys_kernel<<<blocks, 256, 0, s>>>(static_cast<const int32_t*>(rank),
-                                          n, k, static_cast<int>(lo_bits),
-                                          kin, vin);
-  cudaError_t err = cudaGetLastError();
-  for (int64_t p = 0; p < passes && err == cudaSuccess; ++p) {
-    const int shift = static_cast<int>(8 * p);
-    radix_hist_kernel<<<tiles, kRadixThreads, 0, s>>>(kin, n, shift, h,
-                                                      tiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
-    err = exclusive_scan(h, 256 * tiles, sc, s);
-    if (err != cudaSuccess) break;
-    radix_scatter_kernel<<<tiles, kRadixThreads, 0, s>>>(
-        kin, vin, n, shift, h, tiles, kout, vout);
-    err = cudaGetLastError();
-    uint64_t* kt = kin;
-    kin = kout;
-    kout = kt;
-    int32_t* vt = vin;
-    vin = vout;
-    vout = vt;
+                          void* state, int64_t state_bytes, int64_t epoch,
+                          void* order, void* new_rank, void* max_rank,
+                          void* stream) {
+  if (n < 1 || n >= (int64_t{1} << 31) || k < 0 || passes < 1 ||
+      passes > kMaxPasses || state_bytes < doubling_state_bytes(n) ||
+      epoch < 1 || epoch + 2 * kMaxPasses + 1 >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* st = static_cast<char*>(state);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(st);
+  uint32_t* counters = reinterpret_cast<uint32_t*>(st + kHistBytes);
+  unsigned long long* status =
+      reinterpret_cast<unsigned long long*>(st + kStatusOffset);
+  uint32_t* const keys[2] = {static_cast<uint32_t*>(keys_a),
+                             static_cast<uint32_t*>(keys_b)};
+  int32_t* const vals[2] = {static_cast<int32_t*>(vals_a),
+                            static_cast<int32_t*>(vals_b)};
+  const int32_t* rk = static_cast<const int32_t*>(rank);
+  int32_t* out = static_cast<int32_t*>(order);
+  const int np = static_cast<int>(passes);
+  uint32_t ep = static_cast<uint32_t>(epoch);
+  cudaError_t err = cudaMemsetAsync(st, 0, kStatusOffset, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // sorted pairs in kin/vin; vout is free for the change flags
-  change_flags_kernel<<<blocks, 256, 0, s>>>(kin, n, vout);
-  err = cudaGetLastError();
+  const int64_t hist_blocks = ceil_div(n, 256) < 1056 ? ceil_div(n, 256)
+                                                      : 1056;
+  rank_hist_kernel<<<hist_blocks, 256, 0, s>>>(rk, n, np, hist);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  PassArgs a = {};
+  a.rank = rk;
+  a.n = n;
+  int slot = 0;
+  const int32_t* shifted = static_cast<const int32_t*>(order_in);
+  if (shifted == nullptr) {
+    // the stable argsort of rank: into `order` itself, which the doubling
+    // sort's first pass reads before its last pass writes it, or with one
+    // pass (read and written by the same pass) into vals_b
+    int32_t* dst = np == 1 ? vals[1] : out;
+    a.len = n;
+    err = radix_sort(a, np, false, keys, vals, dst, hist, counters, status,
+                     ep, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    shifted = dst;
+    slot = np;
+  }
+  a.order = shifted;
+  a.k = k;
+  a.head = k < n ? k : n;
+  a.len = n + a.head;
+  err = radix_sort(a, np, true, keys, vals, out, hist, counters + slot,
+                   status, ep + slot, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = exclusive_scan(vout, n, sc, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rerank_kernel<<<blocks, 256, 0, s>>>(kin, vin, vout, n,
-                                       static_cast<int32_t*>(order),
-                                       static_cast<int32_t*>(new_rank),
-                                       static_cast<int32_t*>(max_rank));
+  slot += np;
+  RerankArgs r;
+  r.keys = keys[(np - 1) % 2];
+  r.order = out;
+  r.rank = rk;
+  r.n = n;
+  r.k = k;
+  r.tile_counter = counters + slot;
+  r.status = status;
+  r.epoch = ep + slot;
+  r.new_rank = static_cast<int32_t*>(new_rank);
+  r.max_rank = static_cast<int32_t*>(max_rank);
+  rerank_kernel<<<ceil_div(n, kSortTile), kSortThreads, 0, s>>>(r);
   return static_cast<int>(cudaGetLastError());
 }
 

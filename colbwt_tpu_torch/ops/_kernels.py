@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "colbwt_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-pthread"]
 
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
@@ -65,12 +65,15 @@ _SIGNATURES = {
     "colbwt_query_batch_fused": [_P] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 3
                                 + [_P] * 2 + [_P],
     "colbwt_upload_rows": [_P, _P, _I, _I, _P],
+    "colbwt_host_stage": [_P, _I, _I],
+    "colbwt_upload_threads": [],
     "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
     "colbwt_tunneled_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],
     "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
                        + [_P],
-    "colbwt_doubling_round": [_P] + [_I] * 4 + [_P] * 9 + [_P],
+    "colbwt_doubling_round": ([_P] + [_I] * 3 + [_P] * 6 + [_I] * 2
+                              + [_P] * 3 + [_P]),
     "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] + [_P],
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
     "colbwt_sharded_fetch": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P],

@@ -6,10 +6,13 @@ Suffix array, LCP and thresholds, kernels in csrc/suffix.cu:
 
 - K11a `doubling_round` (replaces construct_jax.py:51 `_doubling_round`
   and :39 `_rerank`): one prefix-doubling round, sort by (rank, rank at
-  i+k) and dense re-rank.  The kernel radix-sorts one packed uint64 key
-  stably; the plain version keeps JAX's two stable argsorts.
-  `suffix_array` (construct_jax.py:70) drives the rounds with JAX's early
-  exit and keeps the per-round ranks (the pyramid) on the device.
+  i+k) and dense re-rank.  The kernel takes the order by (rank at i+k, i)
+  from the previous round's order (`next_rank_order_ref` is that step in
+  plain PyTorch) and radix-sorts it stably by the 32-bit rank alone; the
+  plain version keeps JAX's two stable argsorts.  `suffix_array`
+  (construct_jax.py:70) drives the rounds with JAX's early exit, one
+  workspace for all of them, and keeps the per-round ranks (the pyramid)
+  on the device.
 - K11b `lcp_lift` (replaces construct_jax.py:106 `lcp_from_pyramid`):
   the LCP of SA neighbours by power-of-two probes through the pyramid.
 - K12 `segmented_argmin` (replaces construct_jax.py:494
@@ -55,10 +58,12 @@ from colbwt_tpu_torch.utils.device import resolve_device
 # above this n, stream fixed-size chunks instead of the one-shot scan
 # (construct_jax.py:463): O(C) device memory at any n
 _CHUNKED_SCAN_MIN_N = 1 << 22
-# csrc/suffix.cu: positions a radix-sort block owns, counts a scan block
-# owns, pyramid levels a launch takes
+# csrc/suffix.cu: positions a radix-sort tile holds, the digit width, the
+# state's histogram (4 passes of 256 counts) and tile counters in bytes,
+# pyramid levels a launch takes
 _RADIX_TILE = 4096
-_SCAN_TILE = 4096
+_DIGIT_BITS = 8
+_STATE_HEAD_BYTES = 4 * 256 * 4 + 16 * 4
 _MAX_LEVELS = 32
 
 
@@ -108,54 +113,91 @@ def doubling_round_ref(rank: torch.Tensor, k: int
     return order.to(torch.int32), new_rank, ranks_sorted[-1]
 
 
-def _scan_scratch_len(m: int) -> int:
-    """Block totals of csrc/suffix.cu's recursive exclusive scan of m
-    counts: ceil(m / 4096) + ceil(m / 4096**2) + ... down to one block."""
-    total = 0
-    while True:
-        m = -(-m // _SCAN_TILE)
-        total += m
-        if m == 1:
-            return total
+def next_rank_order_ref(order: torch.Tensor, k: int) -> torch.Tensor:
+    """The order by (next_rank[i], i), next_rank[i] = rank[i+k] (-1 where
+    i >= n-k), from `order`, the stable argsort of rank (the previous
+    round's order): the positions max(n-k, 0) .. n-1 in index order, then
+    order[j] - k for each j with order[j] >= k, in order.  K11a's first
+    radix pass reads this sequence straight from `order`.  int32."""
+    n = order.shape[0]
+    head = torch.arange(max(n - k, 0), n, dtype=torch.int32,
+                        device=order.device)
+    return torch.cat([head, (order[order >= k] - k).to(torch.int32)])
 
 
-def doubling_round(rank: torch.Tensor, k: int, max_rank: int
+def key_passes(max_rank: int) -> int:
+    """K11a's 8-bit radix passes for ranks up to `max_rank`."""
+    return max(1, -(-int(max_rank).bit_length() // _DIGIT_BITS))
+
+
+def round_launches(passes: int, with_order: bool) -> int:
+    """Launches a K11a round makes: a memset, the histogram, a scatter a
+    pass (twice without a given order: the argsort first) and the
+    re-rank."""
+    return 3 + passes * (1 if with_order else 2)
+
+
+class DoublingWorkspace:
+    """K11a's scratch for n positions, made once per `suffix_array` and
+    reused by every round: two key and two value arrays of n, and the state
+    (histogram, tile counters, look-back words; zeroed once, since every
+    pass tags its words with its own epoch)."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.n = n
+        self.keys = torch.empty(2, n, dtype=torch.int32, device=device)
+        self.vals = torch.empty(2, n, dtype=torch.int32, device=device)
+        # csrc/suffix.cu doubling_state_bytes
+        self.state = torch.zeros(
+            _STATE_HEAD_BYTES + -(-2 * n // _RADIX_TILE) * 256 * 8,
+            dtype=torch.uint8, device=device)
+        self.epoch = 1  # each sort pass and re-rank takes the next one
+
+
+def doubling_round(rank: torch.Tensor, k: int, max_rank: int,
+                   order: torch.Tensor | None = None,
+                   workspace: DoublingWorkspace | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K11a: one prefix-doubling round, outputs as `doubling_round_ref`.
-    CPU tensors take the plain version; CUDA tensors launch
-    `doubling_round`, which sorts keys of bit_length(max_rank) +
-    bit_length(max_rank + 1) bits: `max_rank` must be the largest value of
-    `rank` (the previous round's, which `suffix_array` reads back
-    anyway)."""
+    CPU tensors take the plain version.  CUDA tensors launch
+    `doubling_round`, which radix-sorts keys of bit_length(max_rank) bits:
+    `max_rank` must be the largest value of `rank` (the previous round's,
+    which `suffix_array` reads back anyway) and `order`, when given, its
+    stable argsort (the previous round's order); without it the kernel
+    sorts 0 .. n-1 by rank first.  `workspace` (made here when absent) is
+    reused across rounds."""
     if rank.device.type == "cpu":
         return doubling_round_ref(rank, k)
     dev = rank.device
     K.require(rank, "rank", torch.int32, dev)
     n = rank.shape[0]
     _check_n(n)
-    lo_bits = int(max_rank + 1).bit_length()
-    bits = int(max_rank).bit_length() + lo_bits
-    if max_rank < 0 or bits > 64:
-        raise ValueError(f"max_rank = {max_rank}: keys need 0 <= ranks and "
-                         "at most 64 bits")
-    tiles = -(-n // _RADIX_TILE)
-    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
-    vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_scan_scratch_len(max(256 * tiles, n)),
-                          dtype=torch.int32, device=dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
+    if max_rank < 0 or max_rank >= 2**31:
+        raise ValueError(f"max_rank = {max_rank}: ranks must be int32 >= 0")
+    if order is not None:
+        K.require(order, "order", torch.int32, dev)
+        if order.shape != (n,):
+            raise ValueError(f"order has shape {tuple(order.shape)}, "
+                             f"expected ({n},)")
+    ws = workspace or DoublingWorkspace(n, dev)
+    if ws.n != n or ws.state.device != dev:
+        raise ValueError(f"workspace is for n = {ws.n} on {ws.state.device}")
+    passes = key_passes(max_rank)
+    epoch = ws.epoch
+    ws.epoch += passes * (1 if order is not None else 2) + 1
+    out = torch.empty(n, dtype=torch.int32, device=dev)
     new_rank = torch.empty(n, dtype=torch.int32, device=dev)
     top = torch.empty((), dtype=torch.int32, device=dev)
     code = K.on(dev).colbwt_doubling_round(
-        rank.data_ptr(), n, int(k), lo_bits, -(-bits // 8),
-        keys[0].data_ptr(), keys[1].data_ptr(), vals[0].data_ptr(),
-        vals[1].data_ptr(), hist.data_ptr(), scratch.data_ptr(),
-        order.data_ptr(), new_rank.data_ptr(), top.data_ptr(),
+        rank.data_ptr(), n, int(k), passes,
+        None if order is None else order.data_ptr(),
+        ws.keys[0].data_ptr(), ws.keys[1].data_ptr(), ws.vals[0].data_ptr(),
+        ws.vals[1].data_ptr(), ws.state.data_ptr(), ws.state.numel(), epoch,
+        out.data_ptr(), new_rank.data_ptr(), top.data_ptr(),
         K.stream_handle(dev))
     K.check("doubling_round", code)
     K.launches["doubling_round"] += 1
-    return order, new_rank, top
+    return out, new_rank, top
 
 
 def suffix_array(ranks0: np.ndarray, with_pyramid: bool = False,
@@ -163,8 +205,10 @@ def suffix_array(ranks0: np.ndarray, with_pyramid: bool = False,
     """Prefix-doubling suffix array on `device` (default cuda), the rounds
     of construct_jax.py:70 suffix_array_jax: ceil(log2(max(n, 2))) rounds
     at most, k doubling, stopping once the largest rank is n - 1 (read back
-    once a round).  Returns int32 tensors (sa, rank[, pyramid]); pyramid[j]
-    ranks the substrings of length 2**(j+1) and stays on the device."""
+    once a round).  Each round after the first hands K11a the previous
+    round's order, and all share one workspace.  Returns int32 tensors
+    (sa, rank[, pyramid]); pyramid[j] ranks the substrings of length
+    2**(j+1) and stays on the device."""
     dev = resolve_device(device)
     r0 = np.asarray(ranks0)
     n = int(r0.size)
@@ -172,10 +216,12 @@ def suffix_array(ranks0: np.ndarray, with_pyramid: bool = False,
     num_rounds = max(1, math.ceil(math.log2(max(n, 2))))
     rank = torch.from_numpy(r0.astype(np.int32)).to(dev)
     max_rank = int(r0.max())
+    ws = DoublingWorkspace(n, dev) if dev.type == "cuda" else None
     pyramid = []
+    sa = None
     k = 1
     for _ in range(num_rounds):
-        sa, rank, top = doubling_round(rank, k, max_rank)
+        sa, rank, top = doubling_round(rank, k, max_rank, sa, ws)
         if with_pyramid:
             pyramid.append(rank)
         k *= 2

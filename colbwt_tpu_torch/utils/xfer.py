@@ -5,7 +5,9 @@ it slice by slice, so the device holds the destination and nothing more,
 and a memory-mapped source is read one slice at a time, never copied whole
 on the host (xfer.py:9-13).  On CUDA the copy is K14, `colbwt_upload_rows`
 in csrc/xfer.cu (replaces xfer.py:27 `_write_rows`): the copy engine, fed
-through two pinned staging buffers on a stream of its own.  No SM kernel
+on a stream of its own by a pool of up to 8 host threads a card, each
+copying its 2 MB slices into its two pinned staging buffers (32 MB a card
+at most); a pinned source goes to the copy engine whole.  No SM kernel
 runs.  `upload_chunked_ref` is the plain version, a pageable `copy_` of
 each slice; a CPU destination takes it.
 """

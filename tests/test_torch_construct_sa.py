@@ -9,6 +9,7 @@ sequence through the port's ops against the same sequence in JAX.  Every
 value is an integer, so every comparison is exact.
 """
 
+import math
 import shutil
 from pathlib import Path
 
@@ -69,6 +70,109 @@ def test_doubling_round_matches_jax(rng, k):
             for g, w in zip(got, want):
                 assert g.dtype == torch.int32
                 np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _jax_rounds(ranks, ks=None):
+    """(rank, k, order) before each round of suffix_array_jax: `order` is
+    the previous round's (the stable argsort of ranks0 before the first).
+    With `ks` the rounds run at those k and past the early exit."""
+    n = ranks.size
+    rank = np.asarray(ranks, dtype=np.int32)
+    order = np.argsort(rank, kind="stable").astype(np.int32)
+    early = ks is None
+    if early:
+        ks = [1 << j for j in range(max(1, math.ceil(math.log2(max(n, 2)))))]
+    out = []
+    for k in ks:
+        out.append((rank, k, order))
+        o, r, top = CJ._doubling_round(jnp.asarray(rank), jnp.int32(k))
+        order, rank = np.asarray(o), np.asarray(r)
+        if early and int(top) == n - 1:
+            break
+    return out
+
+
+def _jax_next_rank(rank, k):
+    """construct_jax.py:62: rank[i + k], -1 where i >= n - k."""
+    n = rank.size
+    iota = np.arange(n)
+    return np.where(iota < n - k, np.roll(rank, -k), -1)
+
+
+NEXT_RANK_CASES = [0, 1, 2, 3, "repetitive", "one doc", "n=1", "n=2", "n=3",
+                   "k>=n"]
+
+
+def _next_rank_case(case):
+    """(ranks0, the k of each round, or None for suffix_array_jax's)."""
+    if case in ("n=1", "n=2", "n=3"):
+        n = int(case[-1])
+        return _ranks([[b"", b"A", b"AC"][n - 1]]), [1, 2, 4, 8]
+    if case == "k>=n":
+        ranks = _ranks([b"ACGTAC", b"ACG"])
+        n = ranks.size
+        return ranks, [1, 2, n - 1, n, n + 1, 2 * n]
+    docs = {"repetitive": REPETITIVE,
+            "one doc": [b"GATTACA" * 9]}.get(case) or _collection(case)
+    return _ranks(docs), None
+
+
+@pytest.mark.parametrize("case", NEXT_RANK_CASES)
+def test_next_rank_order_matches_jax_argsort(case):
+    """K11a's first radix pass reads the order by (next_rank, index) off
+    the previous round's order: next_rank_order_ref equals the stable
+    argsort of JAX's next_rank in every round."""
+    ranks, ks = _next_rank_case(case)
+    rounds = _jax_rounds(ranks, ks)
+    assert rounds
+    for rank, k, order in rounds:
+        want = np.argsort(_jax_next_rank(rank, k), kind="stable")
+        got = TC.next_rank_order_ref(torch.from_numpy(order.copy()), k)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k = {k}")
+
+
+@pytest.mark.parametrize("case", NEXT_RANK_CASES)
+def test_previous_order_is_stable_argsort_of_rank(case):
+    """Each round's order is the stable argsort of the ranks it produced,
+    so the next round may start from it; and one stable sort by rank of
+    the next-rank order gives the round's order."""
+    ranks, ks = _next_rank_case(case)
+    rounds = _jax_rounds(ranks, ks)
+    for (rank, k, order), nxt in zip(rounds, rounds[1:] + [None]):
+        np.testing.assert_array_equal(order,
+                                      np.argsort(rank, kind="stable"))
+        seq = TC.next_rank_order_ref(torch.from_numpy(order.copy()),
+                                     k).numpy()
+        want = np.asarray(CJ._doubling_round(jnp.asarray(rank),
+                                             jnp.int32(k))[0])
+        np.testing.assert_array_equal(
+            seq[np.argsort(rank[seq], kind="stable")], want)
+        if nxt is not None:
+            np.testing.assert_array_equal(nxt[2], want)
+
+
+@pytest.mark.parametrize("max_rank,passes", [(0, 1), (1, 1), (255, 1),
+                                             (256, 2), (4_000_003, 3),
+                                             (72_000_015, 4),
+                                             (2**31 - 1, 4)])
+def test_key_passes(max_rank, passes):
+    """8-bit digits over bit_length(max rank) bits: 3 passes at bench's
+    n = 4M, 4 at the pangenome's 72M; 6 and 7 launches a round."""
+    assert TC.key_passes(max_rank) == passes
+    assert TC.round_launches(passes, True) == 3 + passes
+    assert TC.round_launches(passes, False) == 3 + 2 * passes
+
+
+def test_doubling_round_cpu_ignores_order():
+    """On the CPU the plain version runs, with or without an order."""
+    ranks = _ranks(_collection(5)).astype(np.int32)
+    rank = torch.from_numpy(ranks)
+    order = torch.sort(rank, stable=True).indices.to(torch.int32)
+    for got in (TC.doubling_round(rank, 4, int(ranks.max()), order),
+                TC.doubling_round(rank, 4, int(ranks.max()))):
+        for g, w in zip(got, TC.doubling_round_ref(rank, 4)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("case", [0, 1, 2, 3, "repetitive", "one doc"])

@@ -489,14 +489,77 @@ def test_upload_rows(dev, tmp_path, shape, dtype, cast):
                                       a.astype(cast or dtype))
 
 
+# 2 MB slices and up to 8 host threads (csrc/xfer.cu): 9 slices and 12,345
+# bytes are no multiple of either
+_ODD_BYTES = 9 * (2 << 20) + 12_345
+
+
+def _upload_source(kind: str, tmp_path):
+    """(source array, dtype to cast to or None) for one kind of source."""
+    rng = np.random.default_rng(0x14)
+    a = rng.integers(0, 256, _ODD_BYTES, dtype=np.uint8)
+    if kind == "pinned":
+        t = torch.from_numpy(a).pin_memory()
+        return t.numpy(), None
+    if kind == "unaligned":
+        buf = np.empty(a.size + 1, np.uint8)
+        buf[1:] = a
+        assert buf[1:].ctypes.data % 16
+        return buf[1:], None
+    if kind == "memmap":
+        np.save(tmp_path / "a.npy", a)
+        return np.load(tmp_path / "a.npy", mmap_mode="r"), None
+    if kind == "cast":
+        rows = a[:a.size // 16 * 16].view(np.int32).reshape(-1, 4)
+        return rows.astype(np.int64), np.int32
+    if kind == "zero rows":
+        return np.empty((0, 8), np.int32), None
+    return a, None  # "pageable"
+
+
+@pytest.mark.parametrize("kind", ["pageable", "pinned", "unaligned",
+                                  "memmap", "cast", "zero rows"])
+def test_upload_rows_sources(dev, tmp_path, kind):
+    """K14 at its default 16 MB chunks over a size no multiple of a slice
+    or a thread's share: a pinned source (one DMA), a pointer not 16-byte
+    aligned, a memory map, a cast and zero rows, equal to the plain
+    version and the source."""
+    src, cast = _upload_source(kind, tmp_path)
+    before = K.launches["upload_rows"]
+    got = TXF.upload_chunked(src, dev, dtype=cast)
+    # one launch for the whole source; a cast, one for each 16 MB slice
+    # cast on the host
+    rows = TXF.CHUNK_BYTES // (got.element_size() * got.shape[-1])
+    calls = 0 if kind == "zero rows" else (
+        1 if cast is None else -(-got.shape[0] // rows))
+    assert K.launches["upload_rows"] - before == calls
+    want = TXF.upload_chunked_ref(src, dev, dtype=cast)
+    _equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.asarray(src).astype(cast or src.dtype))
+
+
+def test_upload_rows_second_card():
+    """K14 to cuda:1, its pool's threads on that card, and to cuda:0
+    right after; skipped with one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    a = np.random.default_rng(1).integers(0, 256, _ODD_BYTES, dtype=np.uint8)
+    for name in ("cuda:1", "cuda:0"):
+        d = torch.device(name)
+        got = TXF.upload_chunked(a, d)
+        assert got.device == d
+        np.testing.assert_array_equal(got.cpu().numpy(), a)
+
+
 # ---------------------------------------------------------------------------
 # K11a, K11b: the suffix array by prefix doubling and the LCP by lifting;
 # K12: the thresholds' segmented first argmin
 # ---------------------------------------------------------------------------
 
-def _round_equal(rank, k, max_rank):
+def _round_equal(rank, k, max_rank, order=None, ws=None):
     before = K.launches["doubling_round"]
-    got = TC.doubling_round(rank, k, max_rank)
+    got = TC.doubling_round(rank, k, max_rank, order, ws)
     assert K.launches["doubling_round"] == before + 1
     want = TC.doubling_round_ref(rank, k)
     for g, w in zip(got, want):
@@ -504,41 +567,73 @@ def _round_equal(rank, k, max_rank):
     return got
 
 
-@pytest.mark.parametrize("n", [1, 2, 4096, 4097, 3 * 4096 + 5,
-                               (1 << 24) + 7])
+def _argsort(rank):
+    return torch.sort(rank, stable=True).indices.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 3 * 4096 + 5,
+                               (1 << 20) + 3, (1 << 24) + 7])
 def test_doubling_round(dev, n):
-    """K11a against its plain version on ranks with many ties: n = 1, 2, one
-    radix tile, a tile plus one, several tiles, and past 4096**2 positions
-    (a three-level scan of the change flags); k below n and k >= n."""
+    """K11a against its plain version with and without the previous order,
+    on ranks all equal, with few values and with n values: n = 1, 2, a
+    radix tile and either side of it, several tiles, and 2**20 + 3 and
+    2**24 + 7 positions; k below n and k >= n (the first pass reads up to
+    2n positions)."""
     rng = np.random.default_rng(n)
-    for top in (7, n):
+    ws = TC.DoublingWorkspace(n, dev)
+    for top in (1, 7, n):
         rank = to_device(rng.integers(0, top, n), dev)
+        order = _argsort(rank)
         for k in sorted({1, 2, max(1, n // 3), n, n + 1}):
             _round_equal(rank, k, int(rank.max()))
+            _round_equal(rank, k, int(rank.max()), order, ws)
+
+
+@pytest.mark.parametrize("bits", list(range(0, 32)))
+def test_doubling_round_key_bits(dev, bits):
+    """Keys of 0 to 31 bits (every pass count, 1 to 4, and every digit
+    width of a last pass), with and without the order, one workspace."""
+    n = 50_000
+    rng = np.random.default_rng(bits)
+    top = 1 << bits
+    r = rng.integers(0, top, n, dtype=np.int64)
+    r[n // 2] = top - 1
+    rank = to_device(r, dev)
+    assert int(rank.max()).bit_length() == bits
+    ws = TC.DoublingWorkspace(n, dev)
+    for k in (1, 16, n):
+        _round_equal(rank, k, top - 1)
+        _round_equal(rank, k, top - 1, _argsort(rank), ws)
 
 
 def test_suffix_array_rounds(dev):
-    """Every round of a full sequence held against the plain version on the
-    same input, then the suffix array against the oracle's and K11b's LCP
-    against its plain version and Kasai's."""
+    """Every round of a full sequence, each handed the previous round's
+    order and one workspace as suffix_array does, held against the plain
+    version on the same input, then the suffix array against the oracle's
+    and K11b's LCP against its plain version and Kasai's."""
     rng = np.random.default_rng(0x11A)
     base = rng.choice(np.frombuffer(b"ACGT", np.uint8), 5000)
     docs = [base.tobytes(), base[::-1].tobytes(), base[1000:].tobytes()]
     _, ranks, _ = O.concat_collection(docs)
     n = ranks.size
     rank = to_device(ranks, dev)
-    max_rank, k, pyramid = int(ranks.max()), 1, []
+    ws = TC.DoublingWorkspace(n, dev)
+    max_rank, k, pyramid, sa = int(ranks.max()), 1, [], None
     for _ in range(int(np.ceil(np.log2(n)))):
-        sa, rank, top = _round_equal(rank, k, max_rank)
+        sa, rank, top = _round_equal(rank, k, max_rank, sa, ws)
         pyramid.append(rank)
         max_rank, k = int(top), 2 * k
         if max_rank == n - 1:
             break
     assert max_rank == n - 1 and len(pyramid) > 8  # long repeats
+    before = K.launches["doubling_round"]
     got_sa, _, got_pyr = TC.suffix_array(ranks, with_pyramid=True,
                                          device=dev)
+    assert K.launches["doubling_round"] - before == len(pyramid)
     _equal(got_sa, sa)
     assert len(got_pyr) == len(pyramid)
+    for g, w in zip(got_pyr, pyramid):
+        _equal(g, w)
     want_sa = O.suffix_array(ranks)
     np.testing.assert_array_equal(sa.cpu().numpy(), want_sa)
     r0 = to_device(ranks, dev)
