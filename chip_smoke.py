@@ -87,13 +87,20 @@ version on the card.  Phases:
 12. the sharded query API (colbwt_tpu_torch/parallel/), its ip shards as
    separate tensors on the one card (make_mesh over ["cuda:0"] * dp·ip):
    phase 4's 263,168 reads of <= 152 bp in one batch at (dp, ip) = (1, 2)
-   through sharded-pos (k = 3 on bench's index: K1, K13d, the fetch, K13e),
-   sharded compact (K13a) and sharded-mega (K13b) on phase 9's ff_bound-2
-   split, and sharded-mega-wide (K6b slices, K13c) on phase 7's index at
-   (1, 2), (2, 2) and (1, 4), with the 16 long reads in chunks of 2,048;
-   every output equal to the single-card engine's on the same reads (phase
-   4's pos records, K4, K5, phase 7's mega-wide records); each new kernel
-   equal to its plain version call by call (K13a on 8,192 of the reads)
+   through sharded-pos (k = 3 on bench's index: K1, K13d, the one-launch
+   fetch, K13e), sharded compact (K13a) and sharded-mega (the K13b chunk
+   scan, one launch) on phase 9's ff_bound-2 split, and sharded-mega-wide
+   (K6b slices, the K13c chunk scan) on phase 7's index at (1, 2), (2, 2)
+   and (1, 4), with the 16 long reads in chunks of 2,048 (each wall split
+   into shard placement, batch and long reads); then the mega engines'
+   per-step route (the route of shards on other cards: the fetch and the
+   per-step kernel K13b/K13c) once at (1, 2), narrow on the split and
+   wide on phase 7's index; every output equal to the single-card
+   engine's on the same reads (phase 4's pos records, K4, K5, phase 7's
+   mega-wide records), every launch count the one its route gives; each
+   kernel equal to its plain version call by call (K13a on 8,192 of the
+   reads; both mega engines, the wide long reads too, through both
+   routes)
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
@@ -106,6 +113,7 @@ only make_docs and make_reads, which need numpy alone).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import shutil
@@ -113,6 +121,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -155,14 +164,17 @@ KERNEL_INFO = {
     "sharded_fetch": ("K13a/b/c/e", "colbwt_tpu_torch/csrc/query_sharded.cu",
                       "colbwt_tpu/parallel/query_sharded.py:33"),
     "sharded_step_compact": ("K13a", "colbwt_tpu_torch/csrc/query_sharded.cu",
-                             "colbwt_tpu/parallel/query_sharded.py:54"),
+                             "colbwt_tpu/parallel/query_sharded.py:56"),
     "sharded_step_mega": ("K13b/K13c",
                           "colbwt_tpu_torch/csrc/query_sharded.cu",
-                          "colbwt_tpu/parallel/query_sharded_mega.py:51"),
+                          "colbwt_tpu/parallel/query_sharded_mega.py:53"),
     "compose_sharded_tk": ("K13d", "colbwt_tpu_torch/csrc/query_sharded.cu",
-                           "colbwt_tpu/parallel/query_sharded_pos.py:66"),
+                           "colbwt_tpu/parallel/query_sharded_pos.py:67"),
     "sharded_step_pos": ("K13e", "colbwt_tpu_torch/csrc/query_sharded.cu",
-                         "colbwt_tpu/parallel/query_sharded_pos.py:162"),
+                         "colbwt_tpu/parallel/query_sharded_pos.py:163"),
+    "sharded_scan_mega": (
+        "K13b/K13c", "colbwt_tpu_torch/csrc/query_mega.cu",
+        "colbwt_tpu/parallel/query_sharded_mega_wide.py:101"),
 }
 # the least time of a kernel's work: its bytes (each input read once, each
 # output written once; a gathered table counted at the bytes its gathers
@@ -1061,11 +1073,21 @@ def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
              f"{TC.round_launches(passes, True)} launches a round; stable "
              f"torch.sort of the 32-bit ranks {lib32:.4f} ms",
              bound=(12 * n + 4, 8 * packed * n), library_ms=lib)
-    for rank_in, k_in, top_in, order_in, _ in rounds:
+    for rank_in, k_in, top_in, order_in, pk in rounds:
         ms = cuda_ms(torch, lambda: TC.doubling_round(rank_in, k_in, top_in,
                                                       order_in, ws))
+        extra = ""
+        if k_in == 2:  # the one-pass round: its plain and library times
+            keys = pair_keys(torch, rank_in, k_in, (top_in + 1).bit_length())
+            plain = cuda_ms(torch, lambda: TC.doubling_round_ref(rank_in,
+                                                                 k_in))
+            lib = cuda_ms(torch, lambda: torch.sort(keys, stable=True))
+            lib32 = cuda_ms(torch, lambda: torch.sort(rank_in, stable=True))
+            extra = (f", plain {plain:.4f} ms, stable torch.sort of PR 5's "
+                     f"packed keys ({pk} bytes) {lib:.4f} ms, of the 32-bit "
+                     f"ranks {lib32:.4f} ms")
         log(f"[time] doubling_round k = {k_in}: "
-            f"{TC.key_passes(top_in)} passes, {ms:.4f} ms")
+            f"{TC.key_passes(top_in)} passes, {ms:.4f} ms{extra}")
     del keys, rounds, ws
     lcp = TC.lcp_from_pyramid(r0, sa, pyramid)
     chk.equal("lcp_lift", lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid),
@@ -1410,8 +1432,8 @@ def clone_args(torch, args, shared=()):
 class Twins:
     """While active, each wrapped kernel wrapper (a module attribute) runs
     as itself, and with `check` also as its plain version on clones of its
-    arguments: its result and every tensor argument (the outputs it writes
-    in place) must then be equal.  Keeps clones of the arguments of call
+    arguments: its result (or each tensor of a tuple it returns) and every
+    tensor argument (the outputs it writes in place) must then be equal.  Keeps clones of the arguments of call
     number `nth` (from 0) of each (kernel, tag, key) for the timings."""
 
     def __init__(self, torch, chk: Checks, check: bool):
@@ -1436,7 +1458,8 @@ class Twins:
             twins = clone_args(torch, args, shared)
             out = kern(*args)
             want = ref(*twins)
-            pairs = [(out, want)] if out is not None else []
+            pairs = (list(zip(out, want)) if isinstance(out, tuple)
+                     else [(out, want)])
             for a, b in zip(args, twins):
                 pairs += (list(zip(a, b)) if isinstance(a, tuple)
                           else [(a, b)])
@@ -1463,9 +1486,12 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     """The sharded query API on the card, the ip shards as separate tensors
     on cuda:0.  `batch` is phase 4's 263,168 reads of <= 152 bp, `ref4` and
     `ref7` phase 4's and phase 7's (pmls, cids) of all its records.  Each
-    engine runs once with launch counts reset just before it, its outputs
-    held to the single-card engine's, then again with every kernel call
-    held to its plain version.  Returns the walls and the launch counts."""
+    engine runs once with launch counts reset just before it (and held to
+    the counts its route gives), its outputs held to the single-card
+    engine's; the per-step route of the mega engines (the route of shards
+    on other cards) runs once, narrow and wide, on the (1, 2) mesh.  Then
+    every engine runs again with every kernel call held to its plain
+    version.  Returns the walls and the launch counts."""
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.ops import query_mega as TM
@@ -1481,6 +1507,7 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     torch.cuda.empty_cache()
     split = ColPmlIndex.load(WORK / "fused.colpml.npz")
     B = len(batch)
+    M = max(len(x) for x in batch)
     launches, walls = [], {}
 
     def mesh(dp, ip):
@@ -1489,19 +1516,27 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     def twins(check: bool) -> Twins:
         tw = Twins(torch, chk, check)
         tw.wrap(PM, "sharded_fetch", PM.sharded_fetch_ref,
-                key=lambda a: (a[0].shape[1], a[2] is None,
-                               a[1].numel() > 1, a[3]),
-                shared=(0,))
+                key=lambda a: (next(t for t in a[0] if t is not None
+                                    ).shape[1], a[2] is None, a[1].shape[0]))
         tw.wrap(TS, "sharded_step_compact", TS.sharded_step_compact_ref,
                 key=lambda a: a[0])
         tw.wrap(TSM, "sharded_step_mega", TSM.sharded_step_mega_ref,
-                shared=(1,))
+                key=lambda a: a[0].shape[0], shared=(1,))
+        tw.wrap(TSM, "sharded_scan_mega", TSM.sharded_scan_mega_ref,
+                key=lambda a: tuple(a[7].shape), shared=(0, 2), nth=0)
         tw.wrap(TSP, "sharded_step_pos", TSP.sharded_step_pos_ref)
         tw.wrap(TSP, "compose_sharded_tk", TSP.compose_sharded_tk_ref,
                 shared=(0,), nth=0)
         return tw
 
-    def counted(tw: Twins, tag: str, needed: tuple[str, ...], fn):
+    def step_route():
+        """Every sharded mega chunk through the per-step route
+        `step_chunk`, the route of a row whose shards sit on other cards."""
+        return mock.patch.object(TSM, "scan_chunk", TSM.step_chunk)
+
+    def counted(tw: Twins, tag: str, want: dict, fn):
+        """Run fn with launch counts reset; every kernel of `want` must
+        have launched (its count, where one is given; None: any > 0)."""
         tw.tag = tag
         K.reset_launches()
         torch.cuda.synchronize()
@@ -1510,8 +1545,10 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
         lc = dict(K.launches)
-        for name in needed:
-            require(lc[name] > 0, f"{name} never launched in phase 12 {tag}")
+        for name, n in want.items():
+            require(lc[name] > 0 if n is None else lc[name] == n,
+                    f"phase 12 {tag}: {name} launched {lc[name]} times, "
+                    f"expected {'> 0' if n is None else n}")
         launches.append(lc)
         log(f"[phase 12] {tag}: {walls[tag]:.3f}s; launches "
             + json.dumps({k: v for k, v in lc.items() if v}))
@@ -1527,7 +1564,31 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                 f"phase 12 {what}: outputs differ from the single-card "
                 f"engine's")
 
+    def wide_run(mw, tag):
+        """Shard the wide table, then the batch and the long reads, each
+        part synchronised and timed (the short/long split of the wall)."""
+        parts = {}
+        t0 = time.perf_counter()
+        st = TSW.shard_mega_wide(wide, mw)
+        torch.cuda.synchronize()
+        parts["shard_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        short = TSW.query_batch_sharded_mega_wide(wide, batch, mesh=mw, st=st)
+        torch.cuda.synchronize()
+        parts["short_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lng = TSW.query_long_reads_sharded_mega_wide(wide, long_reads,
+                                                     mesh=mw, chunk=2048,
+                                                     st=st)
+        torch.cuda.synchronize()
+        parts["long_s"] = time.perf_counter() - t0
+        walls[tag + " split"] = parts
+        log(f"[phase 12] {tag}: " + json.dumps(parts))
+        return short, lng
+
     m12 = mesh(1, 2)
+    long_chunks = -(-max(len(x) for x in long_reads) // 2048)
+    long_steps = long_chunks * 2048
     # K13d, K13e: sharded-pos on bench's index; k = 3 at ip = 2
     k = TSP.choose_k_sharded(index, 2)
     require(k == 3, f"choose_k_sharded gave k={k} at ip=2, expected 3")
@@ -1536,13 +1597,15 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
             st = TSP.shard_pos_tables(index, m12)
             return TSP.query_batch_sharded_pos(index, batch, mesh=m12, st=st)
 
-        got = counted(cap, "sharded-pos (1,2) k=3", (
-            "build_t1_chunk", "compose_sharded_tk", "sharded_fetch",
-            "sharded_step_pos"), pos_run)
+        # one fetch launch a gather (both shards on the card)
+        got = counted(cap, "sharded-pos (1,2) k=3", {
+            "build_t1_chunk": None, "compose_sharded_tk": 2,
+            "sharded_fetch": -(-M // 3), "sharded_step_pos": -(-M // 3)},
+            pos_run)
         same(got, ref4, 0, B, "sharded-pos")
-        got = counted(cap, "sharded-compact (1,2)",
-                      ("sharded_fetch", "sharded_step_compact"),
-                      lambda: TS.query_batch_sharded(split, batch, mesh=m12))
+        got = counted(cap, "sharded-compact (1,2)", {
+            "sharded_fetch": 1 + 6 * M, "sharded_step_compact": 4 * M},
+            lambda: TS.query_batch_sharded(split, batch, mesh=m12))
         same(got, TX.query_batch(split, batch, device=dev), 0, B,
              "sharded compact")
         t0 = time.perf_counter()
@@ -1550,74 +1613,107 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         st_mega = TSM.shard_mega(split, m12, mt=mt)
         log(f"[phase 12] mega table (host) and its shards in "
             f"{time.perf_counter() - t0:.3f}s")
-        got = counted(cap, "sharded-mega (1,2)", (
-            "sharded_fetch", "sharded_step_mega"),
+        # one chunk-scan launch for the whole batch, no fetch, no step
+        got = counted(cap, "sharded-mega (1,2)", {
+            "sharded_scan_mega": 1, "sharded_fetch": 0,
+            "sharded_step_mega": 0},
             lambda: TSM.query_batch_sharded_mega(split, batch, mesh=m12,
                                                  st=st_mega))
         mt_dev = {key: v.to(dev) if isinstance(v, torch.Tensor) else v
                   for key, v in mt.items()}
-        same(got, TM.query_batch(split, batch, mt=mt_dev), 0, B,
-             "sharded-mega")
+        ref_mega = TM.query_batch(split, batch, mt=mt_dev)
+        same(got, ref_mega, 0, B, "sharded-mega")
         del mt, mt_dev
         for dp, ip in ((1, 2), (2, 2), (1, 4)):
             mw = mesh(dp, ip)
             tag = f"sharded-mega-wide ({dp},{ip})"
-
-            def wide_run():
-                st = TSW.shard_mega_wide(wide, mw)
-                return (TSW.query_batch_sharded_mega_wide(wide, batch,
-                                                          mesh=mw, st=st),
-                        TSW.query_long_reads_sharded_mega_wide(
-                            wide, long_reads, mesh=mw, chunk=2048, st=st))
-
-            got, got_long = counted(cap, tag, (
-                "fill_block_wide", "sharded_fetch", "sharded_step_mega"),
-                wide_run)
+            # a launch a dp row for the batch and for each long-read chunk
+            got, got_long = counted(cap, tag, {
+                "fill_block_wide": None,
+                "sharded_scan_mega": dp * (1 + long_chunks),
+                "sharded_fetch": 0, "sharded_step_mega": 0},
+                lambda: wide_run(mw, tag))
             same(got, ref7, 0, B, tag)
             same(got_long, ref7, B, B + len(long_reads), tag + " long reads")
-    log("[phase 12] every sharded engine equals the single-card engine")
+        # the per-step route once, narrow and wide: a fetch launch and a
+        # step launch a step
+        with step_route():
+            tag = "sharded-mega (1,2) step route"
+            got = counted(cap, tag, {
+                "sharded_scan_mega": 0, "sharded_fetch": M,
+                "sharded_step_mega": M},
+                lambda: TSM.query_batch_sharded_mega(split, batch, mesh=m12,
+                                                     st=st_mega))
+            same(got, ref_mega, 0, B, tag)
+            del ref_mega
+            tag = "sharded-mega-wide (1,2) step route"
+            got, got_long = counted(cap, tag, {
+                "fill_block_wide": None, "sharded_scan_mega": 0,
+                "sharded_fetch": M + long_steps,
+                "sharded_step_mega": M + long_steps},
+                lambda: wide_run(m12, tag))
+        same(got, ref7, 0, B, tag)
+        same(got_long, ref7, B, B + len(long_reads), tag + " long reads")
+    log("[phase 12] every sharded engine equals the single-card engine, "
+        "both routes of the mega engines")
 
     # every kernel call against its plain version: the full batch (K13a:
-    # its first 8,192 reads), the tables rebuilt under the check
+    # its first 8,192 reads), the tables rebuilt under the check; the mega
+    # engines (the wide one with its long reads) through both routes
     t0 = time.perf_counter()
     with twins(True) as tw:
         tw.tag = "pos"
         TSP.query_batch_sharded_pos(index, batch, mesh=m12)
         tw.tag = "compact"
         TS.query_batch_sharded(split, batch[:8192], mesh=m12)
-        tw.tag = "mega"
-        TSM.query_batch_sharded_mega(split, batch, mesh=m12, st=st_mega)
-        tw.tag = "wide"
-        TSW.query_batch_sharded_mega_wide(wide, batch, mesh=m12)
-    del st_mega
+        for tag, route in (("mega", contextlib.nullcontext),
+                           ("mega step route", step_route)):
+            tw.tag = tag
+            with route():
+                TSM.query_batch_sharded_mega(split, batch, mesh=m12,
+                                             st=st_mega)
+        st_wide = TSW.shard_mega_wide(wide, m12)
+        for tag, route in (("wide", contextlib.nullcontext),
+                           ("wide step route", step_route)):
+            tw.tag = tag
+            with route():
+                TSW.query_batch_sharded_mega_wide(wide, batch, mesh=m12,
+                                                  st=st_wide)
+                TSW.query_long_reads_sharded_mega_wide(
+                    wide, long_reads, mesh=m12, chunk=2048, st=st_wide)
+    del st_mega, st_wide
     torch.cuda.empty_cache()
-    log(f"[phase 12] K13a-K13e equal to their plain versions call by call "
-        f"({time.perf_counter() - t0:.1f}s)")
+    log(f"[phase 12] K13a-K13e and the chunk scan equal to their plain "
+        f"versions call by call ({time.perf_counter() - t0:.1f}s)")
 
-    # times at the counted runs' shapes: each kernel's ninth call (step 8;
-    # shard 0 for the fetch), K13d its first
+    # times at the counted runs' shapes: each per-step kernel's ninth call
+    # (step 8) of its shape, the chunk scan's first of its shape, K13d its
+    # first
     first = cap.first
 
     def arg(name, tag, key=None):
         return first[(name, tag, key)]
 
+    step_tag = "sharded-mega-wide (1,2) step route"
     for tag, key, what in (
-            ("sharded-mega (1,2)", (16, True, True, 0), "mega rows"),
-            ("sharded-pos (1,2) k=3", (2, False, True, 0),
-             "pos rows, key selector"),
-            ("sharded-compact (1,2)", (8, True, True, 0), "compact run rows"),
-            ("sharded-mega-wide (1,2)", (16, True, True, 0), "wide rows")):
+            (step_tag, (16, True, B), "wide rows"),
+            (step_tag, (16, True, len(long_reads)),
+             "wide rows, the long reads' lanes"),
+            ("sharded-pos (1,2) k=3", (2, False, B), "pos rows, key selector"),
+            ("sharded-compact (1,2)", (8, True, B), "compact run rows")):
         a = arg("sharded_fetch", tag, key)
-        table, g, s, lo, L, _ = a
-        W = table.shape[1]
-        owned = int(((g >= lo) & (g < lo + L)).sum())
+        shards, g, s, L, _, _ = a
+        W = shards[0].shape[1]
+        lanes = g.shape[0]
+        owned = int(((g >= 0) & (g < L * len(shards))).sum())
         chk.time("sharded_fetch", lambda: PM.sharded_fetch(*a),
                  lambda: PM.sharded_fetch_ref(*a),
-                 f"{what}: one shard of {tuple(table.shape)}, {g.shape[0]} "
-                 f"lanes, {owned} owned",
-                 bound=(nbytes(g, s) + g.shape[0] * W * 4
-                        + min(table.nbytes, owned * W * 4),
-                        g.shape[0] * W * 4))
+                 f"{what}: {len(shards)} shards of {tuple(shards[0].shape)} "
+                 f"in one launch, {lanes} lanes, {owned} owned",
+                 reps=3 if lanes > 64 else 200,
+                 bound=(nbytes(g, s) + lanes * W * 4
+                        + min(nbytes(shards), owned * W * 4),
+                        lanes * W * 4))
     a = arg("compose_sharded_tk", "sharded-pos (1,2) k=3")
     t1, n, n_local, lo, A, kk = a
     rows = A ** kk * n_local
@@ -1632,14 +1728,31 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
              f"one step of {Bs} lanes, k={kk}",
              bound=(a[0].nbytes + 2 * nbytes(a[1], a[2]) + Bs * kk * 5
                     + nbytes(a[8], a[9]), Bs * kk * 10))
-    for tag in ("sharded-mega (1,2)", "sharded-mega-wide (1,2)"):
-        a = arg("sharded_step_mega", tag)
-        Bs = a[0].shape[0]
+    for tag, lanes in (("sharded-mega (1,2) step route", B), (step_tag, B),
+                       (step_tag, len(long_reads))):
+        a = arg("sharded_step_mega", tag, lanes)
         chk.time("sharded_step_mega", lambda: TSM.sharded_step_mega(*a),
                  lambda: TSM.sharded_step_mega_ref(*a),
-                 f"{tag}: one step of {Bs} lanes",
-                 bound=(nbytes(a[0], a[7]) + 2 * nbytes(a[5]) + Bs * 14,
-                        Bs * 40))
+                 f"{tag}: one step of {lanes} lanes",
+                 reps=3 if lanes > 64 else 200,
+                 bound=(nbytes(a[0], a[7]) + 2 * nbytes(a[5]) + lanes * 14,
+                        lanes * 40))
+    for tag, shape, what in (
+            ("sharded-mega (1,2)", (B, M), "narrow"),
+            ("sharded-mega-wide (1,2)", (B, M), "wide"),
+            ("sharded-mega-wide (1,2)", (len(long_reads), 2048),
+             "wide, one long-read chunk")):
+        a = arg("sharded_scan_mega", tag, shape)
+        shards, _, length, _, _, _, state, pats, lens, step0, _, _ = a
+        lane_steps = int((lens.long() - step0).clamp(0, pats.shape[1]).sum())
+        chk.time("sharded_scan_mega", lambda: TSM.sharded_scan_mega(*a),
+                 lambda: TSM.sharded_scan_mega_ref(*a),
+                 f"{what}: {pats.shape[0]} lanes x {pats.shape[1]} steps, "
+                 f"{len(shards)} shards, {lane_steps} valid lane-steps, "
+                 f"one launch",
+                 bound=(gathered(shards, lane_steps, 64)
+                        + nbytes(pats, lens) + 2 * nbytes(state)
+                        + 2 * pats.numel() * 4, lane_steps * 40))
     caps = [arg("sharded_step_compact", "sharded-compact (1,2)", rnd)
             for rnd in (1, 2, 3, 4)]
     Bs = caps[0][2].shape[0]

@@ -1,11 +1,16 @@
-// Mega-engine scans for Hopper (sm_90a): K5 and K6a.
+// Mega-engine scans for Hopper (sm_90a): K5, K6a and the chunk scan of
+// K13b/K13c.
 //
-// Replaces two jitted XLA programs:
+// Replaces four jitted XLA programs:
 //   K5  colbwt_query_chunk_mega       <- colbwt_tpu/ops/query_mega.py:116
 //       query_chunk_mega (with query_batch_mega :212, initial_state :104)
 //   K6a colbwt_query_chunk_mega_wide  <- colbwt_tpu/ops/query_mega_wide.py:369
 //       query_chunk_mega_wide (with query_batch_mega_wide :486,
 //       initial_state_wide :352 and the limb comparison _lt :364)
+//   K13b/K13c colbwt_sharded_scan_mega <- the lax.scan inside shard_map of
+//       colbwt_tpu/parallel/query_sharded_mega.py:53 _sharded_mega_query
+//       (fetch :62-66) and query_sharded_mega_wide.py:101
+//       _sharded_mega_wide_chunk (fetch :117-122, long-read loop :233)
 //
 // What bounds them on an H100: per read and character, one random gather of
 // a 64-byte table row at c * r + interval (in the wide compact layout a
@@ -21,20 +26,32 @@
 // a dispatch batch); several reads per thread with interleaved loads is
 // later work.
 //
-// One templated scan serves three row readers: the narrow row with int32
+// One templated scan serves five row readers: the narrow row with int32
 // positions, the wide full row whose base-2**30 position limbs are joined to
-// int64 at the gather, and the wide compact pair of rows.  Wide positions are
-// int64 inside the kernel and are split into limbs again only where the
-// state leaves it.  Narrow sums wrap as int32, as in the JAX program; wide
-// sums are exact, which equals the JAX limb arithmetic for every valid state
-// (offsets < 2**29, so one carry normalises).  Every row index is int64 and
-// clamped as jnp.take(..., mode="clip") does.
+// int64 at the gather, the wide compact pair of rows, and the narrow and
+// wide full rows of a table split over "ip" whose shards all sit on this
+// card (K13b/K13c).  The sharded JAX programs fetch each step's rows with a
+// masked take and a psum over "ip"; the port's step route pays a fetch
+// launch, a sum and a step launch a step, and writes the summed rows to
+// memory between them.  Where every shard of a dp row sits on one card the
+// sum is a selection, so the sharded readers pick each lane's owning shard
+// (one 32-bit division, shards.cuh) and the whole chunk runs in one launch,
+// state in registers, bound by memory latency as K5 and K6a are.
+//
+// Wide positions are int64 inside the kernel and are split into limbs again
+// only where the state leaves it.  Narrow sums wrap as int32, as in the JAX
+// program; wide sums are exact, which equals the JAX limb arithmetic for
+// every valid state (offsets < 2**29, so one carry normalises).  Every row
+// index is int64 and clamped as jnp.take(..., mode="clip") does, except a
+// sharded row that no shard owns, which reads as zeros.
 //
 // Plain C interface (ctypes); each entry point launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "shards.cuh"
 
 namespace {
 
@@ -45,9 +62,15 @@ __device__ __forceinline__ int64_t clip(int64_t i, int64_t size) {
   return i < 0 ? 0 : (i >= size ? size - 1 : i);
 }
 
-// int32 addition with the two's-complement wrap of the JAX program
+// int32 addition and product with the two's-complement wrap of the JAX
+// programs
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t mul32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) *
                               static_cast<uint32_t>(b));
 }
 
@@ -63,60 +86,101 @@ struct Row {
 };
 
 // Narrow row (query_mega.py:8-17): [match, cid, di0, doff0, lf_pos0, dlen0,
-// thr, s_int, s_off, s_pos, p_int, p_off, p_pos, 0, 0, 0].
+// thr, s_int, s_off, s_pos, p_int, p_off, p_pos, 0, 0, 0]; the first 13
+// words in a, b, d and p_pos.
+__device__ __forceinline__ Row narrow_row(int4 a, int4 b, int4 d,
+                                          int32_t p_pos) {
+  Row w;
+  w.match = a.x == 1;
+  w.cid = a.y;
+  w.di0 = a.z;
+  w.doff0 = a.w;
+  w.lf_pos0 = b.x;
+  w.dlen0 = b.y;
+  w.thr = b.z;
+  w.s_int = b.w;
+  w.s_off = d.x;
+  w.s_pos = d.y;
+  w.p_int = d.z;
+  w.p_off = d.w;
+  w.p_pos = p_pos;
+  return w;
+}
+
 struct NarrowRows {
   static constexpr bool kWide = false;
   const int4* __restrict__ mega;
   int64_t rows, r;
   __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
     const int4* p = mega + 4 * clip(c * r + interval, rows);
-    const int4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
-    Row w;
-    w.match = a.x == 1;
-    w.cid = a.y;
-    w.di0 = a.z;
-    w.doff0 = a.w;
-    w.lf_pos0 = b.x;
-    w.dlen0 = b.y;
-    w.thr = b.z;
-    w.s_int = b.w;
-    w.s_off = d.x;
-    w.s_pos = d.y;
-    w.p_int = d.z;
-    w.p_off = d.w;
-    w.p_pos = __ldg(reinterpret_cast<const int32_t*>(p + 3));
-    return w;
+    return narrow_row(__ldg(p), __ldg(p + 1), __ldg(p + 2),
+                      __ldg(reinterpret_cast<const int32_t*>(p + 3)));
   }
 };
 
 // Wide full row (query_mega_wide.py:65-69): [match << 8 | cid, di0, doff0,
 // lf_lo, lf_hi, dlen0, thr_lo, thr_hi, s_int, s_off, s_lo, s_hi, p_int,
 // p_off, p_lo, p_hi].
+__device__ __forceinline__ Row wide_full_row(int4 a, int4 b, int4 d,
+                                             int4 e) {
+  Row w;
+  w.match = (a.x >> 8) == 1;
+  w.cid = a.x & 0xFF;
+  w.di0 = a.y;
+  w.doff0 = a.z;
+  w.lf_pos0 = join(a.w, b.x);
+  w.dlen0 = b.y;
+  w.thr = join(b.z, b.w);
+  w.s_int = d.x;
+  w.s_off = d.y;
+  w.s_pos = join(d.z, d.w);
+  w.p_int = e.x;
+  w.p_off = e.y;
+  w.p_pos = join(e.z, e.w);
+  return w;
+}
+
 struct WideFullRows {
   static constexpr bool kWide = true;
   const int4* __restrict__ mega;
   int64_t rows, r;
   __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
     const int4* p = mega + 4 * clip(c * r + interval, rows);
-    const int4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2),
-               e = __ldg(p + 3);
-    Row w;
-    w.match = (a.x >> 8) == 1;
-    w.cid = a.x & 0xFF;
-    w.di0 = a.y;
-    w.doff0 = a.z;
-    w.lf_pos0 = join(a.w, b.x);
-    w.dlen0 = b.y;
-    w.thr = join(b.z, b.w);
-    w.s_int = d.x;
-    w.s_off = d.y;
-    w.s_pos = join(d.z, d.w);
-    w.p_int = e.x;
-    w.p_off = e.y;
-    w.p_pos = join(e.z, e.w);
-    return w;
+    return wide_full_row(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
   }
 };
+
+// The same rows of a mega table split over "ip" (K13b narrow, K13c wide):
+// row g = c*r + interval (int32, as the JAX programs compute it) from the
+// shard that owns it (shards.cuh).  A row that no shard owns reads as zeros,
+// as JAX's masked take summed over "ip" gives it; it is not clamped into
+// the table as NarrowRows clamps.
+template <bool Wide>
+struct ShardedRows {
+  static constexpr bool kWide = Wide;
+  const long long* __restrict__ tab;
+  int ip;
+  int64_t L;
+  int32_t r;
+  __device__ __forceinline__ Row load(int32_t c, int32_t interval) const {
+    const colbwt::ShardRow o =
+        colbwt::shard_row(tab, ip, L, add32(mul32(c, r), interval));
+    int4 a{}, b{}, d{}, e{};
+    if (o.base != nullptr) {
+      const int4* p = static_cast<const int4*>(o.base) + 4 * clip(o.local,
+                                                                  o.rows);
+      a = __ldg(p);
+      b = __ldg(p + 1);
+      d = __ldg(p + 2);
+      e = Wide ? __ldg(p + 3)
+               : make_int4(__ldg(reinterpret_cast<const int32_t*>(p + 3)), 0,
+                           0, 0);
+    }
+    return Wide ? wide_full_row(a, b, d, e) : narrow_row(a, b, d, e.x);
+  }
+};
+using ShardedNarrowRows = ShardedRows<false>;
+using ShardedWideFullRows = ShardedRows<true>;
 
 // Wide compact layout (query_mega_wide.py:71-78): shared row [char, cid,
 // di0, doff0, lf_lo, lf_hi, dlen0, 0] at interval, per-char row [thr_lo,
@@ -323,6 +387,32 @@ int colbwt_query_chunk_mega_wide(
     return launch(rd, a, stream);
   }
   const WideFullRows rd{static_cast<const int4*>(table), rows, r};
+  return launch(rd, a, stream);
+}
+
+// K13b/K13c: one chunk of the sharded mega scan, every shard of the dp row
+// on this card.  tab (2 * ip,) int64 as colbwt_sharded_fetch's; the
+// shards' (L, 16) int32 rows, narrow or wide full; n is the joined int64
+// value; the state (B,) int32 (pos_hi null when narrow) is updated in
+// place; masked; pml, cid (B, M) int32.
+int colbwt_sharded_scan_mega(
+    int64_t wide, const void* tab, int64_t ip, int64_t L, const void* length,
+    int64_t r, int64_t n, const void* patterns, const void* lengths,
+    void* interval, void* offset, void* pos_lo, void* pos_hi, void* mlen,
+    int64_t step_offset, int64_t B, int64_t M, int64_t ff_bound, void* pml,
+    void* cid, void* stream) {
+  const ScanArgs a = scan_args(
+      length, r, n, patterns, lengths, interval, offset, pos_lo, pos_hi, mlen,
+      step_offset, B, M, ff_bound, 1, kTwoPlanes, pml, cid, interval, offset,
+      pos_lo, pos_hi, mlen);
+  auto* t = static_cast<const long long*>(tab);
+  if (wide) {
+    const ShardedWideFullRows rd{t, static_cast<int>(ip), L,
+                                 static_cast<int32_t>(r)};
+    return launch(rd, a, stream);
+  }
+  const ShardedNarrowRows rd{t, static_cast<int>(ip), L,
+                             static_cast<int32_t>(r)};
   return launch(rd, a, stream);
 }
 

@@ -4,34 +4,39 @@
 //   colbwt_sharded_fetch        <- the masked gathers that every program does
 //       (query_sharded.py:33 _local_gathers, query_sharded_mega.py:62,
 //       query_sharded_mega_wide.py:117, query_sharded_pos.py:169 fetch)
-//   K13a colbwt_sharded_step_compact <- query_sharded.py:54 _sharded_query
+//   K13a colbwt_sharded_step_compact <- query_sharded.py:56 _sharded_query
 //       (the recurrence of colbwt_tpu/ops/query_xla.py:89 query_step)
-//   K13b/K13c colbwt_sharded_step_mega <- query_sharded_mega.py:51
-//       _sharded_mega_query (narrow) and query_sharded_mega_wide.py:99
-//       _sharded_mega_wide_chunk (wide: two limbs in base 2**30)
-//   K13d colbwt_compose_sharded_tk <- query_sharded_pos.py:66
+//   K13b/K13c colbwt_sharded_step_mega <- query_sharded_mega.py:53
+//       _sharded_mega_query (narrow) and query_sharded_mega_wide.py:101
+//       _sharded_mega_wide_chunk (wide: two limbs in base 2**30), one step;
+//       the chunk scan of the same programs, one launch a chunk, is
+//       colbwt_sharded_scan_mega in query_mega.cu
+//   K13d colbwt_compose_sharded_tk <- query_sharded_pos.py:67
 //       _build_sharded_tk
-//   K13e colbwt_sharded_step_pos <- query_sharded_pos.py:162
+//   K13e colbwt_sharded_step_pos <- query_sharded_pos.py:163
 //       _sharded_pos_query
 //
 // The table shards over "ip" in contiguous blocks.  A table access is a
 // gather masked to the shard that owns the row (0 elsewhere), then a sum over
-// the ip shards: on one process the wrapper adds the shards' outputs, across
-// processes it is torch.distributed's all_reduce over the ip group (the
-// counterpart of XLA's psum over ICI).  So the fetch is one kernel, and each
-// recurrence is a step kernel that consumes the summed rows, applies one step
-// (or one dependent gather round of a step), writes the step's outputs and
-// emits the next fetch's global indices.  No kernel reads a table row outside
-// its own shard.
+// the ip shards.  The masks partition the rows, so the sum over the shards
+// one card holds is a selection: one fetch launch serves them all, each lane
+// reading one row of its owning shard (shards.cuh).  Across cards the
+// wrapper adds the cards' outputs, across processes torch.distributed
+// all-reduces them over the ip group (the counterpart of XLA's psum over
+// ICI).  Each recurrence is a step kernel that consumes the summed rows,
+// applies one step (or one dependent gather round of a step), writes the
+// step's outputs and emits the next fetch's global indices.
 //
-// What bounds them on an H100: per read and step, a fetch of one row per
-// shard (64 B mega, 8 B pos, 32 B and 8 B compact) whose address depends on
-// the step before: memory latency, as in K3-K6a, plus a launch per fetch and
-// step (a few microseconds each) that the single-card scans do not pay.  The
-// simple design: one thread per output element in the fetch (neighbouring
-// threads read one row's neighbouring words), one thread per read in the
-// steps, state in (B,) int32 arrays between launches; K13d one thread per
-// table row with k chained T1 gathers, as K2.
+// What bounds them on an H100: per read and step, one row (64 B mega, 8 B
+// pos, 32 B and 8 B compact) whose address depends on the step before:
+// memory latency, as in K3-K6a, plus a launch per fetch and step (a few
+// microseconds each) that the single-card scans do not pay; where every
+// shard of a mega row sits on one card, the chunk scan removes both
+// launches.  The fetch: a lane's owner by one 32-bit division, W a template
+// parameter (2, 8, 16), 8- or 16-byte vector loads through the read-only
+// path, 32-bit lane indices.  The steps: one thread per read, state in (B,)
+// int32 arrays between launches; K13d one thread per table row with k
+// chained T1 gathers, as K2.
 //
 // Arithmetic is the JAX programs' int32 arithmetic (sums wrap as there, shifts
 // on uint32 where JAX shifts into bit 31); every gather index is int64 and
@@ -42,6 +47,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "shards.cuh"
 
 namespace {
 
@@ -76,28 +85,52 @@ int64_t grid_for(int64_t work) {
 }
 
 // ---------------------------------------------------------------------------
-// the masked gather: out[b, w] = table[s[b] * stride + g[b] - block_start, w]
-// where 0 <= g[b] - block_start < L, else 0
+// the masked gather of the shards one card holds: lane b reads row
+// s[b] * stride + g[b] - i*L (clamped to the shard) of the shard i that owns
+// g[b] (shards.cuh), or 0 when no shard of this card owns it.  T threads a
+// lane, each moving one V (8 bytes at W = 2, else 16) of the row, so
+// neighbouring threads read neighbouring addresses; Idx is int32 where
+// B*W < 2**31.
 
-__global__ void sharded_fetch_kernel(const int32_t* __restrict__ table,
-                                     int64_t rows, int64_t W,
+template <int W, typename Idx>
+__global__ void sharded_fetch_kernel(const long long* __restrict__ tab,
+                                     int ip, int64_t L,
                                      const int32_t* __restrict__ g,
-                                     const int32_t* __restrict__ s, int64_t B,
-                                     int64_t block_start, int64_t L,
-                                     int64_t stride,
+                                     const int32_t* __restrict__ s,
+                                     int64_t stride, Idx B,
                                      int32_t* __restrict__ out) {
-  const int64_t total = B * W;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = e / W;
-    const int64_t j = static_cast<int64_t>(g[b]) - block_start;
-    int32_t v = 0;
-    if (j >= 0 && j < L) {
-      const int64_t sel = s == nullptr ? 0 : s[b];
-      v = table[clip(sel * stride + j, rows) * W + (e - b * W)];
-    }
-    out[e] = v;
+  using V = typename std::conditional<W == 2, int2, int4>::type;
+  constexpr int T = W * 4 / static_cast<int>(sizeof(V));
+  const Idx e = static_cast<Idx>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= B * T) return;
+  const Idx b = e / T;
+  const int part = static_cast<int>(e % T);
+  V v{};
+  const colbwt::ShardRow o = colbwt::shard_row(tab, ip, L, __ldg(g + b));
+  if (o.base != nullptr) {
+    int64_t row = o.local;
+    if (s != nullptr) row += static_cast<int64_t>(__ldg(s + b)) * stride;
+    v = __ldg(static_cast<const V*>(o.base) + clip(row, o.rows) * T + part);
   }
+  reinterpret_cast<V*>(out)[e] = v;
+}
+
+template <int W>
+cudaError_t launch_fetch(const long long* tab, int ip, int64_t L,
+                         const int32_t* g, const int32_t* s, int64_t stride,
+                         int64_t B, int32_t* out, cudaStream_t stream) {
+  constexpr int T = W == 2 ? 1 : W / 4;
+  const int64_t blocks = (B * T + kThreads - 1) / kThreads;
+  if (B * W < (int64_t(1) << 31)) {
+    sharded_fetch_kernel<W, int32_t><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+        tab, ip, L, g, s, stride, static_cast<int32_t>(B), out);
+  } else {
+    sharded_fetch_kernel<W, int64_t><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+        tab, ip, L, g, s, stride, B, out);
+  }
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -374,18 +407,25 @@ int blocks_for(int64_t B) {
 
 extern "C" {
 
-// table (rows, W) int32; g, s (B,) int32 (s may be null: selector 0);
-// out (B, W) int32.
-int colbwt_sharded_fetch(const void* table, int64_t rows, int64_t W,
+// tab (2 * ip,) int64: the card's shard bases (0 where another card holds
+// the shard) and row counts; each shard (rows, W) int32 with W in {2, 8,
+// 16}, 8- or 16-byte aligned; g, s (B,) int32 (s may be null: selector 0);
+// out (B, W) int32.  One launch for all the card's shards.
+int colbwt_sharded_fetch(const void* tab, int64_t ip, int64_t L, int64_t W,
                          const void* g, const void* s, int64_t B,
-                         int64_t block_start, int64_t L, int64_t stride,
-                         void* out, void* stream) {
-  sharded_fetch_kernel<<<grid_for(B * W), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), rows, W,
-      static_cast<const int32_t*>(g), static_cast<const int32_t*>(s), B,
-      block_start, L, stride, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+                         int64_t stride, void* out, void* stream) {
+  auto* t = static_cast<const long long*>(tab);
+  auto* gi = static_cast<const int32_t*>(g);
+  auto* si = static_cast<const int32_t*>(s);
+  auto* o = static_cast<int32_t*>(out);
+  auto strm = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(ip);
+  switch (W) {
+    case 2: return launch_fetch<2>(t, n, L, gi, si, stride, B, o, strm);
+    case 8: return launch_fetch<8>(t, n, L, gi, si, stride, B, o, strm);
+    case 16: return launch_fetch<16>(t, n, L, gi, si, stride, B, o, strm);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // t1 (t1_rows, 2) int32; out (A**k * n_local, 2) int32.

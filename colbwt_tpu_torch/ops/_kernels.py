@@ -2,9 +2,10 @@
 
 The sources compile with nvcc, one process per source side by side, into
 one shared library with a plain C interface, loaded with ctypes: no
-PyTorch headers, so a cold build takes seconds.  The library is built at first use into build/colbwt_kernels/ at
-the checkout root, named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+PyTorch headers, so a cold build takes seconds.  The library is built at
+first use into build/colbwt_kernels/ at the checkout root, named by a
+hash of the sources, the headers they include (csrc/*.cuh) and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The wrappers call an entry point through `on(device)`, which makes the
 tensors' card the current device for the launch.  Every C entry point
@@ -43,7 +44,7 @@ KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "mum_window", "tunneled_walk", "all_walk", "upload_rows",
            "doubling_round", "lcp_lift", "segmented_argmin",
            "sharded_fetch", "compose_sharded_tk", "sharded_step_pos",
-           "sharded_step_mega", "sharded_step_compact")
+           "sharded_step_mega", "sharded_step_compact", "sharded_scan_mega")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -76,13 +77,15 @@ _SIGNATURES = {
                               + [_P] * 3 + [_P]),
     "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] + [_P],
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
-    "colbwt_sharded_fetch": [_P, _I, _I, _P, _P] + [_I] * 4 + [_P, _P],
+    "colbwt_sharded_fetch": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
     "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
     "colbwt_sharded_step_mega": ([_I, _P, _P] + [_I] * 3 + [_P] * 7
                                  + [_I] * 5 + [_P] * 3 + [_P]),
     "colbwt_sharded_step_compact": ([_I, _I] + [_P] * 9 + [_I] * 6
                                     + [_P] * 5 + [_P]),
+    "colbwt_sharded_scan_mega": ([_I, _P, _I, _I, _P, _I, _I] + [_P] * 7
+                                 + [_I] * 4 + [_P] * 3),
 }
 
 
@@ -109,6 +112,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _run_all(cmds: list[list[str]]) -> None:
     """Run the commands side by side; raises with the first failure's
     output once all have ended."""
@@ -124,7 +131,7 @@ def _run_all(cmds: list[list[str]]) -> None:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcolbwt_kernels_{h.hexdigest()[:16]}.so"

@@ -17,8 +17,9 @@ It has two forms, which compute the same thing:
   list, devices[: dp*ip] reshaped (dp, ip).  A device may repeat:
   ["cpu"] * 8 is the counterpart of the JAX tests' 8-device virtual CPU
   mesh, ["cuda:0"] * ip holds ip shards as separate tensors on one card.
-  The process computes every dp row; the sum over "ip" is the sum of the
-  row's shard outputs on the row's device (its ip-0 device).
+  The process computes every dp row; a gather is one fetch a card for the
+  row's shards that card holds, and the sum over "ip" the sum of the cards'
+  outputs on the row's device (its ip-0 device).
 - one process a rank: with torch.distributed initialised at world size
   dp*ip and no device list, `make_mesh` takes
   torch.distributed.device_mesh.init_device_mesh over ("dp", "ip").  A rank
@@ -28,13 +29,16 @@ It has two forms, which compute the same thing:
   outputs are all-gathered over the dp subgroup, so every rank returns the
   whole batch.
 
-`sharded_fetch` is the masked gather, one CUDA kernel (csrc/query_sharded.cu)
-with its plain PyTorch version `sharded_fetch_ref` beside it; it serves
-K13a, K13b, K13c and K13e.  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+`sharded_fetch` is the masked gather of all the shards of a row that one
+card holds, one CUDA kernel launch (csrc/query_sharded.cu) with its plain
+PyTorch version `sharded_fetch_ref` beside it; it serves K13a, K13b, K13c
+and K13e.  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -46,9 +50,10 @@ from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.utils.device import resolve_device
 
 
-def sharded_fetch_ref(table: torch.Tensor, g: torch.Tensor, s, block_start,
-                      L: int, stride: int) -> torch.Tensor:
-    """Plain PyTorch version of `sharded_fetch`."""
+def _shard_fetch_ref(table: torch.Tensor, g: torch.Tensor, s,
+                     block_start: int, L: int, stride: int) -> torch.Tensor:
+    """One shard's masked gather, as the JAX programs write it: the local
+    index clipped, then masked."""
     j = g.long() - block_start
     ok = (j >= 0) & (j < L)
     local = j.clamp(0, L - 1)
@@ -58,36 +63,87 @@ def sharded_fetch_ref(table: torch.Tensor, g: torch.Tensor, s, block_start,
     return torch.where(ok[:, None], rows, 0)
 
 
-def sharded_fetch(table: torch.Tensor, g: torch.Tensor, s, block_start: int,
-                  L: int, stride: int = 0) -> torch.Tensor:
-    """The masked gather of one ip shard (replaces the masked `jnp.take` of
+def sharded_fetch_ref(shards: list, g: torch.Tensor, s, L: int,
+                      stride: int = 0, out=None) -> torch.Tensor:
+    """Plain PyTorch version of `sharded_fetch`: the sum over the card's
+    shards of each shard's masked gather."""
+    total = None
+    for i, table in enumerate(shards):
+        if table is not None:
+            part = _shard_fetch_ref(table, g, s, i * L, L, stride)
+            total = part if total is None else total + part
+    if out is None:
+        return total
+    return out.copy_(total)
+
+
+@functools.lru_cache(maxsize=256)
+def _pointer_array(device: str, bases: tuple, rows: tuple) -> torch.Tensor:
+    """The kernels' (2·ip,) int64 shard array: bases, then row counts; made
+    at a table's first fetch on a card and kept (keyed by the addresses)."""
+    return torch.tensor(bases + rows, dtype=torch.int64, device=device)
+
+
+def shard_pointers(shards: list, dev: torch.device, W: int) -> torch.Tensor:
+    """Validate the card's shards of one table ((rows, W) int32, W in {2, 8,
+    16}, aligned for the kernels' 8- or 16-byte loads; None where another
+    card holds the shard) and return their device shard array."""
+    if W not in (2, 8, 16):
+        raise ValueError(f"sharded tables must be 2, 8 or 16 wide, got {W}")
+    bases, rows = [], []
+    for i, t in enumerate(shards):
+        if t is None:
+            bases.append(0)
+            rows.append(0)
+            continue
+        K.require(t, f"shard {i}", torch.int32, dev)
+        K.require_aligned(t, f"shard {i}", 8 if W == 2 else 16)
+        if t.dim() != 2 or t.shape[1] != W or t.shape[0] < 1:
+            raise ValueError(f"shard {i} must be (rows >= 1, {W}), got "
+                             f"{tuple(t.shape)}")
+        bases.append(t.data_ptr())
+        rows.append(t.shape[0])
+    return _pointer_array(str(dev), tuple(bases), tuple(rows))
+
+
+def sharded_fetch(shards: list, g: torch.Tensor, s, L: int, stride: int = 0,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The masked gather of the ip shards one card holds, in one launch
+    (replaces the masked `jnp.take` summed over "ip" of
     colbwt_tpu/parallel/query_sharded.py:33 _local_gathers and its
     counterparts in query_sharded_mega.py:62, query_sharded_mega_wide.py:117
-    and query_sharded_pos.py:169).  `table` is the shard's (rows, W) int32
-    block; lane b owns global row g[b] when 0 <= g[b] - block_start < L and
-    then reads local row s[b]·stride + g[b] - block_start (s None: selector
-    0), clamped as jnp.take(mode="clip"); other lanes read 0.  Returns
-    (B, W) int32.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    if table.device.type == "cpu":
-        return sharded_fetch_ref(table, g, s, block_start, L, stride)
-    dev = table.device
-    B = g.shape[0]
-    K.require(table, "table", torch.int32, dev)
+    and query_sharded_pos.py:169).  shards[i] is shard i's (rows, W) int32
+    block on this card (None where another card holds it); shard i owns
+    global rows [i·L, (i+1)·L).  Lane b's owner i reads its local row
+    s[b]·stride + g[b] - i·L (s None: selector 0), clamped as
+    jnp.take(mode="clip"); a lane that no shard of this card owns reads 0.
+    Writes `out` when given, else a new tensor; returns (B, W) int32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    held = [t for t in shards if t is not None]
+    if not held:
+        raise ValueError("sharded_fetch needs at least one shard")
+    if held[0].device.type == "cpu":
+        return sharded_fetch_ref(shards, g, s, L, stride, out)
+    dev = held[0].device
+    B, W = g.shape[0], held[0].shape[-1]
+    tab = shard_pointers(shards, dev, W)
     K.require(g, "g", torch.int32, dev)
+    if g.dim() != 1:
+        raise ValueError("g must be (B,)")
     if s is not None:
         K.require(s, "s", torch.int32, dev)
         if s.shape != (B,):
             raise ValueError(f"s must have shape ({B},)")
-    if table.dim() != 2 or g.dim() != 1:
-        raise ValueError("table must be (rows, W) and g (B,)")
-    W = table.shape[1]
-    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    K.require(out, "out", torch.int32, dev)
+    if out.shape != (B, W):
+        raise ValueError(f"out must have shape ({B}, {W})")
     if B:
         code = K.on(dev).colbwt_sharded_fetch(
-            table.data_ptr(), table.shape[0], W, g.data_ptr(),
-            None if s is None else s.data_ptr(), B, int(block_start), int(L),
-            int(stride), out.data_ptr(), K.stream_handle(dev))
+            tab.data_ptr(), len(shards), int(L), W, g.data_ptr(),
+            None if s is None else s.data_ptr(), B, int(stride),
+            out.data_ptr(), K.stream_handle(dev))
         K.check("sharded_fetch", code)
         K.launches["sharded_fetch"] += 1
     return out
@@ -158,30 +214,41 @@ class Mesh:
         """{str(device): make(device)}, one replica per device used."""
         return {str(dev): make(dev) for dev in self.devices()}
 
+    def card_shards(self, shards: dict, d: int
+                    ) -> list[tuple[torch.device, list]]:
+        """Row d's shards of a table grouped by card: [(device, [shard i's
+        tensor on that device, or None])], the row's device first."""
+        cards = {}
+        for i, dev in self.row_cells(d):
+            cards.setdefault(str(dev), (dev, [None] * self.ip))[1][i] = \
+                shards[(str(dev), i)]
+        return list(cards.values())
+
     def psum(self, parts: list[torch.Tensor], d: int) -> torch.Tensor:
-        """The sum over "ip" of row d's shard outputs, on the row's device:
-        added here on one process, all-reduced over the ip group across
-        ranks."""
+        """The sum over "ip" of row d's per-card outputs, into the first
+        (on the row's device): added here across the cards of one process,
+        all-reduced over the ip group across ranks."""
+        out = parts[0]
         if self._dm:
-            out = parts[0]
             if self.ip > 1:
                 dist.all_reduce(out, op=dist.ReduceOp.SUM,
                                 group=self._dm.get_group("ip"))
             return out
-        dev = self.row_device(d)
-        out = parts[0].to(dev)
         for p in parts[1:]:
-            out = out + p.to(dev)
+            out += p.to(out.device)
         return out
 
     def gather(self, shards: dict, d: int, L: int, g: torch.Tensor, s=None,
-               stride: int = 0) -> torch.Tensor:
+               stride: int = 0, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
         """Rows of an ip-sharded table at global indices g (shard i holds
-        [i·L, (i+1)·L)): each shard's `sharded_fetch`, summed over "ip"."""
-        parts = [sharded_fetch(shards[(str(dev), i)], g.to(dev),
-                               None if s is None else s.to(dev), i * L, L,
-                               stride)
-                 for i, dev in self.row_cells(d)]
+        [i·L, (i+1)·L)): one `sharded_fetch` a card, summed over "ip".
+        `out` (on the row's device) takes the result when given."""
+        parts = [sharded_fetch(tables, g.to(dev),
+                               None if s is None else s.to(dev), L, stride,
+                               out if j == 0 else None)
+                 for j, (dev, tables) in enumerate(self.card_shards(shards,
+                                                                    d))]
         return self.psum(parts, d)
 
     def collect(self, outs: dict) -> list[np.ndarray]:

@@ -8,11 +8,18 @@ the sum over "ip" assembles the (B, 16) rows.  Run lengths, which the
 fast-forward rounds past the first read, are replicated.  Reads split over
 "dp" and never communicate.
 
-K13b/K13c `sharded_step_mega` (csrc/query_sharded.cu) applies one step of
-the mega recurrence to the summed rows, narrow (this engine) or wide in
-two limbs (parallel/query_sharded_mega_wide.py), with the plain PyTorch
-version `sharded_step_mega_ref` beside it.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+A chunk of the scan takes one of two routes (`scan_chunk`), by where the
+dp row's shards lie.  All on the row's device: K13b/K13c
+`sharded_scan_mega` (csrc/query_mega.cu) runs every step of the chunk in
+one launch, each lane reading its row from the owning shard, state in
+registers.  Spread over cards or ranks: `step_chunk` fetches each step's
+rows with one launch a card, sums them over "ip", and applies the per-step
+kernel `sharded_step_mega` (csrc/query_sharded.cu).  Both serve the narrow
+engine here and the wide one (two limbs, parallel/
+query_sharded_mega_wide.py); each kernel has its plain PyTorch version
+beside it (`sharded_scan_mega_ref`, the step loop of the plain fetch and
+`sharded_step_mega_ref`).  A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from colbwt_tpu_torch.ops import query_mega
 from colbwt_tpu_torch.ops.query_mega_wide import LIMB, _lt
 from colbwt_tpu_torch.ops.query_xla import _gather
 from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
-                                            shard_reads, unpad)
+                                            shard_pointers, shard_reads,
+                                            sharded_fetch_ref, unpad)
 
 
 def shard_mega(index: ColPmlIndex, mesh: Mesh, mt: dict | None = None
@@ -127,9 +135,10 @@ def sharded_step_mega_ref(rows, length, r: int, n_lo: int, n_hi: int, state,
 def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,
                       patterns, lengths, s: int, step_offset: int,
                       ff_bound: int, pml, cid, g_next, wide: bool) -> None:
-    """K13b/K13c (replaces colbwt_tpu/parallel/query_sharded_mega.py:51
-    _sharded_mega_query and query_sharded_mega_wide.py:99
-    _sharded_mega_wide_chunk): step s of a chunk's backward scan from the
+    """K13b/K13c per step (replaces one step of
+    colbwt_tpu/parallel/query_sharded_mega.py:53 _sharded_mega_query and
+    query_sharded_mega_wide.py:101 _sharded_mega_wide_chunk, for
+    `step_chunk`): step s of a chunk's backward scan from the
     summed (B, 16) rows at c·r + interval.  `state` is (interval, offset,
     pos, mlen) narrow or (interval, offset, pos_lo, pos_hi, mlen) wide,
     updated in place where step_offset + s < lengths; column M-1-s of pml
@@ -174,12 +183,90 @@ def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,
         K.launches["sharded_step_mega"] += 1
 
 
-def scan_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
+def sharded_scan_mega_ref(shards: list, L: int, length, r: int, n_lo: int,
+                          n_hi: int, state, patterns, lengths,
+                          step_offset: int, ff_bound: int, wide: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K13b/K13c chunk scan; same contract as
+    `sharded_scan_mega`: a step loop of the plain fetch (the sum over the
+    shards) and the plain step."""
+    dev = patterns.device
+    B, C = patterns.shape
+    pml = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    cid = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    if B == 0 or C == 0:
+        return pml, cid
+    g = patterns[:, C - 1].to(torch.int32) * r + state[0]
+    for s in range(C):
+        rows = sharded_fetch_ref(shards, g, None, L)
+        sharded_step_mega_ref(rows, length, r, n_lo, n_hi, state, patterns,
+                              lengths, s, step_offset, ff_bound, pml, cid, g,
+                              wide)
+    return pml, cid
+
+
+def sharded_scan_mega(shards: list, L: int, length, r: int, n_lo: int,
+                      n_hi: int, state, patterns, lengths, step_offset: int,
+                      ff_bound: int, wide: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K13b/K13c chunk scan (replaces the lax.scan inside shard_map of
+    colbwt_tpu/parallel/query_sharded_mega.py:53 _sharded_mega_query and
+    query_sharded_mega_wide.py:101 _sharded_mega_wide_chunk): all C steps
+    of a (B, C) uint8 chunk in one launch, every shard of the dp row on
+    this card.  shards[i] is the mega table's (L, 16) int32 shard i (rows
+    [i·L, (i+1)·L)); a row that no shard owns reads as zeros.  `state` is
+    (interval, offset, pos, mlen) narrow or (interval, offset, pos_lo,
+    pos_hi, mlen) wide, updated in place where step_offset + s < lengths;
+    returns (pml, cid), each (B, C) int32, 0 past a read's end.  n is
+    (n_lo, n_hi) limbs wide, n_lo alone narrow.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (csrc/query_mega.cu)."""
+    if patterns.device.type == "cpu":
+        return sharded_scan_mega_ref(shards, L, length, r, n_lo, n_hi, state,
+                                     patterns, lengths, step_offset,
+                                     ff_bound, wide)
+    dev = patterns.device
+    B, C = patterns.shape
+    if any(t is None for t in shards):
+        raise ValueError("the chunk scan needs every shard on the card")
+    tab = shard_pointers(shards, dev, 16)
+    K.require(patterns, "patterns", torch.uint8, dev)
+    K.require(length, "length", torch.int32, dev)
+    if len(state) != (5 if wide else 4):
+        raise ValueError("state has the wrong arity")
+    for name, t in ((("lengths", lengths),)
+                    + tuple((f"state[{j}]", x) for j, x in enumerate(state))):
+        K.require(t, name, torch.int32, dev)
+        if t.shape != (B,):
+            raise ValueError(f"{name} must have shape ({B},)")
+    pml = torch.empty((B, C), dtype=torch.int32, device=dev)
+    cid = torch.empty((B, C), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in state]
+    if not wide:
+        ptrs.insert(3, None)  # no pos_hi
+    n = int(n_hi) * LIMB + int(n_lo) if wide else int(n_lo)
+    if B and C:
+        code = K.on(dev).colbwt_sharded_scan_mega(
+            int(wide), tab.data_ptr(), len(shards), int(L), length.data_ptr(),
+            int(r), n, patterns.data_ptr(), lengths.data_ptr(), *ptrs,
+            int(step_offset), B, C, int(ff_bound), pml.data_ptr(),
+            cid.data_ptr(), K.stream_handle(dev))
+        K.check("sharded_scan_mega", code)
+        K.launches["sharded_scan_mega"] += 1
+    return pml, cid
+
+
+def _row_args(st: dict, wide: bool) -> tuple[int, int, int]:
+    """(r, n_lo, n_hi) of a placed mega table."""
+    return (st["r"],) + ((st["n_lo"], st["n_hi"]) if wide else (st["n"], 0))
+
+
+def step_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
                lengths: torch.Tensor, state, step_offset: int, ff_bound: int,
                wide: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """One chunk of dp row d's backward scan (uint8 (B, C) dense ids on the
-    row's device) with the carried `state`, updated in place; steps count
-    from step_offset.  Returns (pml, cid), each (B, C) int32."""
+    """The per-step route of `scan_chunk`: each step one fetch a card of
+    the row's shards it holds, the sum over "ip" (adds across cards,
+    all_reduce across ranks) into one (B, 16) buffer, then the per-step
+    kernel `sharded_step_mega`."""
     dev = patterns.device
     B, C = patterns.shape
     pml = torch.zeros((B, C), dtype=torch.int32, device=dev)
@@ -187,16 +274,40 @@ def scan_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
     if B == 0 or C == 0:
         return pml, cid
     L = st["rows_padded"] // mesh.ip
-    r = st["r"]
-    n_lo, n_hi = (st["n_lo"], st["n_hi"]) if wide else (st["n"], 0)
+    r, n_lo, n_hi = _row_args(st, wide)
     length = st["length"][str(dev)]
     g = patterns[:, C - 1].to(torch.int32) * r + state[0]
+    rows = torch.empty((B, 16), dtype=torch.int32, device=dev)
     for s in range(C):
-        rows = mesh.gather(st["mega"], d, L, g)  # the one summed fetch
+        rows = mesh.gather(st["mega"], d, L, g, out=rows)  # the summed fetch
         sharded_step_mega(rows, length, r, n_lo, n_hi, state, patterns,
                           lengths, s, step_offset, ff_bound, pml, cid, g,
                           wide)
     return pml, cid
+
+
+def scan_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
+               lengths: torch.Tensor, state, step_offset: int, ff_bound: int,
+               wide: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of dp row d's backward scan (uint8 (B, C) dense ids on the
+    row's device) with the carried `state`, updated in place; steps count
+    from step_offset.  Returns (pml, cid), each (B, C) int32.
+
+    The route follows where the row's shards lie: all of them on the row's
+    device (a repeated device list, any ip = 1 mesh, every CPU mesh) takes
+    the chunk scan `sharded_scan_mega`, one launch; shards on other cards
+    or ranks take `step_chunk`."""
+    dev = patterns.device
+    cards = mesh.card_shards(st["mega"], d)
+    if len(cards) == 1 and str(cards[0][0]) == str(dev) and all(
+            t is not None for t in cards[0][1]):
+        r, n_lo, n_hi = _row_args(st, wide)
+        return sharded_scan_mega(cards[0][1], st["rows_padded"] // mesh.ip,
+                                 st["length"][str(dev)], r, n_lo, n_hi,
+                                 state, patterns, lengths, step_offset,
+                                 ff_bound, wide)
+    return step_chunk(mesh, st, d, patterns, lengths, state, step_offset,
+                      ff_bound, wide)
 
 
 def query_batch_sharded_mega(index: ColPmlIndex, patterns: list[bytes],

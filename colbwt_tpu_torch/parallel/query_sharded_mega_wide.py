@@ -12,10 +12,11 @@ padding) stay zero.  Only the r-sized per-run arrays travel to each device,
 and the full table never sits on one.  `mega_host=` places a prebuilt table
 instead (the JAX package's `build_mega_rows_wide_host`, say).
 
-Each step, the masked gather of parallel/mesh.py and one sum over "ip"
-assemble the (B, 16) rows; K13b/K13c `sharded_step_mega` applies the wide
+The scan is parallel/query_sharded_mega.py's `scan_chunk` with the wide
 recurrence (positions as two int32 limbs in base 2**30, ordering tests (hi,
-lo) lexicographic).  The scan carries explicit state, so reads of any length
+lo) lexicographic): one K13c launch a chunk where the row's shards share a
+card, else a step loop of the masked gather, one sum over "ip" and the
+per-step kernel.  The scan carries explicit state, so reads of any length
 stream through in fixed chunks from the right (the -l mode,
 src/pml_query.cpp:126-128, distributed).
 """
@@ -30,7 +31,7 @@ from colbwt_tpu_torch.models.tensors import to_device
 from colbwt_tpu_torch.ops import query_mega_wide as QW
 from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
                                             shard_reads, unpad)
-from colbwt_tpu_torch.parallel.query_sharded_mega import scan_chunk
+from colbwt_tpu_torch.parallel import query_sharded_mega as SM
 
 LIMB = QW.LIMB
 
@@ -122,7 +123,7 @@ def query_batch_sharded_mega_wide(index: ColPmlIndex, patterns: list[bytes],
     enc, lens = pad_batch(index, patterns, mesh.dp, max_len)
     state = initial_state_sharded(st, enc.shape[0], mesh)
     pml, cid = mesh.collect({
-        d: scan_chunk(mesh, st, d, p, ln, state[d], 0, index.ff_bound,
+        d: SM.scan_chunk(mesh, st, d, p, ln, state[d], 0, index.ff_bound,
                       wide=True)
         for d, (p, ln) in shard_reads(enc, lens, mesh).items()})
     return unpad(pml, cid, lens, len(patterns))
@@ -153,7 +154,7 @@ def query_long_reads_sharded_mega_wide(index: ColPmlIndex,
         rows = shard_reads(np.ascontiguousarray(enc[:, lo:lo + chunk]), lens,
                            mesh)
         pml, cid = mesh.collect({
-            d: scan_chunk(mesh, st, d, p, ln, state[d], j * chunk,
+            d: SM.scan_chunk(mesh, st, d, p, ln, state[d], j * chunk,
                           index.ff_bound, wide=True)
             for d, (p, ln) in rows.items()})
         pml_full[:, lo:lo + chunk] = pml

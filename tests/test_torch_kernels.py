@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K14 (K13a-K13e among them) against their plain PyTorch
-versions, on the card.
+"""CUDA kernels K1-K14 (K13a-K13e and the K13b/K13c chunk scan among them)
+against their plain PyTorch versions, on the card.
 
 Marked `cuda`: skipped where CUDA is unavailable.  The file imports no JAX
 (the machine with the card has none), so it runs there without the JAX
@@ -680,37 +680,48 @@ def _mesh(ip, dp=1):
     return make_mesh(dp, ip, devices=["cuda:0"] * (dp * ip))
 
 
-@pytest.mark.parametrize("ip", [1, 2, 4])
-@pytest.mark.parametrize("W,jump", [(2, False), (16, False), (2, True),
-                                    (8, True)])
-def test_sharded_fetch(dev, ip, W, jump):
-    """The masked gather of each shard, some lanes owned by none (below 0,
-    past the last shard) and a selector with a stride; the shards' sum is
-    the whole table's gather."""
+@pytest.mark.parametrize("ip", [1, 2, 4, 8])
+@pytest.mark.parametrize("W,jump", [(2, False), (2, True), (8, False),
+                                    (8, True), (16, False), (16, True)])
+@pytest.mark.parametrize("B", [0, 1, 4097])
+def test_sharded_fetch(dev, ip, W, jump, B):
+    """The masked gather of all the shards a card holds, in one launch:
+    some lanes owned by none (below 0, past the last shard), a selector
+    with a stride; equal to its plain version and to the whole table's
+    gather; with half the shards on another card (None), one launch that
+    reads only the lanes of this card's shards into `out`."""
     from colbwt_tpu_torch.parallel.mesh import (sharded_fetch,
                                                 sharded_fetch_ref)
 
-    rng = np.random.default_rng(ip * 131 + W + jump)
-    L, B, sel = -(-1000 // ip), 4096, 3
+    rng = np.random.default_rng(ip * 131 + W * 7 + jump + B)
+    L, sel = -(-1000 // ip), 3
     full = rng.integers(-2**31, 2**31 - 1, (sel, L * ip, W), dtype=np.int64)
     full = torch.from_numpy(full.astype(np.int32))
     g = to_device(rng.integers(-7, L * ip + 7, B), dev)
     s = to_device(rng.integers(0, sel, B), dev) if jump else None
-    total = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    for i in range(ip):
-        blk = full[:, i * L:(i + 1) * L] if jump else full[0, i * L:(i + 1) * L]
-        table = blk.reshape(-1, W).contiguous().to(dev)
-        args = (table, g, s, i * L, L, L if jump else 0)
-        before = K.launches["sharded_fetch"]
-        got = sharded_fetch(*args)
-        assert K.launches["sharded_fetch"] == before + 1
-        _equal(got, sharded_fetch_ref(*args))
-        total += got
+    shards = [(full[:, i * L:(i + 1) * L] if jump
+               else full[0, i * L:(i + 1) * L]).reshape(-1, W)
+              .contiguous().to(dev) for i in range(ip)]
+    stride = L if jump else 0
+    before = K.launches["sharded_fetch"]
+    got = sharded_fetch(shards, g, s, L, stride)
+    assert K.launches["sharded_fetch"] == before + (1 if B else 0)
+    _equal(got, sharded_fetch_ref(shards, g, s, L, stride))
     gc = g.cpu().long()
     ok = (gc >= 0) & (gc < L * ip)
-    assert 0 < int(ok.sum()) < B
+    if B > 1:
+        assert 0 < int(ok.sum()) < B
     want = full[s.cpu().long() if jump else 0, gc.clamp(0, L * ip - 1)]
-    _equal(total.cpu(), torch.where(ok[:, None], want, 0))
+    _equal(got.cpu(), torch.where(ok[:, None], want, 0))
+    if ip > 1:
+        part = [t if i % 2 == 0 else None for i, t in enumerate(shards)]
+        out = torch.full((B, W), 7, dtype=torch.int32, device=dev)
+        before = K.launches["sharded_fetch"]
+        assert sharded_fetch(part, g, s, L, stride, out=out) is out
+        assert K.launches["sharded_fetch"] == before + (1 if B else 0)
+        _equal(out, sharded_fetch_ref(part, g, s, L, stride))
+        mine = ok & ((gc // L) % 2 == 0)
+        _equal(out.cpu(), torch.where(mine[:, None], want, 0))
 
 
 @pytest.mark.parametrize("ip", [1, 2, 4])
@@ -794,9 +805,10 @@ def test_sharded_compact_rounds(dev, shard_case, monkeypatch, ip, ff):
 @pytest.mark.parametrize("ip", [1, 2, 4])
 @pytest.mark.parametrize("engine", ["mega", "wide", "wide-long", "pos"])
 def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
-    """K13b/K13c (narrow and wide steps, the wide one also over 64-column
-    chunks with carried state) and K13e (k = 3) equal to their plain
-    versions step by step; the outputs equal the single-card engines."""
+    """K13b/K13c per step through the per-step route `step_chunk` (narrow
+    and wide steps, the wide one also over 64-column chunks with carried
+    state) and K13e (k = 3) equal to their plain versions step by step;
+    the outputs equal the single-card engines."""
     from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
     from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
     from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
@@ -809,8 +821,12 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
         got = TSP.query_batch_sharded_pos(unsplit, reads, mesh=mesh, k=3)
         ref = TQ.query_batch(unsplit, reads, k=3, device=dev)
     else:
+        # every chunk through the per-step route, as shards on other cards
+        # take it
+        monkeypatch.setattr(TSM, "scan_chunk", TSM.step_chunk)
         calls = _twin(monkeypatch, TSM, "sharded_step_mega",
                       TSM.sharded_step_mega_ref)
+        before = K.launches["sharded_scan_mega"]
         if engine == "mega":
             got = TSM.query_batch_sharded_mega(split[2], reads, mesh=mesh)
             ref = TM.query_batch(split[2], reads, device=dev)
@@ -822,10 +838,104 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
             got = TSW.query_long_reads_sharded_mega_wide(wide, long,
                                                          mesh=mesh, chunk=64)
             ref = TW.query_long_reads(wide, long, chunk=64, device=dev)
+        assert K.launches["sharded_scan_mega"] == before
     assert calls
     for j in range(len(ref[0])):
         np.testing.assert_array_equal(got[0][j], ref[0][j])
         np.testing.assert_array_equal(got[1][j], ref[1][j])
+
+
+def _scan_inputs(dev, index, reads, B: int, M: int, rng):
+    """(B, M) uint8 right-aligned dense ids of reads drawn from `reads`
+    (each repeated to at least M characters, then cut to a random length
+    up to M) and their int32 lengths, on the card."""
+    pick = rng.integers(0, len(reads), B)
+    lens = rng.integers(0, M + 1, B)
+    pats = [(reads[int(i)] * (M // len(reads[int(i)]) + 1))[:int(n)]
+            for i, n in zip(pick, lens)]
+    enc, ln = index.encode_patterns(pats, M)
+    return (torch.from_numpy(enc.astype(np.uint8)).to(dev),
+            torch.from_numpy(ln).to(dev))
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("wide_engine", [False, True])
+def test_sharded_scan_mega(dev, shard_case, ip, wide_engine):
+    """The K13b/K13c chunk scan, one launch a chunk, against its plain
+    version (the step loop of the plain fetch and step): a 263,168-lane
+    batch of 152 columns, then 16 lanes over two 2,048-column chunks of
+    long reads with the state carried from the first (step_offset 2,048):
+    pml, cid and the carried state equal, wide positions through their
+    int64 join included."""
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+
+    _, _, split, wide, reads = shard_case
+    index = wide if wide_engine else split[2]
+    mesh = _mesh(ip)
+    st = (TSW.shard_mega_wide(index, mesh) if wide_engine
+          else TSM.shard_mega(index, mesh))
+    shards = [st["mega"][("cuda:0", i)] for i in range(ip)]
+    L = st["rows_padded"] // ip
+    r, n_lo, n_hi = TSM._row_args(st, wide_engine)
+    length = st["length"]["cuda:0"]
+    rng = np.random.default_rng(ip * 2 + wide_engine)
+
+    def fresh(B):
+        if wide_engine:
+            return TSW.initial_state_sharded(st, B, mesh)[0]
+        return tuple(torch.full((B,), v, dtype=torch.int32, device=dev)
+                     for v in (r - 1, st["last_len"] - 1, st["n"] - 1, 0))
+
+    def both(p, ln, s_k, s_r, step_offset):
+        before = K.launches["sharded_scan_mega"]
+        got = TSM.sharded_scan_mega(shards, L, length, r, n_lo, n_hi, s_k, p,
+                                    ln, step_offset, index.ff_bound,
+                                    wide_engine)
+        assert K.launches["sharded_scan_mega"] == before + 1
+        want = TSM.sharded_scan_mega_ref(shards, L, length, r, n_lo, n_hi,
+                                         s_r, p, ln, step_offset,
+                                         index.ff_bound, wide_engine)
+        for a, b in zip(got + tuple(s_k), want + tuple(s_r)):
+            _equal(a, b)
+        assert bool(got[0].any())
+
+    p, ln = _scan_inputs(dev, index, reads, 263_168, 152, rng)
+    s_k = fresh(p.shape[0])
+    both(p, ln, s_k, tuple(t.clone() for t in s_k), 0)
+    p, ln = _scan_inputs(dev, index, reads, 16, 4096, rng)
+    s_k = fresh(16)
+    s_r = tuple(t.clone() for t in s_k)
+    for j, lo in enumerate((2048, 0)):
+        both(p[:, lo:lo + 2048].contiguous(), ln, s_k, s_r, j * 2048)
+
+
+@pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
+def test_sharded_mega_chunk_route_on_card(dev, shard_case, dp, ip):
+    """Shards on one card: every chunk of the sharded mega engines is one
+    chunk-scan launch (dp rows x chunks), with no fetch and no per-step
+    launch, and the outputs equal the single-card engines."""
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+
+    _, _, split, wide, reads = shard_case
+    mesh = _mesh(ip, dp)
+    long = [r * 3 for r in reads[:8]]
+    n_chunks = -(-max(len(x) for x in long) // 64)
+    K.reset_launches()
+    got = (TSM.query_batch_sharded_mega(split[2], reads, mesh=mesh),
+           TSW.query_batch_sharded_mega_wide(wide, reads, mesh=mesh),
+           TSW.query_long_reads_sharded_mega_wide(wide, long, mesh=mesh,
+                                                  chunk=64))
+    assert K.launches["sharded_scan_mega"] == dp * (2 + n_chunks)
+    assert K.launches["sharded_fetch"] == K.launches["sharded_step_mega"] == 0
+    ref = (TM.query_batch(split[2], reads, device=dev),
+           TW.query_batch(wide, reads, device=dev),
+           TW.query_long_reads(wide, long, chunk=64, device=dev))
+    for (gp, gc), (wp, wc) in zip(got, ref):
+        for j in range(len(wp)):
+            np.testing.assert_array_equal(gp[j], wp[j])
+            np.testing.assert_array_equal(gc[j], wc[j])
 
 
 @pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
