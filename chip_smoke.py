@@ -88,19 +88,21 @@ version on the card.  Phases:
    separate tensors on the one card (make_mesh over ["cuda:0"] * dp·ip):
    phase 4's 263,168 reads of <= 152 bp in one batch at (dp, ip) = (1, 2)
    through sharded-pos (k = 3 on bench's index: K1, K13d, the one-launch
-   fetch, K13e), sharded compact (K13a) and sharded-mega (the K13b chunk
-   scan, one launch) on phase 9's ff_bound-2 split, and sharded-mega-wide
-   (K6b slices, the K13c chunk scan) on phase 7's index at (1, 2), (2, 2)
-   and (1, 4), with the 16 long reads in chunks of 2,048 (each wall split
-   into shard placement, batch and long reads); then the mega engines'
-   per-step route (the route of shards on other cards: the fetch and the
-   per-step kernel K13b/K13c) once at (1, 2), narrow on the split and
-   wide on phase 7's index; every output equal to the single-card
-   engine's on the same reads (phase 4's pos records, K4, K5, phase 7's
-   mega-wide records), every launch count the one its route gives; each
-   kernel equal to its plain version call by call (K13a on 8,192 of the
-   reads; both mega engines, the wide long reads too, through both
-   routes)
+   fetch, K13e), sharded compact (the K13a chunk scan, one launch) and
+   sharded-mega (the K13b chunk scan, one launch) on phase 9's ff_bound-2
+   split, and sharded-mega-wide (K6b slices, the K13c chunk scan) on phase
+   7's index at (1, 2), (2, 2) and (1, 4), with the 16 long reads in
+   chunks of 2,048 (each wall split into shard placement, batch and long
+   reads); then the route of shards on other cards once at (1, 2): the
+   compact engine's per-round route (a fetch and a K13a round kernel a
+   gather round) on the split, and the mega engines' per-step route (the
+   fetch and the per-step kernel K13b/K13c), narrow on the split and wide
+   on phase 7's index; every output equal to the single-card engine's on
+   the same reads (phase 4's pos records, K4, K5, phase 7's mega-wide
+   records), every launch count the one its route gives; each kernel
+   equal to its plain version call by call (the compact engine's
+   per-round route on 8,192 of the reads; every engine but pos through
+   both routes, the wide long reads too)
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
@@ -163,6 +165,8 @@ KERNEL_INFO = {
                          "colbwt_tpu/ops/construct_jax.py:494"),
     "sharded_fetch": ("K13a/b/c/e", "colbwt_tpu_torch/csrc/query_sharded.cu",
                       "colbwt_tpu/parallel/query_sharded.py:33"),
+    "sharded_scan_compact": ("K13a", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                             "colbwt_tpu/parallel/query_sharded.py:56"),
     "sharded_step_compact": ("K13a", "colbwt_tpu_torch/csrc/query_sharded.cu",
                              "colbwt_tpu/parallel/query_sharded.py:56"),
     "sharded_step_mega": ("K13b/K13c",
@@ -372,15 +376,18 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
     chk.equal("compose_tables", t2, TQ.compose_tables_ref(t1, t1, n, 4, 1, 1),
               "(1,1)")
     t4 = TQ.compose_tables(t2, t2, n, 4, 2, 2)
-    want = TQ.compose_tables_ref(t2, t2, n, 4, 2, 2)
-    chk.equal("compose_tables", t4, want, "(2,2)")
-    del want
+    chk.equal("compose_tables", t4, TQ.compose_tables_ref(t2, t2, n, 4, 2, 2),
+              "(2,2)")
     torch.cuda.empty_cache()
-    chk.time("compose_tables", lambda: TQ.compose_tables(t2, t2, n, 4, 2, 2),
-             lambda: TQ.compose_tables_ref(t2, t2, n, 4, 2, 2),
-             f"(2,2): T4 of {4 ** 4 * n} rows", reps=1,
-             bound=(nbytes(t2, t4), 4 ** 4 * n * 10))
-    torch.cuda.empty_cache()
+    for ka, kb, ta, tb, made in ((2, 2, t2, t2, t4), (1, 1, t1, t1, t2)):
+        rows = 4 ** (ka + kb) * n
+        chk.time("compose_tables",
+                 lambda: TQ.compose_tables(ta, tb, n, 4, ka, kb),
+                 lambda: TQ.compose_tables_ref(ta, tb, n, 4, ka, kb),
+                 f"({ka},{kb}): T{ka + kb} of {rows} rows", reps=10,
+                 bound=(nbytes(ta, made) + (0 if tb is ta else nbytes(tb)),
+                        rows * 10))
+        torch.cuda.empty_cache()
     t3 = TQ.compose_tables(t2, t1, n, 4, 2, 1)
     tables = {1: t1, 2: t2, 3: t3, 4: t4}
 
@@ -1520,6 +1527,8 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                                     ).shape[1], a[2] is None, a[1].shape[0]))
         tw.wrap(TS, "sharded_step_compact", TS.sharded_step_compact_ref,
                 key=lambda a: a[0])
+        tw.wrap(TS, "sharded_scan_compact", TS.sharded_scan_compact_ref,
+                key=lambda a: tuple(a[3].shape), nth=0)
         tw.wrap(TSM, "sharded_step_mega", TSM.sharded_step_mega_ref,
                 key=lambda a: a[0].shape[0], shared=(1,))
         tw.wrap(TSM, "sharded_scan_mega", TSM.sharded_scan_mega_ref,
@@ -1533,6 +1542,11 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         """Every sharded mega chunk through the per-step route
         `step_chunk`, the route of a row whose shards sit on other cards."""
         return mock.patch.object(TSM, "scan_chunk", TSM.step_chunk)
+
+    def round_route():
+        """Every sharded compact row through the per-round route
+        `round_row`, the route of a row whose shards sit on other cards."""
+        return mock.patch.object(TS, "scan_row", TS.round_row)
 
     def counted(tw: Twins, tag: str, want: dict, fn):
         """Run fn with launch counts reset; every kernel of `want` must
@@ -1603,11 +1617,23 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
             "sharded_fetch": -(-M // 3), "sharded_step_pos": -(-M // 3)},
             pos_run)
         same(got, ref4, 0, B, "sharded-pos")
+        # one chunk-scan launch for the whole batch and one fetch (the
+        # start offset); then the per-round route: a fetch a card and a
+        # round kernel a gather round (four rounds a step at ff_bound 2)
         got = counted(cap, "sharded-compact (1,2)", {
-            "sharded_fetch": 1 + 6 * M, "sharded_step_compact": 4 * M},
+            "sharded_scan_compact": 1, "sharded_fetch": 1,
+            "sharded_step_compact": 0},
             lambda: TS.query_batch_sharded(split, batch, mesh=m12))
-        same(got, TX.query_batch(split, batch, device=dev), 0, B,
-             "sharded compact")
+        ref_compact = TX.query_batch(split, batch, device=dev)
+        same(got, ref_compact, 0, B, "sharded compact")
+        with round_route():
+            tag = "sharded-compact (1,2) round route"
+            got = counted(cap, tag, {
+                "sharded_scan_compact": 0, "sharded_fetch": 1 + 6 * M,
+                "sharded_step_compact": 4 * M},
+                lambda: TS.query_batch_sharded(split, batch, mesh=m12))
+        same(got, ref_compact, 0, B, tag)
+        del ref_compact
         t0 = time.perf_counter()
         mt = TM.build_mega_table(split, device="cpu")  # host NumPy, as JAX
         st_mega = TSM.shard_mega(split, m12, mt=mt)
@@ -1655,17 +1681,21 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         same(got, ref7, 0, B, tag)
         same(got_long, ref7, B, B + len(long_reads), tag + " long reads")
     log("[phase 12] every sharded engine equals the single-card engine, "
-        "both routes of the mega engines")
+        "both routes of the compact and mega engines")
 
-    # every kernel call against its plain version: the full batch (K13a:
-    # its first 8,192 reads), the tables rebuilt under the check; the mega
-    # engines (the wide one with its long reads) through both routes
+    # every kernel call against its plain version: the full batch (the
+    # compact engine's per-round route: its first 8,192 reads, a round
+    # call by call), the tables rebuilt under the check; the compact and
+    # mega engines (the wide one with its long reads) through both routes
     t0 = time.perf_counter()
     with twins(True) as tw:
         tw.tag = "pos"
         TSP.query_batch_sharded_pos(index, batch, mesh=m12)
         tw.tag = "compact"
-        TS.query_batch_sharded(split, batch[:8192], mesh=m12)
+        TS.query_batch_sharded(split, batch, mesh=m12)
+        tw.tag = "compact round route"
+        with round_route():
+            TS.query_batch_sharded(split, batch[:8192], mesh=m12)
         for tag, route in (("mega", contextlib.nullcontext),
                            ("mega step route", step_route)):
             tw.tag = tag
@@ -1700,7 +1730,8 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
             (step_tag, (16, True, len(long_reads)),
              "wide rows, the long reads' lanes"),
             ("sharded-pos (1,2) k=3", (2, False, B), "pos rows, key selector"),
-            ("sharded-compact (1,2)", (8, True, B), "compact run rows")):
+            ("sharded-compact (1,2) round route", (8, True, B),
+             "compact run rows")):
         a = arg("sharded_fetch", tag, key)
         shards, g, s, L, _, _ = a
         W = shards[0].shape[1]
@@ -1753,8 +1784,21 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                  bound=(gathered(shards, lane_steps, 64)
                         + nbytes(pats, lens) + 2 * nbytes(state)
                         + 2 * pats.numel() * 4, lane_steps * 40))
-    caps = [arg("sharded_step_compact", "sharded-compact (1,2)", rnd)
-            for rnd in (1, 2, 3, 4)]
+    a = arg("sharded_scan_compact", "sharded-compact (1,2)", (B, M))
+    soa, jump, _, pats, lens, state, _, _, ff = a
+    lane_steps = int(lens.long().clamp(0, pats.shape[1]).sum())
+    row_reads = 5 + max(ff - 2, 0)  # run rows a step: rounds 1, 2, 2, 3-5
+    chk.time("sharded_scan_compact", lambda: TS.sharded_scan_compact(*a),
+             lambda: TS.sharded_scan_compact_ref(*a),
+             f"{pats.shape[0]} lanes x {pats.shape[1]} steps, {len(soa)} "
+             f"shards, {lane_steps} valid lane-steps, ff_bound {ff}, one "
+             f"launch",
+             bound=(gathered(soa, lane_steps * row_reads, 32)
+                    + gathered(jump, lane_steps, 8) + nbytes(pats, lens)
+                    + 2 * nbytes(state) + 2 * pats.numel() * 4,
+                    lane_steps * 60))
+    caps = [arg("sharded_step_compact", "sharded-compact (1,2) round route",
+                rnd) for rnd in (1, 2, 3, 4)]
     Bs = caps[0][2].shape[0]
     # the bytes of one character step: the fetched rows, the state read and
     # written, lengths, the pattern column and the pml/cid writes (not the

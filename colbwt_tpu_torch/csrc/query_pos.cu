@@ -11,13 +11,15 @@
 // n = 4M positions with ACGT keys is 256 * n * 8 B = 8.2 GB against a
 // 50 MB L2, so every row K3 reads is a cold 32-byte sector from HBM, and
 // K3's next read depends on the row just read.  K2 streams its output
-// (8.2 GB for T4); the rows it gathers for one output key all lie in one
-// n-row block of T_kb (32 MB at n = 4M), which the L2 can hold.  K1 reads
+// (8.2 GB for T4) and reads T_ka's key_hi block once for each key_lo
+// (8.2 GB more at (2,2)); the rows it gathers for one output key all lie
+// in one n-row block of T_kb (32 MB at n = 4M), and on a real index the
+// positions it gathers keep the run locality of the LF mapping.  K1 reads
 // r-sized arrays (a few MB, L2-resident) and streams its output.
 //
-// The simple design: one thread per output element for K1 and K2 (the
-// card keeps thousands of independent gathers in flight), and one thread
-// per read for K3, walking that read's keys in order.  K3's latency is
+// The design: one thread per output element for K1; for K2 one block a
+// (key, tile of positions), 8-byte rows (below); one thread per read for
+// K3, walking that read's keys in order.  K3's latency is
 // hidden only by the number of reads in flight; several reads per thread
 // and coalesced output stores are later work.
 //
@@ -91,10 +93,20 @@ __global__ void build_t1_chunk_kernel(
 }
 
 // K2: T_{ka+kb}[key][p] from T_ka[key_hi][p] then T_kb[key_lo][pos_a].
-__global__ void compose_tables_kernel(
-    int32_t* __restrict__ out, const int32_t* __restrict__ ta,
-    const int32_t* __restrict__ tb, int64_t tb_rows, int64_t n,
-    int64_t blocks_b, int64_t total, int ka, int kb) {
+//
+// One block a (key, tile of kComposeTile positions), blocks key-major, no
+// 64-bit division: the block finds its key and tile with 32-bit divisions,
+// keeps 32-bit offsets inside the tile and int64 only in its base
+// addresses.  A thread moves kComposeUnroll 8-byte rows a block's width
+// apart (coalesced), its T_ka loads issued before its T_kb gathers.
+constexpr int kComposeThreads = 256;
+constexpr int kComposeUnroll = 4;
+constexpr int kComposeTile = kComposeThreads * kComposeUnroll;
+
+__global__ void __launch_bounds__(kComposeThreads) compose_tables_kernel(
+    int2* __restrict__ out, const int2* __restrict__ ta,
+    const int2* __restrict__ tb, int64_t tb_rows, int64_t n, uint32_t keys_b,
+    uint32_t tiles, int ka, int kb) {
   const int k = ka + kb;
   const int pb = 32 - k, pba = 32 - ka, pbb = 32 - kb;
   const uint32_t maska = (1u << pba) - 1u;
@@ -102,24 +114,46 @@ __global__ void compose_tables_kernel(
   const uint32_t mbits_a = (1u << ka) - 1u;
   const uint32_t mbits_b = (1u << kb) - 1u;
   const uint32_t cid_mask_a = ka >= 4 ? 0xFFFFFFFFu : (1u << (8 * ka)) - 1u;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t key = e / n;
-    const int64_t p = e - key * n;
-    const int64_t key_hi = key / blocks_b;
-    const int64_t key_lo = key - key_hi * blocks_b;
-    const int64_t ia = key_hi * n + p;
-    const uint32_t a0 = static_cast<uint32_t>(ta[2 * ia]);
-    const uint32_t a1 = static_cast<uint32_t>(ta[2 * ia + 1]);
-    const int64_t ib = clamp_index(key_lo * n + (a0 & maska), tb_rows);
-    const uint32_t b0 = static_cast<uint32_t>(tb[2 * ib]);
-    const uint32_t b1 = static_cast<uint32_t>(tb[2 * ib + 1]);
+
+  const uint32_t key = blockIdx.x / tiles;
+  const uint32_t tile = blockIdx.x - key * tiles;
+  const uint32_t key_hi = key / keys_b;
+  const uint32_t key_lo = key - key_hi * keys_b;
+  const int64_t p0 = static_cast<int64_t>(tile) * kComposeTile;
+  const int32_t rows =
+      static_cast<int32_t>(n - p0 < kComposeTile ? n - p0 : kComposeTile);
+  out += static_cast<int64_t>(key) * n + p0;
+  ta += static_cast<int64_t>(key_hi) * n + p0;
+  tb += static_cast<int64_t>(key_lo) * n;
+  // T_kb row key_lo * n + pos, clamped to tb_rows as jnp.take(mode="clip")
+  const int64_t tb_left = tb_rows - static_cast<int64_t>(key_lo) * n;
+
+  int2 a[kComposeUnroll], b[kComposeUnroll];
+#pragma unroll
+  for (int u = 0; u < kComposeUnroll; ++u) {
+    const int32_t o = threadIdx.x + u * kComposeThreads;
+    a[u] = o < rows ? __ldg(ta + o) : make_int2(0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kComposeUnroll; ++u) {
+    const int32_t o = threadIdx.x + u * kComposeThreads;
+    const int64_t pos = static_cast<uint32_t>(a[u].x) & maska;
+    b[u] = o < rows ? __ldg(tb + (pos < tb_left ? pos : tb_left - 1))
+                    : make_int2(0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kComposeUnroll; ++u) {
+    const int32_t o = threadIdx.x + u * kComposeThreads;
+    if (o >= rows) continue;
+    const uint32_t a0 = static_cast<uint32_t>(a[u].x);
+    const uint32_t a1 = static_cast<uint32_t>(a[u].y);
+    const uint32_t b0 = static_cast<uint32_t>(b[u].x);
+    const uint32_t b1 = static_cast<uint32_t>(b[u].y);
     const uint32_t ma = (a0 >> pba) & mbits_a;
     const uint32_t mb = (b0 >> pbb) & mbits_b;
-    const uint32_t w0 = (b0 & maskb) | (((mb << ka) | ma) << pb);
-    const uint32_t w1 = (a1 & cid_mask_a) | (b1 << (8 * ka));
-    out[2 * e] = static_cast<int32_t>(w0);
-    out[2 * e + 1] = static_cast<int32_t>(w1);
+    out[o] = make_int2(
+        static_cast<int32_t>((b0 & maskb) | (((mb << ka) | ma) << pb)),
+        static_cast<int32_t>((a1 & cid_mask_a) | (b1 << (8 * ka))));
   }
 }
 
@@ -218,14 +252,24 @@ int colbwt_build_t1_chunk(void* buf, const void* run_char, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out (A**(ka+kb) * n, 2) int32; ta (>= A**ka * n, 2); tb
+// (tb_rows >= A**kb * n, 2); all 8-byte aligned.
 int colbwt_compose_tables(void* out, const void* ta, const void* tb,
-                          int64_t tb_rows, int64_t n, int64_t blocks_b,
-                          int64_t total, int64_t ka, int64_t kb,
-                          void* stream) {
-  compose_tables_kernel<<<grid_for(total), kThreads, 0,
+                          int64_t tb_rows, int64_t n, int64_t A, int64_t ka,
+                          int64_t kb, void* stream) {
+  int64_t keys = 1, keys_b = 1;
+  for (int64_t j = 0; j < ka + kb; ++j) keys *= A;
+  for (int64_t j = 0; j < kb; ++j) keys_b *= A;
+  const int64_t tiles = (n + kComposeTile - 1) / kComposeTile;
+  const int64_t blocks = keys * tiles;
+  if (n < 1 || tb_rows < keys_b * n || blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  compose_tables_kernel<<<static_cast<unsigned>(blocks), kComposeThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(out), static_cast<const int32_t*>(ta),
-      static_cast<const int32_t*>(tb), tb_rows, n, blocks_b, total,
+      static_cast<int2*>(out), static_cast<const int2*>(ta),
+      static_cast<const int2*>(tb), tb_rows, n,
+      static_cast<uint32_t>(keys_b), static_cast<uint32_t>(tiles),
       static_cast<int>(ka), static_cast<int>(kb));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@
 //   colbwt_sharded_fetch        <- the masked gathers that every program does
 //       (query_sharded.py:33 _local_gathers, query_sharded_mega.py:62,
 //       query_sharded_mega_wide.py:117, query_sharded_pos.py:169 fetch)
-//   K13a colbwt_sharded_step_compact <- query_sharded.py:56 _sharded_query
-//       (the recurrence of colbwt_tpu/ops/query_xla.py:89 query_step)
+//   K13a colbwt_sharded_scan_compact <- query_sharded.py:56 _sharded_query
+//       (the lax.scan of colbwt_tpu/ops/query_xla.py:89 query_step), one
+//       launch a batch where every shard of the dp row sits on this card;
+//       colbwt_sharded_step_compact, one gather round of a step, elsewhere
 //   K13b/K13c colbwt_sharded_step_mega <- query_sharded_mega.py:53
 //       _sharded_mega_query (narrow) and query_sharded_mega_wide.py:101
 //       _sharded_mega_wide_chunk (wide: two limbs in base 2**30), one step;
@@ -31,12 +33,17 @@
 // pos, 32 B and 8 B compact) whose address depends on the step before:
 // memory latency, as in K3-K6a, plus a launch per fetch and step (a few
 // microseconds each) that the single-card scans do not pay; where every
-// shard of a mega row sits on one card, the chunk scan removes both
-// launches.  The fetch: a lane's owner by one 32-bit division, W a template
-// parameter (2, 8, 16), 8- or 16-byte vector loads through the read-only
-// path, 32-bit lane indices.  The steps: one thread per read, state in (B,)
-// int32 arrays between launches; K13d one thread per table row with k
-// chained T1 gathers, as K2.
+// shard of a row sits on one card, the chunk scans (K13a here, K13b/K13c in
+// query_mega.cu) remove both launches.  A compact step is a chain of four
+// dependent row reads (ff_bound 2), so its chunk scan keeps the state in
+// registers and issues each round's independent reads together (the run
+// and jump rows of round 1, the succ and pred rows of round 2), a 32-byte
+// run row as two 16-byte loads, and writes its outputs column-major, so a
+// warp's stores of a step are coalesced.  The fetch: a lane's owner by one
+// 32-bit division, W a template parameter (2, 8, 16), 8- or 16-byte vector
+// loads through the read-only path, 32-bit lane indices.  The steps: one
+// thread per read, state in (B,) int32 arrays between launches; K13d one
+// thread per table row with k chained T1 gathers.
 //
 // Arithmetic is the JAX programs' int32 arithmetic (sums wrap as there, shifts
 // on uint32 where JAX shifts into bit 31); every gather index is int64 and
@@ -308,19 +315,50 @@ __global__ void sharded_step_mega_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K13a: one dependent gather round of query_step.  The packed SoA row is
-// [char, idx, length, dest_interval, dest_offset, col_id, threshold, 0]; the
-// jump row at (c, interval) is [succ, pred].  Rounds:
+// K13a: the recurrence of query_step.  The packed SoA row is [char, idx,
+// length, dest_interval, dest_offset, col_id, threshold, 0]; the jump row at
+// (c, interval) is [succ, pred].  A character step is a chain of dependent
+// gather rounds:
 //   1 rows soa[interval], jump[c, interval]: cid, match, si, pi
 //   2 rows soa[si], soa[pi]: threshold reposition -> new interval/offset/len
 //   3 row soa[new interval]: di, doff
 //   4 row soa[di]: pos = idx + doff, then the first fast-forward round
 //   5 row soa[di]: one more fast-forward round (ff_bound - 2 of them)
-// The last round writes the step's outputs and state (lanes past their
-// read's end keep theirs) and emits round 1's indices of the next step.
+// Lanes past their read's end keep their state and write zeros.  The
+// arithmetic of each round is one __device__ function below, called by both
+// routes: the per-round kernel (a launch a round, values carried in a (9, B)
+// scratch between launches) and the chunk scan (every step in one launch,
+// state in registers, rows read from the shards on this card).
 
 enum { kChar = 0, kIdx, kLen, kDi, kDoff, kCid, kThr, kSoaWidth = 8 };
 enum { sCid = 0, sMatch, sSi, sPi, sNoff, sNlen, sDi, sDoff, sNpos };
+
+// round 2: where a mismatch repositions (pred if pos < thr and one exists,
+// else succ if one exists, else stay), and the new offset and length
+struct Reposition {
+  int32_t interval, offset, length;
+};
+
+__device__ __forceinline__ Reposition compact_reposition(
+    bool match, int32_t si, int32_t pi, int32_t succ_thr, int32_t pred_len,
+    int32_t interval, int32_t offset, int32_t pos, int32_t length, int32_t r,
+    int32_t n) {
+  const bool has_succ = si < r, has_pred = pi >= 0;
+  const int32_t thr = has_succ ? succ_thr : n;
+  const bool use_pred = pos < thr && has_pred;
+  const int32_t ti = use_pred ? pi : (has_succ ? si : interval);
+  const int32_t toff = use_pred ? add32(pred_len, -1) : (has_succ ? 0 : offset);
+  return {match ? interval : ti, match ? offset : toff,
+          match ? add32(length, 1) : 0};
+}
+
+// rounds 4 and 5: one fast-forward round against the length of run di
+__device__ __forceinline__ void compact_fast_forward(int32_t ln, int32_t& di,
+                                                     int32_t& doff) {
+  const bool over = doff >= ln;
+  di = add32(di, over);
+  doff = add32(doff, over ? -ln : 0);
+}
 
 __global__ void sharded_step_compact_kernel(
     int rnd, bool last, const int32_t* __restrict__ row_a,
@@ -348,18 +386,13 @@ __global__ void sharded_step_compact_kernel(
     return;
   }
   if (rnd == 2) {
-    const int32_t si = sc[sSi * B], pi = sc[sPi * B];
-    const int32_t cur = interval[b], off = offset[b];
-    const bool has_succ = si < r, has_pred = pi >= 0;
-    const int32_t thr = has_succ ? a[kThr] : n;
-    const bool use_pred = pos[b] < thr && has_pred;
-    const int32_t ti = use_pred ? pi : (has_succ ? si : cur);
-    const int32_t toff =
-        use_pred ? add32(row_b[kSoaWidth * b + kLen], -1) : (has_succ ? 0 : off);
-    const bool match = sc[sMatch * B] != 0;
-    sc[sNoff * B] = match ? off : toff;
-    sc[sNlen * B] = match ? add32(length[b], 1) : 0;
-    g_a[b] = match ? cur : ti;
+    const Reposition t = compact_reposition(
+        sc[sMatch * B] != 0, sc[sSi * B], sc[sPi * B], a[kThr],
+        row_b[kSoaWidth * b + kLen], interval[b], offset[b], pos[b],
+        length[b], r, n);
+    sc[sNoff * B] = t.offset;
+    sc[sNlen * B] = t.length;
+    g_a[b] = t.interval;
     return;
   }
   int32_t di, doff;
@@ -370,12 +403,7 @@ __global__ void sharded_step_compact_kernel(
     di = sc[sDi * B];
     doff = sc[sDoff * B];
     if (rnd == 4) sc[sNpos * B] = add32(a[kIdx], doff);
-    if (rnd == 5 || ff_bound >= 2) {  // a fast-forward round on this row
-      const int32_t ln = a[kLen];
-      const bool over = doff >= ln;
-      di = add32(di, over);
-      doff = add32(doff, over ? -ln : 0);
-    }
+    if (rnd == 5 || ff_bound >= 2) compact_fast_forward(a[kLen], di, doff);
   }
   sc[sDi * B] = di;
   sc[sDoff * B] = doff;
@@ -398,8 +426,103 @@ __global__ void sharded_step_compact_kernel(
   }
 }
 
-int blocks_for(int64_t B) {
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
+// The run row at global index g (two 16-byte loads: fields 0-3, 4-7) from
+// the shard of this card that owns it, zeros where none does.
+struct RunRow {
+  int4 lo, hi;
+};
+
+__device__ __forceinline__ RunRow run_row(const long long* __restrict__ tab,
+                                          int ip, int64_t L, int32_t g) {
+  RunRow w{};
+  const colbwt::ShardRow o = colbwt::shard_row(tab, ip, L, g);
+  if (o.base != nullptr) {
+    const int4* p = static_cast<const int4*>(o.base) + 2 * clip(o.local,
+                                                                o.rows);
+    w.lo = __ldg(p);
+    w.hi = __ldg(p + 1);
+  }
+  return w;
+}
+
+// The jump row [succ, pred] at (c, g): row c * L + local of the owner.
+__device__ __forceinline__ int2 jump_row(const long long* __restrict__ tab,
+                                         int ip, int64_t L, int32_t c,
+                                         int32_t g) {
+  const colbwt::ShardRow o = colbwt::shard_row(tab, ip, L, g);
+  if (o.base == nullptr) return make_int2(0, 0);
+  return __ldg(static_cast<const int2*>(o.base) +
+               clip(static_cast<int64_t>(c) * L + o.local, o.rows));
+}
+
+// K13a chunk scan: one thread a read, all M steps in one launch, every
+// shard of the dp row on this card.  A read's steps end at its length: the
+// state stays and the remaining columns are zeros, as the masked steps
+// give them.  The outputs are written column-major, (M, B) planes as the
+// JAX scan stacks its steps before it transposes them: a warp's stores of
+// one step then fill whole sectors, where row-major (B, M) stores write 4
+// bytes into each of 32 sectors, and those partial writes bounded the
+// kernel (on an H100 at G-compact's shape 9.41 ms, against 4.73 ms for the
+// column-major kernel and the wrapper's transposes: PERF.md §6).
+
+// the chunk scan's block: small blocks spread the reads over every SM
+constexpr int kScanThreads = 128;
+
+__global__ void sharded_scan_compact_kernel(
+    const long long* __restrict__ soa, const long long* __restrict__ jump,
+    int ip, int64_t L, const uint8_t* __restrict__ patterns,
+    const int32_t* __restrict__ lengths, int32_t* __restrict__ interval_io,
+    int32_t* __restrict__ offset_io, int32_t* __restrict__ pos_io,
+    int32_t* __restrict__ length_io, int64_t B, int64_t M, int32_t r,
+    int32_t n, int ff_bound, int32_t* __restrict__ pml,
+    int32_t* __restrict__ cid) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  int32_t interval = interval_io[b], offset = offset_io[b];
+  int32_t pos = pos_io[b], length = length_io[b];
+  const int64_t len = lengths[b];
+  const int64_t steps = len < M ? (len < 0 ? 0 : len) : M;
+  const uint8_t* pat = patterns + b * M;
+  for (int64_t i = 0; i < steps; ++i) {
+    const int64_t col = M - 1 - i;
+    const int32_t c = pat[col];
+    // round 1, then round 2: two independent reads each
+    const RunRow cur = run_row(soa, ip, L, interval);
+    const int2 sp = jump_row(jump, ip, L, c, interval);
+    const RunRow succ = run_row(soa, ip, L, sp.x);
+    const RunRow pred = run_row(soa, ip, L, sp.y);
+    const Reposition t = compact_reposition(
+        cur.lo.x == c, sp.x, sp.y, succ.hi.z, pred.lo.z, interval, offset,
+        pos, length, r, n);
+    // round 3
+    const RunRow dst = run_row(soa, ip, L, t.interval);
+    int32_t di = dst.lo.w;
+    int32_t doff = add32(dst.hi.x, t.offset);
+    // round 4, then ff_bound - 2 rounds of round 5
+    const RunRow at = run_row(soa, ip, L, di);
+    pos = add32(at.lo.y, doff);
+    if (ff_bound >= 2) compact_fast_forward(at.lo.z, di, doff);
+    for (int f = 2; f < ff_bound; ++f) {
+      compact_fast_forward(run_row(soa, ip, L, di).lo.z, di, doff);
+    }
+    interval = di;
+    offset = doff;
+    length = t.length;
+    pml[col * B + b] = t.length;
+    cid[col * B + b] = cur.hi.y;
+  }
+  for (int64_t col = M - 1 - steps; col >= 0; --col) {
+    pml[col * B + b] = 0;
+    cid[col * B + b] = 0;
+  }
+  interval_io[b] = interval;
+  offset_io[b] = offset;
+  pos_io[b] = pos;
+  length_io[b] = length;
+}
+
+int blocks_for(int64_t B, int threads = kThreads) {
+  const int64_t blocks = (B + threads - 1) / threads;
   return static_cast<int>(blocks < 1 ? 1 : blocks);
 }
 
@@ -519,6 +642,29 @@ int colbwt_sharded_step_compact(int64_t rnd, int64_t last, const void* row_a,
       static_cast<int>(ff_bound), static_cast<int32_t*>(pml),
       static_cast<int32_t*>(cid), static_cast<int32_t*>(g_a),
       static_cast<int32_t*>(g_b), static_cast<int32_t*>(s_b));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// soa, jump (2 * ip,) int64: the card's shard arrays of the run rows ((L,
+// 8) int32 shards) and of the jump rows ((sigma' * L, 2) int32 shards);
+// patterns (B, M) uint8; lengths (B,) int32; the state arrays (B,) updated
+// in place; pml, cid (M, B) int32 (column-major), every entry written.
+int colbwt_sharded_scan_compact(const void* soa, const void* jump, int64_t ip,
+                                int64_t L, const void* patterns,
+                                const void* lengths, void* interval,
+                                void* offset, void* pos, void* length,
+                                int64_t B, int64_t M, int64_t r, int64_t n,
+                                int64_t ff_bound, void* pml, void* cid,
+                                void* stream) {
+  sharded_scan_compact_kernel<<<blocks_for(B, kScanThreads), kScanThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(soa), static_cast<const long long*>(jump),
+      static_cast<int>(ip), L, static_cast<const uint8_t*>(patterns),
+      static_cast<const int32_t*>(lengths), static_cast<int32_t*>(interval),
+      static_cast<int32_t*>(offset), static_cast<int32_t*>(pos),
+      static_cast<int32_t*>(length), B, M, static_cast<int32_t>(r),
+      static_cast<int32_t>(n), static_cast<int>(ff_bound),
+      static_cast<int32_t*>(pml), static_cast<int32_t*>(cid));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,14 +44,15 @@ KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "mum_window", "tunneled_walk", "all_walk", "upload_rows",
            "doubling_round", "lcp_lift", "segmented_argmin",
            "sharded_fetch", "compose_sharded_tk", "sharded_step_pos",
-           "sharded_step_mega", "sharded_step_compact", "sharded_scan_mega")
+           "sharded_step_mega", "sharded_step_compact", "sharded_scan_mega",
+           "sharded_scan_compact")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
     "colbwt_build_t1_chunk": [_P] * 9 + [_I] * 6 + [_P],
-    "colbwt_compose_tables": [_P] * 3 + [_I] * 6 + [_P],
+    "colbwt_compose_tables": [_P] * 3 + [_I] * 5 + [_P],
     "colbwt_query_chunk_pos": ([_P, _I, _I, _P, _I, _P, _P, _P] + [_I] * 8
                                + [_P] * 4 + [_P]),
     "colbwt_query_batch_xla": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3
@@ -86,6 +87,8 @@ _SIGNATURES = {
                                     + [_P] * 5 + [_P]),
     "colbwt_sharded_scan_mega": ([_I, _P, _I, _I, _P, _I, _I] + [_P] * 7
                                  + [_I] * 4 + [_P] * 3),
+    "colbwt_sharded_scan_compact": ([_P, _P, _I, _I] + [_P] * 6 + [_I] * 5
+                                    + [_P] * 3),
 }
 
 

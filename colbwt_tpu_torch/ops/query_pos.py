@@ -224,16 +224,16 @@ def compose_tables(ta: torch.Tensor, tb: torch.Tensor, n: int, A: int,
     if ta.device.type == "cpu":
         return compose_tables_ref(ta, tb, n, A, ka, kb)
     dev = ta.device
-    K.require(ta, "ta", torch.int32, dev)
-    K.require(tb, "tb", torch.int32, dev)
+    for name, t in (("ta", ta), ("tb", tb)):
+        K.require(t, name, torch.int32, dev)
+        K.require_aligned(t, name, 8)  # read as 8-byte rows
     if ta.shape[0] < A ** ka * n or tb.shape[0] < A ** kb * n:
         raise ValueError(f"ta/tb have {ta.shape[0]}/{tb.shape[0]} rows, "
                          f"need {A ** ka * n}/{A ** kb * n}")
-    total = A ** (ka + kb) * n
-    out = torch.empty((total, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((A ** (ka + kb) * n, 2), dtype=torch.int32, device=dev)
     code = K.on(dev).colbwt_compose_tables(
         out.data_ptr(), ta.data_ptr(), tb.data_ptr(), tb.shape[0], int(n),
-        A ** kb, total, ka, kb, K.stream_handle(dev))
+        int(A), ka, kb, K.stream_handle(dev))
     K.check("compose_tables", code)
     K.launches["compose_tables"] += 1
     return out

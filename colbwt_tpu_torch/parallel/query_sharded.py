@@ -15,9 +15,18 @@ same values) followed by the step kernel:
   4 run row at dest (idx, then the first fast-forward round)
   5 run row at dest, ff_bound - 2 more times (fast-forward)
 
-K13a `sharded_step_compact` (csrc/query_sharded.cu) carries the rounds,
-with the plain PyTorch version `sharded_step_compact_ref` beside it.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
+K13a has two routes (csrc/query_sharded.cu), chosen by where the row's
+shards lie, each with its plain PyTorch version beside it:
+
+- every shard of the dp row on the row's card (a repeated device list, any
+  ip = 1 mesh, every CPU mesh): the chunk scan `sharded_scan_compact`, all
+  the steps of the batch in one launch, the rounds' reads made in the
+  kernel from the shards on the card;
+- shards on other cards or ranks: `round_row`, each round a fetch a card
+  summed over "ip" (`Mesh.gather`), then the round kernel
+  `sharded_step_compact`.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The engine needs a run-split index (ff_bound >= 1): the unbounded
 fast-forward would read run lengths of other shards.
 """
@@ -30,7 +39,9 @@ import torch
 from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
-                                            shard_index, shard_reads, unpad)
+                                            shard_index, shard_pointers,
+                                            shard_reads, sharded_fetch_ref,
+                                            unpad)
 
 # columns of the packed run row (mesh.SOA_FIELDS)
 F_CHAR, F_IDX, F_LEN, F_DI, F_DOFF, F_CID, F_THR = range(7)
@@ -160,6 +171,126 @@ def sharded_step_compact(rnd: int, last: bool, row_a, row_b, scratch, state,
         K.launches["sharded_step_compact"] += 1
 
 
+def _round_scan(run, jump, step, state, patterns, lengths, r: int, n: int,
+                ff_bound: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every character step of a (B, M) batch as gather rounds: run(g) and
+    jump(g, s) return the summed (B, 8) run rows and (B, 2) jump rows, `step`
+    is `sharded_step_compact` or its plain version.  Updates `state` in
+    place; returns (pml, cid)."""
+    dev = patterns.device
+    B, M = patterns.shape
+    pml = torch.zeros((B, M), dtype=torch.int32, device=dev)
+    cid = torch.zeros((B, M), dtype=torch.int32, device=dev)
+    if B == 0 or M == 0:
+        return pml, cid
+    scratch = torch.zeros((SCRATCH_ROWS, B), dtype=torch.int32, device=dev)
+    g_a, g_b = state[0].clone(), state[0].clone()
+    s_b = patterns[:, M - 1].to(torch.int32)
+    seq = rounds(ff_bound)
+    for i in range(M):
+        for t, rnd in enumerate(seq):
+            row_a = run(g_a)
+            row_b = (jump(g_b, s_b) if rnd == 1
+                     else run(g_b) if rnd == 2 else None)
+            step(rnd, t == len(seq) - 1, row_a, row_b, scratch, state,
+                 patterns, lengths, i, r, n, ff_bound, pml, cid, g_a, g_b,
+                 s_b)
+    return pml, cid
+
+
+def sharded_scan_compact_ref(soa: list, jump: list, L: int, patterns,
+                             lengths, state, r: int, n: int, ff_bound: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K13a chunk scan; same contract as
+    `sharded_scan_compact`: the rounds of every step, each the plain fetch
+    (the sum over the shards) and the plain round."""
+    return _round_scan(lambda g: sharded_fetch_ref(soa, g, None, L),
+                       lambda g, s: sharded_fetch_ref(jump, g, s, L, L),
+                       sharded_step_compact_ref, state, patterns, lengths,
+                       r, n, ff_bound)
+
+
+def sharded_scan_compact(soa: list, jump: list, L: int, patterns, lengths,
+                         state, r: int, n: int, ff_bound: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K13a chunk scan (replaces the lax.scan inside shard_map of
+    colbwt_tpu/parallel/query_sharded.py:56 _sharded_query, its step
+    colbwt_tpu/ops/query_xla.py:89 query_step): all M steps of a (B, M)
+    uint8 right-aligned batch in one launch, every shard of the dp row on
+    this card.  soa[i] is shard i's (L, 8) int32 run rows (global rows
+    [i·L, (i+1)·L)), jump[i] its (σ'·L, 2) jump rows [succ, pred] at c·L +
+    local run; a row that no shard owns reads as zeros.  `state`
+    (interval, offset, pos, length), each (B,) int32, is updated in place
+    where a step lies inside its read (i < lengths); returns (pml, cid),
+    each (B, M) int32, 0 past a read's end.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if patterns.device.type == "cpu":
+        return sharded_scan_compact_ref(soa, jump, L, patterns, lengths,
+                                        state, r, n, ff_bound)
+    dev = patterns.device
+    B, M = patterns.shape
+    if len(soa) != len(jump) or any(t is None for t in soa + jump):
+        raise ValueError("the chunk scan needs every shard on the card")
+    soa_tab = shard_pointers(soa, dev, 8)
+    jump_tab = shard_pointers(jump, dev, 2)
+    K.require(patterns, "patterns", torch.uint8, dev)
+    for name, t in ((("lengths", lengths),)
+                    + tuple((f"state[{j}]", x) for j, x in enumerate(state))):
+        K.require(t, name, torch.int32, dev)
+        if t.shape != (B,):
+            raise ValueError(f"{name} must have shape ({B},)")
+    if len(state) != 4:
+        raise ValueError("state is (interval, offset, pos, length)")
+    # the kernel writes column-major planes (coalesced stores), transposed
+    # here as the JAX scan transposes its stacked steps
+    pml = torch.empty((M, B), dtype=torch.int32, device=dev)
+    cid = torch.empty((M, B), dtype=torch.int32, device=dev)
+    if B and M:
+        code = K.on(dev).colbwt_sharded_scan_compact(
+            soa_tab.data_ptr(), jump_tab.data_ptr(), len(soa), int(L),
+            patterns.data_ptr(), lengths.data_ptr(),
+            *(t.data_ptr() for t in state), B, M, int(r), int(n),
+            int(ff_bound), pml.data_ptr(), cid.data_ptr(),
+            K.stream_handle(dev))
+        K.check("sharded_scan_compact", code)
+        K.launches["sharded_scan_compact"] += 1
+    return pml.t().contiguous(), cid.t().contiguous()
+
+
+def round_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,
+              lengths: torch.Tensor, state, ff_bound: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-round route of `scan_row`: each gather round one fetch a
+    card of the row's shards it holds, summed over "ip" (adds across cards,
+    all_reduce across ranks), then the round kernel
+    `sharded_step_compact`."""
+    L = tb["r_padded"] // mesh.ip
+    return _round_scan(
+        lambda g: mesh.gather(tb["soa"], d, L, g),
+        lambda g, s: mesh.gather(tb["jump"], d, L, g, s, stride=L),
+        sharded_step_compact, state, patterns, lengths, tb["r"], tb["n"],
+        ff_bound)
+
+
+def scan_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,
+             lengths: torch.Tensor, state, ff_bound: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward scan of dp row d's (B, M) batch from `state`, updated
+    in place.  The route follows where the row's shards lie: all of them on
+    the row's device takes the chunk scan `sharded_scan_compact`, one
+    launch; shards on other cards or ranks take `round_row`."""
+    dev = patterns.device
+    cards = mesh.card_shards(tb["soa"], d)
+    if len(cards) == 1 and str(cards[0][0]) == str(dev) and all(
+            t is not None for t in cards[0][1]):
+        (_, jump), = mesh.card_shards(tb["jump"], d)
+        return sharded_scan_compact(cards[0][1], jump,
+                                    tb["r_padded"] // mesh.ip, patterns,
+                                    lengths, state, tb["r"], tb["n"],
+                                    ff_bound)
+    return round_row(mesh, tb, d, patterns, lengths, state, ff_bound)
+
+
 def query_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,
               lengths: torch.Tensor, ff_bound: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -168,35 +299,21 @@ def query_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,
     (mesh.shard_index).  Returns (pml, cid), each (B, M) int32."""
     dev = patterns.device
     B, M = patterns.shape
-    n, r = tb["n"], tb["r"]
-    L = tb["r_padded"] // mesh.ip
-    soa, jump = tb["soa"], tb["jump"]
-    pml = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    cid = torch.zeros((B, M), dtype=torch.int32, device=dev)
     if B == 0 or M == 0:
-        return pml, cid
+        return (torch.zeros((B, M), dtype=torch.int32, device=dev),
+                torch.zeros((B, M), dtype=torch.int32, device=dev))
+    n, r = tb["n"], tb["r"]
 
     def full(v):
         return torch.full((B,), v, dtype=torch.int32, device=dev)
 
     # start offset: length[r - 1] - 1, read through the masked gather
-    last = mesh.gather(soa, d, L, torch.full((1,), r - 1, dtype=torch.int32,
-                                             device=dev))
+    last = mesh.gather(tb["soa"], d, tb["r_padded"] // mesh.ip,
+                       torch.full((1,), r - 1, dtype=torch.int32,
+                                  device=dev))
     state = (full(r - 1), (last[:, F_LEN] - 1).expand(B).contiguous(),
              full(n - 1), full(0))
-    scratch = torch.zeros((SCRATCH_ROWS, B), dtype=torch.int32, device=dev)
-    g_a, g_b = full(r - 1), full(r - 1)
-    s_b = patterns[:, M - 1].to(torch.int32)
-    seq = rounds(ff_bound)
-    for i in range(M):
-        for t, rnd in enumerate(seq):
-            row_a = mesh.gather(soa, d, L, g_a)
-            row_b = (mesh.gather(jump, d, L, g_b, s_b, stride=L) if rnd == 1
-                     else mesh.gather(soa, d, L, g_b) if rnd == 2 else None)
-            sharded_step_compact(rnd, t == len(seq) - 1, row_a, row_b,
-                                 scratch, state, patterns, lengths, i, r, n,
-                                 ff_bound, pml, cid, g_a, g_b, s_b)
-    return pml, cid
+    return scan_row(mesh, tb, d, patterns, lengths, state, ff_bound)
 
 
 def query_batch_sharded(index: ColPmlIndex, patterns: list[bytes],

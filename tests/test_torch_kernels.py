@@ -104,6 +104,35 @@ def test_compose(dev, case, ka, kb):
            TQ.compose_tables_ref(ta, tb, index.n, 4, ka, kb))
 
 
+@pytest.mark.parametrize("ka,kb", [(1, 1), (2, 1), (2, 2)])
+@pytest.mark.parametrize("A", [4, 6])
+@pytest.mark.parametrize("n", [1, 1001, 4100, 5001])
+def test_compose_shapes(dev, ka, kb, A, n):
+    """K2 on random words at every composition the port launches, A = 4
+    (ACGT keys) and 6 (no alphabet), odd and even n over one or several
+    tiles: a T_kb with rows past A**kb * n, and positions that run past
+    their block or clamp at the table's end; one launch, the plain
+    version's table."""
+    rng = np.random.default_rng(n * 100 + A * 10 + ka * 2 + kb)
+
+    def table(k, extra):
+        rows = A ** k * n + extra
+        pos = rng.integers(0, n, rows)
+        wild = rng.random(rows) < 0.2  # past the block, most past the table
+        pos[wild] = rng.integers(0, 1 << TQ.pos_bits(k), int(wild.sum()))
+        w0 = (rng.integers(0, 1 << k, rows) << TQ.pos_bits(k)) | pos
+        w1 = rng.integers(0, 1 << 32, rows)
+        t = np.stack([w0, w1], axis=1).astype(np.uint32).view(np.int32)
+        return torch.from_numpy(t).to(dev)
+
+    ta, tb = table(ka, 0), table(kb, 37)
+    want = TQ.compose_tables_ref(ta, tb, n, A, ka, kb)
+    before = K.launches["compose_tables"]
+    got = TQ.compose_tables(ta, tb, n, A, ka, kb)
+    assert K.launches["compose_tables"] == before + 1
+    _equal(got, want)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("pack", [0, 2])
 @pytest.mark.parametrize("fresh", [True, False])
@@ -785,16 +814,20 @@ def shard_case(dev, case):
 @pytest.mark.parametrize("ip", [1, 2, 4])
 @pytest.mark.parametrize("ff", [2, 3])
 def test_sharded_compact_rounds(dev, shard_case, monkeypatch, ip, ff):
-    """K13a: every gather round (1-4, and 5 at ff_bound 3) equal to its
-    plain version on the card; the outputs equal the single-card compact
-    engine's."""
+    """K13a through the per-round route `round_row` (as shards on other
+    cards take it): every gather round (1-4, and 5 at ff_bound 3) equal to
+    its plain version on the card; the outputs equal the single-card
+    compact engine's."""
     from colbwt_tpu_torch.parallel import query_sharded as TS
 
     _, _, split, _, reads = shard_case
     index = split[ff]
+    monkeypatch.setattr(TS, "scan_row", TS.round_row)
     calls = _twin(monkeypatch, TS, "sharded_step_compact",
                   TS.sharded_step_compact_ref)
+    before = K.launches["sharded_scan_compact"]
     got = TS.query_batch_sharded(index, reads, mesh=_mesh(ip))
+    assert K.launches["sharded_scan_compact"] == before
     assert set(calls) == set(TS.rounds(index.ff_bound))
     ref = TX.query_batch(index, reads, device=dev)
     for j in range(len(reads)):
@@ -908,6 +941,74 @@ def test_sharded_scan_mega(dev, shard_case, ip, wide_engine):
     s_r = tuple(t.clone() for t in s_k)
     for j, lo in enumerate((2048, 0)):
         both(p[:, lo:lo + 2048].contiguous(), ln, s_k, s_r, j * 2048)
+
+
+@pytest.mark.parametrize("ip", [1, 2, 4])
+@pytest.mark.parametrize("ff", [1, 2, 3])
+def test_sharded_scan_compact(dev, shard_case, ip, ff):
+    """The K13a chunk scan, one launch a batch, against its plain version
+    (the rounds of every step through the plain fetch and round): a
+    263,168-lane batch of 152 columns from the compact engine's start
+    state, then 4,096 lanes from a carried state whose intervals lie below
+    0 or past every shard for a third of the lanes each (those rows read
+    as zeros); pml, cid and the final state equal."""
+    from colbwt_tpu_torch.parallel import mesh as PM
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+
+    tbl, _, split, _, reads = shard_case
+    index = split.get(ff) or ColPmlIndex.build(tbl, ff_bound=ff)
+    assert index.ff_bound == ff
+    mesh = _mesh(ip)
+    tb = PM.shard_index(index, mesh)
+    soa = [tb["soa"][("cuda:0", i)] for i in range(ip)]
+    jump = [tb["jump"][("cuda:0", i)] for i in range(ip)]
+    L = tb["r_padded"] // ip
+    rng = np.random.default_rng(ip * 4 + ff)
+
+    def both(p, ln, state):
+        s_r = tuple(t.clone() for t in state)
+        before = K.launches["sharded_scan_compact"]
+        got = TS.sharded_scan_compact(soa, jump, L, p, ln, state, index.r,
+                                      index.n, ff)
+        assert K.launches["sharded_scan_compact"] == before + 1
+        want = TS.sharded_scan_compact_ref(soa, jump, L, p, ln, s_r,
+                                           index.r, index.n, ff)
+        for a, b in zip(got + tuple(state), want + s_r):
+            _equal(a, b)
+        assert bool(got[0].any())
+
+    p, ln = _scan_inputs(dev, index, reads, 263_168, 152, rng)
+    B = p.shape[0]
+    last = int(index.length[index.r - 1])
+    both(p, ln, tuple(torch.full((B,), v, dtype=torch.int32, device=dev)
+                      for v in (index.r - 1, last - 1, index.n - 1, 0)))
+    p, ln = _scan_inputs(dev, index, reads, 4096, 96, rng)
+    interval = rng.integers(0, index.r, 4096)
+    interval[0::3] = tb["r_padded"] + rng.integers(0, 1000, 1366)
+    interval[1::3] = -rng.integers(1, 1000, 1365)
+    state = (interval, rng.integers(0, 3, 4096),
+             rng.integers(0, index.n, 4096), rng.integers(0, 9, 4096))
+    both(p, ln, tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in state))
+
+
+@pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
+def test_sharded_compact_chunk_route_on_card(dev, shard_case, dp, ip):
+    """Shards on one card: the sharded compact engine is one chunk-scan
+    launch and one fetch (the start offset) a dp row, with no round
+    launch, and its outputs equal the single-card compact engine's."""
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+
+    _, _, split, _, reads = shard_case
+    K.reset_launches()
+    got = TS.query_batch_sharded(split[2], reads, mesh=_mesh(ip, dp))
+    assert K.launches["sharded_scan_compact"] == dp
+    assert K.launches["sharded_fetch"] == dp
+    assert K.launches["sharded_step_compact"] == 0
+    ref = TX.query_batch(split[2], reads, device=dev)
+    for j in range(len(reads)):
+        np.testing.assert_array_equal(got[0][j], ref[0][j])
+        np.testing.assert_array_equal(got[1][j], ref[1][j])
 
 
 @pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
