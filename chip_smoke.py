@@ -26,7 +26,8 @@ version on the card.  Phases:
    indexes (run lengths x256 and x1024, ColPmlIndex.build with ff_bound 2,
    r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7; then bench's
    table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
-   the fused path's shapes (8,192 x 256 and 16 x 8,192) on both, and K14
+   the fused path's shapes (8,192 x 256 and 16 x 8,192) on both and at
+   the streamed batch (32,768 x 256, cell S-E) on the first, and K14
    on the ff_bound 2 jump rows, pageable and pinned (byte-equal to the
    plain copy, timed beside one pinned and one pageable copy_ of the same
    bytes and the host threads' memcpy alone); K11a every round of bench's
@@ -103,6 +104,12 @@ version on the card.  Phases:
    equal to its plain version call by call (the compact engine's
    per-round route on 8,192 of the reads; every engine but pos through
    both routes, the wide long reads too)
+
+Each query scan (K3-K7, the chunk scans) is also timed on 16 lanes of
+long reads, whose time a step is that of a chain of dependent loads that
+no other lane hides; its [time] lines at larger batches give the chain
+floor, the batch's longest lane's steps times that time, beside the byte
+bound.
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
@@ -260,12 +267,14 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
 
 class Checks:
     """Per-kernel max |kernel - plain|, the timed pair, the bound and the
-    library call's time at the first timed shape."""
+    library call's time at the first timed shape; the scans' per-step times
+    of their 16-lane calls, for the chain floors."""
 
     def __init__(self, torch):
         self.torch = torch
         self.err = {k: 0 for k in KERNEL_INFO}
         self.ms = {}
+        self.step_ms = {}
 
     def equal(self, name: str, got, want, what: str) -> None:
         t = self.torch
@@ -292,12 +301,17 @@ class Checks:
     def time(self, name: str, kernel_fn, plain_fn, what: str,
              reps: int = 3, bound: tuple[int, int] | None = None,
              bound_ms: float | None = None,
-             library_ms: float | None = None) -> None:
+             library_ms: float | None = None,
+             chain: tuple[str, int, bool] | None = None) -> None:
         """Time the kernel and its plain version; `bound` is (bytes, integer
         operations) of the work, or `bound_ms` a measured least time;
         `library_ms` the time of one PyTorch call computing the same
-        function.  The first timed shape of each kernel goes in the JSON
-        line."""
+        function.  A scan gives `chain` = (key, steps, lanes16): its longest
+        lane's steps, and whether this is the key's 16-lane call, whose time
+        a step (ms / steps, a chain of dependent loads that nothing hides)
+        sets the key's; the others log their chain floor, steps times that
+        time, the least time the longest lane's chain can take.  The first
+        timed shape of each kernel goes in the JSON line."""
         ms = cuda_ms(self.torch, kernel_fn, reps)
         plain = cuda_ms(self.torch, plain_fn, reps)
         lib = library_ms
@@ -307,12 +321,24 @@ class Checks:
             t_ops = bound[1] / ALU_OPS_PER_S * 1e3
             bound_ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                             else (t_ops, "operations"))
+        floor = ""
+        if chain is not None:
+            key, steps, lanes16 = chain
+            if lanes16:
+                self.step_ms[key] = ms / max(steps, 1)
+                floor = (f", {ms / max(steps, 1) * 1e3:.4f} us a step of "
+                         f"{steps} (the chain floor's step)")
+            else:
+                floor = (f", chain floor {steps * self.step_ms[key]:.4f} ms "
+                         f"({steps} steps x "
+                         f"{self.step_ms[key] * 1e3:.4f} us)")
         log(f"[time] {name} {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms"
             + ("" if bound_ms is None else
                f", bound {bound_ms:.4f} ms ({by}"
                + (f", {bound[0]} B, {bound[1]} ops)" if bound else ")"))
+            + floor
             + ("" if lib is None else f", library call {lib:.4f} ms"))
-        if name not in self.ms:
+        if name not in self.ms and not (chain and chain[2]):
             require(bound_ms is not None,
                     f"{name}: the first timed shape needs its bound")
             self.ms[name] = {"ms": ms, "plain_ms": plain,
@@ -320,8 +346,8 @@ class Checks:
                              "library_ms": lib}
 
 
-def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
-                  ) -> None:
+def check_kernels(torch, dev, index, tbl, reads, n_reads, long_reads,
+                  chk: Checks) -> None:
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import index_tensors, to_device
     from colbwt_tpu_torch.ops import query_pos as TQ
@@ -427,6 +453,27 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
                     chk.equal("query_chunk_pos", gc, wc, what)
                 chk.equal("query_chunk_pos", gpos, wpos, what + " pos")
                 chk.equal("query_chunk_pos", gml, wml, what + " mlen")
+    # the long reads' first chunk as query_long_reads scans it (16 x 2,048,
+    # masked, fresh state): the per-step time of K3's chain floors
+    ldig, llens, lbad = TQ._encode_digits(index, {"digit_of_dense": dod},
+                                          long_reads, 3 * 2048)
+    require(not lbad.any(), "the long reads must be pure ACGT")
+    L = len(long_reads)
+    args = (t4, n, to_device(ldig[:, 4096:], dev, np.uint8),
+            to_device(llens, dev), fresh_pos[:L], fresh_ml[:L], 0, 4, 4)
+    kw = dict(masked=True)
+    (gp, gc), (gpos, gml) = TQ.query_chunk_pos(*args, **kw)
+    (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(*args, **kw)
+    what = f"k=4 long-read chunk {L}x2048 masked"
+    for g, w, part in ((gp, wp, "pml"), (gc, wc, "cid"), (gpos, wpos, "pos"),
+                       (gml, wml, "mlen")):
+        chk.equal("query_chunk_pos", g, w, f"{what} {part}")
+    steps = -(-np.minimum(llens, 2048) // 4)
+    chk.time("query_chunk_pos", lambda: TQ.query_chunk_pos(*args, **kw),
+             lambda: TQ.query_chunk_pos_ref(*args, **kw), what,
+             bound=(nbytes(args[2:6], gp, gc, gpos, gml)
+                    + gathered(t4, steps.sum(), 8), int(steps.sum()) * 20),
+             chain=("query_chunk_pos k=4", int(steps.max()), True))
     # the main path's batch (8,192 reads padded to 252, 2-bit digits,
     # packed u16 plane) and bench.py's whole-set shape: checked, then timed
     dig252 = np.pad(dig156, ((0, 0), (96, 0)))
@@ -443,13 +490,15 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
         chk.equal("query_chunk_pos", gp, wp, f"k=4 {label}")
         chk.equal("query_chunk_pos", gpos, wpos, f"k=4 {label} pos")
         chk.equal("query_chunk_pos", gml, wml, f"k=4 {label} mlen")
-        steps = int(np.ceil(np.minimum(lens[:b], dg.shape[1]) / 4).sum())
+        lane = np.ceil(np.minimum(lens[:b], dg.shape[1]) / 4)
+        steps = int(lane.sum())
         chk.time("query_chunk_pos",
                  lambda: TQ.query_chunk_pos(*args, **kw),
                  lambda: TQ.query_chunk_pos_ref(*args, **kw),
                  f"k=4 {label}",
                  bound=(nbytes(args[2:6], gp, gpos, gml)
-                        + gathered(t4, steps, 8), steps * 20))
+                        + gathered(t4, steps, 8), steps * 20),
+                 chain=("query_chunk_pos k=4", int(lane.max()), False))
     del tables, t1, t2, t3, t4
     torch.cuda.empty_cache()
 
@@ -484,25 +533,35 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, chk: Checks
     log(f"[index] run-split index for K4: r={split.r} ff_bound="
         f"{split.ff_bound} in {time.perf_counter() - t0:.1f}s")
     sample = reads[:8192 - 256] + n_reads[:256]
+    # on the unsplit index also the long reads cut to their last 2,048
+    # characters, the 16 lanes of K4's chain floor (the compact engine takes
+    # long reads in one padded batch)
+    long16 = (("16-lane", [x[-2048:] for x in long_reads], 2048),)
     for idx, ff in ((index, 0), (split, split.ff_bound), (split, 0)):
         tb = index_tensors(idx, dev)
-        enc, ln = idx.encode_patterns(sample, 256)
-        args = (tb, to_device(enc, dev), to_device(ln, dev))
-        got = TX.query_batch_device(*args, ff_bound=ff)
-        want = TX.query_batch_device_ref(*args, ff_bound=ff)
-        what = f"r={idx.r} ff_bound={ff}"
-        chk.equal("query_batch_xla", got[0], want[0], what + " pml")
-        chk.equal("query_batch_xla", got[1], want[1], what + " cid")
-        if idx is index:
-            # about ten 4-byte gathers a valid step (the fast-forward's
-            # data-dependent length reads counted as one)
-            steps = int(np.minimum(ln, 256).sum())
-            chk.time("query_batch_xla",
-                     lambda: TX.query_batch_device(*args, ff_bound=0),
-                     lambda: TX.query_batch_device_ref(*args, ff_bound=0),
-                     "main-path batch 8192x256, unsplit, ff_bound=0",
-                     bound=(nbytes(args[1:], got) + gathered(tb, steps, 40),
-                            steps * 30))
+        for label, batch, M in ((long16 if idx is index else ())
+                                + (("main-path batch", sample, 256),)):
+            enc, ln = idx.encode_patterns(batch, M)
+            args = (tb, to_device(enc, dev), to_device(ln, dev))
+            got = TX.query_batch_device(*args, ff_bound=ff)
+            want = TX.query_batch_device_ref(*args, ff_bound=ff)
+            what = f"r={idx.r} ff_bound={ff} {label} {len(batch)}x{M}"
+            chk.equal("query_batch_xla", got[0], want[0], what + " pml")
+            chk.equal("query_batch_xla", got[1], want[1], what + " cid")
+            if idx is index:
+                # about ten 4-byte gathers a valid step (the fast-forward's
+                # data-dependent length reads counted as one)
+                lane = np.minimum(ln, M)
+                steps = int(lane.sum())
+                chk.time("query_batch_xla",
+                         lambda: TX.query_batch_device(*args, ff_bound=0),
+                         lambda: TX.query_batch_device_ref(*args, ff_bound=0),
+                         f"{label} {len(batch)}x{M}, unsplit, ff_bound=0",
+                         reps=1 if len(batch) <= 16 else 3,
+                         bound=(nbytes(args[1:], got)
+                                + gathered(tb, steps, 40), steps * 30),
+                         chain=("query_batch_xla unsplit", int(lane.max()),
+                                len(batch) <= 16))
     torch.cuda.empty_cache()
     return split
 
@@ -574,10 +633,10 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
               TW.initial_state_wide)]
     del tables, shared
 
-    # K5, K6a: the dispatch batch (8,192 reads, 255 columns, uint8, fresh
-    # state, u16 plane); one long-read chunk (16 x 2,048, masked, int32
-    # packed plane, step_offset 2,048, state carried from the first chunk);
-    # K5 also with two planes
+    # K5, K6a: one long-read chunk (16 x 2,048, masked, int32 packed plane,
+    # step_offset 2,048, state carried from the first chunk), its time a
+    # step the chain floors'; the dispatch batch (8,192 reads, 255 columns,
+    # uint8, fresh state, u16 plane); K5 also with two planes
     sample = reads[:8192 - 256] + n_reads[:256]
     for name, label, idx, mt, kern, ref, init in scans:
         enc, ln = idx.encode_patterns(sample, 255)
@@ -592,10 +651,10 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
         long = (mt, pat[:, 2048:4096].contiguous(), lt, st, 2048)
         fresh = dict(ff_bound=idx.ff_bound, masked=False, packed_out=True,
                      fresh_state=True)
-        cases = [(f"{label} dispatch 8192x255 u16", disp, fresh),
-                 (f"{label} long-read chunk 16x2048 masked int32 "
+        cases = [(f"{label} long-read chunk 16x2048 masked int32 "
                   f"step_offset 2048", long,
-                  dict(ff_bound=idx.ff_bound, masked=True, packed_out=True))]
+                  dict(ff_bound=idx.ff_bound, masked=True, packed_out=True)),
+                 (f"{label} dispatch 8192x255 u16", disp, fresh)]
         if name == "query_chunk_mega":
             cases.append((f"{label} dispatch 8192x255 two planes", disp,
                           dict(fresh, packed_out=False)))
@@ -610,14 +669,16 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
                 chk.equal(name, g, w, f"{what} state[{j}]")
             # one row a valid step: 64 B (narrow, wide full), or a 40 B
             # char row and a shared row (wide compact)
-            steps = int((args[2].long() - args[4]).clamp(
-                0, args[1].shape[1]).sum())
+            lane = (args[2].long() - args[4]).clamp(0, args[1].shape[1])
+            steps = int(lane.sum())
             row = (40 + args[0]["shared"].shape[1] * 4
                    if "shared" in args[0] else 64)
             chk.time(name, lambda: kern(*args, **kw),
                      lambda: ref(*args, **kw), what,
                      bound=(nbytes(args[1:4], gp, gc, gst)
-                            + gathered(args[0], steps, row), steps * 25))
+                            + gathered(args[0], steps, row), steps * 25),
+                     chain=(f"{name} {label}", int(lane.max()),
+                            args[1].shape[0] <= 16))
     del scans
     torch.cuda.empty_cache()
     return wide
@@ -625,9 +686,11 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
 
 def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
                         chk: Checks) -> None:
-    """K7 against its plain version at the fused path's shapes (the
-    dispatch batch, 8,192 x 256, and the 16 x 8,192 batch the long reads
-    take) on the ff_bound 2 index `split` and on an ff_bound 1 build; K14
+    """K7 against its plain version at the fused path's shapes (the 16 x
+    8,192 batch the long reads take, the dispatch batch, 8,192 x 256, and
+    on the split the streamed batch, 32,768 x 256; uint8 ids as the engine
+    uploads them) on the ff_bound 2 index `split` and on an ff_bound 1
+    build; K14
     against the plain copy on jump_rows, with one pinned copy_ of the same
     bytes beside it.  Saves both indexes for phases 9-10."""
     from colbwt_tpu_torch.models.index import ColPmlIndex
@@ -673,13 +736,21 @@ def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
              bound_ms=pin_ms, library_ms=pin_ms)
     del got, want, pinned
 
+    # the long reads' batch first (its time a step the chain floors'), the
+    # dispatch batch, and on the ff_bound 2 split the streamed one (S-E)
     sample = reads[:8192 - 256] + n_reads[:256]
+    streamed = reads[:32768 - 256] + n_reads[:256]
     for idx in (split, ff1):
         ft = TF.build_fused_tables(idx, dev)
-        for label, batch, M, reps in (("dispatch", sample, 256, 3),
-                                      ("long reads", long_reads, 8192, 1)):
+        for label, batch, M, reps in (
+                ("long reads", long_reads, 8192, 1),
+                ("dispatch", sample, 256, 3),
+                ("streamed dispatch", streamed if idx is split else [], 256,
+                 3)):
+            if not batch:
+                continue
             enc, ln = idx.encode_patterns(batch, M)
-            args = (ft, to_device(enc, dev), to_device(ln, dev))
+            args = (ft, to_device(enc, dev, np.uint8), to_device(ln, dev))
             kw = dict(ff_bound=idx.ff_bound)
             gp, gc = TF.query_batch_fused(*args, **kw)
             wp, wc = TF.query_batch_fused_ref(*args, **kw)
@@ -687,16 +758,19 @@ def check_fused_kernels(torch, dev, tbl, split, reads, n_reads, long_reads,
                     f"{len(batch)}x{M}")
             chk.equal("query_batch_fused", gp, wp, what + " pml")
             chk.equal("query_batch_fused", gc, wc, what + " cid")
-            # a run row and a jump row (32 B each) and ff_bound - 1 run
-            # lengths a valid step
-            steps = int(np.minimum(ln, M).sum())
+            # a run row and a jump row (32 B each) and ff_bound - 2 run
+            # lengths a valid step (the first round's is in the run row)
+            lane = np.minimum(ln, M)
+            steps = int(lane.sum())
             chk.time("query_batch_fused",
                      lambda: TF.query_batch_fused(*args, **kw),
                      lambda: TF.query_batch_fused_ref(*args, **kw), what,
                      reps=reps,
                      bound=(nbytes(args[1:], gp, gc) + gathered(
-                         ft, steps, 64 + 4 * (idx.ff_bound - 1)),
-                         steps * 30))
+                         ft, steps, 64 + 4 * max(idx.ff_bound - 2, 0)),
+                         steps * 30),
+                     chain=(f"query_batch_fused ff_bound={idx.ff_bound}",
+                            int(lane.max()), len(batch) <= 16))
         del ft
     torch.cuda.empty_cache()
 
@@ -1227,12 +1301,7 @@ def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
     names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
     _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
     require(names == [r[0] for r in reads], "phase 8 query names differ")
-    heads, lens = F.read_rlbwt(f"{prefix}.fa")
-    tbl = O.build_col_pml(
-        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
-            f"{prefix}.fa.col_runs")),
-        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
-        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+    tbl = load_table(prefix)
     for i in rng.choice(len(reads), 64, replace=False):
         ep, ec = O.query_pml_oracle(tbl, reads[i][1])
         require(np.array_equal(pmls[i], ep) and np.array_equal(cids[i], ec),
@@ -1768,35 +1837,71 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                  reps=3 if lanes > 64 else 200,
                  bound=(nbytes(a[0], a[7]) + 2 * nbytes(a[5]) + lanes * 14,
                         lanes * 40))
-    for tag, shape, what in (
-            ("sharded-mega (1,2)", (B, M), "narrow"),
-            ("sharded-mega-wide (1,2)", (B, M), "wide"),
+    # the chunk scans: first on 16 lanes, the long reads cut to their last
+    # 2,048 characters from the start state (the wide engine: its first
+    # long-read chunk), whose time a step the chain floors'; then the
+    # counted runs' batches
+    enc, ln = split.encode_patterns([x[-2048:] for x in long_reads], 2048)
+    pats16 = torch.from_numpy(enc.astype(np.uint8)).to(dev)
+    lens16 = torch.from_numpy(ln).to(dev)
+
+    def lanes16(a, at_state: int, at_pats: int):
+        """The captured call `a` on the 16 long-read lanes, its state the
+        first 16 lanes' start state; checked against the plain version."""
+        a = list(a)
+        a[at_state] = tuple(t[:len(ln)].clone() for t in a[at_state])
+        a[at_pats], a[at_pats + 1] = pats16, lens16
+        return tuple(a)
+
+    mega16 = lanes16(arg("sharded_scan_mega", "sharded-mega (1,2)", (B, M)),
+                     6, 7)
+    compact16 = lanes16(arg("sharded_scan_compact", "sharded-compact (1,2)",
+                            (B, M)), 5, 3)
+    for name, mod, a, at_state in (("sharded_scan_mega", TSM, mega16, 6),
+                                   ("sharded_scan_compact", TS, compact16,
+                                    5)):
+        ka, ra = clone_args(torch, a), clone_args(torch, a)
+        got, want = getattr(mod, name)(*ka), getattr(mod, name + "_ref")(*ra)
+        for g, w in zip(got + ka[at_state], want + ra[at_state]):
+            chk.equal(name, g, w, "16 long-read lanes, outputs and state")
+    for tag, shape, what, a in (
             ("sharded-mega-wide (1,2)", (len(long_reads), 2048),
-             "wide, one long-read chunk")):
-        a = arg("sharded_scan_mega", tag, shape)
-        shards, _, length, _, _, _, state, pats, lens, step0, _, _ = a
-        lane_steps = int((lens.long() - step0).clamp(0, pats.shape[1]).sum())
+             "wide, one long-read chunk", None),
+            (None, None, "narrow, 16 long-read lanes of 2048", mega16),
+            ("sharded-mega (1,2)", (B, M), "narrow", None),
+            ("sharded-mega-wide (1,2)", (B, M), "wide", None)):
+        a = a or arg("sharded_scan_mega", tag, shape)
+        shards, _, length, _, _, _, state, pats, lens, step0, _, wide_ = a
+        lane = (lens.long() - step0).clamp(0, pats.shape[1])
+        lane_steps = int(lane.sum())
         chk.time("sharded_scan_mega", lambda: TSM.sharded_scan_mega(*a),
                  lambda: TSM.sharded_scan_mega_ref(*a),
                  f"{what}: {pats.shape[0]} lanes x {pats.shape[1]} steps, "
                  f"{len(shards)} shards, {lane_steps} valid lane-steps, "
-                 f"one launch",
+                 f"one launch", reps=1 if pats.shape[0] <= 16 else 3,
                  bound=(gathered(shards, lane_steps, 64)
                         + nbytes(pats, lens) + 2 * nbytes(state)
-                        + 2 * pats.numel() * 4, lane_steps * 40))
-    a = arg("sharded_scan_compact", "sharded-compact (1,2)", (B, M))
-    soa, jump, _, pats, lens, state, _, _, ff = a
-    lane_steps = int(lens.long().clamp(0, pats.shape[1]).sum())
-    row_reads = 5 + max(ff - 2, 0)  # run rows a step: rounds 1, 2, 2, 3-5
-    chk.time("sharded_scan_compact", lambda: TS.sharded_scan_compact(*a),
-             lambda: TS.sharded_scan_compact_ref(*a),
-             f"{pats.shape[0]} lanes x {pats.shape[1]} steps, {len(soa)} "
-             f"shards, {lane_steps} valid lane-steps, ff_bound {ff}, one "
-             f"launch",
-             bound=(gathered(soa, lane_steps * row_reads, 32)
-                    + gathered(jump, lane_steps, 8) + nbytes(pats, lens)
-                    + 2 * nbytes(state) + 2 * pats.numel() * 4,
-                    lane_steps * 60))
+                        + 2 * pats.numel() * 4, lane_steps * 40),
+                 chain=("sharded_scan_mega " + ("wide" if wide_
+                                                else "narrow"),
+                        int(lane.max()), pats.shape[0] <= 16))
+    for a in (compact16, arg("sharded_scan_compact",
+                             "sharded-compact (1,2)", (B, M))):
+        soa, jump, _, pats, lens, state, _, _, ff = a
+        lane = lens.long().clamp(0, pats.shape[1])
+        lane_steps = int(lane.sum())
+        row_reads = 5 + max(ff - 2, 0)  # run rows a step: rounds 1, 2, 2, 3-5
+        chk.time("sharded_scan_compact", lambda: TS.sharded_scan_compact(*a),
+                 lambda: TS.sharded_scan_compact_ref(*a),
+                 f"{pats.shape[0]} lanes x {pats.shape[1]} steps, {len(soa)} "
+                 f"shards, {lane_steps} valid lane-steps, ff_bound {ff}, one "
+                 f"launch", reps=1 if pats.shape[0] <= 16 else 3,
+                 bound=(gathered(soa, lane_steps * row_reads, 32)
+                        + gathered(jump, lane_steps, 8) + nbytes(pats, lens)
+                        + 2 * nbytes(state) + 2 * pats.numel() * 4,
+                        lane_steps * 60),
+                 chain=("sharded_scan_compact", int(lane.max()),
+                        pats.shape[0] <= 16))
     caps = [arg("sharded_step_compact", "sharded-compact (1,2) round route",
                 rnd) for rnd in (1, 2, 3, 4)]
     Bs = caps[0][2].shape[0]
@@ -1842,11 +1947,46 @@ def finish_native_build(proc: subprocess.Popen | None) -> None:
     require(native_lib.available(), "native library not loadable")
 
 
+def load_table(prefix: str):
+    """The col-PML table of the index built at `prefix` (its kept
+    artifacts)."""
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import oracle as O
+
+    heads, lens = F.read_rlbwt(f"{prefix}.fa")
+    return O.build_col_pml(
+        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
+            f"{prefix}.fa.col_runs")),
+        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
+        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+
+
+def query_reads(docs: list[bytes], rng: np.random.Generator
+                ) -> tuple[list[bytes], list[bytes], list[bytes]]:
+    """bench.py's 262,144 reads of 150 bp; 1,024 of them with one N
+    inserted; 16 reads of 5,000 bp from the haplotypes with 10
+    substitutions each; drawn with `rng`."""
+    from bench import DOC_LEN, N_READS, READ_LEN, make_reads
+
+    reads = make_reads()
+    n_reads = []
+    for i in rng.choice(N_READS, 1024, replace=False):
+        p = int(rng.integers(0, READ_LEN + 1))
+        n_reads.append(reads[i][:p] + b"N" + reads[i][p:])
+    long_reads = []
+    for j in range(16):
+        s = int(rng.integers(0, DOC_LEN - 5000))
+        arr = bytearray(docs[j % len(docs)][s:s + 5000])
+        for p in rng.integers(0, 5000, 10):
+            arr[int(p)] = int(rng.choice(list(b"ACGT")))
+        long_reads.append(bytes(arr))
+    return reads, n_reads, long_reads
+
+
 def run(torch) -> tuple[dict, list[dict]]:
     """Phases 2-12 on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
-    from bench import DOC_LEN, N_READS, READ_LEN, make_docs, make_reads
-    from colbwt_tpu_torch.io import formats as F
+    from bench import N_READS, make_docs
     from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
     from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
     from colbwt_tpu_torch.models.index import ColPmlIndex
@@ -1905,34 +2045,19 @@ def run(torch) -> tuple[dict, list[dict]]:
     log(f"[phase 3] K11a, K11b, K12 equal to their plain versions, the "
         f"native SA and LCP and the host thresholds "
         f"({time.perf_counter() - t0:.1f}s)")
-    heads, lens = F.read_rlbwt(f"{prefix}.fa")
-    tbl = O.build_col_pml(
-        heads, lens, np.flatnonzero(F.read_sdsl_bit_vector(
-            f"{prefix}.fa.col_runs")),
-        F.read_col_ids(f"{prefix}.fa.col_ids").astype(np.int64),
-        F.read_thresholds_file(f"{prefix}.fa.thr_pos").astype(np.int64))
+    tbl = load_table(prefix)
     log(f"[phase 3] index build {build_s:.1f}s: n={index.n} "
         f"r={index.r} bwt_r={index.bwt_r} sigma={index.sigma} "
         f"ff_bound={index.ff_bound}")
 
     t0 = time.perf_counter()
-    reads = make_reads()
     rng = np.random.default_rng(0x5A0E)
-    n_reads = []
-    for i in rng.choice(N_READS, 1024, replace=False):
-        p = int(rng.integers(0, READ_LEN + 1))
-        n_reads.append(reads[i][:p] + b"N" + reads[i][p:])
-    long_reads = []
-    for j in range(16):
-        s = int(rng.integers(0, DOC_LEN - 5000))
-        arr = bytearray(docs[j % len(docs)][s:s + 5000])
-        for p in rng.integers(0, 5000, 10):
-            arr[int(p)] = int(rng.choice(list(b"ACGT")))
-        long_reads.append(bytes(arr))
+    reads, n_reads, long_reads = query_reads(docs, rng)
     log(f"[phase 3] reads made in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    split = check_kernels(torch, dev, index, tbl, reads, n_reads, chk)
+    split = check_kernels(torch, dev, index, tbl, reads, n_reads,
+                          long_reads, chk)
     log(f"[phase 3] K1-K4 equal to their plain versions "
         f"({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()

@@ -9,22 +9,37 @@
 // depend on the state the step before produced.  The run rows are
 // r x 32 B and the jump rows (sigma + 1) x r x 32 B (263 MB at r = 1.37M,
 // five times the 50 MB L2), so a step costs about one device-memory round
-// trip plus ff_bound - 1 length reads (r x 4 B, which the L2 holds), while
-// the bytes moved (96 B a step) stay far below the memory rate.
+// trip, while the bytes moved (64 B a step) stay far below the memory rate.
+// A 16-read batch waits on its chains alone (0.37-0.53 us a step); in a
+// dispatch batch of 8,192 reads the scattered row loads queue in the memory
+// system (1.3 us a step): the block size changes nothing (32, 64 and 128
+// threads within 3%, scan_designs.py on an H100).
 //
-// The design follows from that: one thread per read carries the state
+// The design follows from that.  One thread per read carries the state
 // (interval, offset, pos, mlen) in registers and walks its read right to
 // left.  Both 32-byte rows depend only on the interval, so their loads are
 // issued together (two 16-byte vector loads each, through the read-only
-// path); only the fast-forward's length reads wait on the run row.  A read
-// stops at its length: the steps left of it leave the state alone and
-// output 0 (query_fused.py:167-172), and the function returns no final
-// state, so the kernel writes those zeros without stepping.
+// path).  The first fast-forward round needs the length of the run row's
+// destination run, which ops/query_fused.py fused_rows folds into the run
+// row's column 6, so at ff_bound 2 no load waits on another within a step;
+// only rounds 2.. (ff_bound >= 3) read the length array.  The outputs are two column-major (M, B) planes: at each step the
+// lanes of a warp store to neighbouring addresses (a row-major store puts
+// 4 bytes into each of 32 sectors), and the wrapper transposes them on the
+// device: a quarter faster than row-major stores at 32,768 reads, whose
+// planes outgrow the L2, 6% slower at 8,192, whose row-major writes merge
+// in the L2 (the transposes' cost; scan_designs.py on an H100).  The read
+// ids are uint8, so a read's sector holds 32 columns.  The jump row is
+// loaded beside the run row at every step: loading it only on a mismatch
+// gains on 16 and 32,768 reads but loses 15% at 8,192, where a warp waits
+// on its slowest lane's two dependent loads.  A read stops at its length:
+// the columns left of it leave the state alone and output 0
+// (query_fused.py:167-172).
 //
 // Semantics kept from the JAX program, all in int32 arithmetic (wrapping,
 // as XLA's int32 does): every gather index is clamped as
 // jnp.take(mode="clip") clamps it (interval, c * r + interval, di after
-// di + over); the CID is the current interval's, sampled before the step;
+// di + over; the folded length is length[clip(di0)], the first round's
+// gather); the CID is the current interval's, sampled before the step;
 // a mismatch repositions to the predecessor when pos < thr (strictly) and
 // one exists, else to the successor when thr < n, else LF-steps from the
 // current state; lf_pos = run_rows[4] + offset is not moved by the
@@ -57,14 +72,12 @@ __device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
 __global__ void query_batch_fused_kernel(
     const int4* __restrict__ run_rows, const int4* __restrict__ jump_rows,
     const int32_t* __restrict__ length, int32_t r, int64_t jump_count,
-    int32_t n, const int32_t* __restrict__ patterns,
+    int32_t n, const uint8_t* __restrict__ patterns,
     const int32_t* __restrict__ lengths, int64_t B, int64_t M, int ff_bound,
     int32_t* __restrict__ pml_out, int32_t* __restrict__ cid_out) {
   const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (b >= B) return;
-  const int32_t* pat = patterns + b * M;
-  int32_t* pml = pml_out + b * M;
-  int32_t* cid = cid_out + b * M;
+  const uint8_t* pat = patterns + b * M;
   const int64_t len = lengths[b];
   const int64_t steps = len < 0 ? 0 : (len < M ? len : M);
 
@@ -73,44 +86,54 @@ __global__ void query_batch_fused_kernel(
                         -1);  // run_rows[r - 1, 5] - 1
   int32_t pos = wadd(n, -1);
   int32_t mlen = 0;
-  for (int64_t i = 0; i < steps; ++i) {
+  // every lane walks all M columns, so a warp's lanes store the same
+  // column of the (M, B) planes together
+  for (int64_t i = 0; i < M; ++i) {
     const int64_t col = M - 1 - i;
-    const int32_t c = pat[col];
-    const int64_t iv = clip(interval, r);
-    const int64_t jf = clip(wadd(wmul(c, r), interval), jump_count);
-    // the two row loads depend only on the interval: issue them together
-    const int4 ra = __ldg(&run_rows[2 * iv]);      // char, col_id, di, doff
-    const int4 rb = __ldg(&run_rows[2 * iv + 1]);  // lf_pos0, length, -, -
-    const int4 ja = __ldg(&jump_rows[2 * jf]);     // thr, s_int, s_off, s_pos
-    const int4 jb = __ldg(&jump_rows[2 * jf + 1]); // p_int, p_off, p_pos, -
+    int32_t new_len = 0;
+    int32_t cid = 0;
+    if (i < steps) {
+      const int32_t c = pat[col];
+      const int64_t iv = clip(interval, r);
+      const int64_t jf = clip(wadd(wmul(c, r), interval), jump_count);
+      // the two row loads depend only on the interval: start them together
+      // (run row: char, col_id, di, doff, lf_pos0, length, dlen0, -; jump
+      // row: thr, s_int, s_off, s_pos, p_int, p_off, p_pos, -)
+      const int4 ra = __ldg(&run_rows[2 * iv]);
+      const int4 rb = __ldg(&run_rows[2 * iv + 1]);
+      const int4 ja = __ldg(&jump_rows[2 * jf]);
+      const int4 jb = __ldg(&jump_rows[2 * jf + 1]);
 
-    const bool match = ra.x == c;
-    const int32_t thr = ja.x;
-    const bool take_pred = !match && pos < thr && jb.x >= 0;
-    const bool take_succ = !match && !take_pred && thr < n;
+      const bool match = ra.x == c;
+      const int32_t thr = ja.x;
+      const bool take_pred = !match && pos < thr && jb.x >= 0;
+      const bool take_succ = !match && !take_pred && thr < n;
 
-    // match / fallback path: LF from (interval, offset), bounded ff
-    int32_t di = ra.z;
-    int32_t doff = wadd(ra.w, offset);
-    const int32_t lf_pos = wadd(rb.x, offset);
-    for (int t = 1; t < ff_bound; ++t) {
-      const int32_t ln = __ldg(&length[clip(di, r)]);
-      if (doff >= ln) {
+      // match / fallback path: LF from (interval, offset), bounded ff; the
+      // first round against the row's dlen0, the rest gathering `length`
+      int32_t di = ra.z;
+      int32_t doff = wadd(ra.w, offset);
+      const int32_t lf_pos = wadd(rb.x, offset);
+      if (ff_bound > 1 && doff >= rb.z) {
         di = wadd(di, 1);
-        doff = wadd(doff, -ln);
+        doff = wadd(doff, -rb.z);
       }
+      for (int t = 2; t < ff_bound; ++t) {
+        const int32_t ln = __ldg(&length[clip(di, r)]);
+        if (doff >= ln) {
+          di = wadd(di, 1);
+          doff = wadd(doff, -ln);
+        }
+      }
+      new_len = match ? wadd(mlen, 1) : 0;
+      cid = ra.y;
+      interval = take_pred ? jb.x : (take_succ ? ja.y : di);
+      offset = take_pred ? jb.y : (take_succ ? ja.z : doff);
+      pos = take_pred ? jb.z : (take_succ ? ja.w : lf_pos);
+      mlen = new_len;
     }
-    const int32_t new_len = match ? wadd(mlen, 1) : 0;
-    pml[col] = new_len;
-    cid[col] = ra.y;
-    interval = take_pred ? jb.x : (take_succ ? ja.y : di);
-    offset = take_pred ? jb.y : (take_succ ? ja.z : doff);
-    pos = take_pred ? jb.z : (take_succ ? ja.w : lf_pos);
-    mlen = new_len;
-  }
-  for (int64_t col = M - 1 - steps; col >= 0; --col) {  // left padding
-    pml[col] = 0;
-    cid[col] = 0;
+    pml_out[col * B + b] = new_len;
+    cid_out[col * B + b] = cid;
   }
 }
 
@@ -118,6 +141,9 @@ __global__ void query_batch_fused_kernel(
 
 extern "C" {
 
+// run_rows (r, 8) and jump_rows (jump_count, 8) int32, 16-byte aligned;
+// length (r,); patterns (B, M) uint8 dense ids; lengths (B,); pml_out,
+// cid_out (M, B) int32.
 int colbwt_query_batch_fused(const void* run_rows, const void* jump_rows,
                              const void* length, int64_t r,
                              int64_t jump_count, int64_t n,
@@ -129,7 +155,7 @@ int colbwt_query_batch_fused(const void* run_rows, const void* jump_rows,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(run_rows), static_cast<const int4*>(jump_rows),
       static_cast<const int32_t*>(length), static_cast<int32_t>(r), jump_count,
-      static_cast<int32_t>(n), static_cast<const int32_t*>(patterns),
+      static_cast<int32_t>(n), static_cast<const uint8_t*>(patterns),
       static_cast<const int32_t*>(lengths), B, M, static_cast<int>(ff_bound),
       static_cast<int32_t*>(pml_out), static_cast<int32_t*>(cid_out));
   return static_cast<int>(cudaGetLastError());

@@ -24,7 +24,21 @@
 // left; a row is read with 16-byte (8-byte for the 40-byte row) vector
 // loads.  Latency is hidden only by the number of reads in flight (8,192 in
 // a dispatch batch); several reads per thread with interleaved loads is
-// later work.
+// later work.  A 16-read chunk waits on its chains alone (0.39 us a step);
+// in a dispatch batch the scattered row loads queue in the memory system
+// (1.4 us a step) however the batch is spread: blocks of 32, 64 and 128
+// threads, which put it on all 132, on 128 and on 64 of the SMs, run within
+// 3% (scan_designs.py on an H100).
+//
+// The output layout is the one that measured faster for each entry point.
+// K5 and K6a store row-major (B, M) planes: their dispatch batches' planes
+// (4-16 MB) stay in the 50 MB L2, which merges the partial sector writes,
+// and column-major planes with the device transposes they need took 0.235
+// ms against 0.217 at 8,192 x 255 (one u16 plane; scan_designs.py on an
+// H100).  The chunk scan stores column-major (M, B) planes, which its
+// wrapper transposes: a batch of 263,168 reads writes 318 MB, where a
+// warp's row-major store fills 32 partial sectors that reach device
+// memory.
 //
 // One templated scan serves five row readers: the narrow row with int32
 // positions, the wide full row whose base-2**30 position limbs are joined to
@@ -57,6 +71,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int64_t kLimb = int64_t(1) << 30;
+// the layouts of the outputs (see above): K5 and K6a row-major
+constexpr bool kBatchColMajor = false;
 
 __device__ __forceinline__ int64_t clip(int64_t i, int64_t size) {
   return i < 0 ? 0 : (i >= size ? size - 1 : i);
@@ -231,8 +247,9 @@ struct ScanArgs {
   int32_t *interval1, *offset1, *pos_lo1, *pos_hi1, *mlen1;
 };
 
-// One thread per read: the read's columns right to left, state in registers.
-template <class Rows>
+// One thread per read: the read's columns right to left, state in registers;
+// the outputs into (M, B) planes when ColMajor, else (B, M).
+template <class Rows, bool ColMajor>
 __global__ void mega_scan_kernel(const Rows rows, const ScanArgs a) {
   const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (b >= a.B) return;
@@ -280,7 +297,7 @@ __global__ void mega_scan_kernel(const Rows rows, const ScanArgs a) {
       pml = 0;
       cid = 0;
     }
-    const int64_t o = b * a.M + col;
+    const int64_t o = ColMajor ? col * a.B + b : b * a.M + col;
     if (a.out_mode == kTwoPlanes) {
       static_cast<int32_t*>(a.out0)[o] = static_cast<int32_t>(pml);
       a.out1[o] = static_cast<int32_t>(cid);
@@ -302,11 +319,12 @@ __global__ void mega_scan_kernel(const Rows rows, const ScanArgs a) {
   }
 }
 
-template <class Rows>
+template <bool ColMajor, class Rows>
 int launch(const Rows& rows, const ScanArgs& a, void* stream) {
   const int64_t blocks = (a.B + kThreads - 1) / kThreads;
-  mega_scan_kernel<Rows><<<blocks < 1 ? 1 : blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(rows, a);
+  mega_scan_kernel<Rows, ColMajor><<<blocks < 1 ? 1 : blocks, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      rows, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,11 +377,12 @@ int colbwt_query_chunk_mega(
     int64_t masked, int64_t out_mode, void* out0, void* out1, void* interval1,
     void* offset1, void* pos1, void* mlen1, void* stream) {
   const NarrowRows rd{static_cast<const int4*>(mega), rows, r};
-  return launch(rd, scan_args(length, r, n, patterns, lengths, interval0,
-                              offset0, pos0, nullptr, mlen0, step_offset, B,
-                              M, ff_bound, masked, out_mode, out0, out1,
-                              interval1, offset1, pos1, nullptr, mlen1),
-                stream);
+  return launch<kBatchColMajor>(
+      rd, scan_args(length, r, n, patterns, lengths, interval0, offset0, pos0,
+                    nullptr, mlen0, step_offset, B, M, ff_bound, masked,
+                    out_mode, out0, out1, interval1, offset1, pos1, nullptr,
+                    mlen1),
+      stream);
 }
 
 // K6a: the wide tables, full ((sigma+1)*r, 16) when compact == 0, else
@@ -384,17 +403,17 @@ int colbwt_query_chunk_mega_wide(
   if (compact) {
     const WideCompactRows rd{static_cast<const int4*>(shared),
                              static_cast<const int2*>(table), rows, r};
-    return launch(rd, a, stream);
+    return launch<kBatchColMajor>(rd, a, stream);
   }
   const WideFullRows rd{static_cast<const int4*>(table), rows, r};
-  return launch(rd, a, stream);
+  return launch<kBatchColMajor>(rd, a, stream);
 }
 
 // K13b/K13c: one chunk of the sharded mega scan, every shard of the dp row
 // on this card.  tab (2 * ip,) int64 as colbwt_sharded_fetch's; the
 // shards' (L, 16) int32 rows, narrow or wide full; n is the joined int64
 // value; the state (B,) int32 (pos_hi null when narrow) is updated in
-// place; masked; pml, cid (B, M) int32.
+// place; masked; pml, cid (M, B) int32, column-major.
 int colbwt_sharded_scan_mega(
     int64_t wide, const void* tab, int64_t ip, int64_t L, const void* length,
     int64_t r, int64_t n, const void* patterns, const void* lengths,
@@ -409,11 +428,11 @@ int colbwt_sharded_scan_mega(
   if (wide) {
     const ShardedWideFullRows rd{t, static_cast<int>(ip), L,
                                  static_cast<int32_t>(r)};
-    return launch(rd, a, stream);
+    return launch<true>(rd, a, stream);
   }
   const ShardedNarrowRows rd{t, static_cast<int>(ip), L,
                              static_cast<int32_t>(r)};
-  return launch(rd, a, stream);
+  return launch<true>(rd, a, stream);
 }
 
 }  // extern "C"

@@ -8,13 +8,21 @@ successor's threshold and the LF-stepped, fast-forwarded successor and
 predecessor states), and ff_bound - 1 run lengths for the LF fast-forward of
 the match path.  Memory: 32 B a run plus 32 B a (char, run).
 
+The port's run row also carries, in its column 6 (0 in JAX's), the first
+fast-forward round's run length, length[clip(dest_interval)]: the length
+JAX's first round gathers, which depends only on the run row.  The kernel
+and the plain version take it from there, so at ff_bound 2 a step's loads
+wait on no other load of the step; rounds 2.. still gather `length`.
+
 `build_fused_tables` is host NumPy, as in JAX (query_fused.py:41-105), and
 uploads both row tables through utils/xfer.upload_chunked (K14).  The scan
 is K7 in csrc/query_fused.cu (replaces query_fused.py:108
 query_batch_fused), with the plain PyTorch version
 `query_batch_fused_ref` beside it, which repeats the scan body op for op.
 The wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  The kernel writes column-major
+(M, B) planes and the wrapper transposes them on the device, so callers get
+(B, M) as before.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ NO_STATE = -1
 
 def fused_rows(index: ColPmlIndex) -> tuple[np.ndarray, np.ndarray]:
     """(run_rows (r, 8), jump_rows ((sigma+1)*r, 8)), int32 host arrays
-    (query_fused.py:41-95)."""
+    (query_fused.py:41-95); run_rows[:, 6] is the first fast-forward
+    round's length, length[clip(dest_interval)]."""
     if index.wide:
         raise ValueError("n >= 2**31: int32 positions would overflow — "
                          "use ops.query_mega_wide")
@@ -51,6 +60,7 @@ def fused_rows(index: ColPmlIndex) -> tuple[np.ndarray, np.ndarray]:
     run_rows[:, 3] = doff
     run_rows[:, 4] = idx[di] + doff
     run_rows[:, 5] = length
+    run_rows[:, 6] = length[np.clip(di, 0, r - 1)]  # jnp.take mode="clip"
 
     def resolve(start_run: np.ndarray, start_off: np.ndarray, ok: np.ndarray):
         """LF + full fast-forward from (run, offset) -> (interval', off', pos')."""
@@ -102,7 +112,8 @@ def query_batch_fused_ref(ft: dict, patterns: torch.Tensor,
                           lengths: torch.Tensor, ff_bound: int = 4
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K7: the lax.scan body of query_fused.py:128-172, one
-    batched step per column, right to left."""
+    batched step per column, right to left; the first fast-forward round
+    takes its length from the run row's column 6."""
     patterns = patterns.to(torch.int32)
     B, M = patterns.shape
     r, n = ft["r"], ft["n"]
@@ -135,8 +146,8 @@ def query_batch_fused_ref(ft: dict, patterns: torch.Tensor,
         di = rows[:, 2]
         doff = rows[:, 3] + offset
         lf_pos = rows[:, 4] + offset
-        for _ in range(ff_bound - 1):  # gathers 3..K+1
-            ln = _take(length_arr, di)
+        for t in range(ff_bound - 1):  # gathers 3..K+1, the first folded
+            ln = rows[:, 6] if t == 0 else _take(length_arr, di)
             over = doff >= ln
             di = di + over.to(torch.int32)
             doff = doff - torch.where(over, ln, zero)
@@ -162,10 +173,12 @@ def query_batch_fused(ft: dict, patterns: torch.Tensor, lengths: torch.Tensor,
                       ff_bound: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 (replaces colbwt_tpu/ops/query_fused.py:108 query_batch_fused):
     (B, M) right-aligned dense-id patterns -> (pml, cid), both (B, M) int32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    patterns = patterns.to(torch.int32).contiguous()
+    The kernel reads uint8 ids (a dense id is at most sigma <= 255); other
+    integer ids are cast on the device.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if patterns.device.type == "cpu":
         return query_batch_fused_ref(ft, patterns, lengths, ff_bound)
+    patterns = patterns.to(torch.uint8).contiguous()
     dev = patterns.device
     B, M = patterns.shape
     r = ft["r"]
@@ -181,8 +194,10 @@ def query_batch_fused(ft: dict, patterns: torch.Tensor, lengths: torch.Tensor,
     K.require(lengths, "lengths", torch.int32, dev)
     if lengths.shape != (B,):
         raise ValueError(f"lengths must have shape ({B},)")
-    pml = torch.empty((B, M), dtype=torch.int32, device=dev)
-    cid = torch.empty((B, M), dtype=torch.int32, device=dev)
+    # column-major planes (coalesced stores), transposed here as the JAX
+    # scan transposes its stacked steps
+    pml = torch.empty((M, B), dtype=torch.int32, device=dev)
+    cid = torch.empty((M, B), dtype=torch.int32, device=dev)
     if B and M:
         code = K.on(dev).colbwt_query_batch_fused(
             ft["run_rows"].data_ptr(), ft["jump_rows"].data_ptr(),
@@ -191,7 +206,7 @@ def query_batch_fused(ft: dict, patterns: torch.Tensor, lengths: torch.Tensor,
             pml.data_ptr(), cid.data_ptr(), K.stream_handle(dev))
         K.check("query_batch_fused", code)
         K.launches["query_batch_fused"] += 1
-    return pml, cid
+    return pml.t().contiguous(), cid.t().contiguous()
 
 
 def query_batch(index: ColPmlIndex, patterns: list[bytes],
@@ -206,8 +221,8 @@ def query_batch(index: ColPmlIndex, patterns: list[bytes],
     if ft is None:
         ft = build_fused_tables(index, dev)
     enc, lens = index.encode_patterns(patterns, max_len)
-    pml, cid = query_batch_fused(ft, to_device(enc, dev), to_device(lens, dev),
-                                 ff_bound=index.ff_bound)
+    pml, cid = query_batch_fused(ft, to_device(enc, dev, np.uint8),
+                                 to_device(lens, dev), ff_bound=index.ff_bound)
     pml = pml.cpu().numpy()
     cid = cid.cpu().numpy()
     M = enc.shape[1]

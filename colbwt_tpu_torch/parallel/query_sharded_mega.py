@@ -238,8 +238,10 @@ def sharded_scan_mega(shards: list, L: int, length, r: int, n_lo: int,
         K.require(t, name, torch.int32, dev)
         if t.shape != (B,):
             raise ValueError(f"{name} must have shape ({B},)")
-    pml = torch.empty((B, C), dtype=torch.int32, device=dev)
-    cid = torch.empty((B, C), dtype=torch.int32, device=dev)
+    # column-major planes (coalesced stores: 318 MB at G-mega's batch),
+    # transposed here as the JAX scan transposes its stacked steps
+    pml = torch.empty((C, B), dtype=torch.int32, device=dev)
+    cid = torch.empty((C, B), dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in state]
     if not wide:
         ptrs.insert(3, None)  # no pos_hi
@@ -252,7 +254,7 @@ def sharded_scan_mega(shards: list, L: int, length, r: int, n_lo: int,
             cid.data_ptr(), K.stream_handle(dev))
         K.check("sharded_scan_mega", code)
         K.launches["sharded_scan_mega"] += 1
-    return pml, cid
+    return pml.t().contiguous(), cid.t().contiguous()
 
 
 def _row_args(st: dict, wide: bool) -> tuple[int, int, int]:

@@ -207,9 +207,9 @@ class QueryEngines:
                         packed_out=self._cid8 and padded < (1 << 23))
             return p, c, lens, None
         enc, lens = index.encode_patterns(batch, padded)
-        if self.use_fused:
+        if self.use_fused:  # uint8 ids up: a quarter of the int32 bytes
             p, c = query_fused.query_batch_fused(
-                self.ft, self._up(enc), self._up(lens),
+                self.ft, self._up(enc, np.uint8), self._up(lens),
                 ff_bound=index.ff_bound)
         else:
             p, c = query_xla.query_batch_device(

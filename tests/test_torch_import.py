@@ -60,11 +60,12 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("root", ["colbwt_tpu_torch", "chip_smoke.py",
+                                  "scan_designs.py",
                                   "scripts/profile_doubling_round.py"])
 def test_source_imports_nothing_of_jax_package(root):
     """The port keeps its own copy of the host layer: no source file of it,
-    nor chip_smoke.py or the port's profiling script, imports jax or
-    anything of colbwt_tpu."""
+    nor chip_smoke.py, the scans' design sweep or the port's profiling
+    script, imports jax or anything of colbwt_tpu."""
     files = ([REPO / root] if root.endswith(".py")
              else sorted((REPO / root).rglob("*.py")))
     assert files

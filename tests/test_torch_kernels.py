@@ -306,6 +306,62 @@ def test_mega_scan(dev, mega_case, layout, setting):
         _equal(g, w)
 
 
+def _lanes(reads, B):
+    """B reads: `reads` repeated and cut to B."""
+    return (reads * (B // len(reads) + 1))[:B]
+
+
+# output mode -> (packed_out, fresh_state, M)
+MODES = {"two-planes": (False, False, 129), "packed-i32": (True, False, 129),
+         "packed-u16": (True, True, 255)}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("B", [1, 8193])
+@pytest.mark.parametrize("layout", ["narrow", "full", "compact"])
+def test_mega_scan_modes(dev, mega_case, layout, B, mode, masked):
+    """K5 and K6a in every output mode, against their plain versions, at
+    one lane and at 8,193 (no multiple of the block size), masked and not.
+    The u16 plane scans from the fresh state; the others carry the state
+    of a first chunk of 96 columns (step_offset 96)."""
+    _, _, narrow, wide, reads = mega_case
+    index = narrow if layout == "narrow" else wide
+    mt = _mega_tables(index, dev, layout)
+    kern, ref, init, name = (
+        (TM.query_chunk_mega, TM.query_chunk_mega_ref, TM.initial_state,
+         "query_chunk_mega") if layout == "narrow" else
+        (TW.query_chunk_mega_wide, TW.query_chunk_mega_wide_ref,
+         TW.initial_state_wide, "query_chunk_mega_wide"))
+    packed_out, fresh, M = MODES[mode]
+    first = 0 if fresh else 96
+    rs = [r * 2 for r in _lanes(reads, B)]
+    enc, lens = index.encode_patterns([r[:M + first] for r in rs], M + first)
+    pat = to_device(enc, dev, np.uint8)
+    lens_t = to_device(lens, dev)
+    state = init(mt, B)
+    if first:
+        _, state = ref(mt, pat[:, M:].contiguous(), lens_t, state, 0,
+                       ff_bound=index.ff_bound)
+    args = (mt, pat[:, :M].contiguous(), lens_t, state, first)
+    kw = dict(ff_bound=index.ff_bound, masked=masked, packed_out=packed_out,
+              fresh_state=fresh)
+    before = K.launches[name]
+    (gp, gc), gstate = kern(*args, **kw)
+    assert K.launches[name] == before + 1
+    (wp, wc), wstate = ref(*args, **kw)
+    assert gp.shape == (B, M) and gp.is_contiguous()
+    assert gp.dtype == (torch.uint16 if mode == "packed-u16" else torch.int32)
+    if gp.dtype == torch.uint16:
+        gp, wp = gp.view(torch.int16), wp.view(torch.int16)
+    _equal(gp, wp)
+    assert (gc is None) == (wc is None) == packed_out
+    if gc is not None:
+        _equal(gc, wc)
+    for g, w in zip(gstate, wstate):
+        _equal(g, w)
+
+
 @pytest.mark.parametrize("compact", [False, True])
 def test_fill_block(dev, mega_case, compact):
     """K6b for every char block, the all-sentinel block c = sigma
@@ -475,6 +531,32 @@ def test_all_walk(dev, num_docs, base_len):
 # ---------------------------------------------------------------------------
 # K7: the fused scan; K14: the chunked upload
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ff", [1, 2, 3])
+@pytest.mark.parametrize("B,M", [(1, 256), (8193, 255), (32768, 256)])
+def test_fused_scan_shapes(dev, case, B, M, ff):
+    """K7 against its plain version at one lane, at 8,193 lanes (no
+    multiple of the block size) with an odd M, and at the streamed
+    engine's batch, 32,768 x 256: the column-major planes and their
+    transposes; uint8 ids as the engine uploads them and int32 ids as
+    other callers pass them."""
+    tbl, _, reads = case
+    index = ColPmlIndex.build(tbl, ff_bound=ff)
+    ft = TF.build_fused_tables(index, dev)
+    enc, lens = index.encode_patterns(_lanes(reads, B), M)
+    lens_t = to_device(lens, dev)
+    want = None
+    for dtype in (np.uint8, np.int32):
+        args = (ft, to_device(enc, dev, dtype), lens_t)
+        before = K.launches["query_batch_fused"]
+        got = TF.query_batch_fused(*args, ff_bound=ff)
+        assert K.launches["query_batch_fused"] == before + 1
+        if want is None:
+            want = TF.query_batch_fused_ref(*args, ff_bound=ff)
+        for g, w in zip(got, want):
+            assert g.shape == (B, M) and g.is_contiguous()
+            _equal(g, w)
+
 
 @pytest.mark.parametrize("ff", [1, 2, 4])
 def test_fused_scan(dev, case, ff):

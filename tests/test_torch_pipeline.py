@@ -130,6 +130,42 @@ def test_engines_not_ported_raise(engine, wide, item):
     assert eng.ft is not None
 
 
+@pytest.mark.parametrize("ff", [1, 2])
+def test_fused_dispatch_uploads_uint8_ids(ff, monkeypatch):
+    """The fused engine's dispatch sends its dense ids up as uint8 (a
+    quarter of int32's bytes), and its records equal JAX's query_batch."""
+    import torch
+
+    from colbwt_tpu.ops import query_fused as JF
+    from colbwt_tpu_torch.ops import query_fused as TF
+
+    rng = np.random.default_rng(0xD158 + ff)
+    docs = random_docs(rng, 3, lo=80, hi=160)
+    tbl, _ = build_index(docs)
+    split = ColPmlIndex.build(tbl, ff_bound=ff)
+    reads = (make_reads(rng, docs, 40, lo=1, hi=120)
+             + [b"", b"NNACGTN", b"XAC"])
+    eng = QueryEngines(split, ColBwtConfig(engine="fused"), total_chars=10,
+                       device="cpu")
+    assert eng.name == "fused"
+    kinds = []
+    scan = TF.query_batch_fused
+
+    def spy(ft, patterns, lengths, ff_bound=4):
+        kinds.append(patterns.dtype)
+        return scan(ft, patterns, lengths, ff_bound)
+
+    monkeypatch.setattr(TF, "query_batch_fused", spy)
+    padded = 128
+    p, c, lens = QueryEngines.materialize(eng.dispatch(reads, padded))
+    assert kinds == [torch.uint8]
+    wp, wc = JF.query_batch(split, reads, max_len=padded)
+    np.testing.assert_array_equal(lens, [len(r) for r in reads])
+    for i, read in enumerate(reads):
+        np.testing.assert_array_equal(p[i, padded - len(read):], wp[i])
+        np.testing.assert_array_equal(c[i, padded - len(read):], wc[i])
+
+
 def test_unsplit_wide_index_refused():
     tbl, _ = build_index(random_docs(np.random.default_rng(5), 2, lo=60,
                                      hi=90))
