@@ -74,14 +74,19 @@ version on the card.  Phases:
    9b. phase 5's reads under the default engine on the ff_bound 1 index:
    the ladder must pick fused, records equal phase 5's
 10. `query --stream` of phase 4's reads on bench's index (pos, k=4): both
-   files byte-equal to phase 4's, reads/s beside phase 4's; 10b the same
-   with --engine fused on phase 9's index, byte-equal to phase 9's
+   files byte-equal to phase 4's, reads/s beside phase 4's; K3 at each
+   shape the stream gave it, held to its plain version and timed; 10b
+   the same with --engine fused on phase 9's index, byte-equal to phase
+   9's
 11. the build without the native library (`native.available` patched to
    False for the phase, as on a host without native/): bench's collection
    through `build -m tunnels -s 10 -l 20` (K11a, K11b; every artifact and
    the index byte-equal to phase 3's); 11b phase 8's pangenome through
    stage_mums (its four artifacts byte-equal to phase 8's; rounds,
-   sa_lcp_s and the device memory peak logged); 11c bench.py's index-build
+   sa_lcp_s and the device memory peak logged), then its suffix array and
+   pyramid once more: every K11a round timed with its passes and bound,
+   K11b against its plain version and timed, and sa_lcp_s split into
+   rounds, K11b, copies and host; 11c bench.py's index-build
    sequence (bench.py:83-98) through the port's ops, thresholds by K12
    (the table equal to phase 3's field by field, the ff_bound-2 index to
    phase 3's)
@@ -302,9 +307,10 @@ class Checks:
              reps: int = 3, bound: tuple[int, int] | None = None,
              bound_ms: float | None = None,
              library_ms: float | None = None,
-             chain: tuple[str, int, bool] | None = None) -> None:
-        """Time the kernel and its plain version; `bound` is (bytes, integer
-        operations) of the work, or `bound_ms` a measured least time;
+             chain: tuple[str, int, bool] | None = None) -> float:
+        """Time the kernel and its plain version, and return the kernel's
+        ms; `bound` is (bytes, integer operations) of the work, or
+        `bound_ms` a measured least time;
         `library_ms` the time of one PyTorch call computing the same
         function.  A scan gives `chain` = (key, steps, lanes16): its longest
         lane's steps, and whether this is the key's 16-lane call, whose time
@@ -344,6 +350,7 @@ class Checks:
             self.ms[name] = {"ms": ms, "plain_ms": plain,
                              "bound_ms": bound_ms, "bound_by": by,
                              "library_ms": lib}
+        return ms
 
 
 def check_kernels(torch, dev, index, tbl, reads, n_reads, long_reads,
@@ -913,6 +920,78 @@ class Capture:
         return False
 
 
+class FirstCalls:
+    """While active, counts the calls of module.name by the shapes of
+    their tensor arguments and keeps the arguments of each shape's first
+    call, to time the kernel at the shapes a run gave it."""
+
+    def __init__(self, module: str, name: str):
+        import importlib
+
+        self.module, self.name = importlib.import_module(module), name
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        self.first, self.count = {}, {}
+
+        def spy(*args, **kw):
+            key = (tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+                   + tuple(a for a in args if isinstance(a, int))
+                   + tuple(sorted(kw.items())))
+            self.first.setdefault(key, (args, kw))
+            self.count[key] = self.count.get(key, 0) + 1
+            return self.real(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks
+                      ) -> None:
+    """K3 at each shape cell S-A's streamed query gave it (batches of
+    32,768 reads, the N reads' general-T1 batch, the long reads' chunks):
+    held to its plain version, timed, with each shape's launches and, at
+    k = 4, its chain floor."""
+    import inspect
+
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    require(sum(k3.count.values()) == launches,
+            f"phase 10: {sum(k3.count.values())} K3 calls seen, "
+            f"{launches} launches counted")
+    sig = inspect.signature(TQ.query_chunk_pos)
+    for key, (args, kw) in k3.first.items():
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        got = TQ.query_chunk_pos(*args, **kw)
+        want = TQ.query_chunk_pos_ref(*args, **kw)
+        for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+            if w is not None:
+                chk.equal("query_chunk_pos", g, w, f"S-A shape {key}")
+        pats, k, off = a["patterns"], a["k"], a["step_offset"]
+        B = pats.shape[0]
+        M = pats.shape[1] * 8 // a["pack"] if a["pack"] else pats.shape[1]
+        lane = (torch.clamp(a["lengths"].long() - off, 0, M) + k - 1) // k
+        steps = int(lane.sum())
+        floor = f"query_chunk_pos k={k}"
+        chk.time("query_chunk_pos",
+                 lambda: TQ.query_chunk_pos(*args, **kw),
+                 lambda: TQ.query_chunk_pos_ref(*args, **kw),
+                 f"S-A: {k3.count[key]} launches of {B} x {M}, k={k}"
+                 f"{', masked' if a['masked'] else ''}"
+                 f"{f', step offset {off}' if off else ''}",
+                 bound=(nbytes(pats, a["lengths"], a["pos0"], a["mlen0"],
+                               got) + gathered(a["table"], steps, 8),
+                        steps * 20),
+                 chain=((floor, int(lane.max()), False)
+                        if floor in chk.step_ms else None))
+
+
 def run_build(tag: str, call, needed: tuple[str, ...]) -> tuple[dict, dict]:
     """One build with launch counts reset just before it: every kernel in
     `needed` must have launched.  Returns the stage seconds and counts its
@@ -1177,8 +1256,7 @@ def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
             "K11b's LCP differs from native Kasai")
     chk.time("lcp_lift", lambda: TC.lcp_from_pyramid(r0, sa, pyramid),
              lambda: TC.lcp_from_pyramid_ref(r0, sa, pyramid),
-             f"n = {n}, R = {R}",
-             bound=((R + 3) * 4 * n, 10 * (R + 1) * n))
+             f"n = {n}, R = {R}", bound=lcp_bound(n, R))
     del pyramid, rank
 
     heads, lens = F.read_rlbwt(f"{prefix}.fa")
@@ -1394,10 +1472,12 @@ def phase11(dev, cli_main, fastas: list[str], bench_prefix: str,
     return v, launches
 
 
-def phase11b(torch, dev, pan_prefix: str, v8: dict) -> tuple[dict, dict]:
+def phase11b(torch, dev, pan_prefix: str, v8: dict, chk: Checks
+             ) -> tuple[dict, dict]:
     """Phase 8's pangenome through stage_mums without the native library
     (the full-size device suffix array): its four artifacts byte-equal to
-    phase 8's."""
+    phase 8's; then its sa_lcp_s split into K11a's rounds, K11b, copies
+    and host, K11b held to its plain version at this n."""
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.pipeline import build as TB
     from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
@@ -1431,7 +1511,109 @@ def phase11b(torch, dev, pan_prefix: str, v8: dict) -> tuple[dict, dict]:
         f"{v8['sa_lcp_s']:.3f} (native SA-IS + Kasai), device memory peak "
         f"{v['device_mem_peak_bytes']} B; " + json.dumps(v)
         + "; launches " + json.dumps(launches))
+    v["sa_lcp_split"] = sa_lcp_split(torch, dev, docs, v["sa_lcp_s"], chk)
     return v, launches
+
+
+def lcp_bound(n: int, R: int) -> tuple[int, int]:
+    """K11b's (bytes, operations): sa, the inverse suffix array (the top
+    level) and ranks0 read once, lcp written once.  Its probes past the
+    text-side one depend on the data and are not counted; the operations
+    are the parent's descending lift, which do not set the bound."""
+    return 16 * n, 10 * (R + 1) * n
+
+
+def sa_lcp_split(torch, dev, docs: list[bytes], sa_lcp_s: float,
+                 chk: Checks) -> dict:
+    """stage_mums's suffix array and LCP on the card once more at phase
+    11b's n, as pipeline/build.py runs them (suffix_array, lcp_from_pyramid
+    on the int64 ranks, lcp and sa copied back), each part synchronised and
+    timed on the host clock in this one run: the ranks' int32 cast on the
+    host and their upload, the K11a rounds (each with its read-back of the
+    largest rank), the second upload (the int64 ranks, cast on the card),
+    K11b, the copies of lcp and sa back; host is the run's wall less those
+    parts.  Then each round is timed alone (with its radix passes and
+    bound) and K11b is held to its plain version and timed.  Returns the
+    split in seconds."""
+    from colbwt_tpu_torch.ops import construct as TC
+    from colbwt_tpu_torch.ops import oracle as O
+
+    ranks = O.concat_collection(docs)[1]
+    n = ranks.size
+    part = dict.fromkeys(("cast_s", "ranks_up_s", "rounds_s",
+                          "ranks_up_again_s", "lcp_lift_s", "lcp_down_s",
+                          "sa_down_s"), 0.0)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        part[key] += time.perf_counter() - t
+        return out
+
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    r32 = timed("cast_s", lambda: ranks.astype(np.int32))
+    r0 = timed("ranks_up_s", lambda: torch.from_numpy(r32).to(dev))
+    ws = TC.DoublingWorkspace(n, dev)
+    rank, max_rank, k, pyramid, sa = r0, int(ranks.max()), 1, [], None
+    rounds = []  # (input ranks, k, their largest rank, order)
+    for _ in range(max(1, int(np.ceil(np.log2(n))))):
+        rounds.append((rank, k, max_rank, sa))
+        sa, rank, top = timed("rounds_s", lambda: TC.doubling_round(
+            rank, k, max_rank, sa, ws))
+        pyramid.append(rank)
+        max_rank, k = timed("rounds_s", lambda: int(top)), 2 * k
+        if max_rank == n - 1:
+            break
+    r0_again = timed("ranks_up_again_s", lambda: TC._int32_on(ranks, dev))
+    lcp = timed("lcp_lift_s",
+                lambda: TC.lcp_from_pyramid(r0_again, sa, pyramid))
+    timed("lcp_down_s", lambda: lcp.cpu().numpy())
+    timed("sa_down_s", lambda: sa.cpu().numpy())
+    wall = time.perf_counter() - t_run
+    del r0_again
+    split = dict(part, wall_s=wall, host_s=wall - sum(part.values()))
+    rounds_ms = []
+    for j, (rank_in, k_in, top_in, order_in) in enumerate(rounds):
+        ms = cuda_ms(torch, lambda: TC.doubling_round(rank_in, k_in, top_in,
+                                                      order_in, ws))
+        passes = TC.key_passes(top_in)
+        bound = (12 * n + 4) / HBM_BYTES_PER_S * 1e3
+        rounds_ms.append(ms)
+        log(f"[time] doubling_round n = {n}, round {j + 1} of "
+            f"{len(rounds)} (k = {k_in}): {passes} radix passes of 8 bits, "
+            f"{TC.round_launches(passes, order_in is not None)} launches, "
+            f"{ms:.4f} ms, bound {bound:.4f} ms (bytes, {12 * n + 4} B)")
+    del rounds, ws
+    R = len(pyramid)
+    chk.equal("lcp_lift", lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid),
+              f"n = {n}, R = {R}")
+    lcp_ms = chk.time("lcp_lift",
+                      lambda: TC.lcp_from_pyramid(r0, sa, pyramid),
+                      lambda: TC.lcp_from_pyramid_ref(r0, sa, pyramid),
+                      f"n = {n}, R = {R} (phase 11b)",
+                      bound=lcp_bound(n, R))
+    del lcp, sa, pyramid, rank, r0
+    torch.cuda.empty_cache()
+    split["rounds_warm_s"] = sum(rounds_ms) / 1e3
+    split["lcp_lift_warm_s"] = lcp_ms / 1e3
+    copies = (split["ranks_up_s"] + split["ranks_up_again_s"]
+              + split["lcp_down_s"] + split["sa_down_s"])
+    log(f"[phase 11b] suffix array + LCP as stage_mums runs them, n = {n}, "
+        f"one run of {wall:.4f} s (the build's sa_lcp_s {sa_lcp_s:.4f} s): "
+        f"{len(rounds_ms)} K11a rounds {split['rounds_s']:.4f} s (timed "
+        f"alone {split['rounds_warm_s']:.4f}), K11b "
+        f"{split['lcp_lift_s']:.4f} s (timed alone "
+        f"{split['lcp_lift_warm_s']:.4f}), copies {copies:.4f} s (ranks up "
+        f"{split['ranks_up_s']:.4f} as int32 and again "
+        f"{split['ranks_up_again_s']:.4f} as int64, lcp down "
+        f"{split['lcp_down_s']:.4f}, sa down {split['sa_down_s']:.4f}), "
+        f"host {split['cast_s'] + split['host_s']:.4f} s (the int32 cast "
+        f"{split['cast_s']:.4f}, the rest {split['host_s']:.4f}: allocation, "
+        f"Python); " + json.dumps(split))
+    return split
 
 
 def phase11c(torch, dev, docs: list[bytes], tbl3) -> tuple[dict, dict]:
@@ -2249,11 +2431,16 @@ def run(torch) -> tuple[dict, list[dict]]:
              ("query_batch_fused", "upload_rows"))):
         p10 = WORK / f"reads_stream{tag}.fa"
         shutil.copy(pat, p10)
-        fused[tag], lc = stream_phase(
-            torch, tag, lambda: cli_main(["query", index_prefix, "-p",
-                                          str(p10), "--stream", *extra]),
-            p10, ref, engine, needed, main_path["reads_per_s"])
+        with FirstCalls("colbwt_tpu_torch.ops.query_pos",
+                        "query_chunk_pos") as k3:
+            fused[tag], lc = stream_phase(
+                torch, tag, lambda: cli_main(["query", index_prefix, "-p",
+                                              str(p10), "--stream", *extra]),
+                p10, ref, engine, needed, main_path["reads_per_s"])
         launches.append(lc)
+        if tag == "10":
+            time_stream_scans(torch, k3, lc["query_chunk_pos"], chk)
+        del k3
     log("[fused and stream paths] " + json.dumps(fused))
 
     # phases 8-8c: the build path through the CLI; 11-11c: without the
@@ -2261,7 +2448,7 @@ def run(torch) -> tuple[dict, list[dict]]:
     v8, lc8 = phase8(torch, dev, cli_main, chk)
     v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
     v11, lc11 = phase11(dev, cli_main, fastas, prefix, v3)
-    v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8)
+    v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8, chk)
     v11c, lc11c = phase11c(torch, dev, docs, tbl)
     launches += [lc3, lc8, *lc8bc, lc11, lc11b, lc11c]
 

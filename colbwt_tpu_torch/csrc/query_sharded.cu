@@ -42,8 +42,9 @@
 // warp's stores of a step are coalesced.  The fetch: a lane's owner by one
 // 32-bit division, W a template parameter (2, 8, 16), 8- or 16-byte vector
 // loads through the read-only path, 32-bit lane indices.  The steps: one
-// thread per read, state in (B,) int32 arrays between launches; K13d one
-// thread per table row with k chained T1 gathers.
+// thread per read, state in (B,) int32 arrays between launches.  K13d
+// streams its rows out, its T1 loads fanned out over the key's last digit
+// (below).
 //
 // Arithmetic is the JAX programs' int32 arithmetic (sums wrap as there, shifts
 // on uint32 where JAX shifts into bit 31); every gather index is int64 and
@@ -83,12 +84,6 @@ __device__ __forceinline__ int32_t mul32(int32_t a, int32_t b) {
 __device__ __forceinline__ bool lt(int32_t a_hi, int32_t a_lo, int32_t b_hi,
                                    int32_t b_lo) {
   return a_hi < b_hi || (a_hi == b_hi && a_lo < b_lo);
-}
-
-int64_t grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(1) << 20;  // grid-stride loops cover the rest
-  return blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -145,40 +140,112 @@ cudaError_t launch_fetch(const long long* tab, int ip, int64_t L,
 // positions [lo, lo + n_local), from the replicated T1 ((A * n, 2), match flag
 // at bit 31).  The first processed char is the key's high digit; its match
 // bit goes to pos_bits(k) and its col id to byte 0.
+//
+// K2's structure (query_pos.cu), fanned out over the last digit: one block a
+// (prefix: the key's first k - 1 digits, tile of kTkTile positions),
+// tile-major (the blocks of one tile's prefixes run together and share its
+// T1 rows in the L2), its digits decoded once with 32-bit divisions and
+// 32-bit offsets inside the tile.  A thread follows the prefix's chain for
+// kTkUnroll positions a block's width apart (the first row a coalesced load,
+// the rest gathers), then issues the last digit's A gathers T1[d * n + pos],
+// kTkFan in flight at once, and stores the A rows n_local apart, each
+// coalesced across the warp: (k - 1) / A + 1 loads a row where a thread a
+// row made k dependent ones.  At k = 1 the prefix is empty and the fan's
+// loads are the coalesced first rows.
+constexpr int kTkThreads = 256;
+constexpr int kTkUnroll = 2;
+constexpr int kTkFan = 2;
+constexpr int kTkTile = kTkThreads * kTkUnroll;
+constexpr int kTkMaxK = 4;
 
-__global__ void compose_sharded_tk_kernel(const int2* __restrict__ t1,
-                                          int64_t t1_rows, int64_t n,
-                                          int64_t n_local, int64_t lo,
-                                          int64_t A, int k, int64_t total,
-                                          int2* __restrict__ out) {
+__global__ void __launch_bounds__(kTkThreads) compose_sharded_tk_kernel(
+    const int2* __restrict__ t1, int64_t t1_rows, int64_t n, int64_t n_local,
+    int64_t lo, int A, int k, uint32_t prefixes, uint32_t tiles,
+    int2* __restrict__ out) {
   const int pb = 32 - k;
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t key = e / n_local;
-    const int64_t gpos = lo + (e - key * n_local);
-    int64_t digit[4];
-    int64_t rem = key;
-    for (int j = k - 1; j >= 0; --j) {
-      digit[j] = rem % A;
-      rem /= A;
+  const uint32_t tile = blockIdx.x / prefixes;
+  const uint32_t prefix = blockIdx.x - tile * prefixes;
+  // T1's block of each prefix digit (loops unrolled to kTkMaxK - 1, so the
+  // array stays in registers)
+  int64_t chain[kTkMaxK - 1] = {};
+  uint32_t rem = prefix;
+#pragma unroll
+  for (int j = kTkMaxK - 2; j >= 0; --j) {
+    if (j <= k - 2) {
+      const uint32_t rest = rem / static_cast<uint32_t>(A);
+      chain[j] = static_cast<int64_t>(rem - rest * A) * n;
+      rem = rest;
     }
-    const int64_t gp = gpos < n - 1 ? gpos : n - 1;
-    const int2 first = t1[clip(digit[0] * n + gp, t1_rows)];
-    uint32_t pos = static_cast<uint32_t>(first.x) & 0x7FFFFFFFu;
-    uint32_t w0 = ((static_cast<uint32_t>(first.x) >> 31) & 1u) << pb;
-    uint32_t w1 = static_cast<uint32_t>(first.y);
-    for (int j = 1; j < k; ++j) {
-      const int2 nxt = t1[clip(digit[j] * n + pos, t1_rows)];
-      pos = static_cast<uint32_t>(nxt.x) & 0x7FFFFFFFu;
-      w0 |= ((static_cast<uint32_t>(nxt.x) >> 31) & 1u) << (pb + j);
-      w1 |= (static_cast<uint32_t>(nxt.y) & 0xFFu) << (8 * j);
+  }
+  const int64_t p0 = static_cast<int64_t>(tile) * kTkTile;
+  const int32_t rows =
+      static_cast<int32_t>(n_local - p0 < kTkTile ? n_local - p0 : kTkTile);
+
+  uint32_t pos[kTkUnroll], w0[kTkUnroll], w1[kTkUnroll];
+  bool pad[kTkUnroll];
+#pragma unroll
+  for (int u = 0; u < kTkUnroll; ++u) {
+    const int64_t gpos = lo + p0 + threadIdx.x + u * kTkThreads;
+    pad[u] = gpos >= n;  // ip padding: an inert self-loop, never reached
+    pos[u] = static_cast<uint32_t>(gpos < n - 1 ? gpos : n - 1);
+    w0[u] = 0;
+    w1[u] = 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kTkMaxK - 1; ++j) {
+    if (j >= k - 1) break;
+    int2 r[kTkUnroll];
+#pragma unroll
+    for (int u = 0; u < kTkUnroll; ++u) {
+      const int32_t o = threadIdx.x + u * kTkThreads;
+      r[u] = o < rows ? __ldg(t1 + clip(chain[j] + pos[u], t1_rows))
+                      : make_int2(0, 0);
     }
-    w0 |= pos;
-    if (gpos >= n) {  // ip padding: an inert self-loop, never reached
-      w0 = static_cast<uint32_t>(gp);
-      w1 = 0;
+#pragma unroll
+    for (int u = 0; u < kTkUnroll; ++u) {
+      const uint32_t x = static_cast<uint32_t>(r[u].x);
+      const uint32_t y = static_cast<uint32_t>(r[u].y);
+      pos[u] = x & 0x7FFFFFFFu;
+      w0[u] |= ((x >> 31) & 1u) << (pb + j);
+      w1[u] |= j == 0 ? y : (y & 0xFFu) << (8 * j);
     }
-    out[e] = make_int2(static_cast<int32_t>(w0), static_cast<int32_t>(w1));
+  }
+  const int last = k - 1;
+  int2* dst = out + static_cast<int64_t>(prefix) * A * n_local + p0;
+  for (int d0 = 0; d0 < A; d0 += kTkFan) {
+    int2 r[kTkUnroll][kTkFan];
+#pragma unroll
+    for (int u = 0; u < kTkUnroll; ++u) {
+      const int32_t o = threadIdx.x + u * kTkThreads;
+#pragma unroll
+      for (int f = 0; f < kTkFan; ++f) {
+        const int64_t d = d0 + f;
+        r[u][f] = d < A && o < rows
+                      ? __ldg(t1 + clip(d * n + pos[u], t1_rows))
+                      : make_int2(0, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTkUnroll; ++u) {
+      const int32_t o = threadIdx.x + u * kTkThreads;
+      if (o >= rows) continue;
+#pragma unroll
+      for (int f = 0; f < kTkFan; ++f) {
+        const int d = d0 + f;
+        if (d >= A) break;
+        const uint32_t x = static_cast<uint32_t>(r[u][f].x);
+        const uint32_t y = static_cast<uint32_t>(r[u][f].y);
+        uint32_t v0 = w0[u] | (((x >> 31) & 1u) << (pb + last)) |
+                      (x & 0x7FFFFFFFu);
+        uint32_t v1 = last == 0 ? y : w1[u] | ((y & 0xFFu) << (8 * last));
+        if (pad[u]) {
+          v0 = static_cast<uint32_t>(n - 1);
+          v1 = 0;
+        }
+        dst[static_cast<int64_t>(d) * n_local + o] =
+            make_int2(static_cast<int32_t>(v0), static_cast<int32_t>(v1));
+      }
+    }
   }
 }
 
@@ -555,13 +622,23 @@ int colbwt_sharded_fetch(const void* tab, int64_t ip, int64_t L, int64_t W,
 int colbwt_compose_sharded_tk(const void* t1, int64_t t1_rows, int64_t n,
                               int64_t n_local, int64_t lo, int64_t A,
                               int64_t k, void* out, void* stream) {
-  int64_t keys = 1;
-  for (int64_t j = 0; j < k; ++j) keys *= A;
-  const int64_t total = keys * n_local;
-  compose_sharded_tk_kernel<<<grid_for(total), kThreads, 0,
+  if (k < 1 || k > kTkMaxK || A < 1 || A > 256 || n < 1 || n_local < 1 ||
+      t1_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int64_t prefixes = 1;
+  for (int64_t j = 1; j < k; ++j) prefixes *= A;
+  const int64_t tiles = (n_local + kTkTile - 1) / kTkTile;
+  if (prefixes * tiles > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  compose_sharded_tk_kernel<<<static_cast<unsigned>(prefixes * tiles),
+                              kTkThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int2*>(t1), t1_rows, n, n_local, lo, A,
-      static_cast<int>(k), total, static_cast<int2*>(out));
+      static_cast<const int2*>(t1), t1_rows, n, n_local, lo,
+      static_cast<int>(A), static_cast<int>(k),
+      static_cast<uint32_t>(prefixes), static_cast<uint32_t>(tiles),
+      static_cast<int2*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

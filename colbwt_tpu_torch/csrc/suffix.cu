@@ -27,27 +27,44 @@
 //   Without a given order the round first sorts the identity by rank the
 //   same way.  A round makes 3 + passes launches (a memset, the histogram,
 //   the scatters, the re-rank), 3 + 2 passes without an order.
-// - K11b `colbwt_lcp_lift` (:106 lcp_from_pyramid): one thread per adjacent
-//   pair (sa[i-1], sa[i]) probes widths 2^R ... 2 through the pyramid's
-//   levels R-1 ... 0, then width 1 through the base ranks.  An
-//   out-of-range probe reads -1 for a and -2 for b, so it never matches.
-//   Positions are int64 inside: a + h passes 2^31 - 1 near the top of
-//   int32 n, where JAX's int32 arithmetic would wrap.
+// - K11b `colbwt_lcp_lift` (:106 lcp_from_pyramid): the same values as
+//   JAX's lift, lcp[0] = 0 and lcp[i] = min(LCE(sa[i-1], sa[i]),
+//   2^(R+1) - 1), computed in text order as Kasai computes them.  A warp
+//   walks 32 x kLcpSpan consecutive text positions, its lanes side by side;
+//   for position p, j = isa[p] and partner q = sa[j-1], a lane lifts a
+//   known common prefix of q and p through the pyramid (a gallop up the
+//   widths 1, 2, 4, ..., then a descent down them) and stores the value
+//   at plcp[p]; a second kernel gathers lcp[j] = plcp[sa[j]].  The known
+//   prefix is the lane's previous value less the 32 positions stepped
+//   over (Kasai's bound, which the cap keeps); a lane's first position
+//   takes the full descending lift.  isa is the pyramid's top level when
+//   it ranks the last suffix of sa n - 1 (ranks are dense and grow along
+//   sa, so that is its largest rank and every suffix has its own: always,
+//   after suffix_array), else a scatter kernel builds it first; the kernels
+//   read that rank themselves, so the host never waits.  An out-of-range
+//   probe reads -1 for q and -2 for p, so it never matches.  Positions are
+//   int64 inside: p + h passes 2^31 - 1 near the top of int32 n, where
+//   JAX's int32 arithmetic would wrap.
 // - K12 `colbwt_segmented_argmin` (:494 _segmented_argmin): one warp per
 //   segment [lo, hi] of the lcp array takes the minimum of (lcp, position),
 //   so the first position of the minimum wins, as np.argmin's does; JAX's
 //   two segment_min passes over a per-position segment id are not needed.
 //
-// What bounds them on an H100: all three move bytes.  K11a's passes read
+// What bounds them on an H100: K11a and K12 move bytes.  K11a's passes read
 // and write 8 bytes a position (a 4-byte key and a 4-byte index), with
 // ceil(bit_length(max rank) / 8) passes (3 at n = 4M, 4 at n = 72M), plus
 // three random 4-byte accesses a position: the first pass's key gather,
 // the re-rank's next-rank gather and its new_rank scatter, each a 32-byte
 // sector; at n = 4M the re-rank, mostly that scatter, takes over a third
 // of a round.
-// K11b makes R + 1 dependent pairs of random 4-byte gathers a position,
-// each a 32-byte sector from device memory.  K12 reads each position of
-// its segments once, coalesced within a warp.
+// K11b is bound by sectors, not bytes: JAX's lift makes R + 1 pairs of
+// random 4-byte probes a position (22 at R = 10), each a 32-byte sector.
+// The walk makes a gather of sa[j-1], the probes at q + h and the plcp
+// gather in SA order; the isa reads, the probes at p + h and the plcp
+// stores of a warp fall on four consecutive sectors, where lanes a run of
+// positions apart would touch 32, and a scatter into SA order would cost a
+// random write a position where the gather costs a random read.
+// K12 reads each position of its segments once, coalesced within a warp.
 //
 // All positions are < 2^31 (the wrappers check n); ranks and offsets are
 // int32.  Plain C interface (ctypes); every entry launches on the caller's
@@ -434,9 +451,29 @@ cudaError_t radix_sort(PassArgs first, int passes, bool keep_keys,
 // K11b, K12
 // ---------------------------------------------------------------------------
 
+// level l of the lift (width 2^l): ranks0 at l = 0, pyramid[l - 1] above
 struct Levels {
-  const int32_t* p[kMaxLevels];
+  const int32_t* p[kMaxLevels + 1];
 };
+
+// K11b's walk: a thread takes kLcpSpan positions of the text, kLcpGroup
+// apart: a group of kLcpGroup lanes walks kLcpGroup * kLcpSpan positions
+// side by side (1: each lane a run of consecutive positions; 32: a warp's
+// lanes side by side).  A warp's isa reads, text-side probes and stores
+// then touch 4 sectors from kLcpGroup = 8 on, where lanes a run apart
+// touch 32; the bound a position leaves its successor falls by kLcpGroup.
+constexpr int kLcpThreads = 256;
+constexpr int kLcpSpan = 32;
+constexpr int kLcpGroup = 32;
+
+// whether the top level `top` (null when there is none) is the inverse of
+// sa: its rank of sa's last suffix, the largest, is n - 1
+__device__ __forceinline__ bool top_is_inverse(const int32_t* top,
+                                               const int32_t* sa, int64_t n) {
+  if (top == nullptr) return false;
+  const int32_t p = __ldg(sa + n - 1);
+  return p >= 0 && p < n && __ldg(top + p) == n - 1;
+}
 
 __device__ __forceinline__ bool same_rank(const int32_t* level, int64_t pa,
                                           int64_t pb, int64_t n) {
@@ -445,25 +482,99 @@ __device__ __forceinline__ bool same_rank(const int32_t* level, int64_t pa,
   return ra == rb;
 }
 
-__global__ void lcp_lift_kernel(const int32_t* __restrict__ ranks0,
-                                const int32_t* __restrict__ sa, Levels levels,
-                                int num_levels, int64_t n,
-                                int32_t* __restrict__ lcp) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  if (i == 0) {
-    lcp[0] = 0;
-    return;
+// the lift of h, a known common prefix of the suffixes at a and b, to
+// min(LCE(a, b), cap), cap = 2^(R+1) - 1: a gallop through widths 1, 2,
+// 4, ... while the probes match, then a descent through the halved widths
+// (the gallop stops at a width w with LCE - h < w, or at the cap)
+__device__ __forceinline__ int64_t extend(const Levels& lv, int R, int64_t n,
+                                          int64_t cap, int64_t a, int64_t b,
+                                          int64_t h) {
+  int l = 0;
+  while (l <= R && h + (int64_t{1} << l) <= cap &&
+         same_rank(lv.p[l], a + h, b + h, n)) {
+    h += int64_t{1} << l;
+    ++l;
   }
-  const int64_t a = sa[i - 1];
-  const int64_t b = sa[i];
+  while (l > 0) {
+    --l;
+    if (h + (int64_t{1} << l) <= cap &&
+        same_rank(lv.p[l], a + h, b + h, n)) {
+      h += int64_t{1} << l;
+    }
+  }
+  return h;
+}
+
+// the parent's descending lift, widths 2^R ... 1: min(LCE(a, b), cap)
+__device__ __forceinline__ int64_t lift(const Levels& lv, int R, int64_t n,
+                                        int64_t a, int64_t b) {
   int64_t h = 0;
-  for (int j = num_levels - 1; j >= 0; --j) {
-    if (same_rank(levels.p[j], a + h, b + h, n)) h += int64_t{2} << j;
+  for (int l = R; l >= 0; --l) {
+    if (same_rank(lv.p[l], a + h, b + h, n)) h += int64_t{1} << l;
   }
-  if (same_rank(ranks0, a + h, b + h, n)) h += 1;
-  lcp[i] = static_cast<int32_t>(h);
+  return h;
+}
+
+// Kasai's order: for text position p with j = isa[p] > 0 and partner
+// q = sa[j - 1], the value min(LCE(p, q), cap) goes to plcp[p], and it
+// bounds the one at p + d from below by value - d.  A thread's first
+// position takes the full lift; each later one starts from its
+// predecessor's value less the stride and extends it.  isa is `top` when
+// that is the inverse, else `scratch`.
+__global__ void __launch_bounds__(kLcpThreads)
+    lcp_walk_kernel(Levels lv, int R, const int32_t* top,
+                    const int32_t* scratch, const int32_t* __restrict__ sa,
+                    int64_t n, int32_t* __restrict__ plcp) {
+  const int32_t* __restrict__ isa =
+      top_is_inverse(top, sa, n) ? top : scratch;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kLcpThreads +
+                    threadIdx.x;
+  const int64_t first =
+      t / kLcpGroup * (kLcpGroup * kLcpSpan) + t % kLcpGroup;
+  const int64_t cap = (int64_t{2} << R) - 1;
+  int64_t h = -1;  // the previous position's value (none yet)
+  int64_t j_next = first < n ? __ldg(isa + first) : -1;
+  for (int i = 0; i < kLcpSpan; ++i) {
+    const int64_t p = first + static_cast<int64_t>(i) * kLcpGroup;
+    if (p >= n) break;
+    const int64_t j = j_next;
+    const int64_t p_next = p + kLcpGroup;
+    j_next = i + 1 < kLcpSpan && p_next < n ? __ldg(isa + p_next) : -1;
+    if (j <= 0 || j >= n) {  // p = sa[0]: no partner, value 0
+      if (j == 0) plcp[p] = 0;
+      h = 0;
+      continue;
+    }
+    const int64_t q = __ldg(sa + j - 1);
+    h = h < 0 ? lift(lv, R, n, q, p)
+              : extend(lv, R, n, cap, q, p,
+                       h > kLcpGroup ? h - kLcpGroup : 0);
+    plcp[p] = static_cast<int32_t>(h);
+  }
+}
+
+// lcp[j] = plcp[sa[j]], lcp[0] = 0: the text-order values into SA order
+__global__ void lcp_gather_kernel(const int32_t* __restrict__ sa,
+                                  const int32_t* __restrict__ plcp,
+                                  int64_t n, int32_t* __restrict__ lcp) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= n) return;
+  const int32_t p = __ldg(sa + j);
+  lcp[j] = j > 0 && p >= 0 && p < n ? __ldg(plcp + p) : 0;
+}
+
+// isa[sa[j]] = j, unless the top level is the inverse already
+__global__ void isa_scatter_kernel(const int32_t* __restrict__ sa, int64_t n,
+                                   const int32_t* top,
+                                   int32_t* __restrict__ isa) {
+  if (top_is_inverse(top, sa, n)) return;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       j < n; j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int32_t p = sa[j];
+    if (p >= 0 && p < n) isa[p] = static_cast<int32_t>(j);
+  }
 }
 
 __global__ void segmented_argmin_kernel(const int32_t* __restrict__ lcp,
@@ -585,21 +696,39 @@ int colbwt_doubling_round(const void* rank, int64_t n, int64_t k,
 }
 
 // `levels` is a host array of `num_levels` device pointers (pyramid[0 ..
-// R-1], n int32 each); lcp gets n int32.
+// R-1], n int32 each); lcp gets n int32, and holds the inverse of sa until
+// the last launch when the top level is not that inverse.  `plcp` is
+// scratch of n int32 for the values in text order.  Three launches: the
+// scatter (which returns at once when the top level is the inverse), the
+// walk, the gather.
 int colbwt_lcp_lift(const void* ranks0, const void* sa,
                     const void* const* levels, int64_t num_levels, int64_t n,
-                    void* lcp, void* stream) {
-  if (num_levels < 0 || num_levels > kMaxLevels) {
+                    void* plcp, void* lcp, void* stream) {
+  if (num_levels < 0 || num_levels > kMaxLevels || n < 1 ||
+      n >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Levels lv = {};
+  lv.p[0] = static_cast<const int32_t*>(ranks0);
   for (int64_t j = 0; j < num_levels; ++j) {
-    lv.p[j] = static_cast<const int32_t*>(levels[j]);
+    lv.p[j + 1] = static_cast<const int32_t*>(levels[j]);
   }
-  lcp_lift_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(
-                                                   stream)>>>(
-      static_cast<const int32_t*>(ranks0), static_cast<const int32_t*>(sa),
-      lv, static_cast<int>(num_levels), n, static_cast<int32_t*>(lcp));
+  const int32_t* s_a = static_cast<const int32_t*>(sa);
+  const int32_t* top = num_levels ? lv.p[num_levels] : nullptr;
+  int32_t* inv = static_cast<int32_t*>(lcp);
+  int32_t* text_order = static_cast<int32_t*>(plcp);
+  cudaError_t err;
+  const int64_t scatter_blocks = ceil_div(n, 256);
+  isa_scatter_kernel<<<scatter_blocks < 4096 ? scatter_blocks : 4096, 256, 0,
+                       s>>>(s_a, n, top, inv);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  const int64_t threads = ceil_div(n, kLcpSpan * 32) * 32;
+  lcp_walk_kernel<<<ceil_div(threads, kLcpThreads), kLcpThreads, 0, s>>>(
+      lv, static_cast<int>(num_levels), top, inv, s_a, n, text_order);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  lcp_gather_kernel<<<ceil_div(n, 256), 256, 0, s>>>(
+      s_a, text_order, n, static_cast<int32_t*>(lcp));
   return static_cast<int>(cudaGetLastError());
 }
 

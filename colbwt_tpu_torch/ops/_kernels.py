@@ -76,7 +76,7 @@ _SIGNATURES = {
                        + [_P],
     "colbwt_doubling_round": ([_P] + [_I] * 3 + [_P] * 6 + [_I] * 2
                               + [_P] * 3 + [_P]),
-    "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] + [_P],
+    "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] * 3,
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
     "colbwt_sharded_fetch": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
@@ -119,9 +119,9 @@ def _headers() -> list[Path]:
     return sorted(CSRC.glob("*.cuh"))
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands side by side; raises with the first failure's
-    output once all have ended."""
+    output once all have ended, else returns each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -130,6 +130,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
 
 
 def library_path() -> Path:

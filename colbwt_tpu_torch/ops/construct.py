@@ -14,7 +14,9 @@ Suffix array, LCP and thresholds, kernels in csrc/suffix.cu:
   workspace for all of them, and keeps the per-round ranks (the pyramid)
   on the device.
 - K11b `lcp_lift` (replaces construct_jax.py:106 `lcp_from_pyramid`):
-  the LCP of SA neighbours by power-of-two probes through the pyramid.
+  the LCP of SA neighbours by power-of-two probes through the pyramid,
+  walked in text order (Kasai's) so each position starts from the bound
+  its predecessor leaves; the plain version keeps JAX's descending lift.
 - K12 `segmented_argmin` (replaces construct_jax.py:494
   `_segmented_argmin`): the first argmin of the LCP over each segment
   between two runs of one character; `compute_thresholds`
@@ -260,9 +262,12 @@ def lcp_from_pyramid_ref(ranks0: torch.Tensor, sa: torch.Tensor,
 def lcp_from_pyramid(ranks0, sa: torch.Tensor, pyramid: list[torch.Tensor]
                      ) -> torch.Tensor:
     """K11b (replaces construct_jax.py:106 lcp_from_pyramid and :137
-    lcp_jax): the int32 LCP array from `suffix_array`'s sa and pyramid;
+    lcp_jax): the int32 LCP array from `suffix_array`'s sa and pyramid (or
+    its first levels: the values are capped at 2**(len(pyramid)+1) - 1);
     `ranks0` (an array or a tensor) goes to sa's device as int32.  CPU
-    tensors take the plain version; CUDA tensors launch `lcp_lift`."""
+    tensors take the plain version; CUDA tensors launch `lcp_lift`, which
+    walks the text in Kasai's order and so needs sa to be the suffix order
+    of the text that ranks0 and the pyramid rank."""
     dev = sa.device
     r0 = _int32_on(ranks0, dev)
     if dev.type == "cpu":
@@ -281,10 +286,14 @@ def lcp_from_pyramid(ranks0, sa: torch.Tensor, pyramid: list[torch.Tensor]
                              f"expected ({n},)")
     levels = (ctypes.c_void_p * len(pyramid))(*(p.data_ptr()
                                                 for p in pyramid))
+    # the entry point takes the top level as the inverse suffix array when
+    # it is one (it reads the top level's rank of sa[n-1] on the card), else
+    # scatters the inverse into lcp before the walk
+    plcp = torch.empty(n, dtype=torch.int32, device=dev)
     lcp = torch.empty(n, dtype=torch.int32, device=dev)
     code = K.on(dev).colbwt_lcp_lift(r0.data_ptr(), sa.data_ptr(), levels,
-                                     len(pyramid), n, lcp.data_ptr(),
-                                     K.stream_handle(dev))
+                                     len(pyramid), n, plcp.data_ptr(),
+                                     lcp.data_ptr(), K.stream_handle(dev))
     K.check("lcp_lift", code)
     K.launches["lcp_lift"] += 1
     return lcp

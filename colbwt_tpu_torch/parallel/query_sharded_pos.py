@@ -102,7 +102,8 @@ def compose_sharded_tk(t1: torch.Tensor, n: int, n_local: int, lo: int,
     """K13d (replaces colbwt_tpu/parallel/query_sharded_pos.py:66
     _build_sharded_tk): the (A^k · n_local, 2) int32 block of T_k for
     positions [lo, lo + n_local), composed from the replicated T1 ((A·n, 2),
-    the k=1 layout) with k chained T1 gathers per row.  The first processed
+    the k=1 layout) by k chained T1 gathers per row; the kernel follows
+    the chain of a key's first k - 1 digits once for all A last digits.  The first processed
     char is the key's high digit; its match bit lands at pos_bits(k) and its
     col id in byte 0.  Rows past n are self-loops [min(gpos, n-1), 0].  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""

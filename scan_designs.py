@@ -1,32 +1,51 @@
 #!/usr/bin/env python3
-"""Design sweep of the scans K5, K6a and K7 on one CUDA card.
+"""Design sweep of the scans K5, K6a and K7, the LCP lift K11b and the
+sharded table composition K13d on one CUDA card.
 
-    python3 scan_designs.py [--parent DIR]
+    python3 scan_designs.py [--parent DIR] [--groups scans,lcp,tk]
+                            [--designs NAME,...]
 
-Builds bench.py's index and reads as chip_smoke.py's phase 3 does, the
-run-split indexes with ff_bound 2 and 1 and the indexes with run lengths
-x256 (mega) and x1024 (mega-wide), then times on the same inputs, in
-turns, the shipped kernels of colbwt_tpu_torch/csrc (query_fused.cu,
-query_mega.cu) beside variants of them.  Each variant is the shipped
-source with one change, compiled into a library of its own:
+Each group times, on the same inputs and in turns, the shipped kernels of
+colbwt_tpu_torch/csrc beside variants of them.  Each variant is the
+shipped source with one change, compiled into a library of its own:
 
-- row-major (K7): the outputs stored (B, M) row-major, not transposed;
-- column-major (K5, K6a): the outputs stored (M, B) column-major and
-  transposed on the device, as the mega chunk scan stores them;
-- threads-32, threads-64 (K5, K6a), threads-128 (K7): that block size in
-  place of the shipped one (64 threads for K7, 128 for K5 and K6a);
-- jump-on-mismatch (K7): the jump row loaded only when the step's
-  character mismatches the run's, after the run row.
+- scans (query_fused.cu, query_mega.cu; bench.py's index and reads as
+  chip_smoke.py's phase 3 builds them, the run-split indexes with
+  ff_bound 2 and 1 and the indexes with run lengths x256 (mega) and x1024
+  (mega-wide)):
+  - row-major (K7): the outputs stored (B, M) row-major, not transposed;
+  - column-major (K5, K6a): the outputs stored (M, B) column-major and
+    transposed on the device, as the mega chunk scan stores them;
+  - threads-32, threads-64 (K5, K6a), threads-128 (K7): that block size
+    in place of the shipped one (64 threads for K7, 128 for K5 and K6a);
+  - jump-on-mismatch (K7): the jump row loaded only when the step's
+    character mismatches the run's, after the run row;
+- lcp (suffix.cu; K11b on the suffix array and pyramid of bench's
+  collection, n = 4,000,004, and of chip_smoke.py's 16 x 4.5 Mbp
+  pangenome, n = 72,000,016, both built on the card): the walk's span
+  (positions a thread) and layout, blocked (each lane a run of
+  consecutive positions) or groups of 4, 8 and 16 lanes side by side in
+  place of the shipped warp of 32 (interleaved); the values scattered
+  into SA order in place of stored in text order and gathered (the
+  sweep's top levels are the inverse suffix array, so the scatter design
+  never builds one in the lcp it writes);
+- tk (query_sharded.cu; K13d for shard 0 of T3 at (dp, ip) = (1, 2) on
+  bench's index, G-pos's shape): positions a thread, the fan's width and
+  the block order (prefix-major in place of tile-major).
 
-With --parent DIR (a checkout of the parent commit) its query_fused.cu and
-query_mega.cu are timed too, called as its wrappers called them (int32 ids
-for K7, row-major planes).  Every variant's outputs must equal the shipped
-kernel's.  A time is the mean of `reps` calls between CUDA events after
-one warm-up, a column-major design's device transposes included; the
-shipped kernel is timed first and again last at each shape.  Prints the
-card's name and power limit first and one JSON line of every time last
-(also written to build/scan_designs/times.json); exits nonzero without
-CUDA.
+With --parent DIR (a checkout of the parent commit) its sources of each
+group are timed too, called as its wrappers called them (int32 ids for
+K7, row-major planes); its entry points must take the shipped ones'
+arguments.
+--designs names the designs to time (default: all, the shipped kernel
+first and again last); the shipped kernel runs at every shape anyway, as
+the reference that every design's outputs must equal, and is itself held
+to its plain version (K11b, K13d).  A time is the mean of `reps` calls
+between CUDA events after one warm-up, a column-major design's device
+transposes included.  Prints the card's name and power limit first, the
+ptxas register counts of K11b's and K13d's shipped kernels, and one JSON
+line of every time last (also written to build/scan_designs/times.json);
+exits nonzero without CUDA.
 """
 
 from __future__ import annotations
@@ -44,7 +63,14 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "scan_designs"
-SOURCES = ("query_fused.cu", "query_mega.cu")
+# each group's sources, compiled together into one library a design
+GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
+          "lcp": ("suffix.cu",),
+          "tk": ("query_sharded.cu",)}
+SOURCES = tuple(f for group in GROUPS.values() for f in group)
+# the shipped kernels whose ptxas counts the sweep prints
+PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
+                 "compose_sharded_tk_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
                 "    cid_out[col * B + b] = cid;\n")
@@ -54,6 +80,19 @@ _FUSED_JUMP = ("      const int4 ja = __ldg(&jump_rows[2 * jf]);\n"
                "      const bool match = ra.x == c;\n")
 _FUSED_THREADS = "constexpr int kThreads = 64;\n"
 _MEGA_THREADS = "constexpr int kThreads = 128;\n"
+_LCP_SPAN = "constexpr int kLcpSpan = 32;\n"
+_LCP_GROUP = "constexpr int kLcpGroup = 32;\n"
+_LCP_STORE = ("      if (j == 0) plcp[p] = 0;\n",
+              "    plcp[p] = static_cast<int32_t>(h);\n")
+_LCP_GATHER = (
+    "      lv, static_cast<int>(num_levels), top, inv, s_a, n, text_order);\n"
+    "  if ((err = cudaGetLastError())) return static_cast<int>(err);\n"
+    "  lcp_gather_kernel<<<ceil_div(n, 256), 256, 0, s>>>(\n"
+    "      s_a, text_order, n, static_cast<int32_t*>(lcp));\n")
+_TK_UNROLL = "constexpr int kTkUnroll = 2;\n"
+_TK_FAN = "constexpr int kTkFan = 2;\n"
+_TK_ORDER = ("  const uint32_t tile = blockIdx.x / prefixes;\n"
+             "  const uint32_t prefix = blockIdx.x - tile * prefixes;\n")
 # variant -> [(source, shipped text, the variant's text)]
 VARIANTS = {
     "row-major": [
@@ -78,34 +117,87 @@ VARIANTS = {
     "threads-128": [
         ("query_fused.cu", _FUSED_THREADS,
          _FUSED_THREADS.replace("64", "128"))],
+    "lcp-span-8": [("suffix.cu", _LCP_SPAN, _LCP_SPAN.replace("32", "8"))],
+    "lcp-span-16": [("suffix.cu", _LCP_SPAN, _LCP_SPAN.replace("32", "16"))],
+    "lcp-blocked": [
+        ("suffix.cu", _LCP_GROUP, _LCP_GROUP.replace("32", "1"))],
+    "lcp-blocked-span-8": [
+        ("suffix.cu", _LCP_GROUP, _LCP_GROUP.replace("32", "1")),
+        ("suffix.cu", _LCP_SPAN, _LCP_SPAN.replace("32", "8"))],
+    "lcp-group-4": [
+        ("suffix.cu", _LCP_GROUP, _LCP_GROUP.replace("32", "4"))],
+    "lcp-group-8": [
+        ("suffix.cu", _LCP_GROUP, _LCP_GROUP.replace("32", "8"))],
+    "lcp-group-16": [
+        ("suffix.cu", _LCP_GROUP, _LCP_GROUP.replace("32", "16"))],
+    "lcp-scatter": [
+        ("suffix.cu", _LCP_STORE[0], _LCP_STORE[0].replace("plcp[p]",
+                                                           "plcp[0]")),
+        ("suffix.cu", _LCP_STORE[1], _LCP_STORE[1].replace("plcp[p]",
+                                                           "plcp[j]")),
+        ("suffix.cu", _LCP_GATHER,
+         "      lv, static_cast<int>(num_levels), top, inv, s_a, n,\n"
+         "      static_cast<int32_t*>(lcp));\n")],
+    "tk-unroll-1": [
+        ("query_sharded.cu", _TK_UNROLL, _TK_UNROLL.replace("2", "1"))],
+    "tk-unroll-4": [
+        ("query_sharded.cu", _TK_UNROLL, _TK_UNROLL.replace("2", "4"))],
+    "tk-fan-4": [("query_sharded.cu", _TK_FAN, _TK_FAN.replace("2", "4"))],
+    "tk-fan-8": [("query_sharded.cu", _TK_FAN, _TK_FAN.replace("2", "8"))],
+    "tk-prefix-major": [
+        ("query_sharded.cu", _TK_ORDER,
+         "  const uint32_t prefix = blockIdx.x / tiles;\n"
+         "  const uint32_t tile = blockIdx.x - prefix * tiles;\n")],
 }
 FUSED_VARIANTS = ("row-major", "jump-on-mismatch", "threads-32",
                   "threads-128")
 MEGA_VARIANTS = ("column-major", "threads-32", "threads-64")
+LCP_VARIANTS = ("lcp-span-8", "lcp-span-16", "lcp-blocked",
+                "lcp-blocked-span-8", "lcp-group-4", "lcp-group-8",
+                "lcp-group-16", "lcp-scatter")
+TK_VARIANTS = ("tk-unroll-1", "tk-unroll-4", "tk-fan-4", "tk-fan-8",
+               "tk-prefix-major")
+# the entry points each group's libraries bind
+ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
+                          "colbwt_query_chunk_mega",
+                          "colbwt_query_chunk_mega_wide"),
+                "lcp": ("colbwt_lcp_lift",),
+                "tk": ("colbwt_compose_sharded_tk",)}
+# the variants of each group
+GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
+                                                + MEGA_VARIANTS)),
+                  "lcp": LCP_VARIANTS, "tk": TK_VARIANTS}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build_libraries(parent: Path | None) -> dict[str, ctypes.CDLL]:
-    """The shipped sources, each variant and the parent's, each compiled
-    into a library of its own (one nvcc each, all side by side)."""
+def build_libraries(parent: Path | None, groups: list[str]
+                    ) -> dict[str, ctypes.CDLL]:
+    """Each group's shipped sources, each variant and the parent's, each
+    compiled into a library of its own (one nvcc each, all side by side),
+    named "group/design"; prints the ptxas counts of PTXAS_KERNELS."""
     from colbwt_tpu_torch.ops import _kernels as K
 
     csrc = REPO / "colbwt_tpu_torch" / "csrc"
-    trees = {"shipped": (csrc, [])}
-    trees.update({name: (csrc, subs) for name, subs in VARIANTS.items()})
-    if parent is not None:
-        trees["parent"] = (parent / "colbwt_tpu_torch" / "csrc", [])
-    cmds, libs = [], {}
+    trees = {}
+    for group in groups:
+        trees[f"{group}/shipped"] = (csrc, [])
+        trees.update({f"{group}/{name}": (csrc, VARIANTS[name])
+                      for name in GROUP_VARIANTS[group]})
+        if parent is not None:
+            trees[f"{group}/parent"] = (
+                parent / "colbwt_tpu_torch" / "csrc", [])
+    cmds = []
     for name, (src, subs) in trees.items():
+        sources = GROUPS[name.split("/")[0]]
         out = WORK / name
         shutil.rmtree(out, ignore_errors=True)
         out.mkdir(parents=True)
         for h in src.glob("*.cuh"):
             shutil.copy(h, out / h.name)
-        for f in SOURCES:
+        for f in sources:
             text = (src / f).read_text()
             for file, old, new in subs:
                 if file == f:
@@ -114,13 +206,21 @@ def build_libraries(parent: Path | None) -> dict[str, ctypes.CDLL]:
                                            f"text the variant changes")
                     text = text.replace(old, new)
             (out / f).write_text(text)
-        cmds.append([K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
-                     str(out / "lib.so"), *(str(out / f) for f in SOURCES)])
-    K._run_all(cmds)
+        verbose = ["-Xptxas", "-v"] if name.endswith("/shipped") else []
+        cmds.append([K._nvcc(), *K.NVCC_FLAGS, *verbose, "-shared", "-o",
+                     str(out / "lib.so"), *(str(out / f) for f in sources)])
+    errs = K._run_all(cmds)
+    for err in errs:
+        entry = ""
+        for line in err.splitlines():
+            if "Compiling entry function" in line:
+                entry = next((k for k in PTXAS_KERNELS if k in line), "")
+            elif entry and ("registers" in line or "stack frame" in line):
+                log(f"[designs] ptxas {entry}: {line.strip()}")
+    libs = {}
     for name in trees:
         lib = ctypes.CDLL(str(WORK / name / "lib.so"))
-        for fn in ("colbwt_query_batch_fused", "colbwt_query_chunk_mega",
-                   "colbwt_query_chunk_mega_wide"):
+        for fn in ENTRY_POINTS[name.split("/")[0]]:
             getattr(lib, fn).argtypes = K._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -136,61 +236,37 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="the groups to sweep, comma-separated")
+    ap.add_argument("--designs", default=None,
+                    help="the designs to time, comma-separated (default: "
+                         "all)")
     args = ap.parse_args()
+    groups = args.groups.split(",")
+    if not set(groups) <= set(GROUPS):
+        ap.error(f"--groups takes {', '.join(GROUPS)}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(card)
     sys.path.insert(0, str(REPO))
-    from bench import make_docs
-    from chip_smoke import (cuda_ms, finish_native_build, load_table,
-                            query_reads, scale_table, start_native_build)
-    from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
-    from colbwt_tpu_torch.models.index import ColPmlIndex
-    from colbwt_tpu_torch.models.tensors import to_device
+    from chip_smoke import cuda_ms, finish_native_build, start_native_build
     from colbwt_tpu_torch.ops import _kernels as K
-    from colbwt_tpu_torch.ops import query_fused as TF
-    from colbwt_tpu_torch.ops import query_mega as TM
-    from colbwt_tpu_torch.ops import query_mega_wide as TW
-    from colbwt_tpu_torch.pipeline import build_pipeline
-    from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     native = start_native_build()
-    libs = build_libraries(args.parent)
+    libs = build_libraries(args.parent, groups)
+    K.load()  # the port's own library, for the arrays the sweep builds
     finish_native_build(native)
     log(f"[designs] {len(libs)} libraries built in "
         f"{time.perf_counter() - t0:.1f}s: {', '.join(libs)}")
-
-    t0 = time.perf_counter()
-    docs = make_docs()
-    fastas = []
-    for i, d in enumerate(docs):
-        fastas.append(str(WORK / f"hap{i}.fa"))
-        write_fasta(fastas[-1], [FastaRecord(f"hap{i}", d)])
-    prefix = str(WORK / "bench")
-    build_pipeline(fastas, prefix, ColBwtConfig(
-        mode=SplitMode.TUNNELS, split_rate=10, min_mum=20, keep_temp=True),
-        device=dev)
-    tbl = load_table(prefix)
-    reads, n_reads, long_reads = query_reads(
-        docs, np.random.default_rng(0x5A0E))
-    split = ColPmlIndex.build(tbl, ff_bound=2)
-    ff1 = ColPmlIndex.build(tbl, ff_bound=1)
-    mega = ColPmlIndex.build(scale_table(tbl, 256), ff_bound=2)
-    wide = ColPmlIndex.build(scale_table(tbl, 1024), ff_bound=2)
-    log(f"[designs] indexes and reads in {time.perf_counter() - t0:.1f}s")
-
-    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    sample = reads[:8192 - 256] + n_reads[:256]
-    streamed = reads[:32768 - 256] + n_reads[:256]
+    timed = None if args.designs is None else set(args.designs.split(","))
     times: dict = {}
 
     def compare(shape: str, designs: dict, reps: int) -> None:
         """Hold every design's outputs to the shipped kernel's, then time
-        them in turns (the shipped kernel first and last)."""
+        the chosen ones in turns (the shipped kernel first and last)."""
         want = designs["shipped"]()
         for name, fn in designs.items():
             for g, w in zip(fn(), want):
@@ -201,7 +277,9 @@ def main() -> int:
                 if not torch.equal(g, w):
                     raise RuntimeError(f"{shape}: {name} differs from the "
                                        f"shipped kernel")
-        order = list(designs) + ["shipped"]
+        del want
+        order = [d for d in list(designs) + ["shipped"]
+                 if timed is None or d in timed]
         ms = {}
         for name in order:
             key = "shipped (again)" if name in ms else name
@@ -210,6 +288,158 @@ def main() -> int:
         log(f"[designs] {shape}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in ms.items()))
 
+    def of(group: str) -> dict:
+        return {name.split("/")[1]: lib for name, lib in libs.items()
+                if name.startswith(group + "/")}
+
+    if "lcp" in groups:
+        sweep_lcp(torch, of("lcp"), compare)
+    if "scans" in groups or "tk" in groups:
+        bench = bench_index(torch)
+        if "tk" in groups:
+            sweep_tk(torch, of("tk"), compare, bench)
+        if "scans" in groups:
+            sweep_scans(torch, of("scans"), compare, bench)
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    line = json.dumps({"card": card, "times": times})
+    (WORK / "times.json").write_text(line + "\n")
+    print(card)
+    print(line, flush=True)
+    return 0
+
+
+def bench_index(torch) -> dict:
+    """bench.py's documents built into an index (as chip_smoke.py's phase 3
+    builds it), its table and chip_smoke.py's reads."""
+    from bench import make_docs
+    from chip_smoke import load_table, query_reads
+    from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.pipeline import build_pipeline
+    from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
+
+    t0 = time.perf_counter()
+    docs = make_docs()
+    fastas = []
+    for i, d in enumerate(docs):
+        fastas.append(str(WORK / f"hap{i}.fa"))
+        write_fasta(fastas[-1], [FastaRecord(f"hap{i}", d)])
+    prefix = str(WORK / "bench")
+    build_pipeline(fastas, prefix, ColBwtConfig(
+        mode=SplitMode.TUNNELS, split_rate=10, min_mum=20, keep_temp=True),
+        device=torch.device("cuda"))
+    out = {"docs": docs, "tbl": load_table(prefix),
+           "index": ColPmlIndex.load(f"{prefix}.colpml.npz")}
+    out["reads"] = query_reads(docs, np.random.default_rng(0x5A0E))
+    log(f"[designs] bench's index and reads in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def sweep_lcp(torch, libs: dict, compare) -> None:
+    """K11b at bench's n and the pangenome's, each against its plain
+    version first."""
+    from bench import make_docs
+    from chip_smoke import pangenome_docs
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import construct as TC
+    from colbwt_tpu_torch.ops import oracle as O
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for label, docs, reps in (("bench", make_docs(), 20),
+                              ("pangenome", pangenome_docs(), 5)):
+        ranks = O.concat_collection(docs)[1]
+        n = ranks.size
+        sa, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=dev)
+        r0 = torch.from_numpy(ranks.astype(np.int32)).to(dev)
+        del docs, ranks
+        R = len(pyr)
+        if int(pyr[-1].max()) != n - 1:
+            raise RuntimeError(f"{label}: the top level is no inverse")
+        levels = (ctypes.c_void_p * R)(*(p.data_ptr() for p in pyr))
+
+        plcp = torch.empty(n, dtype=torch.int32, device=dev)
+
+        def lift(lib):
+            lcp = torch.empty(n, dtype=torch.int32, device=dev)
+            K.check("lcp_lift", lib.colbwt_lcp_lift(
+                r0.data_ptr(), sa.data_ptr(), levels, R, n, plcp.data_ptr(),
+                lcp.data_ptr(), stream))
+            return (lcp,)
+
+        got = lift(libs["shipped"])[0]
+        if not torch.equal(got, TC.lcp_from_pyramid_ref(r0, sa, pyr)):
+            raise RuntimeError(f"{label}: K11b differs from its plain "
+                               "version")
+        del got
+        designs = {name: (lambda lib=lib: lift(lib))
+                   for name, lib in libs.items()}
+        compare(f"K11b {label} n={n} R={R}", designs, reps)
+        del sa, r0, pyr, levels, plcp
+        torch.cuda.empty_cache()
+
+
+def sweep_tk(torch, libs: dict, compare, bench: dict) -> None:
+    """K13d for shard 0 of T3 at (dp, ip) = (1, 2), G-pos's shape, against
+    its plain version first."""
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_pos as TQ
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = bench["index"]
+    n, A, k = index.n, index.sigma + 1, 3
+    n_local = -(-n // 2)
+    C = min(n, TQ._T1_CHUNK)
+    t1 = TQ.build_t1(index, np.arange(A), TQ.t1_inputs(index, C, dev), C)
+    args = (t1, n, n_local, 0, A, k)
+    got = TSP.compose_sharded_tk(*args)
+    if not torch.equal(got, TSP.compose_sharded_tk_ref(*args)):
+        raise RuntimeError("K13d differs from its plain version")
+    del got
+
+    def compose(lib):
+        out = torch.empty((A ** k * n_local, 2), dtype=torch.int32,
+                          device=dev)
+        K.check("compose_sharded_tk", lib.colbwt_compose_sharded_tk(
+            t1.data_ptr(), t1.shape[0], n, n_local, 0, A, k, out.data_ptr(),
+            stream))
+        return (out,)
+
+    designs = {name: (lambda lib=lib: compose(lib))
+               for name, lib in libs.items()}
+    compare(f"K13d shard 0 of T{k}, {A ** k * n_local} rows, A={A}",
+            designs, 10)
+    del t1
+    torch.cuda.empty_cache()
+
+
+def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
+    """K7 on the run-split indexes, K5 and K6a on the scaled ones."""
+    from chip_smoke import scale_table
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_fused as TF
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops import query_mega_wide as TW
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tbl = bench["tbl"]
+    reads, n_reads, long_reads = bench["reads"]
+    split = ColPmlIndex.build(tbl, ff_bound=2)
+    ff1 = ColPmlIndex.build(tbl, ff_bound=1)
+    mega = ColPmlIndex.build(scale_table(tbl, 256), ff_bound=2)
+    wide = ColPmlIndex.build(scale_table(tbl, 1024), ff_bound=2)
+    log(f"[designs] scan indexes in {time.perf_counter() - t0:.1f}s")
+
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    sample = reads[:8192 - 256] + n_reads[:256]
+    streamed = reads[:32768 - 256] + n_reads[:256]
     # K7
     def fused(lib, ft, pats, lens, ff, row_major=False):
         B, M = pats.shape
@@ -328,13 +558,6 @@ def main() -> int:
             compare(f"{'K5' if label == 'C' else 'K6a'} {label} {what}",
                     designs, reps)
         del mt
-
-    WORK.mkdir(parents=True, exist_ok=True)
-    line = json.dumps({"card": card, "times": times})
-    (WORK / "times.json").write_text(line + "\n")
-    print(card)
-    print(line, flush=True)
-    return 0
 
 
 if __name__ == "__main__":

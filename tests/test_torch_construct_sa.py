@@ -9,7 +9,9 @@ sequence through the port's ops against the same sequence in JAX.  Every
 value is an integer, so every comparison is exact.
 """
 
+import functools
 import math
+import re
 import shutil
 from pathlib import Path
 
@@ -222,6 +224,151 @@ def test_lcp_from_pyramid_matches_jax_and_kasai(case):
         TC.lcp_from_pyramid_ref(torch.from_numpy(ranks.astype(np.int32)),
                                 sa, pyr).numpy(), want)
     np.testing.assert_array_equal(want, O.lcp_kasai(ranks, sa_j))
+
+
+# K11b's walk (csrc/suffix.cu lcp_walk_kernel, lcp_gather_kernel) in
+# NumPy, thread by thread: the layouts' partitions of the text, a thread's
+# first position by the full lift, the carried bound, the gallop, the
+# descent and the cap, the values stored in text order and gathered into
+# SA order.  The kernel
+# runs on the card only; this model holds the walk's logic to JAX's lift
+# on the texts that break such walks.
+_SUFFIX_CU = Path(TC.__file__).resolve().parents[1] / "csrc" / "suffix.cu"
+
+
+def _shipped_layout():
+    """(kLcpSpan, kLcpGroup) as csrc/suffix.cu ships them."""
+    src = _SUFFIX_CU.read_text()
+    span = re.search(r"constexpr int kLcpSpan = (\d+);", src)
+    group = re.search(r"constexpr int kLcpGroup = (\d+);", src)
+    return int(span.group(1)), int(group.group(1))
+
+
+def lcp_walk_model(ranks0, sa, pyramid, span, group):
+    """The int64 LCP array as the kernels compute it; every text position
+    is written once (a position left unwritten stays -7)."""
+    n = sa.size
+    levels = [np.asarray(ranks0, np.int64)] + [np.asarray(p, np.int64)
+                                               for p in pyramid]
+    R = len(pyramid)
+    cap = (2 << R) - 1
+    # the kernels' test: the top level's rank of sa's last suffix, which is
+    # its largest rank (dense ranks grow along sa)
+    top_is_inverse = bool(R) and levels[-1][sa[-1]] == n - 1
+    assert top_is_inverse == (bool(R) and levels[-1].max() == n - 1)
+    if top_is_inverse:
+        isa = levels[-1]
+    else:  # the entry point's scatter
+        isa = np.empty(n, np.int64)
+        isa[sa] = np.arange(n)
+
+    def same(l, a, b):
+        ra = levels[l][a] if a < n else -1
+        rb = levels[l][b] if b < n else -2
+        return ra == rb
+
+    def lift(a, b):
+        h = 0
+        for l in range(R, -1, -1):
+            if same(l, a + h, b + h):
+                h += 1 << l
+        return h
+
+    def extend(a, b, h):
+        l = 0
+        while l <= R and h + (1 << l) <= cap and same(l, a + h, b + h):
+            h += 1 << l
+            l += 1
+        while l > 0:
+            l -= 1
+            if h + (1 << l) <= cap and same(l, a + h, b + h):
+                h += 1 << l
+        return h
+
+    plcp = np.full(n, -7, np.int64)
+    threads = -(-n // (span * 32)) * 32
+    for t in range(threads):
+        first = t // group * group * span + t % group
+        h = -1
+        for i in range(span):
+            p = first + i * group
+            if p >= n:
+                break
+            j = int(isa[p])
+            assert plcp[p] == -7, f"plcp[{p}] written twice"
+            if j == 0:
+                plcp[p] = h = 0
+                continue
+            q = int(sa[j - 1])
+            h = lift(q, p) if h < 0 else extend(q, p, max(h - group, 0))
+            plcp[p] = h
+    lcp = plcp[sa]
+    lcp[0] = 0
+    return lcp
+
+
+def _walk_docs(case):
+    rng = np.random.default_rng(0x11B)
+    if isinstance(case, int):  # one document making n = case positions
+        return [bytes(rng.choice(list(b"ACGT"), case - 1).astype("uint8"))]
+    return {"one letter": [b"A" * 200],
+            "period 2": [b"AC" * 90],
+            "period 3": [b"ACG" * 60, b"ACGA" * 20],
+            "repetitive": REPETITIVE,
+            "collection": _collection(21),
+            "pangenome": random_docs(
+                rng, 4, mutate_from=bytes(rng.choice(
+                    list(b"ACGT"), 600).astype("uint8")))}[case]
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(case, levels):
+    """ranks, sa, the pyramid (its first `levels` levels, or all of it) and
+    JAX's lift on them."""
+    ranks = _ranks(_walk_docs(case))
+    sa, _, pyr = CJ.suffix_array_jax(ranks, with_pyramid=True)
+    pyr = [np.asarray(p) for p in pyr][:levels]
+    return ranks, np.asarray(sa), pyr, CJ.lcp_jax(ranks, sa, pyr)
+
+
+WALK_CASES = ["one letter", "period 2", "period 3", "repetitive",
+              "collection", "pangenome", 1, 2, 127, 129, 255, 257]
+# (span, group): the shipped layout, lanes a run apart (group 1), side by
+# side in groups of 4 and 8 and a warp's 32, with spans that do not
+# divide n
+WALK_LAYOUTS = ["shipped", (16, 1), (5, 1), (1, 1), (7, 4), (16, 8),
+                (16, 32), (3, 32)]
+
+
+@pytest.mark.parametrize("layout", WALK_LAYOUTS, ids=str)
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_lcp_walk_model_matches_jax(case, layout):
+    span, group = _shipped_layout() if layout == "shipped" else layout
+    ranks, sa, pyr, want = _walk_case(case, None)
+    got = lcp_walk_model(ranks, sa, pyr, span, group)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        TC.lcp_from_pyramid_ref(torch.from_numpy(ranks.astype(np.int32)),
+                                torch.from_numpy(sa),
+                                [torch.from_numpy(p) for p in pyr]).numpy(),
+        want)
+
+
+@pytest.mark.parametrize("layout", ["shipped", (16, 1), (3, 32)], ids=str)
+@pytest.mark.parametrize("levels", [0, 1, 2])
+@pytest.mark.parametrize("case", ["one letter", "period 3", "repetitive"])
+def test_lcp_walk_model_cut_pyramid(case, levels, layout):
+    """The first `levels` levels only: the cap 2**(levels+1) - 1 binds, the
+    top level is no inverse suffix array, and the walk's carried bound must
+    stay under the cap."""
+    span, group = _shipped_layout() if layout == "shipped" else layout
+    ranks, sa, pyr, want = _walk_case(case, levels)
+    assert len(pyr) == levels and want.max() == (2 << levels) - 1
+    np.testing.assert_array_equal(lcp_walk_model(ranks, sa, pyr, span, group),
+                                  want)
+    got = TC.lcp_from_pyramid(ranks, torch.from_numpy(sa),
+                              [torch.from_numpy(p) for p in pyr])
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _bwt_case(docs):

@@ -756,6 +756,54 @@ def test_suffix_array_rounds(dev):
                                   O.lcp_kasai(ranks, want_sa))
 
 
+def _lcp_texts(name):
+    """Texts that break a walk in text order: one letter, short periods,
+    heavy repeats, tiny and power-of-two-adjacent n, and collections of
+    n >= 2**18 (haplotypes of one base, and random text)."""
+    rng = np.random.default_rng(0x11B)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if isinstance(name, int):  # one document making n = name positions
+        return [rng.choice(acgt, name - 1).tobytes()]
+    if name == "haplotypes":
+        base = rng.choice(acgt, 20_000)
+        docs = []
+        for _ in range(16):
+            a = base.copy()
+            a[rng.integers(0, a.size, 400)] = rng.choice(acgt, 400)
+            docs.append(a.tobytes())
+        return docs
+    return {"one letter": [b"A" * 40_000],
+            "period 2": [b"AC" * 20_000],
+            "period 3": [b"ACG" * 10_000, b"ACGA" * 3_000],
+            "repetitive": [b"ACGT" * 30, b"ACGT" * 30 + b"A",
+                           b"ACGTACGT" * 15],
+            "random": [rng.choice(acgt, 300_000).tobytes()]}[name]
+
+
+@pytest.mark.parametrize("levels", [None, 1, 3])
+@pytest.mark.parametrize("name", ["one letter", "period 2", "period 3",
+                                  "repetitive", 1, 2, 4095, 4097,
+                                  "haplotypes", "random"], ids=str)
+def test_lcp_walk(dev, name, levels):
+    """K11b on the whole pyramid (its top level the inverse suffix array)
+    and on its first levels (the cap binds; the entry point scatters the
+    inverse first; none at n = 1 and 2), against the plain lift, one
+    launch a call."""
+    _, ranks, _ = O.concat_collection(_lcp_texts(name))
+    n = ranks.size
+    sa, _, pyramid = TC.suffix_array(ranks, with_pyramid=True, device=dev)
+    if levels is not None:  # no level at all where n has fewer
+        pyramid = pyramid[:min(levels, len(pyramid) - 1)]
+    r0 = to_device(ranks, dev)
+    before = K.launches["lcp_lift"]
+    lcp = TC.lcp_from_pyramid(r0, sa, pyramid)
+    assert K.launches["lcp_lift"] == before + 1
+    _equal(lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid))
+    if levels is None and n > 1:
+        np.testing.assert_array_equal(
+            lcp.cpu().numpy(), O.lcp_kasai(ranks, sa.cpu().numpy()))
+
+
 @pytest.mark.parametrize("lcp_top", [4, 1 << 20])
 def test_segmented_argmin(dev, case, lcp_top):
     """K12 against its plain version for every character's segments of the
@@ -835,19 +883,32 @@ def test_sharded_fetch(dev, ip, W, jump, B):
         _equal(out.cpu(), torch.where(mine[:, None], want, 0))
 
 
+@pytest.mark.parametrize("A", [4, 6])
 @pytest.mark.parametrize("ip", [1, 2, 4])
-@pytest.mark.parametrize("k", [1, 2, 3])
-def test_compose_sharded_tk(dev, case, ip, k):
-    """K13d for every shard of T_k; ip = 2 and 4 do not divide n, so the
-    last shard holds padding rows (self-loops)."""
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_compose_sharded_tk(dev, case, ip, k, A):
+    """K13d for every shard of T_k, over the first A chars' blocks of T1
+    (the case's A = sigma + 1 = 6, and 4); ip = 2 and 4 do not divide n, so
+    the last shard holds padding rows (self-loops), and no n_local is a
+    multiple of the kernel's tile of positions."""
+    import re
+    from pathlib import Path
+
     from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
 
     _, index, _ = case
-    n, A = index.n, index.sigma + 1
+    n = index.n
+    assert index.sigma + 1 == 6
     C = min(n, TQ._T1_CHUNK)
-    t1 = TQ.build_t1(index, np.arange(A), TQ.t1_inputs(index, C, dev), C)
+    t1 = TQ.build_t1(index, np.arange(6), TQ.t1_inputs(index, C, dev), C)
+    t1 = t1[:A * n].contiguous()
     n_local = -(-n // ip)
     assert ip == 1 or n % ip
+    src = (Path(TQ.__file__).resolve().parents[1] / "csrc"
+           / "query_sharded.cu").read_text()
+    tile = (int(re.search(r"kTkThreads = (\d+);", src).group(1))
+            * int(re.search(r"kTkUnroll = (\d+);", src).group(1)))
+    assert n_local % tile
     for i in range(ip):
         args = (t1, n, n_local, i * n_local, A, k)
         got = TSP.compose_sharded_tk(*args)

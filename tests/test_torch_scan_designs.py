@@ -1,7 +1,8 @@
-"""scan_designs.py, the design sweep of the scans K5, K6a and K7: every
-variant it times still applies to the shipped sources, and without CUDA it
-exits nonzero before it builds anything.  (The sweep itself runs on the
-card only.)"""
+"""scan_designs.py, the design sweep of the scans K5, K6a and K7, the LCP
+lift K11b and the sharded composition K13d: every variant it times still
+applies to the shipped sources of its group, and without CUDA it exits
+nonzero before it builds anything.  (The sweep itself runs on the card
+only.)"""
 
 import subprocess
 import sys
@@ -17,14 +18,20 @@ CSRC = REPO / "colbwt_tpu_torch" / "csrc"
 
 @pytest.mark.parametrize("variant", sorted(SD.VARIANTS))
 def test_variant_changes_one_place_of_the_sources(variant):
+    group = next(g for g, names in SD.GROUP_VARIANTS.items()
+                 if variant in names)
     for source, old, new in SD.VARIANTS[variant]:
-        assert source in SD.SOURCES
+        assert source in SD.SOURCES and source in SD.GROUPS[group]
         assert (CSRC / source).read_text().count(old) == 1, source
         assert old != new
 
 
 def test_every_variant_is_timed():
-    assert set(SD.FUSED_VARIANTS) | set(SD.MEGA_VARIANTS) == set(SD.VARIANTS)
+    assert (set(SD.FUSED_VARIANTS) | set(SD.MEGA_VARIANTS)
+            | set(SD.LCP_VARIANTS) | set(SD.TK_VARIANTS)) == set(SD.VARIANTS)
+    assert set(SD.GROUP_VARIANTS) == set(SD.GROUPS) == set(SD.ENTRY_POINTS)
+    timed = [v for names in SD.GROUP_VARIANTS.values() for v in names]
+    assert sorted(timed) == sorted(SD.VARIANTS)
 
 
 def test_exits_nonzero_without_cuda():
