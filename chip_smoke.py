@@ -22,7 +22,9 @@ version on the card.  Phases:
    .col_mums, .col_runs and .col_ids against the host functions on the
    same arrays (O.find_multi_mums; col_split_tunneled_numpy and the
    find_col_runs_uniform sweep); K8-K10b against their plain versions at
-   bench's shapes; K1-K4 at the main path's shapes; then the scaled
+   bench's shapes (K10a also on 16 MUMs of the bucket, its chain floor,
+   beside the time of its row build and its fast-forward rows a step);
+   K1-K4 at the main path's shapes; then the scaled
    indexes (run lengths x256 and x1024, ColPmlIndex.build with ff_bound 2,
    r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7; then bench's
    table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
@@ -58,7 +60,9 @@ version on the card.  Phases:
 8. the build path at full size: `build -m tunnels -s 10 -l 20` of the
    pangenome (one random base, seed 0xB11D, 90,000 substitutions a
    haplotype, bench's 2% density): K8 runs two chunks of 2**26 with
-   N = 16, then K10a; both chunks equal the plain version, the oracle's
+   N = 16, then K10a (each launch timed in the build between CUDA events,
+   then held to its plain version, the first also timed beside it); both
+   chunks equal the plain version, the oracle's
    window conditions agree with the scan on 256 reported MUMs and 100,000
    unreported window starts, and a query of 2,000 reads drawn from the
    haplotypes answers, 64 sampled records equal to the oracle
@@ -84,8 +88,9 @@ version on the card.  Phases:
    the index byte-equal to phase 3's); 11b phase 8's pangenome through
    stage_mums (its four artifacts byte-equal to phase 8's; rounds,
    sa_lcp_s and the device memory peak logged), then its suffix array and
-   pyramid once more: every K11a round timed with its passes and bound,
-   K11b against its plain version and timed, and sa_lcp_s split into
+   pyramid once more: every K11a round timed with its passes and bound
+   (the last beside one stable torch.sort of its packed pair keys), K11b
+   against its plain version and timed, and sa_lcp_s split into
    rounds, K11b, copies and host; 11c bench.py's index-build
    sequence (bench.py:83-98) through the port's ops, thresholds by K12
    (the table equal to phase 3's field by field, the ff_bound-2 index to
@@ -950,6 +955,43 @@ class FirstCalls:
         return False
 
 
+class TimedCalls:
+    """While active, keeps the arguments of every call of module.name and
+    a pair of CUDA events recorded around it, to time each launch a run
+    made where it made it."""
+
+    def __init__(self, torch, module: str, name: str):
+        import importlib
+
+        self.torch = torch
+        self.module, self.name = importlib.import_module(module), name
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        self.calls = []
+
+        def spy(*args, **kw):
+            ev = [self.torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)]
+            ev[0].record()
+            out = self.real(*args, **kw)
+            ev[1].record()
+            self.calls.append((args, kw, ev))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+    def ms(self) -> list[float]:
+        """Each call's milliseconds between its events."""
+        self.torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1]) for _, _, ev in self.calls]
+
+
 def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks
                       ) -> None:
     """K3 at each shape cell S-A's streamed query gave it (batches of
@@ -1153,6 +1195,20 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
     p0 = torch.from_numpy(mp[order][sel].astype(np.int32)).to(dev)
     lt = torch.from_numpy(ls[sel].astype(np.int32)).to(dev)
     what = f"first bucket, {sel.size} of {ml.size} MUMs, T = {T}"
+    fl_arrays = [fd[f] for f in TCS.FL_FIELDS]
+    rows_ms = cuda_ms(torch, lambda: TCS.walk_rows(fd), 20)
+    log(f"[time] walk_rows (K10a's rows, PyTorch ops) r = {fl.r}: "
+        f"{rows_ms:.4f} ms; fast-forward rows a step on the {what}: "
+        + json.dumps(forward_rows(torch, fd, p0, T)))
+    # K10a's chain floor first: 16 of the bucket's MUMs, all T steps
+    a16 = (fd, p0[:16].contiguous(), lt[:16].contiguous(), T, 10, num_docs)
+    for j, (g, w) in enumerate(zip(TCS.tunneled_walk(*a16),
+                                   TCS.tunneled_walk_ref(*a16))):
+        chk.equal("tunneled_walk", g, w, f"16 MUMs, output {j}")
+    chk.time("tunneled_walk", lambda: TCS.tunneled_walk(*a16),
+             lambda: TCS.tunneled_walk_ref(*a16),
+             f"16 MUMs of the first bucket x T = {T}, rate 10, N = "
+             f"{num_docs}", reps=20, chain=("tunneled_walk", T, True))
     for name, kern, ref, rate in (
             ("tunneled_walk", TCS.tunneled_walk, TCS.tunneled_walk_ref, 10),
             ("all_walk", TCS.all_walk, TCS.all_walk_ref, 10)):
@@ -1164,7 +1220,71 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
         chk.time(name, lambda: kern(fd, p0, lt, T, rate, num_docs),
                  lambda: ref(fd, p0, lt, T, rate, num_docs),
                  f"{what}, rate {rate}, N = {num_docs}",
-                 bound=(nbytes(fd, p0, lt, got), walkers * T * 100))
+                 bound=(nbytes(fl_arrays, p0, lt, got), walkers * T * 100),
+                 chain=(("tunneled_walk", T, False)
+                        if name == "tunneled_walk" else None))
+    torch.cuda.empty_cache()
+
+
+def forward_rows(torch, fd: dict, p0, num_steps: int) -> dict:
+    """The rows K10a's fast-forward reads a step on this walk (the plain
+    walk's positions, each step's destination run clip(dest_interval) to
+    the run holding the next position), with PyTorch ops on the walk's
+    device: their mean and maximum over the steps that fast-forward, and
+    the share of steps that search instead (a run before the destination,
+    or more than the kernel's 8 rows)."""
+    from colbwt_tpu_torch.ops import colsplit as TCS
+
+    idx = fd["idx"]
+    r = idx.shape[0]
+    p = p0
+    total = count = worst = searched = 0
+    for _ in range(num_steps):
+        i = (torch.searchsorted(idx, p, right=True) - 1).clamp(0, r - 1)
+        dest = fd["dest_interval"][i].long().clamp(0, r - 1)
+        p = TCS.fl_unit_ref(fd, p)
+        j = (torch.searchsorted(idx, p, right=True) - 1).clamp(0, r - 1)
+        f = j - dest
+        ok = (f >= 0) & (f <= 8)
+        total += int(f[ok].sum())
+        count += int(ok.sum())
+        worst = max(worst, int(f[ok].max()) if bool(ok.any()) else 0)
+        searched += int((~ok).sum())
+    return {"mean": total / max(count, 1), "max": worst,
+            "searched": searched / max(count + searched, 1)}
+
+
+def check_build_walks(torch, walks: TimedCalls, launches: int,
+                      chk: Checks) -> None:
+    """K10a at the buckets phase 8's build gave it: each launch's time in
+    the build, its outputs against the plain version's, its fast-forward
+    rows; the first bucket timed against its plain version."""
+    from colbwt_tpu_torch.ops import colsplit as TCS
+
+    require(len(walks.calls) == launches,
+            f"phase 8: {len(walks.calls)} K10a calls, {launches} launches")
+    build_ms = walks.ms()
+    for j, ((fd, p0, lens, T, rate, N), _, _) in enumerate(walks.calls):
+        ms = build_ms[j]
+        what = (f"B8 bucket {j + 1} of {len(walks.calls)}, {p0.shape[0]} "
+                f"MUMs x T = {T}, rate {rate}, N = {N}, "
+                f"r = {fd['idx'].shape[0]}")
+        got = TCS.tunneled_walk(fd, p0, lens, T, rate, N)
+        want = TCS.tunneled_walk_ref(fd, p0, lens, T, rate, N)
+        for g, w, part in zip(got, want, ("pos", "valid")):
+            chk.equal("tunneled_walk", g, w, f"{what} {part}")
+        log(f"[time] tunneled_walk {what}: {ms:.4f} ms in the build; "
+            f"fast-forward rows a step "
+            + json.dumps(forward_rows(torch, fd, p0, T)))
+        if j == 0:
+            chk.time("tunneled_walk",
+                     lambda: TCS.tunneled_walk(fd, p0, lens, T, rate, N),
+                     lambda: TCS.tunneled_walk_ref(fd, p0, lens, T, rate, N),
+                     what, bound=(nbytes([fd[f] for f in TCS.FL_FIELDS],
+                                         p0, lens, got),
+                                  p0.shape[0] * T * 100))
+        del got, want
+    walks.calls.clear()
     torch.cuda.empty_cache()
 
 
@@ -1333,12 +1453,14 @@ def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
     N = len(docs)
     log(f"[phase 8] {N} haplotypes of {len(docs[0])} bp made in "
         f"{time.perf_counter() - t0:.1f}s")
-    with Capture() as cap:
+    with Capture() as cap, TimedCalls(
+            torch, "colbwt_tpu_torch.ops.colsplit", "tunneled_walk") as walks:
         v, launches = run_build("8", lambda: cli_main(
             ["build", "-o", prefix, "-m", "tunnels", "-s", "10", "-l", "20",
              "--device", str(dev), *fastas]),
             ("mum_window", "tunneled_walk"))
     require(cap.args is not None, "phase 8 did not run the device scan")
+    check_build_walks(torch, walks, launches["tunneled_walk"], chk)
     n = cap.args[1].size
     require(n > 1 << 26, f"phase 8 n = {n} must exceed 2**26")
     # the chunk size find_multi_mums_chunked takes at this n
@@ -1586,7 +1708,16 @@ def sa_lcp_split(torch, dev, docs: list[bytes], sa_lcp_s: float,
             f"{len(rounds)} (k = {k_in}): {passes} radix passes of 8 bits, "
             f"{TC.round_launches(passes, order_in is not None)} launches, "
             f"{ms:.4f} ms, bound {bound:.4f} ms (bytes, {12 * n + 4} B)")
-    del rounds, ws
+    # the library call beside K11a's last (widest) round: one stable
+    # torch.sort of its packed pair keys, and of the 32-bit ranks
+    rank_in, k_in, top_in, _ = rounds[-1]
+    keys = pair_keys(torch, rank_in, k_in, (top_in + 1).bit_length())
+    lib = cuda_ms(torch, lambda: torch.sort(keys, stable=True))
+    lib32 = cuda_ms(torch, lambda: torch.sort(rank_in, stable=True))
+    log(f"[time] doubling_round n = {n}, round {len(rounds)} (k = {k_in}): "
+        f"{rounds_ms[-1]:.4f} ms; library call, stable torch.sort of the "
+        f"packed pair keys {lib:.4f} ms, of the 32-bit ranks {lib32:.4f} ms")
+    del rounds, ws, keys
     R = len(pyramid)
     chk.equal("lcp_lift", lcp, TC.lcp_from_pyramid_ref(r0, sa, pyramid),
               f"n = {n}, R = {R}")

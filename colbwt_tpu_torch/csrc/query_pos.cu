@@ -18,10 +18,9 @@
 // r-sized arrays (a few MB, L2-resident) and streams its output.
 //
 // The design: one thread per output element for K1; for K2 one block a
-// (key, tile of positions), 8-byte rows (below); one thread per read for
-// K3, walking that read's keys in order.  K3's latency is
-// hidden only by the number of reads in flight; several reads per thread
-// and coalesced output stores are later work.
+// (key, tile of positions), 8-byte rows (below); for K3 one thread per read
+// in blocks of one warp, so that the main path's batch of 8,192 reads
+// spreads over every SM, each step's outputs one vector store (below).
 //
 // Every word is handled as uint32_t: bit 31 holds a match flag (T1) or
 // the top match bit of a k = 4 row, and shifts into it must not be signed
@@ -160,11 +159,116 @@ __global__ void __launch_bounds__(kComposeThreads) compose_tables_kernel(
 // K3 output planes.
 enum OutMode { kTwoPlanes = 0, kPackedI32 = 1, kPackedU16 = 2 };
 
-// K3: one thread per read; the read's digits are consumed right to left,
-// k per table row.  Digits are bytes (pack = 0) or pack-bit fields, digit
-// j of a byte at bits j * pack.
-__global__ void query_chunk_pos_kernel(
-    const int32_t* __restrict__ table, int64_t table_rows, int64_t n,
+// K3: a thread per read, the read's digits consumed right to left, k per
+// table row.  Digits are bytes (pack = 0) or pack-bit fields, digit j of a
+// byte at bits j * pack.  The scan is a chain of dependent 8-byte gathers
+// into a table of gigabytes, so its speed is the number of gathers in
+// flight and the load/store traffic beside them:
+// - blocks of one warp: the main path's 8,192 reads make 256 blocks over
+//   the 132 SMs, not 32 blocks of 256;
+// - a step's key does not depend on its gather: the next step's digit
+//   bytes (1-3 when packed; never past the row) are loaded while the row
+//   is in flight;
+// - kPosStore 2: a step's k outputs are neighbours in a row of the (B, M)
+//   planes, so k = 2 and 4 go out as one 4- to 16-byte store a plane, not
+//   k scattered ones (k = 1 and 3 one store an output).  The sweep's other
+//   designs (scan_designs.py): 0 one store an output, 1 column-major
+//   (M, B) planes that the caller transposes.
+// Every output is the packed word (pml << 8 | cid), uint32 arithmetic;
+// the two-plane mode splits it as the plain version does (pml = packed >>
+// 8, arithmetic).
+constexpr int kPosThreads = 32;
+constexpr int kPosStore = 2;
+constexpr bool kPosKeyAhead = true;  // false: a step's key before its row
+
+// The key of step s of a read whose digit bytes start at `rp`: columns
+// c_hi = M-1-s*k down to c_hi-k+1, the first the key's high digit.  `ps`
+// is log2(digits a byte).
+__device__ __forceinline__ int64_t step_key(const uint8_t* __restrict__ rp,
+                                            int64_t M, int64_t s, int k,
+                                            int64_t A, int pack, int ps) {
+  const int64_t c_hi = M - 1 - s * k;
+  int64_t key = 0;
+  if (pack) {
+    const int64_t lo = (c_hi - (k - 1)) >> ps;
+    const int bytes = static_cast<int>((c_hi >> ps) - lo) + 1;  // 1-3
+    uint32_t win = __ldg(rp + lo);
+    if (bytes > 1) win |= static_cast<uint32_t>(__ldg(rp + lo + 1)) << 8;
+    if (bytes > 2) win |= static_cast<uint32_t>(__ldg(rp + lo + 2)) << 16;
+    const uint32_t dmask = (1u << pack) - 1u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < k) {
+        const int bit = static_cast<int>(c_hi - j - (lo << ps)) * pack;
+        key = key * A + ((win >> bit) & dmask);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < k) key = key * A + __ldg(rp + c_hi - j);
+    }
+  }
+  return key;
+}
+
+__device__ __forceinline__ void store_out(int out_mode, void* out0,
+                                          int32_t* out1, int64_t o,
+                                          uint32_t packed) {
+  if (out_mode == kTwoPlanes) {
+    static_cast<int32_t*>(out0)[o] = static_cast<int32_t>(packed) >> 8;
+    out1[o] = static_cast<int32_t>(packed & 0xFFu);
+  } else if (out_mode == kPackedI32) {
+    static_cast<int32_t*>(out0)[o] = static_cast<int32_t>(packed);
+  } else {
+    static_cast<uint16_t*>(out0)[o] = static_cast<uint16_t>(packed);
+  }
+}
+
+// A step's k outputs v[0..k-1] (v[j] at column c0 + k-1-j) from element o
+// = row * M + c0 of the planes: k = 2 and 4 as one vector store a plane (o
+// is a multiple of k: M and c0 are), k = 1 and 3 one store an output.
+__device__ __forceinline__ void store_step(int out_mode, void* out0,
+                                           int32_t* out1, int64_t o,
+                                           const uint32_t* v, int k) {
+  if (k == 4) {
+    if (out_mode == kPackedU16) {
+      reinterpret_cast<uint2*>(out0)[o / 4] =
+          make_uint2((v[3] & 0xFFFFu) | (v[2] << 16),
+                     (v[1] & 0xFFFFu) | (v[0] << 16));
+    } else if (out_mode == kPackedI32) {
+      reinterpret_cast<uint4*>(out0)[o / 4] =
+          make_uint4(v[3], v[2], v[1], v[0]);
+    } else {
+      reinterpret_cast<int4*>(out0)[o / 4] = make_int4(
+          static_cast<int32_t>(v[3]) >> 8, static_cast<int32_t>(v[2]) >> 8,
+          static_cast<int32_t>(v[1]) >> 8, static_cast<int32_t>(v[0]) >> 8);
+      reinterpret_cast<uint4*>(out1)[o / 4] =
+          make_uint4(v[3] & 0xFFu, v[2] & 0xFFu, v[1] & 0xFFu, v[0] & 0xFFu);
+    }
+  } else if (k == 2) {
+    if (out_mode == kPackedU16) {
+      reinterpret_cast<uint32_t*>(out0)[o / 2] =
+          (v[1] & 0xFFFFu) | (v[0] << 16);
+    } else if (out_mode == kPackedI32) {
+      reinterpret_cast<uint2*>(out0)[o / 2] = make_uint2(v[1], v[0]);
+    } else {
+      reinterpret_cast<int2*>(out0)[o / 2] =
+          make_int2(static_cast<int32_t>(v[1]) >> 8,
+                    static_cast<int32_t>(v[0]) >> 8);
+      reinterpret_cast<uint2*>(out1)[o / 2] =
+          make_uint2(v[1] & 0xFFu, v[0] & 0xFFu);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < k) store_out(out_mode, out0, out1, o + k - 1 - j, v[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPosThreads) query_chunk_pos_kernel(
+    const int2* __restrict__ table, int64_t table_rows, int64_t n,
     const uint8_t* __restrict__ patterns, int64_t pat_cols,
     const int32_t* __restrict__ lengths, const int32_t* __restrict__ pos0,
     const int32_t* __restrict__ mlen0, int64_t step_offset, int64_t B,
@@ -175,52 +279,42 @@ __global__ void query_chunk_pos_kernel(
   if (b >= B) return;
   const int pb = 32 - k;
   const uint32_t mask = (1u << pb) - 1u;
-  const int per = pack ? 8 / pack : 1;
-  const uint32_t dmask = pack ? (1u << pack) - 1u : 0xFFu;
-  const uint8_t* row_pat = patterns + b * pat_cols;
+  const int ps = pack == 2 ? 2 : (pack == 4 ? 1 : 0);
+  const int64_t S = M / k;
+  const uint8_t* rp = patterns + b * pat_cols;
   const int64_t len = lengths[b];
   int64_t pos = pos0[b];
-  int32_t ml = mlen0[b];
-  for (int64_t s = 0; s < M / k; ++s) {
-    int64_t key = 0;
-    for (int j = 0; j < k; ++j) {
-      const int64_t col = M - 1 - (s * k + j);
-      uint32_t d;
-      if (pack) {
-        d = (static_cast<uint32_t>(row_pat[col / per]) >> ((col % per) * pack))
-            & dmask;
-      } else {
-        d = row_pat[col];
-      }
-      key = key * A + d;
+  uint32_t ml = static_cast<uint32_t>(mlen0[b]);
+  int64_t key = kPosKeyAhead && S > 0 ? step_key(rp, M, 0, k, A, pack, ps)
+                                      : 0;
+  for (int64_t s = 0; s < S; ++s) {
+    if (!kPosKeyAhead) key = step_key(rp, M, s, k, A, pack, ps);
+    const int2 w = __ldg(table + clamp_index(key * n + pos, table_rows));
+    if (kPosKeyAhead && s + 1 < S) {
+      key = step_key(rp, M, s + 1, k, A, pack, ps);
     }
-    const int64_t row = clamp_index(key * n + pos, table_rows);
-    const uint32_t w0 = static_cast<uint32_t>(table[2 * row]);
-    const uint32_t w1 = static_cast<uint32_t>(table[2 * row + 1]);
-    for (int j = 0; j < k; ++j) {
-      const int32_t m = static_cast<int32_t>((w0 >> (pb + j)) & 1u);
-      ml = (ml + 1) * m;  // match ? len + 1 : 0
-      uint32_t cid = (w1 >> (8 * j)) & 0xFFu;
-      uint32_t pml = static_cast<uint32_t>(ml);
-      if (masked && !(s * k + step_offset + j < len)) {
-        pml = 0;
-        cid = 0;
+    const uint32_t w0 = static_cast<uint32_t>(w.x);
+    const uint32_t w1 = static_cast<uint32_t>(w.y);
+    uint32_t v[4];  // the step's outputs, digit j at column M-1-s*k-j
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= k) continue;
+      ml = ((w0 >> (pb + j)) & 1u) ? ml + 1u : 0u;  // match ? len + 1 : 0
+      v[j] = (ml << 8) | ((w1 >> (8 * j)) & 0xFFu);
+      if (masked && !(s * k + step_offset + j < len)) v[j] = 0;
+      if (kPosStore != 2) {
+        const int64_t col = M - 1 - (s * k + j);
+        store_out(out_mode, out0, out1,
+                  kPosStore == 1 ? col * B + b : b * M + col, v[j]);
       }
-      const int64_t o = b * M + (M - 1 - (s * k + j));
-      if (out_mode == kTwoPlanes) {
-        static_cast<int32_t*>(out0)[o] = static_cast<int32_t>(pml);
-        out1[o] = static_cast<int32_t>(cid);
-      } else if (out_mode == kPackedI32) {
-        static_cast<int32_t*>(out0)[o] = static_cast<int32_t>((pml << 8) | cid);
-      } else {
-        static_cast<uint16_t*>(out0)[o] =
-            static_cast<uint16_t>((pml << 8) | cid);
-      }
+    }
+    if (kPosStore == 2) {
+      store_step(out_mode, out0, out1, b * M + M - (s + 1) * k, v, k);
     }
     pos = w0 & mask;
   }
   pos_out[b] = static_cast<int32_t>(pos);
-  mlen_out[b] = ml;
+  mlen_out[b] = static_cast<int32_t>(ml);
 }
 
 int64_t grid_for(int64_t work) {
@@ -282,10 +376,13 @@ int colbwt_query_chunk_pos(const void* table, int64_t table_rows, int64_t n,
                            int64_t masked, int64_t out_mode, void* out0,
                            void* out1, void* pos_out, void* mlen_out,
                            void* stream) {
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  query_chunk_pos_kernel<<<blocks < 1 ? 1 : blocks, kThreads, 0,
+  if (k < 1 || k > 4 || M % k || (pack != 0 && pack != 2 && pack != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t blocks = (B + kPosThreads - 1) / kPosThreads;
+  query_chunk_pos_kernel<<<blocks < 1 ? 1 : blocks, kPosThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), table_rows, n,
+      static_cast<const int2*>(table), table_rows, n,
       static_cast<const uint8_t*>(patterns), pat_cols,
       static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(pos0), static_cast<const int32_t*>(mlen0),

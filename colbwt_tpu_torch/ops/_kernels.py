@@ -70,7 +70,7 @@ _SIGNATURES = {
     "colbwt_host_stage": [_P, _I, _I],
     "colbwt_upload_threads": [],
     "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
-    "colbwt_tunneled_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
+    "colbwt_tunneled_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],
     "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
                        + [_P],

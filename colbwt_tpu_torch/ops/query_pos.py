@@ -405,6 +405,7 @@ def query_chunk_pos(table, n: int, patterns, lengths, pos0, mlen0,
     if M % k or pack not in (0, 2, 4) or A > (1 << pack if pack else 256):
         raise ValueError(f"bad scan shape: M={M} k={k} pack={pack} A={A}")
     K.require(table, "table", torch.int32, dev)
+    K.require_aligned(table, "table", 8)
     K.require(patterns, "patterns", torch.uint8, dev)
     for name, t in (("lengths", lengths), ("pos0", pos0), ("mlen0", mlen0)):
         K.require(t, name, torch.int32, dev)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Design sweep of the scans K5, K6a and K7, the LCP lift K11b and the
-sharded table composition K13d on one CUDA card.
+"""Design sweep of the scans K3, K5, K6a and K7, the col-split walk K10a,
+the LCP lift K11b and the sharded table composition K13d on one CUDA
+card.
 
-    python3 scan_designs.py [--parent DIR] [--groups scans,lcp,tk]
+    python3 scan_designs.py [--parent DIR] [--groups scans,lcp,tk,pos,walk]
                             [--designs NAME,...]
 
 Each group times, on the same inputs and in turns, the shipped kernels of
@@ -31,21 +32,34 @@ shipped source with one change, compiled into a library of its own:
   never builds one in the lcp it writes);
 - tk (query_sharded.cu; K13d for shard 0 of T3 at (dp, ip) = (1, 2) on
   bench's index, G-pos's shape): positions a thread, the fan's width and
-  the block order (prefix-major in place of tile-major).
+  the block order (prefix-major in place of tile-major);
+- pos (query_pos.cu; K3 on bench's index at the shapes the main path
+  gives it: cell A's dispatch batch of 8,192 x 252 (k = 4, 2-bit digits,
+  the u16 plane), S-A's of 32,768, the N reads' general-T1 batch of 1,024
+  (k = 1) and the long reads' second chunk of 2,048 with carried state):
+  64 or 128 threads a block in place of 32, one store an output or
+  column-major planes in place of a step's vector store, a step's key
+  read before its row in place of while the previous row is in flight;
+- walk (colsplit.cu; K10a on the first bucket of bench's MUMs, 17,543 x
+  238 steps, and on 16 of them, the chain floor): 32, 64 or 256 threads a
+  block in place of 128, 2 or 32 fast-forward rows before the binary
+  search in place of 8, and the destination's row alone in place of it
+  and the next one together; the fast-forward rows a step logged first.
 
 With --parent DIR (a checkout of the parent commit) its sources of each
 group are timed too, called as its wrappers called them (int32 ids for
 K7, row-major planes); its entry points must take the shipped ones'
-arguments.
+arguments, but for those in PARENT_SIGNATURES (K10a's, which took the
+FL table's three arrays in place of idx and the walk's rows).
 --designs names the designs to time (default: all, the shipped kernel
 first and again last); the shipped kernel runs at every shape anyway, as
 the reference that every design's outputs must equal, and is itself held
-to its plain version (K11b, K13d).  A time is the mean of `reps` calls
-between CUDA events after one warm-up, a column-major design's device
-transposes included.  Prints the card's name and power limit first, the
-ptxas register counts of K11b's and K13d's shipped kernels, and one JSON
-line of every time last (also written to build/scan_designs/times.json);
-exits nonzero without CUDA.
+to its plain version (K3, K10a, K11b, K13d).  A time is the mean of
+`reps` calls between CUDA events after one warm-up, a column-major
+design's device transposes included.  Prints the card's name and power
+limit first, the ptxas register counts of K3's, K10a's, K11b's and
+K13d's shipped kernels, and one JSON line of every time last (also
+written to build/scan_designs/times.json); exits nonzero without CUDA.
 """
 
 from __future__ import annotations
@@ -66,11 +80,14 @@ WORK = REPO / "build" / "scan_designs"
 # each group's sources, compiled together into one library a design
 GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
           "lcp": ("suffix.cu",),
-          "tk": ("query_sharded.cu",)}
+          "tk": ("query_sharded.cu",),
+          "pos": ("query_pos.cu",),
+          "walk": ("colsplit.cu",)}
 SOURCES = tuple(f for group in GROUPS.values() for f in group)
 # the shipped kernels whose ptxas counts the sweep prints
 PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
-                 "compose_sharded_tk_kernel")
+                 "compose_sharded_tk_kernel", "query_chunk_pos_kernel",
+                 "tunneled_walk_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
                 "    cid_out[col * B + b] = cid;\n")
@@ -93,6 +110,10 @@ _TK_UNROLL = "constexpr int kTkUnroll = 2;\n"
 _TK_FAN = "constexpr int kTkFan = 2;\n"
 _TK_ORDER = ("  const uint32_t tile = blockIdx.x / prefixes;\n"
              "  const uint32_t prefix = blockIdx.x - tile * prefixes;\n")
+_POS_THREADS = "constexpr int kPosThreads = 32;\n"
+_POS_STORE = "constexpr int kPosStore = 2;\n"
+_WALK_THREADS = "constexpr int kTunnelThreads = 128;\n"
+_WALK_FORWARD = "constexpr int kMaxForward = 8;\n"
 # variant -> [(source, shipped text, the variant's text)]
 VARIANTS = {
     "row-major": [
@@ -144,6 +165,30 @@ VARIANTS = {
         ("query_sharded.cu", _TK_UNROLL, _TK_UNROLL.replace("2", "4"))],
     "tk-fan-4": [("query_sharded.cu", _TK_FAN, _TK_FAN.replace("2", "4"))],
     "tk-fan-8": [("query_sharded.cu", _TK_FAN, _TK_FAN.replace("2", "8"))],
+    "pos-threads-64": [
+        ("query_pos.cu", _POS_THREADS, _POS_THREADS.replace("32", "64"))],
+    "pos-threads-128": [
+        ("query_pos.cu", _POS_THREADS, _POS_THREADS.replace("32", "128"))],
+    "pos-scalar-stores": [
+        ("query_pos.cu", _POS_STORE, _POS_STORE.replace("2", "0"))],
+    "pos-column-major": [
+        ("query_pos.cu", _POS_STORE, _POS_STORE.replace("2", "1"))],
+    "pos-key-after": [
+        ("query_pos.cu", "constexpr bool kPosKeyAhead = true;",
+         "constexpr bool kPosKeyAhead = false;")],
+    "walk-threads-32": [
+        ("colsplit.cu", _WALK_THREADS, _WALK_THREADS.replace("128", "32"))],
+    "walk-threads-64": [
+        ("colsplit.cu", _WALK_THREADS, _WALK_THREADS.replace("128", "64"))],
+    "walk-threads-256": [
+        ("colsplit.cu", _WALK_THREADS, _WALK_THREADS.replace("128", "256"))],
+    "walk-forward-2": [
+        ("colsplit.cu", _WALK_FORWARD, _WALK_FORWARD.replace("8", "2"))],
+    "walk-forward-32": [
+        ("colsplit.cu", _WALK_FORWARD, _WALK_FORWARD.replace("8", "32"))],
+    "walk-no-pair": [
+        ("colsplit.cu", "constexpr bool kWalkPair = true;",
+         "constexpr bool kWalkPair = false;")],
     "tk-prefix-major": [
         ("query_sharded.cu", _TK_ORDER,
          "  const uint32_t prefix = blockIdx.x / tiles;\n"
@@ -157,16 +202,28 @@ LCP_VARIANTS = ("lcp-span-8", "lcp-span-16", "lcp-blocked",
                 "lcp-group-16", "lcp-scatter")
 TK_VARIANTS = ("tk-unroll-1", "tk-unroll-4", "tk-fan-4", "tk-fan-8",
                "tk-prefix-major")
+POS_VARIANTS = ("pos-threads-64", "pos-threads-128", "pos-scalar-stores",
+                "pos-column-major", "pos-key-after")
+WALK_VARIANTS = ("walk-threads-32", "walk-threads-64", "walk-threads-256",
+                 "walk-forward-2", "walk-forward-32", "walk-no-pair")
 # the entry points each group's libraries bind
 ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                           "colbwt_query_chunk_mega",
                           "colbwt_query_chunk_mega_wide"),
                 "lcp": ("colbwt_lcp_lift",),
-                "tk": ("colbwt_compose_sharded_tk",)}
+                "tk": ("colbwt_compose_sharded_tk",),
+                "pos": ("colbwt_query_chunk_pos",),
+                "walk": ("colbwt_tunneled_walk",)}
+# the parent's entry points whose arguments differ from the shipped ones'
+PARENT_SIGNATURES = {
+    "colbwt_tunneled_walk": ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4
+                             + [ctypes.c_void_p] * 3)}
 # the variants of each group
 GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
                                                 + MEGA_VARIANTS)),
-                  "lcp": LCP_VARIANTS, "tk": TK_VARIANTS}
+                  "lcp": LCP_VARIANTS, "tk": TK_VARIANTS,
+                  "pos": POS_VARIANTS, "walk": WALK_VARIANTS}
 
 
 def log(msg: str) -> None:
@@ -221,7 +278,9 @@ def build_libraries(parent: Path | None, groups: list[str]
     for name in trees:
         lib = ctypes.CDLL(str(WORK / name / "lib.so"))
         for fn in ENTRY_POINTS[name.split("/")[0]]:
-            getattr(lib, fn).argtypes = K._SIGNATURES[fn]
+            getattr(lib, fn).argtypes = (
+                PARENT_SIGNATURES[fn] if name.endswith("/parent")
+                and fn in PARENT_SIGNATURES else K._SIGNATURES[fn])
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -294,8 +353,12 @@ def main() -> int:
 
     if "lcp" in groups:
         sweep_lcp(torch, of("lcp"), compare)
-    if "scans" in groups or "tk" in groups:
+    if {"scans", "tk", "pos", "walk"} & set(groups):
         bench = bench_index(torch)
+        if "walk" in groups:
+            sweep_walk(torch, of("walk"), compare, bench)
+        if "pos" in groups:
+            sweep_pos(torch, of("pos"), compare, bench)
         if "tk" in groups:
             sweep_tk(torch, of("tk"), compare, bench)
         if "scans" in groups:
@@ -307,6 +370,16 @@ def main() -> int:
     print(card)
     print(line, flush=True)
     return 0
+
+
+def rows(torch, plane):
+    """An (M, B) plane as (B, M) on the device (a uint16 plane through its
+    int16 view)."""
+    if plane is None:
+        return None
+    if plane.dtype == torch.uint16:
+        return plane.view(torch.int16).t().contiguous().view(torch.uint16)
+    return plane.t().contiguous()
 
 
 def bench_index(torch) -> dict:
@@ -329,7 +402,7 @@ def bench_index(torch) -> dict:
     build_pipeline(fastas, prefix, ColBwtConfig(
         mode=SplitMode.TUNNELS, split_rate=10, min_mum=20, keep_temp=True),
         device=torch.device("cuda"))
-    out = {"docs": docs, "tbl": load_table(prefix),
+    out = {"docs": docs, "tbl": load_table(prefix), "prefix": prefix,
            "index": ColPmlIndex.load(f"{prefix}.colpml.npz")}
     out["reads"] = query_reads(docs, np.random.default_rng(0x5A0E))
     log(f"[designs] bench's index and reads in "
@@ -479,15 +552,6 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
         del ft
 
     # K5, K6a
-    def rows(plane):
-        """An (M, B) plane as (B, M) on the device (a uint16 plane through
-        its int16 view)."""
-        if plane is None:
-            return None
-        if plane.dtype == torch.uint16:
-            return plane.view(torch.int16).t().contiguous().view(torch.uint16)
-        return plane.t().contiguous()
-
     def scan(lib, mt, ff, pats, lens, state, step_offset, masked, mode,
              row_major):
         B, M = pats.shape
@@ -519,7 +583,7 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
                 mt["length"].data_ptr(), mt["r"], mt["n"], *common))
         if row_major:
             return out0, out1, *final
-        return rows(out0), rows(out1), *final
+        return rows(torch, out0), rows(torch, out1), *final
 
     for label, idx, mt, init in (
             ("C", mega, TM.build_mega_table(mega, device=dev),
@@ -558,6 +622,152 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
             compare(f"{'K5' if label == 'C' else 'K6a'} {label} {what}",
                     designs, reps)
         del mt
+
+
+def sweep_pos(torch, libs: dict, compare, bench: dict) -> None:
+    """K3 at the four shapes the main path gives it on bench's index: cell
+    A's dispatch batch, S-A's streamed batch, the N reads' general-T1 batch
+    and a long-read chunk with carried state; the shipped kernel against
+    its plain version first."""
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = bench["index"]
+    reads, n_reads, long_reads = bench["reads"]
+    t0 = time.perf_counter()
+    pt = TQ.build_pos_tables(index, 4, alphabet=b"ACGT", device=dev)
+    n = pt["n"]
+    log(f"[designs] pos tables (k = 4, ACGT keys) in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def fresh(B):
+        return (torch.full((B,), n - 1, dtype=torch.int32, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+
+    def scan(lib, table, pats, lens, pos0, mlen0, off, k, A, pack, masked,
+             mode, row_major):
+        B, W = pats.shape
+        M = W * (8 // pack) if pack else W
+        shape = (B, M) if row_major else (M, B)
+        out0 = torch.empty(shape, dtype=torch.uint16 if mode == 2
+                           else torch.int32, device=dev)
+        out1 = (torch.empty(shape, dtype=torch.int32, device=dev)
+                if mode == 0 else None)
+        final = [torch.empty(B, dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+        K.check("query_chunk_pos", lib.colbwt_query_chunk_pos(
+            table.data_ptr(), table.shape[0], n, pats.data_ptr(), W,
+            lens.data_ptr(), pos0.data_ptr(), mlen0.data_ptr(), off, B, M, k,
+            A, pack, int(masked), mode, out0.data_ptr(),
+            None if out1 is None else out1.data_ptr(),
+            *(t.data_ptr() for t in final), stream))
+        if row_major:
+            return out0, out1, *final
+        return rows(torch, out0), rows(torch, out1), *final
+
+    cells = []
+    for label, batch, reps in (("A dispatch", reads[:8192], 20),
+                               ("S-A dispatch", reads[:32768], 20)):
+        dig, ln, _ = TQ._encode_digits(index, pt, batch, 252)
+        pat, pack = TQ.pack_digits(dig, pt["A"])
+        cells.append((f"{label} {len(batch)}x252 k=4 pack={pack} u16",
+                      (pt["table"], to_device(pat, dev, np.uint8),
+                       to_device(ln, dev), *fresh(len(batch)), 0, 4,
+                       pt["A"], pack, False, 2), reps))
+    enc, ln = index.encode_patterns(n_reads[:1024], 252)
+    cells.append((f"N reads {len(enc)}x252 general T1 k=1 A={pt['A_full']}",
+                  (pt["t1"], to_device(enc, dev, np.uint8),
+                   to_device(ln, dev), *fresh(len(enc)), 0, 1, pt["A_full"],
+                   0, False, 0), 20))
+    # the long reads' second chunk as query_long_reads scans it: masked,
+    # two planes, the state the first chunk left
+    dig, ln, _ = TQ._encode_digits(index, pt, long_reads, 3 * 2048)
+    pat = to_device(dig, dev, np.uint8)
+    lt = to_device(ln, dev)
+    L = len(long_reads)
+    _, st = TQ.query_chunk_pos(pt["table"], n, pat[:, 4096:].contiguous(),
+                               lt, *fresh(L), 0, 4, pt["A"], masked=True)
+    cells.append((f"long-read chunk {L}x2048 masked, carried state",
+                  (pt["table"], pat[:, 2048:4096].contiguous(), lt, *st,
+                   2048, 4, pt["A"], 0, True, 0), 5))
+    for label, a, reps in cells:
+        kw = dict(masked=a[9], packed_out=a[10] != 0,
+                  fresh_state=a[10] == 2, pack=a[8])
+        got = scan(libs["shipped"], *a, True)
+        (wp, wc), (wpos, wml) = TQ.query_chunk_pos_ref(
+            a[0], n, *a[1:5], a[5], a[6], a[7], **kw)
+        for g, w in zip(got, (wp, wc, wpos, wml)):
+            if w is None:
+                continue
+            if w.dtype == torch.uint16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            if not torch.equal(g, w):
+                raise RuntimeError(f"K3 {label}: differs from its plain "
+                                   "version")
+        del got, wp, wc
+        designs = {name: (lambda lib=lib, a=a, rm=name != "pos-column-major":
+                          scan(lib, *a, rm))
+                   for name, lib in libs.items()}
+        compare(f"K3 {label}", designs, reps)
+    del pt, cells
+    torch.cuda.empty_cache()
+
+
+def sweep_walk(torch, libs: dict, compare, bench: dict) -> None:
+    """K10a on the first bucket of bench's MUMs (as chip_smoke.py's phase
+    3 takes it) and on 16 of its MUMs, the chain floor; the shipped kernel
+    against its plain version first."""
+    from chip_smoke import forward_rows
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import colsplit as TCS
+    from colbwt_tpu_torch.ops import oracle as O
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    prefix = bench["prefix"]
+    N, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    fl = O.build_fl_table(*F.read_rlbwt(f"{prefix}.fa"))
+    fd = TCS.fl_tensors(fl, dev)
+    r = fl.r
+    order = np.argsort(mp, kind="stable")
+    ls = ml[order]
+    sel = next(TCS.buckets(ls, np.argsort(ls, kind="stable"), True, N,
+                           1 << 24))
+    T, rate = int(ls[sel].max()), 10
+
+    def walk(lib, p0, lt, old):
+        M = p0.shape[0]
+        pos = torch.empty((T, M), dtype=torch.int32, device=dev)
+        valid = torch.empty((T, M), dtype=torch.bool, device=dev)
+        tables = ((fd["idx"], fd["dest_interval"], fd["dest_offset"]) if old
+                  else (fd["idx"], fd["rows"]))
+        K.check("tunneled_walk", lib.colbwt_tunneled_walk(
+            *(t.data_ptr() for t in tables), r, p0.data_ptr(), lt.data_ptr(),
+            M, T, rate, N, pos.data_ptr(), valid.data_ptr(), stream))
+        return pos, valid
+
+    p0 = torch.from_numpy(mp[order][sel].astype(np.int32)).to(dev)
+    log("[designs] K10a fast-forward rows a step on bench's first bucket: "
+        + json.dumps(forward_rows(torch, fd, p0, T)))
+    for label, m, reps in (("bench's first bucket", sel.size, 20),
+                           ("16 MUMs, the chain floor", 16, 20)):
+        p0 = torch.from_numpy(mp[order][sel][:m].astype(np.int32)).to(dev)
+        lt = torch.from_numpy(ls[sel][:m].astype(np.int32)).to(dev)
+        got = walk(libs["shipped"], p0, lt, False)
+        want = TCS.tunneled_walk_ref(fd, p0, lt, T, rate, N)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"K10a {label}: differs from its plain "
+                               "version")
+        del got, want
+        designs = {name: (lambda lib=lib, old=name == "parent":
+                          walk(lib, p0, lt, old))
+                   for name, lib in libs.items()}
+        compare(f"K10a {label}, {m} MUMs x T={T}, rate {rate}, N={N}, "
+                f"r={r}", designs, reps)
 
 
 if __name__ == "__main__":

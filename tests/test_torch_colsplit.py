@@ -161,3 +161,135 @@ def test_col_split_no_mums():
     for mode in ("tunnels", "all"):
         _assert_same(TCS.col_split(fl, z, z, 2, 1, mode, device="cpu"),
                      (z, z, z))
+
+
+# ---------------------------------------------------------------------------
+# K10a's move-structure walk, modelled in NumPy (csrc/colsplit.cu)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = (1 << 31) - 1
+
+
+def _wrap(x):
+    """int64 values wrapped to int32's range, as int32 sums wrap."""
+    return ((np.asarray(x, np.int64) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def walk_model(rows, p0, num_steps, num_docs, max_forward=8):
+    """The kernel's walk over `rows` (TCS.walk_rows), every walker in
+    lockstep: the carried run count u, the alive test against the row's
+    start and next start, the step from the row, the fast-forward from
+    clip(dest_interval) (at most `max_forward` rows) or the binary search.
+    Each identity is checked against searchsorted at every step.  Returns
+    pos (T, M) int32, alive (T, M) and the fast-forward rows a step (T, M;
+    -1 where the binary search took over)."""
+    start, nxt, head, dest = (rows[:, c].astype(np.int64) for c in range(4))
+    r = start.size
+    p = np.asarray(p0, np.int64)
+    M = p.size
+    u = np.searchsorted(start, p, side="right")
+    alive = np.ones(M, bool)
+    pos = np.empty((num_steps, M), np.int32)
+    alive_t = np.empty((num_steps, M), bool)
+    ff = np.empty((num_steps, M), np.int64)
+    for t in range(num_steps):
+        j = np.maximum(u - 1, 0)
+        q = _wrap(p + num_docs - 1)
+        whole = np.where(u == 0, q < start[j],
+                         (start[j] <= q) & ((u == r) | (q < nxt[j])))
+        assert np.array_equal(whole,
+                              np.searchsorted(start, q, side="right") == u)
+        alive &= whole
+        p = _wrap(head[j] + _wrap(p - start[j]))
+        pos[t] = p
+        alive_t[t] = alive
+        jj = dest[j].copy()
+        f = np.zeros(M, np.int64)
+        ok = p >= start[jj]
+
+        def inside(jj):
+            return (jj == r - 1) | (p < nxt[jj])
+
+        go = ok & ~inside(jj)
+        for _ in range(max_forward):
+            if not go.any():
+                break
+            jj[go] += 1
+            f[go] += 1
+            go &= ~inside(jj)
+        found = ok & inside(jj)
+        u = np.where(found, jj + 1, np.searchsorted(start, p, side="right"))
+        assert np.array_equal(u, np.searchsorted(start, p, side="right"))
+        ff[t] = np.where(found, f, -1)
+    return pos, alive_t, ff
+
+
+def test_walk_rows_match_jax_gathers(rng):
+    """The row table: idx, the next start, dest_head = JAX's int32
+    idx[clip(di)] + doff, clip(di)."""
+    fl, _, _ = _collection(rng, 4, 300, 6)
+    fd = TCS.fl_tensors(fl, "cpu")
+    rows = fd["rows"].numpy()
+    fdj = CS.fl_device_arrays(fl)
+    r = fl.idx.size
+    di = jnp.clip(fdj["dest_interval"], 0, r - 1)
+    want_head = jnp.take(fdj["idx"], di, mode="clip") + fdj["dest_offset"]
+    assert rows.dtype == np.int32 and rows.shape == (r, 4)
+    np.testing.assert_array_equal(rows[:, 0], np.asarray(fdj["idx"]))
+    np.testing.assert_array_equal(rows[:, 1], np.r_[np.asarray(fl.idx)[1:],
+                                                    INT32_MAX])
+    np.testing.assert_array_equal(rows[:, 2], np.asarray(want_head))
+    np.testing.assert_array_equal(rows[:, 3], np.asarray(di))
+
+
+def test_walk_rows_wrap():
+    """dest_head wraps as JAX's int32 sum does."""
+    fd = {"idx": torch.tensor([0, 5, INT32_MAX - 3], dtype=torch.int32),
+          "dest_interval": torch.tensor([2, 7, -1], dtype=torch.int32),
+          "dest_offset": torch.tensor([9, 1, 2], dtype=torch.int32)}
+    rows = TCS.walk_rows(fd).numpy()
+    want = jnp.asarray([INT32_MAX - 3, INT32_MAX - 3, 0], jnp.int32) \
+        + jnp.asarray([9, 1, 2], jnp.int32)
+    np.testing.assert_array_equal(rows[:, 2], np.asarray(want))
+    np.testing.assert_array_equal(rows[:, 3], [2, 2, 0])
+
+
+def _edge_starts(fl, p0, num_docs, rng):
+    """MUM starts plus the walk's edge cases: the last run, within N - 1 of
+    n, past n, negative, and near 2**31 (q wraps)."""
+    n, last = int(fl.n), int(fl.idx[-1])
+    extra = [last, n - 1, max(n - num_docs + 1, 0), n, n + 7, -1, -50,
+             INT32_MAX, INT32_MAX - num_docs + 2, INT32_MAX - 1,
+             -(1 << 31)] + list(rng.integers(last, n, 4))
+    return np.r_[p0, np.asarray(extra, np.int64)].astype(np.int32)
+
+
+@pytest.mark.parametrize("num_docs,rate,max_forward",
+                         [(2, 1, 8), (3, 3, 8), (4, 10, 8), (4, 10, 1),
+                          (3, 2, 0), (8, 4, 8)])
+def test_walk_model_matches_plain_and_jax(rng, num_docs, rate, max_forward):
+    """The kernel's identities on every step of every walker of random
+    collections (checked inside walk_model), its planes equal to the plain
+    version's and JAX's; max_forward 0 and 1 force the binary search."""
+    fl, ml, mp = _collection(rng, num_docs, 300, 6)
+    order = np.argsort(mp, kind="stable")
+    p0 = _edge_starts(fl, mp[order], num_docs, rng)
+    lens = np.r_[ml[order], rng.integers(1, 40, p0.size - ml.size)]
+    lens = lens.astype(np.int32)
+    T = int(lens.max()) + 3
+    fd = TCS.fl_tensors(fl, "cpu")
+    pos, alive, ff = walk_model(fd["rows"].numpy(), p0, T, num_docs,
+                                max_forward)
+    t = np.arange(T)[:, None]
+    valid = alive & (t % rate == 0) & (t < lens[None, :])
+    got = TCS.tunneled_walk_ref(fd, torch.from_numpy(p0),
+                                torch.from_numpy(lens), T, rate, num_docs)
+    np.testing.assert_array_equal(pos, got[0].numpy())
+    np.testing.assert_array_equal(valid, got[1].numpy())
+    want = CS._tunneled_walk(CS.fl_device_arrays(fl), jnp.asarray(p0),
+                             jnp.asarray(lens), T, rate, num_docs)
+    np.testing.assert_array_equal(pos, np.asarray(want[0]))
+    np.testing.assert_array_equal(valid, np.asarray(want[1]))
+    assert (ff >= -1).all() and valid.any()
+    if max_forward == 0:
+        assert (ff <= 0).all()  # every step found in place or searched

@@ -1,0 +1,298 @@
+"""Randomized differential fuzz of the port's pos scan (K3) and col-split
+walk (K10a), the port's counterpart of
+tests/test_fuzz_differential.py::test_fuzz_device_engines_vs_cpp for
+these two kernels.
+
+Cases are made from numpy seeds as that file's `_random_case` makes them
+(its alphabets, SNP-style and independent documents, real or synthetic col
+ids with the 8-bit edges 0 and 255, empty, 1-character, huge reads and
+reads with bytes absent from the index), here through the port's oracle.
+On the CPU, the plain versions run: the pos scan is held to the JAX
+package's `query_chunk_pos` on the same tables and digits and, through the
+port's batch and long-read drivers, to the port's oracle; the walk is held
+to JAX's `_tunneled_walk` and to the NumPy model of the kernel
+(tests/test_torch_colsplit.py::walk_model) on random FL tables.  The
+`cuda` cases hold the kernels to their plain versions on the same cases on
+the card.  Every value is an integer: tolerance 0.
+
+JAX is imported inside the CPU tests only, so that the `cuda` cases run
+where JAX is not installed (`pytest --noconftest -m cuda`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.models.tensors import to_device
+from colbwt_tpu_torch.ops import colsplit as TCS
+from colbwt_tpu_torch.ops import oracle as O
+from colbwt_tpu_torch.ops import query_pos as TQ
+
+ALPHABETS = [b"ACGT", b"AC", b"ACGTN", bytes(range(60, 80)), b"Z"]
+
+
+def random_case(rng):
+    """A random (table, reads, docs) triple through the port's oracle,
+    drawn as tests/test_fuzz_differential.py::_random_case draws it."""
+    alph = ALPHABETS[int(rng.integers(0, len(ALPHABETS)))]
+    nd = int(rng.integers(1, 5))
+    if rng.random() < 0.5 and nd >= 2:  # SNP-style near-identical docs
+        L = int(rng.integers(30, 900))
+        base = rng.choice(np.frombuffer(alph, np.uint8), L)
+        docs = []
+        for _ in range(nd):
+            a = base.copy()
+            k = int(rng.integers(0, max(1, L // 20)))
+            a[rng.integers(0, L, k)] = rng.choice(
+                np.frombuffer(alph, np.uint8), k)
+            docs.append(a.tobytes())
+    else:  # independent random docs, varied lengths
+        docs = [rng.choice(np.frombuffer(alph, np.uint8),
+                           int(rng.integers(2, 600))).tobytes()
+                for _ in range(nd)]
+
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa = O.suffix_array(ranks)
+    lcp = O.lcp_kasai(ranks, sa)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    thr = O.compute_thresholds(heads, lens, lcp)
+    n = int(lens.sum())
+    if rng.random() < 0.5 and len(docs) >= 2:
+        fl = O.build_fl_table(heads, lens)
+        ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, nd,
+                                   int(rng.integers(5, 20)))
+        mpos, mids, mhts = O.col_split_oracle(
+            fl, ml, mp, nd, int(rng.integers(1, 8)),
+            "tunnels" if rng.random() < 0.5 else "all")
+        bits, ids = O.find_col_runs_oracle(mpos, mids, mhts, fl.l_heads,
+                                           fl.n)
+    else:  # synthetic ids on the 8-bit edges (0, 1, 255)
+        k = int(rng.integers(0, 6))
+        bits = (np.unique(rng.integers(0, n, k)) if k
+                else np.empty(0, np.int64))
+        ids = rng.choice(np.array([0, 1, 2, 254, 255], np.int64), bits.size)
+    tbl = O.build_col_pml(heads, lens, np.asarray(bits, np.int64),
+                          np.asarray(ids, np.int64), thr)
+
+    reads = []
+    for _ in range(int(rng.integers(1, 9))):
+        style = rng.random()
+        if style < 0.12:
+            reads.append(b"")
+        elif style < 0.24:
+            reads.append(bytes([int(rng.choice(list(alph)))]))
+        elif style < 0.36:  # bytes absent from the index mixed in
+            m = int(rng.integers(1, 80))
+            reads.append(rng.choice(np.frombuffer(alph + b"XY#~", np.uint8),
+                                    m).tobytes())
+        elif style < 0.48:  # huge read
+            m = int(rng.integers(1000, 4000))
+            reads.append(rng.choice(np.frombuffer(alph, np.uint8),
+                                    m).tobytes())
+        else:  # substring of a document with a few errors
+            d = docs[int(rng.integers(0, nd))]
+            m = min(len(d), int(rng.integers(1, 150)))
+            s = int(rng.integers(0, len(d) - m + 1))
+            a = bytearray(d[s:s + m])
+            for _ in range(int(rng.integers(0, 3))):
+                a[int(rng.integers(0, m))] = int(rng.choice(list(alph)))
+            reads.append(bytes(a))
+    return tbl, reads, docs
+
+
+# ---------------------------------------------------------------------------
+# K3, the pos scan
+# ---------------------------------------------------------------------------
+
+# (k, pack, output mode, carried state): every k with every packing, each
+# output mode fresh, and masked chunks with carried state in both int32
+# modes; a seed a case
+POS_SETTINGS = [(k, pack, mode, carried)
+                for k in (1, 2, 3, 4) for pack in (0, 2, 4)
+                for mode, carried in (("u16", False), ("planes", False),
+                                      ("i32", True), ("planes", True))
+                if not (pack == 4 and k > 2)]
+POS_CASES = [(0xF5 + 7 * i, *s) for i, s in enumerate(POS_SETTINGS)]
+# the bytes a byte can hold of each packing, and the key alphabet's cap
+PER = {0: 1, 2: 4, 4: 2}
+KEY_CAP = {0: 4, 2: 4, 4: 16}
+
+
+def pos_case(seed, k, pack):
+    """The case's generator (for the scan's state), table, port index,
+    reads and the scan's key alphabet: every byte of the index at k <= 2
+    without packing, else at most KEY_CAP of the text's bytes."""
+    rng = np.random.default_rng(seed)
+    tbl, reads, docs = random_case(rng)
+    index = ColPmlIndex.from_table(tbl)
+    present = bytes(sorted(set(b"".join(docs))))
+    alphabet = (None if pack == 0 and k <= 2
+                else present[:KEY_CAP[pack]])
+    return rng, tbl, index, alphabet, reads
+
+
+def scan_inputs(rng, index, pt, reads, k, pack, mode, carried):
+    """The scan's digits (unpacked for JAX, packed for the port), lengths,
+    state and keyword arguments for one setting."""
+    grp = math.lcm(k, PER[pack])
+    m_raw = max([len(r) for r in reads] + [1])
+    M = min(-(-m_raw // grp), (255 if mode == "u16" else 300) // grp) * grp
+    dig, lens, _ = TQ._encode_digits(index, pt, [r[:M] for r in reads], M)
+    B = dig.shape[0]
+    n = pt["n"]
+    if carried:
+        pos0 = rng.integers(0, n, B)
+        pos0[:2] = (n - 1, 0)[:B]
+        mlen0 = rng.integers(0, 300, B)
+        mlen0[::3] = rng.choice([0, (1 << 23) - 1, 1 << 23, 1 << 30],
+                                mlen0[::3].size)
+        step_offset = k * int(rng.integers(0, 40))
+    else:
+        pos0 = np.full(B, n - 1)
+        mlen0 = np.zeros(B)
+        step_offset = 0
+    pat = (TQ.pack_digits(dig, 4 if pack == 2 else 16)[0] if pack
+           else dig)
+    kw = dict(masked=carried, packed_out=mode != "planes",
+              fresh_state=mode == "u16")
+    return (dig, pat, lens, pos0.astype(np.int32), mlen0.astype(np.int32),
+            step_offset, kw)
+
+
+@pytest.mark.parametrize("seed,k,pack,mode,carried", POS_CASES)
+def test_pos_scan_fuzz(seed, k, pack, mode, carried):
+    """The port's scan (plain version) equals JAX's query_chunk_pos on the
+    same table and digits; its batch and long-read drivers equal the
+    port's oracle on every read."""
+    import jax.numpy as jnp
+
+    from colbwt_tpu.ops import query_pos as JQ
+
+    rng, tbl, index, alphabet, reads = pos_case(seed, k, pack)
+    pt = TQ.build_pos_tables(index, k, alphabet=alphabet, device="cpu")
+    dig, pat, lens, pos0, mlen0, off, kw = scan_inputs(
+        rng, index, pt, reads, k, pack, mode, carried)
+    t = torch.from_numpy
+    (gp, gc), (gpos, gml) = TQ.query_chunk_pos(
+        pt["table"], pt["n"], t(pat), t(lens), t(pos0), t(mlen0), off, k,
+        pt["A"], pack=pack, **kw)
+    (wp, wc), (wpos, wml) = JQ.query_chunk_pos(
+        jnp.asarray(pt["table"].numpy()), pt["n"], jnp.asarray(dig),
+        jnp.asarray(lens), jnp.asarray(pos0), jnp.asarray(mlen0),
+        jnp.int32(off), k=k, A=pt["A"], **kw)
+    assert gp.numpy().dtype == np.asarray(wp).dtype
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    if mode == "planes":
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    else:
+        assert gc is None and wc is None
+    np.testing.assert_array_equal(gpos.numpy(), np.asarray(wpos))
+    np.testing.assert_array_equal(gml.numpy(), np.asarray(wml))
+
+    short = [r[:252] for r in reads]
+    for got, rds in ((TQ.query_batch(index, short, pt=pt), short),
+                     (TQ.query_long_reads(index, reads, chunk=48 * k,
+                                          pt=pt), reads)):
+        for j, read in enumerate(rds):
+            ep, ec = O.query_pml_oracle(tbl, read)
+            np.testing.assert_array_equal(got[0][j], ep, err_msg=f"{j}")
+            np.testing.assert_array_equal(got[1][j], ec, err_msg=f"{j}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,pack,mode,carried", POS_CASES)
+def test_pos_scan_fuzz_cuda(dev, seed, k, pack, mode, carried):
+    """K3 equals its plain version on the same cases, on the card."""
+    rng, _, index, alphabet, reads = pos_case(seed, k, pack)
+    pt = TQ.build_pos_tables(index, k, alphabet=alphabet, device=dev)
+    _, pat, lens, pos0, mlen0, off, kw = scan_inputs(
+        rng, index, pt, reads, k, pack, mode, carried)
+    args = (pt["table"], pt["n"], to_device(pat, dev, np.uint8),
+            to_device(lens, dev), to_device(pos0, dev),
+            to_device(mlen0, dev), off, k, pt["A"])
+    got = TQ.query_chunk_pos(*args, pack=pack, **kw)
+    want = TQ.query_chunk_pos_ref(*args, pack=pack, **kw)
+    for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if w.dtype == torch.uint16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K10a, the tunneled walk
+# ---------------------------------------------------------------------------
+
+# (seed, N, rate): N 1-8, rates 1-10
+WALK_CASES = [(0xA1 + 13 * i, N, rate) for i, (N, rate) in enumerate(
+    [(1, 1), (2, 10), (3, 2), (4, 10), (5, 3), (6, 7), (7, 1), (8, 10),
+     (2, 5), (4, 1), (8, 4), (3, 9)])]
+
+
+def walk_case(seed, N):
+    """A random FL table (runs of 1-5 characters and 1-12 positions, some of
+    them 40-200 long so that the fast-forward runs past its rows) and MUM
+    starts: random ones, the last run's, within N - 1 of n and past it."""
+    rng = np.random.default_rng(seed)
+    r = int(rng.integers(1, 400))
+    heads = rng.integers(2, 2 + int(rng.integers(1, 6)), r).astype(np.uint8)
+    lens = rng.integers(1, 13, r)
+    lens[rng.random(r) < 0.05] = rng.integers(40, 200)
+    fl = O.build_fl_table(heads, lens.astype(np.int64))
+    n, last = int(fl.n), int(fl.idx[-1])
+    p0 = np.r_[rng.integers(0, n, 60), rng.integers(last, n, 4),
+               np.arange(max(n - N + 1, 0), n), n, n + 3]
+    mlens = rng.integers(1, 40, p0.size)
+    return fl, p0.astype(np.int32), mlens.astype(np.int32), int(
+        mlens.max()) + 2
+
+
+@pytest.mark.parametrize("seed,N,rate", WALK_CASES)
+def test_walk_fuzz(seed, N, rate):
+    """The plain K10a equals JAX's _tunneled_walk and the kernel's NumPy
+    model on random FL tables."""
+    import jax.numpy as jnp
+
+    from colbwt_tpu.ops import colsplit_jax as CS
+    from tests.test_torch_colsplit import walk_model
+
+    fl, p0, lens, T = walk_case(seed, N)
+    fd = TCS.fl_tensors(fl, "cpu")
+    got = TCS.tunneled_walk_ref(fd, torch.from_numpy(p0),
+                                torch.from_numpy(lens), T, rate, N)
+    want = CS._tunneled_walk(CS.fl_device_arrays(fl), jnp.asarray(p0),
+                             jnp.asarray(lens), T, rate, N)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    pos, alive, _ = walk_model(fd["rows"].numpy(), p0, T, N)
+    t = np.arange(T)[:, None]
+    np.testing.assert_array_equal(pos, got[0].numpy())
+    np.testing.assert_array_equal(
+        alive & (t % rate == 0) & (t < lens[None, :]), got[1].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,N,rate", WALK_CASES)
+def test_walk_fuzz_cuda(dev, seed, N, rate):
+    """K10a equals its plain version on the same cases, on the card."""
+    fl, p0, lens, T = walk_case(seed, N)
+    fd = TCS.fl_tensors(fl, dev)
+    args = (fd, to_device(p0, dev), to_device(lens, dev), T, rate, N)
+    for g, w in zip(TCS.tunneled_walk(*args), TCS.tunneled_walk_ref(*args)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
