@@ -215,6 +215,10 @@ ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
              "lengths", "fa.col_runs", "fa.col_ids", "fa.col_pml")
 # run-length scales of the mega (n ~ 1.0e9) and mega-wide (n ~ 4.1e9) indexes
 MEGA_SCALE, WIDE_SCALE = 256, 1024
+# phase 12's counted runs of the per-step and per-round routes, by cell
+CELLS_G = {"sharded-compact (1,2) round route": "G-round",
+           "sharded-mega (1,2) step route": "G-step narrow",
+           "sharded-mega-wide (1,2) step route": "G-step wide"}
 
 
 def log(msg: str) -> None:
@@ -273,6 +277,31 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def gpu_ms(torch, fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on the card alone: the calls are queued
+    behind a sleep kernel, so the host has enqueued all of them before the
+    card starts the first, and the CUDA events time them back to back (the
+    sleep grows until the host wins).  Where `cuda_ms` of a small launch
+    is the host's enqueue rate, this is the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 22
+    while True:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        late = start.query()  # the card reached the calls before the host
+        torch.cuda.synchronize()
+        if not late:
+            return start.elapsed_time(end) / reps
+        require(cycles < 1 << 36, "gpu_ms: the host never got ahead")
+        cycles *= 4
 
 
 class Checks:
@@ -1832,33 +1861,57 @@ class Twins:
         self.first: dict = {}
         self.undo = []
 
+    def _run(self, name: str, args: tuple, kern, ref, key, shared, nth):
+        """One call of kernel `name` with the public arguments `args`:
+        `kern()` launches it."""
+        torch = self.torch
+        k = (name, self.tag, key(args))
+        self.calls[k] = self.calls.get(k, -1) + 1
+        if self.calls[k] == nth:
+            self.first[k] = clone_args(torch, args, shared)
+        if not self.check:
+            return kern()
+        twins = clone_args(torch, args, shared)
+        out = kern()
+        want = ref(*twins)
+        pairs = (list(zip(out, want)) if isinstance(out, tuple)
+                 else [(out, want)])
+        for a, b in zip(args, twins):
+            pairs += (list(zip(a, b)) if isinstance(a, tuple)
+                      else [(a, b)])
+        for a, b in pairs:
+            if isinstance(a, torch.Tensor) and a is not b:
+                self.chk.equal(name, a, b, f"{self.tag} call")
+        return out
+
     def wrap(self, module, name: str, ref, key=lambda args: None,
              shared=(), nth: int = 8) -> None:
         kern = getattr(module, name)
-        torch = self.torch
 
         def both(*args):
-            k = (name, self.tag, key(args))
-            self.calls[k] = self.calls.get(k, -1) + 1
-            if self.calls[k] == nth:
-                self.first[k] = clone_args(torch, args, shared)
-            if not self.check:
-                return kern(*args)
-            twins = clone_args(torch, args, shared)
-            out = kern(*args)
-            want = ref(*twins)
-            pairs = (list(zip(out, want)) if isinstance(out, tuple)
-                     else [(out, want)])
-            for a, b in zip(args, twins):
-                pairs += (list(zip(a, b)) if isinstance(a, tuple)
-                          else [(a, b)])
-            for a, b in pairs:
-                if isinstance(a, torch.Tensor) and a is not b:
-                    self.chk.equal(name, a, b, f"{self.tag} call")
-            return out
+            return self._run(name, args, lambda: kern(*args), ref, key,
+                             shared, nth)
 
         setattr(module, name, both)
         self.undo.append((module, name, kern))
+
+    def wrap_launcher(self, module, cls: str, name: str, ref,
+                      key=lambda args: None, shared=(), nth: int = 8
+                      ) -> None:
+        """As `wrap`, for a launcher class (module.cls, prepared once, a
+        call per launch): each call is held and captured as kernel `name`
+        with the public function's arguments, `launcher.args(*call)`."""
+        base = getattr(module, cls)
+        tw = self
+
+        class Twin(base):
+            def __call__(self, *call):
+                return tw._run(name, self.args(*call),
+                               lambda: base.__call__(self, *call), ref, key,
+                               shared, nth)
+
+        setattr(module, cls, Twin)
+        self.undo.append((module, cls, base))
 
     def __enter__(self):
         return self
@@ -1904,15 +1957,20 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
 
     def twins(check: bool) -> Twins:
         tw = Twins(torch, chk, check)
-        tw.wrap(PM, "sharded_fetch", PM.sharded_fetch_ref,
-                key=lambda a: (next(t for t in a[0] if t is not None
-                                    ).shape[1], a[2] is None, a[1].shape[0]))
-        tw.wrap(TS, "sharded_step_compact", TS.sharded_step_compact_ref,
-                key=lambda a: a[0])
+        # the fetch and the two per-step kernels launch through launchers
+        # made once a chunk (Fetch, RoundCompact, StepMega); each call is
+        # held and captured with its public function's arguments
+        tw.wrap_launcher(PM, "Fetch", "sharded_fetch", PM.sharded_fetch_ref,
+                         key=lambda a: (next(t for t in a[0] if t is not None
+                                             ).shape[1], a[2] is None,
+                                        a[1].shape[0]))
+        tw.wrap_launcher(TS, "RoundCompact", "sharded_step_compact",
+                         TS.sharded_step_compact_ref, key=lambda a: a[0])
         tw.wrap(TS, "sharded_scan_compact", TS.sharded_scan_compact_ref,
                 key=lambda a: tuple(a[3].shape), nth=0)
-        tw.wrap(TSM, "sharded_step_mega", TSM.sharded_step_mega_ref,
-                key=lambda a: a[0].shape[0], shared=(1,))
+        tw.wrap_launcher(TSM, "StepMega", "sharded_step_mega",
+                         TSM.sharded_step_mega_ref,
+                         key=lambda a: a[0].shape[0], shared=(1,))
         tw.wrap(TSM, "sharded_scan_mega", TSM.sharded_scan_mega_ref,
                 key=lambda a: tuple(a[7].shape), shared=(0, 2), nth=0)
         tw.wrap(TSP, "sharded_step_pos", TSP.sharded_step_pos_ref)
@@ -1940,6 +1998,8 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         out = fn()
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
+        if tag in CELLS_G:
+            log(f"[time] {CELLS_G[tag]} wall: {walls[tag]:.4f} s")
         lc = dict(K.launches)
         for name, n in want.items():
             require(lc[name] > 0 if n is None else lc[name] == n,
@@ -2144,12 +2204,20 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     for tag, lanes in (("sharded-mega (1,2) step route", B), (step_tag, B),
                        (step_tag, len(long_reads))):
         a = arg("sharded_step_mega", tag, lanes)
+        reps = 3 if lanes > 64 else 200
+        what = f"{tag}: one step of {lanes} lanes"
         chk.time("sharded_step_mega", lambda: TSM.sharded_step_mega(*a),
                  lambda: TSM.sharded_step_mega_ref(*a),
-                 f"{tag}: one step of {lanes} lanes",
-                 reps=3 if lanes > 64 else 200,
+                 f"{what} (the public wrapper, checked in full)",
+                 reps=reps,
                  bound=(nbytes(a[0], a[7]) + 2 * nbytes(a[5]) + lanes * 14,
                         lanes * 40))
+        # the route's call: the launcher made once a chunk, then on the
+        # card alone
+        step = TSM.StepMega(*a[:8], *a[9:])
+        log(f"[time] sharded_step_mega {what}: launcher "
+            f"{cuda_ms(torch, lambda: step(a[8]), reps):.4f} ms, on the "
+            f"card {gpu_ms(torch, lambda: step(a[8]), reps):.4f} ms")
     # the chunk scans: first on 16 lanes, the long reads cut to their last
     # 2,048 characters from the start state (the wide engine: its first
     # long-read chunk), whose time a step the chain floors'; then the
@@ -2221,13 +2289,24 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     # the bytes of one character step: the fetched rows, the state read and
     # written, lengths, the pattern column and the pml/cid writes (not the
     # scratch and next-index traffic between one launch a round)
+    what = f"one character step (rounds 1-4) of {Bs} lanes"
     chk.time("sharded_step_compact",
              lambda: [TS.sharded_step_compact(*c) for c in caps],
              lambda: [TS.sharded_step_compact_ref(*c) for c in caps],
-             f"one character step (rounds 1-4) of {Bs} lanes",
+             f"{what} (the public wrapper, checked in full)",
              bound=(sum(nbytes(c[2], c[3]) for c in caps)
                     + Bs * (16 * 2 + 4 + 1 + 8), Bs * 60))
-    del cap, first, caps, a
+    rounds = [(TS.RoundCompact(c[2], c[3] if c[0] == 1 else None,
+                               c[3] if c[0] == 2 else None, *c[4:8],
+                               *c[9:]), c[0], c[1], c[8]) for c in caps]
+
+    def launched():
+        for go, rnd, last, i in rounds:
+            go(rnd, last, i)
+    log(f"[time] sharded_step_compact {what}: launchers "
+        f"{cuda_ms(torch, launched):.4f} ms, on the card "
+        f"{gpu_ms(torch, launched):.4f} ms")
+    del cap, first, caps, a, rounds, step
     torch.cuda.empty_cache()
     log(f"[phase 12] done in {time.perf_counter() - t_phase:.1f}s")
     return walls, launches

@@ -41,10 +41,16 @@
 // run row as two 16-byte loads, and writes its outputs column-major, so a
 // warp's stores of a step are coalesced.  The fetch: a lane's owner by one
 // 32-bit division, W a template parameter (2, 8, 16), 8- or 16-byte vector
-// loads through the read-only path, 32-bit lane indices.  The steps: one
-// thread per read, state in (B,) int32 arrays between launches.  K13d
-// streams its rows out, its T1 loads fanned out over the key's last digit
-// (below).
+// loads through the read-only path, 32-bit lane indices.  The steps and
+// rounds (K13a-K13c): one thread per read, state in (B,) int32 arrays
+// between launches, the chunk's patterns and the pml and cid planes
+// column-major ((C, B): a step's character column and its outputs are
+// contiguous, so a warp's loads and stores of a step fill whole sectors,
+// where (B, C) rows put each lane's byte or word in a sector of its own).
+// Their entry points take a parameter block that the caller prepares once
+// a chunk, and the step (and round): a launch passes two or four values
+// through ctypes, not twenty.  K13d streams its rows out, its T1 loads
+// fanned out over the key's last digit (below).
 //
 // Arithmetic is the JAX programs' int32 arithmetic (sums wrap as there, shifts
 // on uint32 where JAX shifts into bit 31); every gather index is int64 and
@@ -292,27 +298,46 @@ __global__ void sharded_step_pos_kernel(const int2* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// The per-step kernels' layouts.  kStepColMajor: the chunk's patterns and
+// the pml and cid planes are (C, B), step s at row C-1-s (else (B, C) rows,
+// the layout before the redesign, which scan_designs.py times beside it).
+// kStepInterleave (K13b/K13c): a step's pml and cid as one 8-byte store
+// into an interleaved (C, B, 2) plane at pml (cid unused).
+constexpr bool kStepColMajor = true;
+constexpr bool kStepInterleave = false;
+
+// the element (column col, lane b) of a (C, B) or (B, C) plane
+__device__ __forceinline__ int64_t step_at(int64_t col, int64_t b, int64_t B,
+                                           int64_t C) {
+  return kStepColMajor ? col * B + b : b * C + col;
+}
+
+// ---------------------------------------------------------------------------
 // K13b (narrow) and K13c (wide): one step of the mega recurrence from the
 // summed (B, 16) row at c * r + interval.  Lanes past their read's end
 // (step_offset + s >= lengths) keep their state and write zeros.  Emits the
-// next step's row index.
+// next step's row index; its character is loaded first, beside the row.
 
 struct MegaState {
   int32_t *interval, *offset, *pos_lo, *pos_hi, *mlen;
 };
 
 template <bool kWide>
-__global__ void sharded_step_mega_kernel(
+__global__ void __launch_bounds__(kThreads) sharded_step_mega_kernel(
     const int4* __restrict__ rows, const int32_t* __restrict__ length,
     int64_t r, int32_t n_lo, int32_t n_hi, MegaState st,
     const uint8_t* __restrict__ patterns, const int32_t* __restrict__ lengths,
-    int64_t B, int64_t M, int64_t s, int64_t step_offset, int ff_bound,
+    int64_t B, int64_t C, int64_t s, int64_t step_offset, int ff_bound,
     int32_t* __restrict__ pml, int32_t* __restrict__ cid,
     int32_t* __restrict__ g_next) {
   const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (b >= B) return;
+  const int64_t col = C - 1 - s;
+  const bool more = s + 1 < C;
+  const int32_t next_c = more ? __ldg(patterns + step_at(col - 1, b, B, C)) : 0;
   const int4* p = rows + 4 * b;
-  const int4 q0 = p[0], q1 = p[1], q2 = p[2], q3 = p[3];
+  const int4 q0 = __ldg(p), q1 = __ldg(p + 1), q2 = __ldg(p + 2),
+             q3 = __ldg(p + 3);
   const int32_t w[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
                          q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
   const int32_t interval = st.interval[b];
@@ -320,6 +345,7 @@ __global__ void sharded_step_mega_kernel(
   const int32_t pos_lo = st.pos_lo[b];
   const int32_t pos_hi = kWide ? st.pos_hi[b] : 0;
   const int32_t mlen = st.mlen[b];
+  const bool valid = s + step_offset < __ldg(lengths + b);
 
   bool match;
   int32_t cid_out, di, doff, lf_lo, lf_hi = 0, dlen0;
@@ -350,7 +376,7 @@ __global__ void sharded_step_mega_kernel(
   di = add32(di, over);
   doff = add32(doff, over ? -dlen0 : 0);
   for (int t = 2; t < ff_bound; ++t) {
-    const int32_t ln = length[clip(di, r)];
+    const int32_t ln = __ldg(length + clip(di, r));
     over = doff >= ln;
     di = add32(di, over);
     doff = add32(doff, over ? -ln : 0);
@@ -363,8 +389,6 @@ __global__ void sharded_step_mega_kernel(
   const int32_t nhi = kWide ? (take_pred ? w[15] : (take_succ ? w[11] : lf_hi))
                             : 0;
   const int32_t nlen = match ? add32(mlen, 1) : 0;
-  const bool valid = s + step_offset < lengths[b];
-  const int32_t new_interval = valid ? ni : interval;
   if (valid) {
     st.interval[b] = ni;
     st.offset[b] = no;
@@ -372,12 +396,17 @@ __global__ void sharded_step_mega_kernel(
     if (kWide) st.pos_hi[b] = nhi;
     st.mlen[b] = nlen;
   }
-  const int64_t col = M - 1 - s;
-  pml[b * M + col] = valid ? nlen : 0;
-  cid[b * M + col] = valid ? cid_out : 0;
-  if (s + 1 < M) {
-    g_next[b] = add32(mul32(patterns[b * M + col - 1], static_cast<int32_t>(r)),
-                      new_interval);
+  const int64_t at = step_at(col, b, B, C);
+  const int32_t out_len = valid ? nlen : 0, out_cid = valid ? cid_out : 0;
+  if (kStepInterleave) {
+    reinterpret_cast<int2*>(pml)[at] = make_int2(out_len, out_cid);
+  } else {
+    pml[at] = out_len;
+    cid[at] = out_cid;
+  }
+  if (more) {
+    g_next[b] = add32(mul32(next_c, static_cast<int32_t>(r)),
+                      valid ? ni : interval);
   }
 }
 
@@ -427,7 +456,15 @@ __device__ __forceinline__ void compact_fast_forward(int32_t ln, int32_t& di,
   doff = add32(doff, over ? -ln : 0);
 }
 
-__global__ void sharded_step_compact_kernel(
+// kScratchTrim: the round kernel keeps in its (9, B) scratch only what a
+// later round reads and no other array holds: si and pi are g_a and g_b
+// after round 1, di is g_a after rounds 3-5, and the last round keeps its
+// values in registers (rows sSi, sPi, sDi stay unwritten).  Storing every
+// value, as the kernel did before the redesign, took 1.4x as long on the
+// card at G-round's 263,168 lanes (PERF.md §6).
+constexpr bool kScratchTrim = true;
+
+__global__ void __launch_bounds__(kThreads) sharded_step_compact_kernel(
     int rnd, bool last, const int32_t* __restrict__ row_a,
     const int32_t* __restrict__ row_b, int32_t* __restrict__ scratch,
     int32_t* __restrict__ interval, int32_t* __restrict__ offset,
@@ -442,54 +479,71 @@ __global__ void sharded_step_compact_kernel(
   int32_t* sc = scratch + b;  // column-major (9, B)
   const int32_t* a = row_a + kSoaWidth * b;
   if (rnd == 1) {
-    const int32_t c = patterns[b * M + M - 1 - i];
-    const int32_t si = row_b[2 * b], pi = row_b[2 * b + 1];
-    sc[sCid * B] = a[kCid];
-    sc[sMatch * B] = a[kChar] == c;
-    sc[sSi * B] = si;
-    sc[sPi * B] = pi;
-    g_a[b] = si;
-    g_b[b] = pi;
+    const int32_t c = __ldg(patterns + step_at(M - 1 - i, b, B, M));
+    const int2 sp = __ldg(reinterpret_cast<const int2*>(row_b) + b);
+    sc[sCid * B] = __ldg(a + kCid);
+    sc[sMatch * B] = __ldg(a + kChar) == c;
+    if (!kScratchTrim) {
+      sc[sSi * B] = sp.x;
+      sc[sPi * B] = sp.y;
+    }
+    g_a[b] = sp.x;
+    g_b[b] = sp.y;
     return;
   }
   if (rnd == 2) {
+    const int32_t si = kScratchTrim ? g_a[b] : sc[sSi * B];
+    const int32_t pi = kScratchTrim ? g_b[b] : sc[sPi * B];
     const Reposition t = compact_reposition(
-        sc[sMatch * B] != 0, sc[sSi * B], sc[sPi * B], a[kThr],
-        row_b[kSoaWidth * b + kLen], interval[b], offset[b], pos[b],
+        sc[sMatch * B] != 0, si, pi, __ldg(a + kThr),
+        __ldg(row_b + kSoaWidth * b + kLen), interval[b], offset[b], pos[b],
         length[b], r, n);
     sc[sNoff * B] = t.offset;
     sc[sNlen * B] = t.length;
     g_a[b] = t.interval;
     return;
   }
-  int32_t di, doff;
+  int32_t di, doff, npos = 0;
   if (rnd == 3) {
-    di = a[kDi];
-    doff = add32(a[kDoff], sc[sNoff * B]);
+    di = __ldg(a + kDi);
+    doff = add32(__ldg(a + kDoff), sc[sNoff * B]);
   } else {
-    di = sc[sDi * B];
+    di = kScratchTrim ? g_a[b] : sc[sDi * B];
     doff = sc[sDoff * B];
-    if (rnd == 4) sc[sNpos * B] = add32(a[kIdx], doff);
-    if (rnd == 5 || ff_bound >= 2) compact_fast_forward(a[kLen], di, doff);
+    if (rnd == 4) npos = add32(__ldg(a + kIdx), doff);
+    if (rnd == 5 || ff_bound >= 2) {
+      compact_fast_forward(__ldg(a + kLen), di, doff);
+    }
   }
-  sc[sDi * B] = di;
-  sc[sDoff * B] = doff;
   g_a[b] = di;
+  if (!(kScratchTrim && last)) {
+    if (!kScratchTrim) sc[sDi * B] = di;
+    sc[sDoff * B] = doff;
+    if (rnd == 4) sc[sNpos * B] = npos;
+  }
   if (!last) return;
-  const bool valid = i < lengths[b];
+  const int64_t col = M - 1 - i;
+  const bool more = i + 1 < M;
+  const int32_t next_c =
+      more ? __ldg(patterns + step_at(col - 1, b, B, M)) : 0;
+  const bool valid = i < __ldg(lengths + b);
   const int32_t nlen = sc[sNlen * B];
+  if (rnd != 4) npos = sc[sNpos * B];
+  int32_t now = interval[b];
   if (valid) {
+    now = di;
     interval[b] = di;
     offset[b] = doff;
-    pos[b] = sc[sNpos * B];
+    pos[b] = npos;
     length[b] = nlen;
   }
-  pml[b * M + M - 1 - i] = valid ? nlen : 0;
-  cid[b * M + M - 1 - i] = valid ? sc[sCid * B] : 0;
-  if (i + 1 < M) {
-    g_a[b] = interval[b];
-    g_b[b] = interval[b];
-    s_b[b] = patterns[b * M + M - 2 - i];
+  const int64_t at = step_at(col, b, B, M);
+  pml[at] = valid ? nlen : 0;
+  cid[at] = valid ? sc[sCid * B] : 0;
+  if (more) {
+    g_a[b] = now;
+    g_b[b] = now;
+    s_b[b] = next_c;
   }
 }
 
@@ -658,67 +712,95 @@ int colbwt_sharded_step_pos(const void* rows, void* pos, void* mlen,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows (B, 16) int32; length (r,) int32; the state arrays (B,) int32 are
-// updated in place (pos_hi null when narrow); narrow n in n_lo; pml, cid
-// (B, M) int32; g_next (B,) int32.
-int colbwt_sharded_step_mega(int64_t wide, const void* rows,
-                             const void* length, int64_t r, int64_t n_lo,
-                             int64_t n_hi, void* interval, void* offset,
-                             void* pos_lo, void* pos_hi, void* mlen,
-                             const void* patterns, const void* lengths,
-                             int64_t B, int64_t M, int64_t s,
-                             int64_t step_offset, int64_t ff_bound, void* pml,
-                             void* cid, void* g_next, void* stream) {
-  const MegaState st{static_cast<int32_t*>(interval),
-                     static_cast<int32_t*>(offset),
-                     static_cast<int32_t*>(pos_lo),
-                     static_cast<int32_t*>(pos_hi),
-                     static_cast<int32_t*>(mlen)};
-  auto* rw = static_cast<const int4*>(rows);
-  auto* ln = static_cast<const int32_t*>(length);
-  auto* pat = static_cast<const uint8_t*>(patterns);
-  auto* lens = static_cast<const int32_t*>(lengths);
-  auto* pm = static_cast<int32_t*>(pml);
-  auto* ci = static_cast<int32_t*>(cid);
-  auto* gn = static_cast<int32_t*>(g_next);
-  auto strm = static_cast<cudaStream_t>(stream);
-  if (wide) {
-    sharded_step_mega_kernel<true><<<blocks_for(B), kThreads, 0, strm>>>(
-        rw, ln, r, static_cast<int32_t>(n_lo), static_cast<int32_t>(n_hi), st,
-        pat, lens, B, M, s, step_offset, static_cast<int>(ff_bound), pm, ci,
-        gn);
+// K13b/K13c's parameter block, prepared once a chunk (field for field
+// parallel/query_sharded_mega.py _StepMegaArgs): rows (B, 16) int32;
+// length (r,) int32; the state arrays (B,) int32, updated in place (pos_hi
+// null when narrow); narrow n in n_lo; patterns (C, B) uint8; lengths (B,)
+// int32; pml, cid (C, B) int32; g_next (B,) int32.
+struct StepMegaArgs {
+  const void* rows;
+  const void* length;
+  int64_t r, n_lo, n_hi;
+  void *interval, *offset, *pos_lo, *pos_hi, *mlen;
+  const void* patterns;
+  const void* lengths;
+  int64_t B, C, step_offset, ff_bound, wide;
+  void *pml, *cid, *g_next;
+  void* stream;
+};
+
+// step s of the chunk (0 <= s < C).
+int colbwt_sharded_step_mega(const void* args, int64_t s) {
+  const auto& a = *static_cast<const StepMegaArgs*>(args);
+  if (s < 0 || s >= a.C) return static_cast<int>(cudaErrorInvalidValue);
+  const MegaState st{static_cast<int32_t*>(a.interval),
+                     static_cast<int32_t*>(a.offset),
+                     static_cast<int32_t*>(a.pos_lo),
+                     static_cast<int32_t*>(a.pos_hi),
+                     static_cast<int32_t*>(a.mlen)};
+  auto* rw = static_cast<const int4*>(a.rows);
+  auto* ln = static_cast<const int32_t*>(a.length);
+  auto* pat = static_cast<const uint8_t*>(a.patterns);
+  auto* lens = static_cast<const int32_t*>(a.lengths);
+  auto* pm = static_cast<int32_t*>(a.pml);
+  auto* ci = static_cast<int32_t*>(a.cid);
+  auto* gn = static_cast<int32_t*>(a.g_next);
+  auto strm = static_cast<cudaStream_t>(a.stream);
+  const int ff = static_cast<int>(a.ff_bound);
+  if (a.wide) {
+    sharded_step_mega_kernel<true><<<blocks_for(a.B), kThreads, 0, strm>>>(
+        rw, ln, a.r, static_cast<int32_t>(a.n_lo),
+        static_cast<int32_t>(a.n_hi), st, pat, lens, a.B, a.C, s,
+        a.step_offset, ff, pm, ci, gn);
   } else {
-    sharded_step_mega_kernel<false><<<blocks_for(B), kThreads, 0, strm>>>(
-        rw, ln, r, static_cast<int32_t>(n_lo), 0, st, pat, lens, B, M, s,
-        step_offset, static_cast<int>(ff_bound), pm, ci, gn);
+    sharded_step_mega_kernel<false><<<blocks_for(a.B), kThreads, 0, strm>>>(
+        rw, ln, a.r, static_cast<int32_t>(a.n_lo), 0, st, pat, lens, a.B,
+        a.C, s, a.step_offset, ff, pm, ci, gn);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// row_a (B, 8); row_b (B, 2) in round 1, (B, 8) in round 2, else unused;
-// scratch (9, B); the state arrays (B,) updated in place; pml, cid (B, M);
+// K13a's parameter block, prepared once a batch (field for field
+// parallel/query_sharded.py _RoundCompactArgs): row_a (B, 8); row_jump
+// (B, 2), read in round 1, and row_run (B, 8), read in round 2 (null where
+// the caller makes neither round); scratch (9, B); the state arrays (B,)
+// updated in place; patterns (M, B) uint8; lengths (B,); pml, cid (M, B);
 // g_a, g_b, s_b (B,) written.
-int colbwt_sharded_step_compact(int64_t rnd, int64_t last, const void* row_a,
-                                const void* row_b, void* scratch,
-                                void* interval, void* offset, void* pos,
-                                void* length, const void* patterns,
-                                const void* lengths, int64_t B, int64_t M,
-                                int64_t i, int64_t r, int64_t n,
-                                int64_t ff_bound, void* pml, void* cid,
-                                void* g_a, void* g_b, void* s_b,
-                                void* stream) {
-  sharded_step_compact_kernel<<<blocks_for(B), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int>(rnd), last != 0, static_cast<const int32_t*>(row_a),
-      static_cast<const int32_t*>(row_b), static_cast<int32_t*>(scratch),
-      static_cast<int32_t*>(interval), static_cast<int32_t*>(offset),
-      static_cast<int32_t*>(pos), static_cast<int32_t*>(length),
-      static_cast<const uint8_t*>(patterns),
-      static_cast<const int32_t*>(lengths), B, M, i,
-      static_cast<int32_t>(r), static_cast<int32_t>(n),
-      static_cast<int>(ff_bound), static_cast<int32_t*>(pml),
-      static_cast<int32_t*>(cid), static_cast<int32_t*>(g_a),
-      static_cast<int32_t*>(g_b), static_cast<int32_t*>(s_b));
+struct RoundCompactArgs {
+  const void* row_a;
+  const void* row_jump;
+  const void* row_run;
+  void* scratch;
+  void *interval, *offset, *pos, *length;
+  const void* patterns;
+  const void* lengths;
+  int64_t B, M, r, n, ff_bound;
+  void *pml, *cid, *g_a, *g_b, *s_b;
+  void* stream;
+};
+
+// round rnd (1-5) of character step i (0 <= i < M); last: the step's last
+// round, which writes the step's outputs and state.
+int colbwt_sharded_step_compact(const void* args, int64_t rnd, int64_t last,
+                                int64_t i) {
+  const auto& a = *static_cast<const RoundCompactArgs*>(args);
+  const void* row_b = rnd == 1 ? a.row_jump : a.row_run;
+  if (rnd < 1 || rnd > 5 || i < 0 || i >= a.M ||
+      (rnd <= 2 && row_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sharded_step_compact_kernel<<<blocks_for(a.B), kThreads, 0,
+                                static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<int>(rnd), last != 0, static_cast<const int32_t*>(a.row_a),
+      static_cast<const int32_t*>(row_b), static_cast<int32_t*>(a.scratch),
+      static_cast<int32_t*>(a.interval), static_cast<int32_t*>(a.offset),
+      static_cast<int32_t*>(a.pos), static_cast<int32_t*>(a.length),
+      static_cast<const uint8_t*>(a.patterns),
+      static_cast<const int32_t*>(a.lengths), a.B, a.M, i,
+      static_cast<int32_t>(a.r), static_cast<int32_t>(a.n),
+      static_cast<int>(a.ff_bound), static_cast<int32_t*>(a.pml),
+      static_cast<int32_t*>(a.cid), static_cast<int32_t*>(a.g_a),
+      static_cast<int32_t*>(a.g_b), static_cast<int32_t*>(a.s_b));
   return static_cast<int>(cudaGetLastError());
 }
 

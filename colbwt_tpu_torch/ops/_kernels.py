@@ -8,7 +8,9 @@ hash of the sources, the headers they include (csrc/*.cuh) and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The wrappers call an entry point through `on(device)`, which makes the
-tensors' card the current device for the launch.  Every C entry point
+tensors' card the current device for the launch; a kernel launched many
+times on the same tensors (the sharded per-step routes) goes through a
+`Launcher`, bound once.  Every C entry point
 returns cudaGetLastError(); `check` raises on a nonzero code.  `launches`
 counts kernel launches per wrapper name (the wrappers in ops/query_pos.py,
 ops/query_xla.py, ops/query_mega.py, ops/query_mega_wide.py,
@@ -81,10 +83,9 @@ _SIGNATURES = {
     "colbwt_sharded_fetch": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
     "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
-    "colbwt_sharded_step_mega": ([_I, _P, _P] + [_I] * 3 + [_P] * 7
-                                 + [_I] * 5 + [_P] * 3 + [_P]),
-    "colbwt_sharded_step_compact": ([_I, _I] + [_P] * 9 + [_I] * 6
-                                    + [_P] * 5 + [_P]),
+    # a parameter block prepared once, then the step (and round, last)
+    "colbwt_sharded_step_mega": [_P, _I],
+    "colbwt_sharded_step_compact": [_P, _I, _I, _I],
     "colbwt_sharded_scan_mega": ([_I, _P, _I, _I, _P, _I, _I] + [_P] * 7
                                  + [_I] * 4 + [_P] * 3),
     "colbwt_sharded_scan_compact": ([_P, _P, _I, _I] + [_P] * 6 + [_I] * 5
@@ -189,6 +190,34 @@ class _OnDevice:
 def on(device: torch.device) -> _OnDevice:
     """The kernel library, its launches made on `device`."""
     return _OnDevice(device)
+
+
+class Launcher:
+    """One entry point bound for repeated launches on `device`: the
+    arguments `fixed` (ints, the address of a parameter block among them)
+    are kept, and a call passes them and what changes from launch to
+    launch (`per_call`), raises on a nonzero code and counts one launch of
+    `kernel`.  The caller validates the tensors once, when it makes the
+    launcher; `keep` holds what `fixed` points to (a ctypes block) alive.
+    `lib` is the library to bind (default: the port's)."""
+
+    def __init__(self, device: torch.device, entry: str, kernel: str,
+                 *fixed, lib: ctypes.CDLL | None = None, keep=None):
+        self._fn = getattr(lib or load(), entry)
+        self._fixed = fixed
+        self._keep = keep
+        self._index = (device.index if device.index is not None
+                       else torch.cuda.current_device())
+        self._kernel = kernel
+
+    def __call__(self, *per_call) -> None:
+        if torch.cuda.current_device() == self._index:
+            code = self._fn(*self._fixed, *per_call)
+        else:
+            with torch.cuda.device(self._index):
+                code = self._fn(*self._fixed, *per_call)
+        check(self._kernel, code)
+        launches[self._kernel] += 1
 
 
 def check(name: str, code: int) -> None:

@@ -32,7 +32,9 @@ It has two forms, which compute the same thing:
 `sharded_fetch` is the masked gather of all the shards of a row that one
 card holds, one CUDA kernel launch (csrc/query_sharded.cu) with its plain
 PyTorch version `sharded_fetch_ref` beside it; it serves K13a, K13b, K13c
-and K13e.  A CPU tensor takes the plain version; a CUDA tensor launches the
+and K13e.  `Fetch` is the same call prepared once for buffers that a
+route rewrites between steps, and `Mesh.gatherer` the summed gather so
+prepared.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
 """
 
@@ -106,6 +108,54 @@ def shard_pointers(shards: list, dev: torch.device, W: int) -> torch.Tensor:
     return _pointer_array(str(dev), tuple(bases), tuple(rows))
 
 
+class Fetch:
+    """`sharded_fetch` prepared once for fixed shards, g, s and out (a
+    route's buffers, rewritten in place between calls): the arguments are
+    validated here, as `sharded_fetch` validates them; each call is one
+    launch (the plain version on the CPU) and returns out."""
+
+    def __init__(self, shards: list, g: torch.Tensor, s, L: int,
+                 stride: int = 0, out: torch.Tensor | None = None):
+        held = [t for t in shards if t is not None]
+        if not held:
+            raise ValueError("sharded_fetch needs at least one shard")
+        dev = held[0].device
+        B, W = g.shape[0], held[0].shape[-1]
+        tab = shard_pointers(shards, dev, W)
+        K.require(g, "g", torch.int32, dev)
+        if g.dim() != 1:
+            raise ValueError("g must be (B,)")
+        if s is not None:
+            K.require(s, "s", torch.int32, dev)
+            if s.shape != (B,):
+                raise ValueError(f"s must have shape ({B},)")
+        if out is None:
+            out = torch.empty((B, W), dtype=torch.int32, device=dev)
+        K.require(out, "out", torch.int32, dev)
+        if out.shape != (B, W):
+            raise ValueError(f"out must have shape ({B}, {W})")
+        self._args = (shards, g, s, L, stride, out)
+        self._plain = dev.type == "cpu"
+        self._launch = None
+        if not self._plain and B:
+            self._launch = K.Launcher(
+                dev, "colbwt_sharded_fetch", "sharded_fetch", tab.data_ptr(),
+                len(shards), int(L), W, g.data_ptr(),
+                None if s is None else s.data_ptr(), B, int(stride),
+                out.data_ptr(), K.stream_handle(dev), keep=tab)
+
+    def args(self) -> tuple:
+        """`sharded_fetch`'s arguments."""
+        return self._args
+
+    def __call__(self) -> torch.Tensor:
+        if self._plain:
+            return sharded_fetch_ref(*self._args)
+        if self._launch is not None:
+            self._launch()
+        return self._args[5]
+
+
 def sharded_fetch(shards: list, g: torch.Tensor, s, L: int, stride: int = 0,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """The masked gather of the ip shards one card holds, in one launch
@@ -118,35 +168,9 @@ def sharded_fetch(shards: list, g: torch.Tensor, s, L: int, stride: int = 0,
     s[b]·stride + g[b] - i·L (s None: selector 0), clamped as
     jnp.take(mode="clip"); a lane that no shard of this card owns reads 0.
     Writes `out` when given, else a new tensor; returns (B, W) int32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    held = [t for t in shards if t is not None]
-    if not held:
-        raise ValueError("sharded_fetch needs at least one shard")
-    if held[0].device.type == "cpu":
-        return sharded_fetch_ref(shards, g, s, L, stride, out)
-    dev = held[0].device
-    B, W = g.shape[0], held[0].shape[-1]
-    tab = shard_pointers(shards, dev, W)
-    K.require(g, "g", torch.int32, dev)
-    if g.dim() != 1:
-        raise ValueError("g must be (B,)")
-    if s is not None:
-        K.require(s, "s", torch.int32, dev)
-        if s.shape != (B,):
-            raise ValueError(f"s must have shape ({B},)")
-    if out is None:
-        out = torch.empty((B, W), dtype=torch.int32, device=dev)
-    K.require(out, "out", torch.int32, dev)
-    if out.shape != (B, W):
-        raise ValueError(f"out must have shape ({B}, {W})")
-    if B:
-        code = K.on(dev).colbwt_sharded_fetch(
-            tab.data_ptr(), len(shards), int(L), W, g.data_ptr(),
-            None if s is None else s.data_ptr(), B, int(stride),
-            out.data_ptr(), K.stream_handle(dev))
-        K.check("sharded_fetch", code)
-        K.launches["sharded_fetch"] += 1
-    return out
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    call of a `Fetch`)."""
+    return Fetch(shards, g, s, L, stride, out)()
 
 
 class Mesh:
@@ -244,12 +268,33 @@ class Mesh:
         """Rows of an ip-sharded table at global indices g (shard i holds
         [i·L, (i+1)·L)): one `sharded_fetch` a card, summed over "ip".
         `out` (on the row's device) takes the result when given."""
-        parts = [sharded_fetch(tables, g.to(dev),
-                               None if s is None else s.to(dev), L, stride,
-                               out if j == 0 else None)
-                 for j, (dev, tables) in enumerate(self.card_shards(shards,
-                                                                    d))]
-        return self.psum(parts, d)
+        return self.gatherer(shards, d, L, g, s, stride, out)()
+
+    def gatherer(self, shards: dict, d: int, L: int, g: torch.Tensor,
+                 s=None, stride: int = 0, out: torch.Tensor | None = None):
+        """`gather` prepared once for g, s and out, which the caller
+        rewrites in place between calls (a route's step loop): one `Fetch`
+        a card, validated here, with its copies of g and s on the other
+        cards; each call copies g and s there, fetches and sums, and
+        returns the sum (in `out`, or a buffer made here)."""
+        parts = []
+        for j, (dev, tables) in enumerate(self.card_shards(shards, d)):
+            gj = g if g.device == dev else torch.empty_like(g, device=dev)
+            sj = (s if s is None or s.device == dev
+                  else torch.empty_like(s, device=dev))
+            parts.append((gj, sj, Fetch(tables, gj, sj, L, stride,
+                                        out if j == 0 else None)))
+
+        def fetch() -> torch.Tensor:
+            outs = []
+            for gj, sj, one in parts:
+                if gj is not g:
+                    gj.copy_(g)
+                if sj is not s:
+                    sj.copy_(s)
+                outs.append(one())
+            return self.psum(outs, d)
+        return fetch
 
     def collect(self, outs: dict) -> list[np.ndarray]:
         """The whole batch's outputs from {d: (tensor, ...)} of the rows

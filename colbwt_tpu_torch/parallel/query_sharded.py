@@ -23,8 +23,9 @@ shards lie, each with its plain PyTorch version beside it:
   the steps of the batch in one launch, the rounds' reads made in the
   kernel from the shards on the card;
 - shards on other cards or ranks: `round_row`, each round a fetch a card
-  summed over "ip" (`Mesh.gather`), then the round kernel
-  `sharded_step_compact`.
+  summed over "ip" (`Mesh.gatherer`), then the round kernel
+  `sharded_step_compact` through a launcher made once a batch
+  (`RoundCompact`), on (M, B) pattern columns and output planes.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The engine needs a run-split index (ff_bound >= 1): the unbounded
@@ -32,6 +33,8 @@ fast-forward would read run lengths of other shards.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -45,7 +48,8 @@ from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
 
 # columns of the packed run row (mesh.SOA_FIELDS)
 F_CHAR, F_IDX, F_LEN, F_DI, F_DOFF, F_CID, F_THR = range(7)
-# rows of the per-lane scratch carried between rounds
+# rows of the per-lane scratch carried between rounds (S_SI, S_PI, S_DI
+# unwritten: g_a and g_b hold those values)
 S_CID, S_MATCH, S_SI, S_PI, S_NOFF, S_NLEN, S_DI, S_DOFF, S_NPOS = range(9)
 SCRATCH_ROWS = 9
 
@@ -61,19 +65,17 @@ def sharded_step_compact_ref(rnd: int, last: bool, row_a, row_b, scratch,
     """Plain PyTorch K13a; same contract as `sharded_step_compact`."""
     interval, offset, pos, length = state
     sc = scratch
-    M = patterns.shape[1]
+    M = patterns.shape[0]
     a = row_a
     if rnd == 1:
-        c = patterns[:, M - 1 - i].to(torch.int32)
+        c = patterns[M - 1 - i].to(torch.int32)
         sc[S_CID] = a[:, F_CID]
         sc[S_MATCH] = (a[:, F_CHAR] == c).to(torch.int32)
-        sc[S_SI] = row_b[:, 0]
-        sc[S_PI] = row_b[:, 1]
         g_a.copy_(row_b[:, 0])
         g_b.copy_(row_b[:, 1])
         return
     if rnd == 2:
-        si, pi = sc[S_SI], sc[S_PI]
+        si, pi = g_a, g_b  # round 1 left succ and pred there
         has_succ = si < r
         has_pred = pi >= 0
         thr = torch.where(has_succ, a[:, F_THR], n)
@@ -86,35 +88,144 @@ def sharded_step_compact_ref(rnd: int, last: bool, row_a, row_b, scratch,
         sc[S_NLEN] = torch.where(match, length + 1, 0)
         g_a.copy_(torch.where(match, interval, ti))
         return
+    npos = None
     if rnd == 3:
         di = a[:, F_DI]
         doff = a[:, F_DOFF] + sc[S_NOFF]
     else:
-        di, doff = sc[S_DI], sc[S_DOFF]
+        di, doff = g_a.clone(), sc[S_DOFF].clone()  # the last round's di
         if rnd == 4:
-            sc[S_NPOS] = a[:, F_IDX] + doff
+            npos = a[:, F_IDX] + doff
         if rnd == 5 or ff_bound >= 2:
             ln = a[:, F_LEN]
             over = doff >= ln
             di = di + over.to(torch.int32)
             doff = doff - torch.where(over, ln, 0)
-    sc[S_DI] = di
-    sc[S_DOFF] = doff
     g_a.copy_(di)
     if not last:
+        sc[S_DOFF] = doff
+        if npos is not None:
+            sc[S_NPOS] = npos
         return
+    if npos is None:
+        npos = sc[S_NPOS]
     valid = i < lengths
     nlen = sc[S_NLEN]
     interval.copy_(torch.where(valid, di, interval))
     offset.copy_(torch.where(valid, doff, offset))
-    pos.copy_(torch.where(valid, sc[S_NPOS], pos))
+    pos.copy_(torch.where(valid, npos, pos))
     length.copy_(torch.where(valid, nlen, length))
-    pml[:, M - 1 - i] = torch.where(valid, nlen, 0)
-    cid[:, M - 1 - i] = torch.where(valid, sc[S_CID], 0)
+    pml[M - 1 - i] = torch.where(valid, nlen, 0)
+    cid[M - 1 - i] = torch.where(valid, sc[S_CID], 0)
     if i + 1 < M:
         g_a.copy_(interval)
         g_b.copy_(interval)
-        s_b.copy_(patterns[:, M - 2 - i].to(torch.int32))
+        s_b.copy_(patterns[M - 2 - i].to(torch.int32))
+
+
+class _RoundCompactArgs(ctypes.Structure):
+    """K13a's parameter block (csrc/query_sharded.cu RoundCompactArgs,
+    field for field)."""
+    _fields_ = [(name, ctypes.c_void_p if kind == "p" else ctypes.c_int64)
+                for name, kind in (
+                    ("row_a", "p"), ("row_jump", "p"), ("row_run", "p"),
+                    ("scratch", "p"), ("interval", "p"), ("offset", "p"),
+                    ("pos", "p"), ("length", "p"), ("patterns", "p"),
+                    ("lengths", "p"), ("B", "i"), ("M", "i"), ("r", "i"),
+                    ("n", "i"), ("ff_bound", "i"), ("pml", "p"),
+                    ("cid", "p"), ("g_a", "p"), ("g_b", "p"), ("s_b", "p"),
+                    ("stream", "p"))]
+
+
+def round_compact_params(row_a, row_jump, row_run, scratch, state, patterns,
+                         lengths, r: int, n: int, ff_bound: int, pml, cid,
+                         g_a, g_b, s_b) -> _RoundCompactArgs:
+    """The parameter block of `RoundCompact`'s arguments, unchecked
+    (RoundCompact checks them first), on the current stream of the
+    patterns' card."""
+    M, B = patterns.shape
+    return _RoundCompactArgs(
+        row_a.data_ptr(), None if row_jump is None else row_jump.data_ptr(),
+        None if row_run is None else row_run.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in state), patterns.data_ptr(),
+        lengths.data_ptr(), B, M, int(r), int(n), int(ff_bound),
+        pml.data_ptr(), cid.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
+        s_b.data_ptr(), K.stream_handle(patterns.device))
+
+
+def _round_args(fixed: tuple, rnd: int, last: bool, i: int) -> tuple:
+    """`sharded_step_compact`'s arguments for round rnd of step i from a
+    launcher's (row_a, row_jump, row_run, scratch, state, patterns,
+    lengths, r, n, ff_bound, pml, cid, g_a, g_b, s_b)."""
+    row_b = fixed[1] if rnd == 1 else fixed[2] if rnd == 2 else None
+    return ((rnd, bool(last), fixed[0], row_b) + fixed[3:7] + (i,)
+            + fixed[7:])
+
+
+class RoundCompact:
+    """K13a's launcher for one batch: `sharded_step_compact`'s arguments
+    but the round, `last` and the step, with the rows of rounds 1 and 2
+    apart (row_jump (B, 2), row_run (B, 8); None where no call makes that
+    round), checked once here (device, dtype, shape, contiguity), their
+    pointers kept in a parameter block; a call launches one round (the
+    plain version on the CPU).  The tensors are rewritten in place between
+    calls, never replaced."""
+
+    def __init__(self, row_a, row_jump, row_run, scratch, state, patterns,
+                 lengths, r: int, n: int, ff_bound: int, pml, cid, g_a, g_b,
+                 s_b):
+        dev = patterns.device
+        K.require(patterns, "patterns", torch.uint8, dev)
+        if patterns.dim() != 2:
+            raise ValueError("patterns must be (M, B)")
+        M, B = patterns.shape
+        for name, t, w in (("row_a", row_a, 8), ("row_jump", row_jump, 2),
+                           ("row_run", row_run, 8)):
+            if t is None and name != "row_a":
+                continue
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (B, w):
+                raise ValueError(f"{name} must have shape ({B}, {w})")
+        K.require(scratch, "scratch", torch.int32, dev)
+        if scratch.shape != (SCRATCH_ROWS, B):
+            raise ValueError(f"scratch must have shape ({SCRATCH_ROWS}, {B})")
+        if len(state) != 4:
+            raise ValueError("state is (interval, offset, pos, length)")
+        for name, t in ((("lengths", lengths), ("g_a", g_a), ("g_b", g_b),
+                         ("s_b", s_b))
+                        + tuple((f"state[{j}]", x)
+                                for j, x in enumerate(state))):
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (B,):
+                raise ValueError(f"{name} must have shape ({B},)")
+        for name, t in (("pml", pml), ("cid", cid)):
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (M, B):
+                raise ValueError(f"{name} must have shape ({M}, {B})")
+        self._fixed = (row_a, row_jump, row_run, scratch, state, patterns,
+                       lengths, r, n, ff_bound, pml, cid, g_a, g_b, s_b)
+        self._M = M
+        self._plain = dev.type == "cpu"
+        self._launch = None
+        if not self._plain and B:
+            params = round_compact_params(*self._fixed)
+            self._launch = K.Launcher(
+                dev, "colbwt_sharded_step_compact", "sharded_step_compact",
+                ctypes.addressof(params), keep=params)
+
+    def args(self, rnd: int, last: bool, i: int) -> tuple:
+        """`sharded_step_compact`'s arguments for this call."""
+        return _round_args(self._fixed, rnd, last, i)
+
+    def __call__(self, rnd: int, last: bool, i: int) -> None:
+        if not 0 <= i < self._M or rnd not in (1, 2, 3, 4, 5):
+            raise ValueError(f"step {i} of {self._M}, round {rnd}")
+        if rnd in (1, 2) and self._fixed[rnd] is None:
+            raise ValueError(f"round {rnd} needs its rows")
+        if self._plain:
+            sharded_step_compact_ref(*self.args(rnd, last, i))
+        elif self._launch is not None:
+            self._launch(rnd, int(last), i)
 
 
 def sharded_step_compact(rnd: int, last: bool, row_a, row_b, scratch, state,
@@ -124,78 +235,70 @@ def sharded_step_compact(rnd: int, last: bool, row_a, row_b, scratch, state,
     _sharded_query, the step of colbwt_tpu/ops/query_xla.py:89
     query_step): gather round `rnd` (`rounds`) of character step i, from the
     summed rows row_a (B, 8) and row_b ((B, 2) jump rows in round 1, (B, 8)
-    run rows in round 2).  Carries its values in `scratch` (9, B); the last
-    round of the step updates `state` (interval, offset, pos, length) where
-    i < lengths and writes column M-1-i of pml and cid.  Writes the next
-    round's global row indices into g_a (run rows) and g_b (jump rows with
-    selector s_b, or run rows), all in place.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    if patterns.device.type == "cpu":
-        return sharded_step_compact_ref(rnd, last, row_a, row_b, scratch,
-                                        state, patterns, lengths, i, r, n,
-                                        ff_bound, pml, cid, g_a, g_b, s_b)
-    dev = patterns.device
-    B, M = patterns.shape
-    K.require(patterns, "patterns", torch.uint8, dev)
-    K.require(row_a, "row_a", torch.int32, dev)
-    if row_a.shape != (B, 8):
-        raise ValueError(f"row_a must have shape ({B}, 8)")
-    if rnd in (1, 2):
-        K.require(row_b, "row_b", torch.int32, dev)
-        if row_b.shape != (B, 2 if rnd == 1 else 8):
-            raise ValueError(f"row_b has shape {tuple(row_b.shape)}")
-    K.require(scratch, "scratch", torch.int32, dev)
-    if scratch.shape != (SCRATCH_ROWS, B):
-        raise ValueError(f"scratch must have shape ({SCRATCH_ROWS}, {B})")
-    for name, t in ((("lengths", lengths), ("g_a", g_a), ("g_b", g_b),
-                     ("s_b", s_b))
-                    + tuple((f"state[{j}]", x) for j, x in enumerate(state))):
-        K.require(t, name, torch.int32, dev)
-        if t.shape != (B,):
-            raise ValueError(f"{name} must have shape ({B},)")
-    for name, t in (("pml", pml), ("cid", cid)):
-        K.require(t, name, torch.int32, dev)
-        if t.shape != (B, M):
-            raise ValueError(f"{name} must have shape ({B}, {M})")
-    if not 0 <= i < M or rnd not in (1, 2, 3, 4, 5):
-        raise ValueError(f"step {i} of {M}, round {rnd}")
-    if B:
-        code = K.on(dev).colbwt_sharded_step_compact(
-            rnd, int(last), row_a.data_ptr(),
-            row_b.data_ptr() if rnd in (1, 2) else None, scratch.data_ptr(),
-            *(t.data_ptr() for t in state), patterns.data_ptr(),
-            lengths.data_ptr(), B, M, int(i), int(r), int(n), int(ff_bound),
-            pml.data_ptr(), cid.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
-            s_b.data_ptr(), K.stream_handle(dev))
-        K.check("sharded_step_compact", code)
-        K.launches["sharded_step_compact"] += 1
+    run rows in round 2).  `patterns` is the batch's (M, B) uint8 columns
+    (step i reads row M-1-i).  Carries in `scratch` (9, B) the values that
+    a later round reads and no other argument holds (S_CID, S_MATCH,
+    S_NOFF, S_NLEN, S_DOFF, S_NPOS: succ and pred stay in g_a and g_b
+    after round 1, the destination run in g_a; the last round stores
+    none); the last round of the step updates `state` (interval, offset,
+    pos, length)
+    where i < lengths and writes row M-1-i of the (M, B) int32 planes pml
+    and cid.  Writes the next round's global row indices into g_a (run
+    rows) and g_b (jump rows with selector s_b, or run rows), all in place.
+    One call, checked in full (a `RoundCompact` made and called once); CPU
+    tensors take the plain version, CUDA tensors launch the kernel."""
+    RoundCompact(row_a, row_b if rnd == 1 else None,
+                 row_b if rnd == 2 else None, scratch, state, patterns,
+                 lengths, r, n, ff_bound, pml, cid, g_a, g_b, s_b)(
+        rnd, last, i)
 
 
-def _round_scan(run, jump, step, state, patterns, lengths, r: int, n: int,
+def _round_scan(gather, launcher, state, patterns, lengths, r: int, n: int,
                 ff_bound: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every character step of a (B, M) batch as gather rounds: run(g) and
-    jump(g, s) return the summed (B, 8) run rows and (B, 2) jump rows, `step`
-    is `sharded_step_compact` or its plain version.  Updates `state` in
-    place; returns (pml, cid)."""
+    """Every character step of a (B, M) batch as gather rounds.
+    gather(table, g, s, out) prepares the summed fetch of "soa" run rows or
+    "jump" rows (selector s) at g into out, a callable; `launcher` makes
+    the round caller (`RoundCompact`, or `_plain_rounds`).  The patterns
+    are transposed once to (M, B) columns, the fetches and the rounds
+    prepared once, and the (M, B) planes, which the last rounds write
+    whole, transposed at the end.  Updates `state` in place; returns (pml,
+    cid), each (B, M)."""
     dev = patterns.device
     B, M = patterns.shape
-    pml = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    cid = torch.zeros((B, M), dtype=torch.int32, device=dev)
     if B == 0 or M == 0:
-        return pml, cid
+        return (torch.zeros((B, M), dtype=torch.int32, device=dev),
+                torch.zeros((B, M), dtype=torch.int32, device=dev))
+    cols = patterns.t().contiguous()
+    pml = torch.empty((M, B), dtype=torch.int32, device=dev)
+    cid = torch.empty((M, B), dtype=torch.int32, device=dev)
     scratch = torch.zeros((SCRATCH_ROWS, B), dtype=torch.int32, device=dev)
     g_a, g_b = state[0].clone(), state[0].clone()
-    s_b = patterns[:, M - 1].to(torch.int32)
+    s_b = cols[M - 1].to(torch.int32)
+    row_a = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    row_jump = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    row_run = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    fetch_a = gather("soa", g_a, None, row_a)
+    fetch_jump = gather("jump", g_b, s_b, row_jump)
+    fetch_run = gather("soa", g_b, None, row_run)
+    step = launcher(row_a, row_jump, row_run, scratch, state, cols, lengths,
+                    r, n, ff_bound, pml, cid, g_a, g_b, s_b)
     seq = rounds(ff_bound)
     for i in range(M):
         for t, rnd in enumerate(seq):
-            row_a = run(g_a)
-            row_b = (jump(g_b, s_b) if rnd == 1
-                     else run(g_b) if rnd == 2 else None)
-            step(rnd, t == len(seq) - 1, row_a, row_b, scratch, state,
-                 patterns, lengths, i, r, n, ff_bound, pml, cid, g_a, g_b,
-                 s_b)
-    return pml, cid
+            fetch_a()
+            if rnd == 1:
+                fetch_jump()
+            elif rnd == 2:
+                fetch_run()
+            step(rnd, t == len(seq) - 1, i)
+    return pml.t().contiguous(), cid.t().contiguous()
+
+
+def _plain_rounds(*fixed):
+    """The round caller of the plain version: `RoundCompact`'s arguments,
+    each call `sharded_step_compact_ref`."""
+    return lambda rnd, last, i: sharded_step_compact_ref(
+        *_round_args(fixed, rnd, last, i))
 
 
 def sharded_scan_compact_ref(soa: list, jump: list, L: int, patterns,
@@ -204,10 +307,12 @@ def sharded_scan_compact_ref(soa: list, jump: list, L: int, patterns,
     """Plain PyTorch K13a chunk scan; same contract as
     `sharded_scan_compact`: the rounds of every step, each the plain fetch
     (the sum over the shards) and the plain round."""
-    return _round_scan(lambda g: sharded_fetch_ref(soa, g, None, L),
-                       lambda g, s: sharded_fetch_ref(jump, g, s, L, L),
-                       sharded_step_compact_ref, state, patterns, lengths,
-                       r, n, ff_bound)
+    def gather(table, g, s, out):
+        shards, stride = (soa, 0) if table == "soa" else (jump, L)
+        return lambda: sharded_fetch_ref(shards, g, s, L, stride, out)
+
+    return _round_scan(gather, _plain_rounds, state, patterns, lengths, r, n,
+                       ff_bound)
 
 
 def sharded_scan_compact(soa: list, jump: list, L: int, patterns, lengths,
@@ -263,13 +368,16 @@ def round_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,
     """The per-round route of `scan_row`: each gather round one fetch a
     card of the row's shards it holds, summed over "ip" (adds across cards,
     all_reduce across ranks), then the round kernel
-    `sharded_step_compact`."""
+    `sharded_step_compact`, each prepared once for the batch
+    (`Mesh.gatherer`, `RoundCompact`)."""
     L = tb["r_padded"] // mesh.ip
-    return _round_scan(
-        lambda g: mesh.gather(tb["soa"], d, L, g),
-        lambda g, s: mesh.gather(tb["jump"], d, L, g, s, stride=L),
-        sharded_step_compact, state, patterns, lengths, tb["r"], tb["n"],
-        ff_bound)
+
+    def gather(table, g, s, out):
+        return mesh.gatherer(tb[table], d, L, g, s,
+                             stride=0 if s is None else L, out=out)
+
+    return _round_scan(gather, RoundCompact, state, patterns, lengths,
+                       tb["r"], tb["n"], ff_bound)
 
 
 def scan_row(mesh: Mesh, tb: dict, d: int, patterns: torch.Tensor,

@@ -14,8 +14,9 @@ dp row's shards lie.  All on the row's device: K13b/K13c
 one launch, each lane reading its row from the owning shard, state in
 registers.  Spread over cards or ranks: `step_chunk` fetches each step's
 rows with one launch a card, sums them over "ip", and applies the per-step
-kernel `sharded_step_mega` (csrc/query_sharded.cu).  Both serve the narrow
-engine here and the wide one (two limbs, parallel/
+kernel `sharded_step_mega` (csrc/query_sharded.cu) through a launcher made
+once a chunk (`StepMega`), on (C, B) pattern columns and output planes.
+Both serve the narrow engine here and the wide one (two limbs, parallel/
 query_sharded_mega_wide.py); each kernel has its plain PyTorch version
 beside it (`sharded_scan_mega_ref`, the step loop of the plain fetch and
 `sharded_step_mega_ref`).  A CPU tensor takes the plain version; a CUDA
@@ -23,6 +24,8 @@ tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -77,8 +80,8 @@ def sharded_step_mega_ref(rows, length, r: int, n_lo: int, n_hi: int, state,
                           ff_bound: int, pml, cid, g_next,
                           wide: bool) -> None:
     """Plain PyTorch K13b/K13c; same contract as `sharded_step_mega`."""
-    B, M = patterns.shape
-    col = M - 1 - s
+    C = patterns.shape[0]
+    col = C - 1 - s
     if wide:  # colbwt_tpu/parallel/query_sharded_mega_wide.py:127-172
         interval, offset, pos_lo, pos_hi, mlen = state
         mc = rows[:, 0]
@@ -126,10 +129,98 @@ def sharded_step_mega_ref(rows, length, r: int, n_lo: int, n_hi: int, state,
     valid = s + step_offset < lengths
     for t, v in zip(state, new):
         t.copy_(torch.where(valid, v, t))
-    pml[:, col] = torch.where(valid, nlen, 0)
-    cid[:, col] = torch.where(valid, cid_out, 0)
-    if s + 1 < M:
-        g_next.copy_(patterns[:, col - 1].to(torch.int32) * r + state[0])
+    pml[col] = torch.where(valid, nlen, 0)
+    cid[col] = torch.where(valid, cid_out, 0)
+    if s + 1 < C:
+        g_next.copy_(patterns[col - 1].to(torch.int32) * r + state[0])
+
+
+class _StepMegaArgs(ctypes.Structure):
+    """K13b/K13c's parameter block (csrc/query_sharded.cu StepMegaArgs,
+    field for field)."""
+    _fields_ = [(name, ctypes.c_void_p if kind == "p" else ctypes.c_int64)
+                for name, kind in (
+                    ("rows", "p"), ("length", "p"), ("r", "i"),
+                    ("n_lo", "i"), ("n_hi", "i"), ("interval", "p"),
+                    ("offset", "p"), ("pos_lo", "p"), ("pos_hi", "p"),
+                    ("mlen", "p"), ("patterns", "p"), ("lengths", "p"),
+                    ("B", "i"), ("C", "i"), ("step_offset", "i"),
+                    ("ff_bound", "i"), ("wide", "i"), ("pml", "p"),
+                    ("cid", "p"), ("g_next", "p"), ("stream", "p"))]
+
+
+def step_mega_params(rows, length, r: int, n_lo: int, n_hi: int, state,
+                     patterns, lengths, step_offset: int, ff_bound: int,
+                     pml, cid, g_next, wide: bool) -> _StepMegaArgs:
+    """The parameter block of `StepMega`'s arguments, unchecked (StepMega
+    checks them first), on the current stream of the patterns' card."""
+    C, B = patterns.shape
+    ptrs = [t.data_ptr() for t in state]
+    if not wide:
+        ptrs.insert(3, None)  # no pos_hi
+    return _StepMegaArgs(
+        rows.data_ptr(), length.data_ptr(), int(r), int(n_lo), int(n_hi),
+        *ptrs, patterns.data_ptr(), lengths.data_ptr(), B, C,
+        int(step_offset), int(ff_bound), int(wide), pml.data_ptr(),
+        cid.data_ptr(), g_next.data_ptr(), K.stream_handle(patterns.device))
+
+
+class StepMega:
+    """K13b/K13c's launcher for one chunk: `sharded_step_mega`'s arguments
+    but the step, checked once here (device, dtype, shape, contiguity, the
+    rows' 16-byte alignment), their pointers kept in a parameter block; a
+    call launches step s (the plain version on the CPU).  The tensors are
+    rewritten in place between calls, never replaced."""
+
+    def __init__(self, rows, length, r: int, n_lo: int, n_hi: int, state,
+                 patterns, lengths, step_offset: int, ff_bound: int, pml,
+                 cid, g_next, wide: bool):
+        dev = patterns.device
+        K.require(patterns, "patterns", torch.uint8, dev)
+        if patterns.dim() != 2:
+            raise ValueError("patterns must be (C, B)")
+        C, B = patterns.shape
+        K.require(rows, "rows", torch.int32, dev)
+        K.require_aligned(rows, "rows", 16)
+        if rows.shape != (B, 16):
+            raise ValueError(f"rows must have shape ({B}, 16)")
+        K.require(length, "length", torch.int32, dev)
+        if len(state) != (5 if wide else 4):
+            raise ValueError("state has the wrong arity")
+        for name, t in ((("lengths", lengths), ("g_next", g_next))
+                        + tuple((f"state[{j}]", x)
+                                for j, x in enumerate(state))):
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (B,):
+                raise ValueError(f"{name} must have shape ({B},)")
+        for name, t in (("pml", pml), ("cid", cid)):
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (C, B):
+                raise ValueError(f"{name} must have shape ({C}, {B})")
+        self._fixed = (rows, length, r, n_lo, n_hi, state, patterns,
+                       lengths, step_offset, ff_bound, pml, cid, g_next,
+                       wide)
+        self._C = C
+        self._plain = dev.type == "cpu"
+        self._launch = None
+        if not self._plain and B:
+            params = step_mega_params(*self._fixed)
+            self._launch = K.Launcher(
+                dev, "colbwt_sharded_step_mega", "sharded_step_mega",
+                ctypes.addressof(params), keep=params)
+
+    def args(self, s: int) -> tuple:
+        """`sharded_step_mega`'s arguments for step s."""
+        a = self._fixed
+        return a[:8] + (s,) + a[8:]
+
+    def __call__(self, s: int) -> None:
+        if not 0 <= s < self._C:
+            raise ValueError(f"step {s} of {self._C}")
+        if self._plain:
+            sharded_step_mega_ref(*self.args(s))
+        elif self._launch is not None:
+            self._launch(s)
 
 
 def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,
@@ -138,49 +229,18 @@ def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,
     """K13b/K13c per step (replaces one step of
     colbwt_tpu/parallel/query_sharded_mega.py:53 _sharded_mega_query and
     query_sharded_mega_wide.py:101 _sharded_mega_wide_chunk, for
-    `step_chunk`): step s of a chunk's backward scan from the
-    summed (B, 16) rows at c·r + interval.  `state` is (interval, offset,
+    `step_chunk`): step s of a chunk's backward scan from the summed
+    (B, 16) rows at c·r + interval.  `patterns` is the chunk's (C, B)
+    uint8 columns (step s reads row C-1-s).  `state` is (interval, offset,
     pos, mlen) narrow or (interval, offset, pos_lo, pos_hi, mlen) wide,
-    updated in place where step_offset + s < lengths; column M-1-s of pml
-    and cid is written (0 past a read's end); g_next gets the next step's
-    row index.  n is (n_lo, n_hi) limbs wide, n_lo alone narrow.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    if patterns.device.type == "cpu":
-        return sharded_step_mega_ref(rows, length, r, n_lo, n_hi, state,
-                                     patterns, lengths, s, step_offset,
-                                     ff_bound, pml, cid, g_next, wide)
-    dev = patterns.device
-    B, M = patterns.shape
-    K.require(patterns, "patterns", torch.uint8, dev)
-    K.require(rows, "rows", torch.int32, dev)
-    K.require_aligned(rows, "rows", 16)
-    if rows.shape != (B, 16):
-        raise ValueError(f"rows must have shape ({B}, 16)")
-    K.require(length, "length", torch.int32, dev)
-    if len(state) != (5 if wide else 4):
-        raise ValueError("state has the wrong arity")
-    for name, t in ((("lengths", lengths), ("g_next", g_next))
-                    + tuple((f"state[{j}]", x) for j, x in enumerate(state))):
-        K.require(t, name, torch.int32, dev)
-        if t.shape != (B,):
-            raise ValueError(f"{name} must have shape ({B},)")
-    for name, t in (("pml", pml), ("cid", cid)):
-        K.require(t, name, torch.int32, dev)
-        if t.shape != (B, M):
-            raise ValueError(f"{name} must have shape ({B}, {M})")
-    if not 0 <= s < M:
-        raise ValueError(f"step {s} of {M}")
-    ptrs = [t.data_ptr() for t in state]
-    if not wide:
-        ptrs.insert(3, None)  # no pos_hi
-    if B:
-        code = K.on(dev).colbwt_sharded_step_mega(
-            int(wide), rows.data_ptr(), length.data_ptr(), int(r), int(n_lo),
-            int(n_hi), *ptrs, patterns.data_ptr(), lengths.data_ptr(), B, M,
-            int(s), int(step_offset), int(ff_bound), pml.data_ptr(),
-            cid.data_ptr(), g_next.data_ptr(), K.stream_handle(dev))
-        K.check("sharded_step_mega", code)
-        K.launches["sharded_step_mega"] += 1
+    updated in place where step_offset + s < lengths; row C-1-s of the
+    (C, B) int32 planes pml and cid is written (0 past a read's end);
+    g_next gets the next step's row index.  n is (n_lo, n_hi) limbs wide,
+    n_lo alone narrow.  One call, checked in full (a `StepMega` made and
+    called once); CPU tensors take the plain version, CUDA tensors launch
+    the kernel."""
+    StepMega(rows, length, r, n_lo, n_hi, state, patterns, lengths,
+             step_offset, ff_bound, pml, cid, g_next, wide)(s)
 
 
 def sharded_scan_mega_ref(shards: list, L: int, length, r: int, n_lo: int,
@@ -192,17 +252,19 @@ def sharded_scan_mega_ref(shards: list, L: int, length, r: int, n_lo: int,
     shards) and the plain step."""
     dev = patterns.device
     B, C = patterns.shape
-    pml = torch.zeros((B, C), dtype=torch.int32, device=dev)
-    cid = torch.zeros((B, C), dtype=torch.int32, device=dev)
     if B == 0 or C == 0:
-        return pml, cid
-    g = patterns[:, C - 1].to(torch.int32) * r + state[0]
+        return (torch.zeros((B, C), dtype=torch.int32, device=dev),
+                torch.zeros((B, C), dtype=torch.int32, device=dev))
+    cols = patterns.t().contiguous()
+    pml = torch.zeros((C, B), dtype=torch.int32, device=dev)
+    cid = torch.zeros((C, B), dtype=torch.int32, device=dev)
+    g = cols[C - 1].to(torch.int32) * r + state[0]
     for s in range(C):
         rows = sharded_fetch_ref(shards, g, None, L)
-        sharded_step_mega_ref(rows, length, r, n_lo, n_hi, state, patterns,
+        sharded_step_mega_ref(rows, length, r, n_lo, n_hi, state, cols,
                               lengths, s, step_offset, ff_bound, pml, cid, g,
                               wide)
-    return pml, cid
+    return pml.t().contiguous(), cid.t().contiguous()
 
 
 def sharded_scan_mega(shards: list, L: int, length, r: int, n_lo: int,
@@ -268,24 +330,29 @@ def step_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,
     """The per-step route of `scan_chunk`: each step one fetch a card of
     the row's shards it holds, the sum over "ip" (adds across cards,
     all_reduce across ranks) into one (B, 16) buffer, then the per-step
-    kernel `sharded_step_mega`."""
+    kernel `sharded_step_mega`.  The chunk's patterns are transposed once
+    to (C, B) columns, the fetch and the step prepared once (their checks
+    made here: `Mesh.gatherer`, `StepMega`), and the (C, B) planes, which
+    the steps write whole, transposed once at the end."""
     dev = patterns.device
     B, C = patterns.shape
-    pml = torch.zeros((B, C), dtype=torch.int32, device=dev)
-    cid = torch.zeros((B, C), dtype=torch.int32, device=dev)
     if B == 0 or C == 0:
-        return pml, cid
+        return (torch.zeros((B, C), dtype=torch.int32, device=dev),
+                torch.zeros((B, C), dtype=torch.int32, device=dev))
     L = st["rows_padded"] // mesh.ip
     r, n_lo, n_hi = _row_args(st, wide)
-    length = st["length"][str(dev)]
-    g = patterns[:, C - 1].to(torch.int32) * r + state[0]
+    cols = patterns.t().contiguous()
+    pml = torch.empty((C, B), dtype=torch.int32, device=dev)
+    cid = torch.empty((C, B), dtype=torch.int32, device=dev)
+    g = cols[C - 1].to(torch.int32) * r + state[0]
     rows = torch.empty((B, 16), dtype=torch.int32, device=dev)
+    fetch = mesh.gatherer(st["mega"], d, L, g, out=rows)  # the summed fetch
+    step = StepMega(rows, st["length"][str(dev)], r, n_lo, n_hi, state, cols,
+                    lengths, step_offset, ff_bound, pml, cid, g, wide)
     for s in range(C):
-        rows = mesh.gather(st["mega"], d, L, g, out=rows)  # the summed fetch
-        sharded_step_mega(rows, length, r, n_lo, n_hi, state, patterns,
-                          lengths, s, step_offset, ff_bound, pml, cid, g,
-                          wide)
-    return pml, cid
+        fetch()
+        step(s)
+    return pml.t().contiguous(), cid.t().contiguous()
 
 
 def scan_chunk(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Design sweep of the scans K3, K5, K6a and K7, the col-split walk K10a,
-the LCP lift K11b and the sharded table composition K13d on one CUDA
-card.
+the LCP lift K11b, the sharded table composition K13d and the sharded
+per-step kernels K13a-K13c on one CUDA card.
 
-    python3 scan_designs.py [--parent DIR] [--groups scans,lcp,tk,pos,walk]
+    python3 scan_designs.py [--parent DIR]
+                            [--groups scans,lcp,tk,pos,walk,step]
                             [--designs NAME,...]
 
 Each group times, on the same inputs and in turns, the shipped kernels of
@@ -44,21 +45,47 @@ shipped source with one change, compiled into a library of its own:
   238 steps, and on 16 of them, the chain floor): 32, 64 or 256 threads a
   block in place of 128, 2 or 32 fast-forward rows before the binary
   search in place of 8, and the destination's row alone in place of it
-  and the next one together; the fast-forward rows a step logged first.
+  and the next one together; the fast-forward rows a step logged first;
+- step (query_sharded.cu; the per-step route of shards on other cards,
+  run on one card at (dp, ip) = (1, 2) over bench's index split to
+  ff_bound 2 and its x1024 wide index, with chip_smoke.py's 263,168 reads
+  of <= 152 bp and 16 long reads: K13a's four rounds of one character
+  step (G-round), one K13b step (G-step narrow) and one K13c step (G-step
+  wide) at 263,168 lanes, and one K13c step on the long reads' 16 lanes,
+  each the ninth call of its shape, as chip_smoke.py's phase 12 takes
+  them): the shipped launchers made once a chunk over the port's own
+  library ("shipped") against the public per-call wrapper
+  ("step-wrapper"), row-major (B, M) planes and patterns in place of
+  column-major (M, B) ("step-row-major"), a step's pml and cid as one
+  8-byte store into an interleaved plane (K13b/K13c, "step-interleaved")
+  and every value of the round kernel stored in its scratch, as before
+  the redesign, in place of only those a later round reads (K13a,
+  "step-scratch-full"); the variants launch through `K.Launcher` over a
+  parameter block made once.  With --parent, the parent's own wrappers
+  and routes run too (its parallel/ modules loaded from DIR, their
+  launches through its library), and each tree's G-round and G-step
+  walls are timed in turns (parent, shipped, shipped, parent), every
+  run's outputs equal to the first's.  Each time is taken twice: between
+  CUDA events around the calls as the host makes them (the wrapper or
+  launcher included), and on the card alone (the calls queued behind a
+  sleep kernel, chip_smoke.py's `gpu_ms`).
 
 With --parent DIR (a checkout of the parent commit) its sources of each
 group are timed too, called as its wrappers called them (int32 ids for
 K7, row-major planes); its entry points must take the shipped ones'
-arguments, but for those in PARENT_SIGNATURES (K10a's, which took the
-FL table's three arrays in place of idx and the walk's rows).
---designs names the designs to time (default: all, the shipped kernel
-first and again last); the shipped kernel runs at every shape anyway, as
-the reference that every design's outputs must equal, and is itself held
-to its plain version (K3, K10a, K11b, K13d).  A time is the mean of
+arguments, but for those in PARENT_SIGNATURES (K13b/K13c's and K13a's
+per-step entry points, which took every argument where the shipped ones
+take a parameter block prepared once and the step).
+--designs names the designs to time and build (default: all, the
+shipped kernel first and again last); the shipped kernel runs at every
+shape anyway, as the reference that every design's outputs must equal,
+and is itself held to its plain version (K3, K10a, K11b, K13d; the step
+group holds every design to the first it times, the parent's where
+given).  A time is the mean of
 `reps` calls between CUDA events after one warm-up, a column-major
 design's device transposes included.  Prints the card's name and power
-limit first, the ptxas register counts of K3's, K10a's, K11b's and
-K13d's shipped kernels, and one JSON line of every time last (also
+limit first, the ptxas register counts of K3's, K10a's, K11b's, K13d's
+and the per-step kernels' shipped sources, and one JSON line of every time last (also
 written to build/scan_designs/times.json); exits nonzero without CUDA.
 """
 
@@ -82,12 +109,14 @@ GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
           "lcp": ("suffix.cu",),
           "tk": ("query_sharded.cu",),
           "pos": ("query_pos.cu",),
-          "walk": ("colsplit.cu",)}
+          "walk": ("colsplit.cu",),
+          "step": ("query_sharded.cu",)}
 SOURCES = tuple(f for group in GROUPS.values() for f in group)
 # the shipped kernels whose ptxas counts the sweep prints
 PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
                  "compose_sharded_tk_kernel", "query_chunk_pos_kernel",
-                 "tunneled_walk_kernel")
+                 "tunneled_walk_kernel", "sharded_step_mega_kernel",
+                 "sharded_step_compact_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
                 "    cid_out[col * B + b] = cid;\n")
@@ -114,6 +143,9 @@ _POS_THREADS = "constexpr int kPosThreads = 32;\n"
 _POS_STORE = "constexpr int kPosStore = 2;\n"
 _WALK_THREADS = "constexpr int kTunnelThreads = 128;\n"
 _WALK_FORWARD = "constexpr int kMaxForward = 8;\n"
+_STEP_COL_MAJOR = "constexpr bool kStepColMajor = true;\n"
+_STEP_INTERLEAVE = "constexpr bool kStepInterleave = false;\n"
+_STEP_TRIM = "constexpr bool kScratchTrim = true;\n"
 # variant -> [(source, shipped text, the variant's text)]
 VARIANTS = {
     "row-major": [
@@ -193,6 +225,14 @@ VARIANTS = {
         ("query_sharded.cu", _TK_ORDER,
          "  const uint32_t prefix = blockIdx.x / tiles;\n"
          "  const uint32_t tile = blockIdx.x - prefix * tiles;\n")],
+    "step-row-major": [
+        ("query_sharded.cu", _STEP_COL_MAJOR,
+         _STEP_COL_MAJOR.replace("true", "false"))],
+    "step-interleaved": [
+        ("query_sharded.cu", _STEP_INTERLEAVE,
+         _STEP_INTERLEAVE.replace("false", "true"))],
+    "step-scratch-full": [
+        ("query_sharded.cu", _STEP_TRIM, _STEP_TRIM.replace("true", "false"))],
 }
 FUSED_VARIANTS = ("row-major", "jump-on-mismatch", "threads-32",
                   "threads-128")
@@ -206,6 +246,7 @@ POS_VARIANTS = ("pos-threads-64", "pos-threads-128", "pos-scalar-stores",
                 "pos-column-major", "pos-key-after")
 WALK_VARIANTS = ("walk-threads-32", "walk-threads-64", "walk-threads-256",
                  "walk-forward-2", "walk-forward-32", "walk-no-pair")
+STEP_VARIANTS = ("step-row-major", "step-interleaved", "step-scratch-full")
 # the entry points each group's libraries bind
 ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                           "colbwt_query_chunk_mega",
@@ -213,28 +254,34 @@ ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                 "lcp": ("colbwt_lcp_lift",),
                 "tk": ("colbwt_compose_sharded_tk",),
                 "pos": ("colbwt_query_chunk_pos",),
-                "walk": ("colbwt_tunneled_walk",)}
+                "walk": ("colbwt_tunneled_walk",),
+                "step": ("colbwt_sharded_fetch", "colbwt_sharded_step_mega",
+                         "colbwt_sharded_step_compact")}
+_P, _I = ctypes.c_void_p, ctypes.c_int64
 # the parent's entry points whose arguments differ from the shipped ones'
 PARENT_SIGNATURES = {
-    "colbwt_tunneled_walk": ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                             + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4
-                             + [ctypes.c_void_p] * 3)}
+    "colbwt_sharded_step_mega": ([_I, _P, _P] + [_I] * 3 + [_P] * 7
+                                 + [_I] * 5 + [_P] * 3 + [_P]),
+    "colbwt_sharded_step_compact": ([_I, _I] + [_P] * 9 + [_I] * 6
+                                    + [_P] * 5 + [_P])}
 # the variants of each group
 GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
                                                 + MEGA_VARIANTS)),
                   "lcp": LCP_VARIANTS, "tk": TK_VARIANTS,
-                  "pos": POS_VARIANTS, "walk": WALK_VARIANTS}
+                  "pos": POS_VARIANTS, "walk": WALK_VARIANTS,
+                  "step": STEP_VARIANTS}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build_libraries(parent: Path | None, groups: list[str]
-                    ) -> dict[str, ctypes.CDLL]:
-    """Each group's shipped sources, each variant and the parent's, each
-    compiled into a library of its own (one nvcc each, all side by side),
-    named "group/design"; prints the ptxas counts of PTXAS_KERNELS."""
+def build_libraries(parent: Path | None, groups: list[str],
+                    timed: set | None = None) -> dict[str, ctypes.CDLL]:
+    """Each group's shipped sources, each variant (of `timed`, when given)
+    and the parent's, each compiled into a library of its own (one nvcc
+    each, all side by side), named "group/design"; prints the ptxas counts
+    of PTXAS_KERNELS."""
     from colbwt_tpu_torch.ops import _kernels as K
 
     csrc = REPO / "colbwt_tpu_torch" / "csrc"
@@ -242,7 +289,8 @@ def build_libraries(parent: Path | None, groups: list[str]
     for group in groups:
         trees[f"{group}/shipped"] = (csrc, [])
         trees.update({f"{group}/{name}": (csrc, VARIANTS[name])
-                      for name in GROUP_VARIANTS[group]})
+                      for name in GROUP_VARIANTS[group]
+                      if timed is None or name in timed})
         if parent is not None:
             trees[f"{group}/parent"] = (
                 parent / "colbwt_tpu_torch" / "csrc", [])
@@ -315,12 +363,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     native = start_native_build()
-    libs = build_libraries(args.parent, groups)
+    timed = None if args.designs is None else set(args.designs.split(","))
+    libs = build_libraries(args.parent, groups, timed)
     K.load()  # the port's own library, for the arrays the sweep builds
     finish_native_build(native)
     log(f"[designs] {len(libs)} libraries built in "
         f"{time.perf_counter() - t0:.1f}s: {', '.join(libs)}")
-    timed = None if args.designs is None else set(args.designs.split(","))
     times: dict = {}
 
     def compare(shape: str, designs: dict, reps: int) -> None:
@@ -353,7 +401,7 @@ def main() -> int:
 
     if "lcp" in groups:
         sweep_lcp(torch, of("lcp"), compare)
-    if {"scans", "tk", "pos", "walk"} & set(groups):
+    if {"scans", "tk", "pos", "walk", "step"} & set(groups):
         bench = bench_index(torch)
         if "walk" in groups:
             sweep_walk(torch, of("walk"), compare, bench)
@@ -363,6 +411,8 @@ def main() -> int:
             sweep_tk(torch, of("tk"), compare, bench)
         if "scans" in groups:
             sweep_scans(torch, of("scans"), compare, bench)
+        if "step" in groups:
+            sweep_step(torch, of("step"), bench, args.parent, timed, times)
 
     WORK.mkdir(parents=True, exist_ok=True)
     line = json.dumps({"card": card, "times": times})
@@ -739,15 +789,14 @@ def sweep_walk(torch, libs: dict, compare, bench: dict) -> None:
                            1 << 24))
     T, rate = int(ls[sel].max()), 10
 
-    def walk(lib, p0, lt, old):
+    def walk(lib, p0, lt):
         M = p0.shape[0]
         pos = torch.empty((T, M), dtype=torch.int32, device=dev)
         valid = torch.empty((T, M), dtype=torch.bool, device=dev)
-        tables = ((fd["idx"], fd["dest_interval"], fd["dest_offset"]) if old
-                  else (fd["idx"], fd["rows"]))
         K.check("tunneled_walk", lib.colbwt_tunneled_walk(
-            *(t.data_ptr() for t in tables), r, p0.data_ptr(), lt.data_ptr(),
-            M, T, rate, N, pos.data_ptr(), valid.data_ptr(), stream))
+            fd["idx"].data_ptr(), fd["rows"].data_ptr(), r, p0.data_ptr(),
+            lt.data_ptr(), M, T, rate, N, pos.data_ptr(), valid.data_ptr(),
+            stream))
         return pos, valid
 
     p0 = torch.from_numpy(mp[order][sel].astype(np.int32)).to(dev)
@@ -757,17 +806,391 @@ def sweep_walk(torch, libs: dict, compare, bench: dict) -> None:
                            ("16 MUMs, the chain floor", 16, 20)):
         p0 = torch.from_numpy(mp[order][sel][:m].astype(np.int32)).to(dev)
         lt = torch.from_numpy(ls[sel][:m].astype(np.int32)).to(dev)
-        got = walk(libs["shipped"], p0, lt, False)
+        got = walk(libs["shipped"], p0, lt)
         want = TCS.tunneled_walk_ref(fd, p0, lt, T, rate, N)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise RuntimeError(f"K10a {label}: differs from its plain "
                                "version")
         del got, want
-        designs = {name: (lambda lib=lib, old=name == "parent":
-                          walk(lib, p0, lt, old))
+        designs = {name: (lambda lib=lib: walk(lib, p0, lt))
                    for name, lib in libs.items()}
         compare(f"K10a {label}, {m} MUMs x T={T}, rate {rate}, N={N}, "
                 f"r={r}", designs, reps)
+
+
+def parent_tree(parent: Path, lib):
+    """The parent checkout's sharded engines: its parallel/ mesh, compact
+    and mega modules loaded from `parent` and run as they are (its
+    wrappers' checks, ctypes calls and routes), each launch through its own
+    query_sharded.cu in `lib`; the port's other modules serve them."""
+    import importlib.util
+    import types
+    from collections import Counter
+
+    import torch
+
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    class OnParent:
+        """The parent's `_kernels.on(dev)` over its own library."""
+
+        def __init__(self, dev):
+            self._dev = dev
+
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+
+            def call(*args):
+                with torch.cuda.device(self._dev):
+                    return fn(*args)
+            return call
+
+    shim = types.SimpleNamespace(
+        require=K.require, require_aligned=K.require_aligned,
+        check=K.check, stream_handle=K.stream_handle, launches=Counter(),
+        on=OnParent)
+    mods = {}
+    for name in ("mesh", "query_sharded", "query_sharded_mega",
+                 "query_sharded_mega_wide"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}",
+            parent / "colbwt_tpu_torch" / "parallel" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.K = shim
+        mods[name] = mod
+    mods["query_sharded_mega_wide"].SM = mods["query_sharded_mega"]
+    return types.SimpleNamespace(
+        make_mesh=mods["mesh"].make_mesh, compact=mods["query_sharded"],
+        mega=mods["query_sharded_mega"],
+        wide=mods["query_sharded_mega_wide"])
+
+
+def shipped_tree():
+    import types
+
+    from colbwt_tpu_torch.parallel import make_mesh
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+
+    return types.SimpleNamespace(make_mesh=make_mesh, compact=TS, mega=TSM,
+                                 wide=TSW)
+
+
+# the public arguments of the two step functions: (patterns, pml, cid) and
+# the step's index, in sharded_step_compact's and sharded_step_mega's
+_COMPACT_AT = (6, 12, 13, 8)
+_MEGA_AT = (6, 11, 12, 8)
+
+
+def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
+               timed: set | None, times: dict) -> None:
+    """K13a's round kernel and K13b/K13c's step at the four shapes of
+    phase 12's per-step routes, and the routes' walls (G-round, G-step
+    narrow, G-step wide with the long reads), the parent's against the
+    shipped code."""
+    from unittest import mock
+
+    from chip_smoke import Checks, Twins, cuda_ms, gpu_ms, scale_table
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_mega as TM
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tbl = bench["tbl"]
+    reads, n_reads, long_reads = bench["reads"]
+    batch = reads + n_reads
+    split = ColPmlIndex.build(tbl, ff_bound=2)
+    wide = ColPmlIndex.build(scale_table(tbl, 1024), ff_bound=2)
+    mt = TM.build_mega_table(split, device="cpu")
+    log(f"[designs] step indexes in {time.perf_counter() - t0:.1f}s")
+
+    def wanted(name):
+        return timed is None or name in timed
+
+    trees = {}
+    if parent is not None and wanted("parent"):
+        trees["parent"] = parent_tree(parent, libs["parent"])
+    if any(wanted(d) for d in libs if d != "parent") or wanted(
+            "step-wrapper"):
+        trees["shipped"] = shipped_tree()
+    source = "parent" if "parent" in trees else "shipped"
+
+    def routes(name: str, tw) -> tuple[dict, dict]:
+        """G-round, G-step narrow and G-step wide through `name`'s routes
+        of shards on other cards, on a (1, 2) mesh over cuda:0; each
+        synchronised and timed."""
+        tree = trees[name]
+        m = tree.make_mesh(1, 2, devices=["cuda:0"] * 2)
+        st_mega = tree.mega.shard_mega(split, m, mt=mt)
+        st_wide = tree.wide.shard_mega_wide(wide, m)
+        runs = (
+            ("G-round", lambda: tree.compact.query_batch_sharded(
+                split, batch, mesh=m)),
+            ("G-step narrow", lambda: tree.mega.query_batch_sharded_mega(
+                split, batch, mesh=m, st=st_mega)),
+            ("G-step wide", lambda: (
+                tree.wide.query_batch_sharded_mega_wide(
+                    wide, batch, mesh=m, st=st_wide),
+                tree.wide.query_long_reads_sharded_mega_wide(
+                    wide, long_reads, mesh=m, chunk=2048, st=st_wide))))
+        outs, walls = {}, {}
+        with mock.patch.object(tree.compact, "scan_row",
+                               tree.compact.round_row), \
+                mock.patch.object(tree.mega, "scan_chunk",
+                                  tree.mega.step_chunk):
+            for label, fn in runs:
+                tw.tag = label
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                outs[label] = fn()
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t1
+        del st_mega, st_wide
+        return outs, walls
+
+    # the walls in turns, each run's outputs equal to the first's; the
+    # first run of the source tree captures the ninth call of each shape
+    cap = Twins(torch, Checks(torch), False)
+    tree = trees[source]
+    if source == "parent":
+        cap.wrap(tree.compact, "sharded_step_compact", None,
+                 key=lambda a: a[0])
+        cap.wrap(tree.mega, "sharded_step_mega", None,
+                 key=lambda a: a[0].shape[0], shared=(1,))
+    else:
+        cap.wrap_launcher(tree.compact, "RoundCompact",
+                          "sharded_step_compact", None, key=lambda a: a[0])
+        cap.wrap_launcher(tree.mega, "StepMega", "sharded_step_mega", None,
+                          key=lambda a: a[0].shape[0], shared=(1,))
+    order = list(trees) + list(reversed(trees))
+    walls: dict = {name: [] for name in trees}
+    first = None
+    for j, name in enumerate(order):
+        if j == 0:
+            with cap:
+                outs, w = routes(name, cap)
+        else:
+            outs, w = routes(name, Twins(torch, Checks(torch), False))
+        first = first or outs
+        for label in outs:
+            got, want = outs[label], first[label]
+            if label == "G-step wide":
+                got, want = got[0] + got[1], want[0] + want[1]
+            for g, x in zip(got, want):
+                if not all(np.array_equal(a, b) for a, b in zip(g, x)):
+                    raise RuntimeError(f"{label}: {name}'s outputs differ")
+        del outs
+        walls[name].append(w)
+        log(f"[designs] {name} walls: " + json.dumps(w))
+    times["walls"] = walls
+    caps = cap.first
+
+    def columns(a, at):
+        """Captured parent-layout arguments in the shipped contract:
+        patterns transposed, (M, B) planes."""
+        p, pl, ci, _ = at
+        a = list(a)
+        a[p] = a[p].t().contiguous()
+        a[pl] = torch.zeros(a[pl].t().shape, dtype=torch.int32, device=dev)
+        a[ci] = torch.zeros_like(a[pl])
+        return tuple(a)
+
+    shapes = (
+        ("K13a rounds 1-4 (one character step), 263,168 lanes", True,
+         [caps[("sharded_step_compact", "G-round", rnd)]
+          for rnd in (1, 2, 3, 4)], 20),
+        ("K13b one step, 263,168 lanes", False,
+         [caps[("sharded_step_mega", "G-step narrow", len(batch))]], 20),
+        ("K13c one step, 263,168 lanes", False,
+         [caps[("sharded_step_mega", "G-step wide", len(batch))]], 20),
+        ("K13c one step, 16 long-read lanes", False,
+         [caps[("sharded_step_mega", "G-step wide", len(long_reads))]],
+         200))
+    for shape, compact, calls, reps in shapes:
+        at = _COMPACT_AT if compact else _MEGA_AT
+        designs = step_designs(torch, libs, trees, compact, calls, at,
+                               source, columns, wanted)
+        ref_name, ref = None, None
+        for name, (make, run, out) in designs.items():
+            obj = make()
+            run(obj)
+            got = [x.clone() for x in out(obj)]
+            if ref is None:
+                ref_name, ref = name, got
+            elif not all(torch.equal(g, w) for g, w in zip(got, ref)):
+                raise RuntimeError(f"{shape}: {name} differs from "
+                                   f"{ref_name}")
+        del ref
+        names = list(designs) + (["shipped"] if "shipped" in designs
+                                 else [])
+        ms = {}
+        for name in names:
+            key = "shipped (again)" if name in ms else name
+            make, run, _ = designs[name]
+            obj = make()
+            ms[key] = {"ms": cuda_ms(torch, lambda: run(obj), reps),
+                       "gpu_ms": gpu_ms(torch, lambda: run(obj), reps)}
+            del obj
+        times[shape] = ms
+        log(f"[designs] {shape}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms ({v['gpu_ms']:.4f} on the card)"
+            for k, v in ms.items()))
+        del designs
+        torch.cuda.empty_cache()
+    del caps, cap
+    K.reset_launches()
+    torch.cuda.empty_cache()
+
+
+def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
+                 at: tuple, source: str, columns, wanted) -> dict:
+    """{design: (make, run, out)} for one shape: make() prepares fresh
+    clones of the captured calls (and the design's launchers), run(obj)
+    makes the calls (and nothing else: it is what is timed), out(obj)
+    returns the step's outputs (its pml and cid column, the state and the
+    next indices) in one layout for every design."""
+    import ctypes as C
+
+    from chip_smoke import clone_args
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    p_at, pl_at, ci_at, s_at = at
+    shared = () if compact else (1,)
+    col_of = [c[p_at].shape[1] - 1 - c[s_at] for c in calls]
+    parent_layout = source == "parent"
+
+    def outputs(cs, layout: str) -> list:
+        out = []
+        for c, col in zip(cs, col_of):
+            pl, ci = c[pl_at], c[ci_at]
+            if layout == "rows":
+                pl, ci = pl[:, col], ci[:, col]
+            elif layout == "cols":
+                pl, ci = pl[col], ci[col]
+            else:  # interleaved (M, B, 2)
+                pl, ci = pl[col, :, 0], pl[col, :, 1]
+            state = c[5]
+            nexts = c[14:17] if compact else (c[13],)
+            out += [pl, ci, *state, *nexts]
+        return out
+
+    def rows_of(c):
+        """Captured shipped-layout arguments as the parent took them."""
+        c = list(c)
+        c[p_at] = c[p_at].t().contiguous()
+        c[pl_at] = torch.zeros(c[pl_at].t().shape, dtype=torch.int32,
+                               device=c[pl_at].device)
+        c[ci_at] = torch.zeros_like(c[pl_at])
+        return tuple(c)
+
+    def fresh(row_layout: bool):
+        def make():
+            cs = [clone_args(torch, c, shared) for c in calls]
+            if parent_layout and not row_layout:
+                cs = [columns(c, at) for c in cs]
+            elif row_layout and not parent_layout:
+                cs = [rows_of(c) for c in cs]
+            return cs
+        return make
+
+    designs = {}
+    if "parent" in trees:
+        pmod = trees["parent"].compact if compact else trees["parent"].mega
+        parent_fn = (pmod.sharded_step_compact if compact
+                     else pmod.sharded_step_mega)
+
+        def run_parent(cs):
+            for c in cs:
+                parent_fn(*c)
+        designs["parent"] = (fresh(True), run_parent,
+                             lambda cs: outputs(cs, "rows"))
+    if "shipped" not in trees:
+        return designs
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+
+    def launcher(c):
+        """The shipped launcher of call c (its public arguments), over the
+        port's library."""
+        if compact:
+            rnd = c[0]
+            return TS.RoundCompact(
+                c[2], c[3] if rnd == 1 else None, c[3] if rnd == 2 else None,
+                *c[4:8], *c[9:]), (c[0], c[1], c[8])
+        return TSM.StepMega(*c[:8], *c[9:]), (c[8],)
+
+    def launched(lib, layout: str):
+        """A design of the shipped launch path: the shipped launchers (lib
+        None), or a variant's library under `K.Launcher` over a parameter
+        block made once, the row-major and interleaved variants given
+        their planes as the kernel reads them, past the launchers' shape
+        checks."""
+        def make():
+            cs = fresh(layout == "rows")()
+            ls = []
+            for j, c in enumerate(cs):
+                if lib is None:
+                    ls.append(launcher(c))
+                    continue
+                c = list(c)
+                B = c[pl_at].shape[layout != "rows"]
+                M = c[p_at].numel() // B
+                if layout == "rows":  # (B, M) memory in (M, B) shapes
+                    view = [c[p_at].view(M, B), c[pl_at].view(M, B),
+                            c[ci_at].view(M, B)]
+                elif layout == "cols":
+                    view = [c[p_at], c[pl_at], c[ci_at]]
+                else:  # one (M, B, 2) plane for pml and cid
+                    c[pl_at] = torch.zeros((M, B, 2), dtype=torch.int32,
+                                           device=c[pl_at].device)
+                    c[ci_at] = c[pl_at]
+                    view = [c[p_at], c[pl_at], c[pl_at]]
+                cs[j] = tuple(c)
+                v = list(c)
+                v[p_at], v[pl_at], v[ci_at] = view
+                if compact:
+                    rnd = v[0]
+                    params = TS.round_compact_params(
+                        v[2], v[3] if rnd == 1 else None,
+                        v[3] if rnd == 2 else None, *v[4:8], *v[9:])
+                    entry, name, call = ("colbwt_sharded_step_compact",
+                                         "sharded_step_compact",
+                                         (v[0], v[1], v[8]))
+                else:
+                    params = TSM.step_mega_params(*v[:8], *v[9:])
+                    entry, name, call = ("colbwt_sharded_step_mega",
+                                         "sharded_step_mega", (v[8],))
+                ls.append((K.Launcher(v[6].device, entry, name,
+                                      C.addressof(params), lib=lib,
+                                      keep=params), call))
+            return cs, ls
+
+        def run(obj):
+            for go, call in obj[1]:
+                go(*call)
+        return make, run, lambda obj: outputs(obj[0], layout)
+
+    if wanted("shipped"):
+        designs["shipped"] = launched(None, "cols")
+    if wanted("step-wrapper"):
+        wrapper_fn = (TS.sharded_step_compact if compact
+                      else TSM.sharded_step_mega)
+
+        def run_wrapper(cs):
+            for c in cs:
+                wrapper_fn(*c)
+        designs["step-wrapper"] = (fresh(False), run_wrapper,
+                                   lambda cs: outputs(cs, "cols"))
+    for name, layout in (("step-row-major", "rows"),
+                         ("step-interleaved", "pairs"),
+                         ("step-scratch-full", "cols")):
+        if name in libs and (compact == (name == "step-scratch-full")
+                             or name == "step-row-major"):
+            designs[name] = launched(libs[name], layout)
+    return designs
 
 
 if __name__ == "__main__":

@@ -919,29 +919,51 @@ def test_compose_sharded_tk(dev, case, ip, k, A):
         assert bool((tail[..., 0] == n - 1).all() and (tail[..., 1] == 0).all())
 
 
-def _twin(monkeypatch, module, name, ref):
-    """Run every call of module.name as the kernel and, on clones of its
-    arguments, as the plain version `ref`; hold every argument (the
-    outputs written in place) equal afterwards."""
-    kern = getattr(module, name)
-    calls = []
-
+def _held(launch, ref, args, calls) -> None:
+    """launch() the kernel on `args` and run the plain version `ref` on
+    clones of them; hold every argument (the outputs written in place)
+    equal afterwards."""
     def clone(a):
         if isinstance(a, torch.Tensor):
             return a.clone()
         return tuple(clone(x) for x in a) if isinstance(a, tuple) else a
 
+    twins = [clone(a) for a in args]
+    launch()
+    ref(*twins)
+    for a, b in zip(args, twins):
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            if isinstance(x, torch.Tensor):
+                _equal(x, y)
+    calls.append(args[0])
+
+
+def _twin(monkeypatch, module, name, ref):
+    """Run every call of module.name as the kernel and, on clones of its
+    arguments, as the plain version `ref` (`_held`)."""
+    kern = getattr(module, name)
+    calls = []
+
     def both(*args):
-        twins = [clone(a) for a in args]
-        kern(*args)
-        ref(*twins)
-        for a, b in zip(args, twins):
-            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
-                if isinstance(x, torch.Tensor):
-                    _equal(x, y)
-        calls.append(args[0])
+        _held(lambda: kern(*args), ref, args, calls)
 
     monkeypatch.setattr(module, name, both)
+    return calls
+
+
+def _twin_launcher(monkeypatch, module, cls, ref):
+    """As `_twin`, for a launcher class (module.cls, made once a chunk, a
+    call a launch): every call held with its public function's arguments,
+    `launcher.args(*call)`."""
+    base = getattr(module, cls)
+    calls = []
+
+    class Twin(base):
+        def __call__(self, *call):
+            _held(lambda: base.__call__(self, *call), ref, self.args(*call),
+                  calls)
+
+    monkeypatch.setattr(module, cls, Twin)
     return calls
 
 
@@ -966,8 +988,8 @@ def test_sharded_compact_rounds(dev, shard_case, monkeypatch, ip, ff):
     _, _, split, _, reads = shard_case
     index = split[ff]
     monkeypatch.setattr(TS, "scan_row", TS.round_row)
-    calls = _twin(monkeypatch, TS, "sharded_step_compact",
-                  TS.sharded_step_compact_ref)
+    calls = _twin_launcher(monkeypatch, TS, "RoundCompact",
+                           TS.sharded_step_compact_ref)
     before = K.launches["sharded_scan_compact"]
     got = TS.query_batch_sharded(index, reads, mesh=_mesh(ip))
     assert K.launches["sharded_scan_compact"] == before
@@ -979,12 +1001,15 @@ def test_sharded_compact_rounds(dev, shard_case, monkeypatch, ip, ff):
 
 
 @pytest.mark.parametrize("ip", [1, 2, 4])
-@pytest.mark.parametrize("engine", ["mega", "wide", "wide-long", "pos"])
+@pytest.mark.parametrize("engine", ["mega", "wide", "wide-long",
+                                    "wide-long-16", "pos"])
 def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
     """K13b/K13c per step through the per-step route `step_chunk` (narrow
     and wide steps, the wide one also over 64-column chunks with carried
-    state) and K13e (k = 3) equal to their plain versions step by step;
-    the outputs equal the single-card engines."""
+    state, and at the long reads' shape: 16 lanes, chunks of 128 from
+    the right, step_offset > 0 past the first) and K13e (k = 3) equal to
+    their plain versions step by step; the outputs equal the single-card
+    engines."""
     from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
     from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
     from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
@@ -1000,8 +1025,8 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
         # every chunk through the per-step route, as shards on other cards
         # take it
         monkeypatch.setattr(TSM, "scan_chunk", TSM.step_chunk)
-        calls = _twin(monkeypatch, TSM, "sharded_step_mega",
-                      TSM.sharded_step_mega_ref)
+        calls = _twin_launcher(monkeypatch, TSM, "StepMega",
+                               TSM.sharded_step_mega_ref)
         before = K.launches["sharded_scan_mega"]
         if engine == "mega":
             got = TSM.query_batch_sharded_mega(split[2], reads, mesh=mesh)
@@ -1009,11 +1034,18 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
         elif engine == "wide":
             got = TSW.query_batch_sharded_mega_wide(wide, reads, mesh=mesh)
             ref = TW.query_batch(wide, reads, device=dev)
-        else:
+        elif engine == "wide-long":
             long = [r * 3 for r in reads[:8]]
             got = TSW.query_long_reads_sharded_mega_wide(wide, long,
                                                          mesh=mesh, chunk=64)
             ref = TW.query_long_reads(wide, long, chunk=64, device=dev)
+        else:
+            long = [r * 4 for r in reads[:16]]
+            assert len(long) == 16 and max(map(len, long)) > 2 * 128
+            got = TSW.query_long_reads_sharded_mega_wide(wide, long,
+                                                         mesh=mesh,
+                                                         chunk=128)
+            ref = TW.query_long_reads(wide, long, chunk=128, device=dev)
         assert K.launches["sharded_scan_mega"] == before
     assert calls
     for j in range(len(ref[0])):

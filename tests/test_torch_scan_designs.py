@@ -30,7 +30,8 @@ def test_variant_changes_one_place_of_the_sources(variant):
 def test_every_variant_is_timed():
     assert (set(SD.FUSED_VARIANTS) | set(SD.MEGA_VARIANTS)
             | set(SD.LCP_VARIANTS) | set(SD.TK_VARIANTS)
-            | set(SD.POS_VARIANTS) | set(SD.WALK_VARIANTS)) == set(SD.VARIANTS)
+            | set(SD.POS_VARIANTS) | set(SD.WALK_VARIANTS)
+            | set(SD.STEP_VARIANTS)) == set(SD.VARIANTS)
     assert set(SD.GROUP_VARIANTS) == set(SD.GROUPS) == set(SD.ENTRY_POINTS)
     timed = [v for names in SD.GROUP_VARIANTS.values() for v in names]
     assert sorted(timed) == sorted(SD.VARIANTS)

@@ -69,13 +69,13 @@ def routes(monkeypatch):
 
 @pytest.fixture(scope="module")
 def case():
-    """One collection split at ff_bound 1, 2 and 3, and ragged reads with an
-    empty read and N reads among them."""
+    """One collection split at ff_bound 1-4, and ragged reads with an empty
+    read and N reads among them."""
     rng = np.random.default_rng(0xC0F7)
     base = bytes(rng.choice(list(b"ACGT"), 280).astype("uint8"))
     docs = random_docs(rng, 3, mutate_from=base)
     tbl, _ = build_index(docs)
-    split = {ff: ColPmlIndex.build(tbl, ff_bound=ff) for ff in (1, 2, 3)}
+    split = {ff: ColPmlIndex.build(tbl, ff_bound=ff) for ff in (1, 2, 3, 4)}
     reads = make_reads(rng, docs, 13) + [b"", b"NNACGT", b"G"]
     return tbl, split, reads
 
@@ -238,3 +238,68 @@ def test_state_outside_every_shard_reads_zeros(case, routes, route):
         for a, b in zip(got + st, want):
             np.testing.assert_array_equal(a.numpy(), b[sl])
     assert routes[route] == dp
+
+
+@pytest.mark.parametrize("ff", [1, 2, 3, 4])
+def test_round_route_matches_jax_from_state(case, routes, ff):
+    """The per-round route (a row over two device names: a prepared fetch a
+    card summed over "ip", the rounds on (M, B) columns and planes; round
+    5 at ff_bound >= 3) from a carried state equals JAX's _sharded_query
+    scan from that state and the chunk route, in outputs and final state.
+    Reads of 0 and 1 characters, longer than the batch's M and ending
+    mid-batch."""
+    _, split, reads = case
+    index = split[ff]
+    M, ip = 40, 4
+    rng = np.random.default_rng(0xF0 + ff)
+    enc, _ = index.encode_patterns(
+        [bytes(rng.choice(list(b"ACGTN"), M).astype("uint8"))
+         for _ in range(12)], M)
+    lens = np.array([0, 1, M + 7, M, 5, 17, 30, M - 1, M + 100, 2, 0, 25],
+                    dtype=np.int32)
+    B = enc.shape[0]
+    state = (rng.integers(0, index.r, B).astype(np.int32),
+             np.zeros(B, dtype=np.int32),
+             rng.integers(0, index.n, B).astype(np.int32),
+             rng.integers(0, 5, B).astype(np.int32))
+    jm = JP.make_mesh(1, ip)
+    want = _jax_scan_from(jm, JMESH.shard_index(index, jm), enc, lens,
+                          state, ff)
+    got = {}
+    for route in ("round", "scan"):
+        tm = tmesh(1, ip, route)
+        st = tuple(torch.from_numpy(a.copy()) for a in state)
+        out = TS.scan_row(tm, TMESH.shard_index(index, tm), 0,
+                          torch.from_numpy(enc.astype(np.uint8)),
+                          torch.from_numpy(lens), st, ff)
+        got[route] = [t.numpy() for t in out + st]
+    assert routes == {"scan": 1, "round": 1}
+    for a, b, w in zip(got["round"], got["scan"], want):
+        np.testing.assert_array_equal(a, w)
+        np.testing.assert_array_equal(b, w)
+    assert got["round"][0].any()
+    assert not got["round"][0][lens == 0].any()
+
+
+def test_round_route_raises_before_its_first_round(case, monkeypatch):
+    """`round_row` with a state of the wrong dtype: the launcher's checks
+    raise at the batch's start, before any round, and the state is
+    untouched."""
+    _, split, reads = case
+    index = split[2]
+    tm = tmesh(1, 2, "round")
+    tb = TMESH.shard_index(index, tm)
+    enc, lens = index.encode_patterns(reads, None)
+    B = enc.shape[0]
+    state = (torch.full((B,), index.r - 1, dtype=torch.int32),
+             torch.zeros(B, dtype=torch.int64),
+             torch.full((B,), index.n - 1, dtype=torch.int32),
+             torch.zeros(B, dtype=torch.int32))
+    calls = []
+    monkeypatch.setattr(TS, "sharded_step_compact_ref",
+                        lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match=r"state\[1\]"):
+        TS.round_row(tm, tb, 0, torch.from_numpy(enc.astype(np.uint8)),
+                     torch.from_numpy(lens), state, index.ff_bound)
+    assert not calls
+    assert int(state[0][0]) == index.r - 1 and not state[1].any()

@@ -266,34 +266,225 @@ def test_route_follows_where_shards_lie(narrow, wide, routes, wide_engine):
     assert routes == {"scan": 2, "step": 2}
 
 
-@pytest.mark.parametrize("wide_engine,step_offset", [(False, 0), (True, 0),
-                                                     (True, 40)])
-def test_step_route_equals_chunk_route(narrow, wide, routes, wide_engine,
-                                       step_offset):
-    """`step_chunk` called directly on a one-device mesh equals the chunk
-    route `scan_chunk` takes there: outputs and the carried state."""
-    index, reads = (wide[1], wide[2]) if wide_engine else narrow
-    mesh = tmesh(1, 4)
-    st = (TSW.shard_mega_wide(index, mesh) if wide_engine
-          else TSM.shard_mega(index, mesh))
-    enc, lens = index.encode_patterns(reads, None)
-    p = torch.from_numpy(enc.astype(np.uint8))
-    ln = torch.from_numpy(lens) + step_offset
-    if wide_engine:
-        state = TSW.initial_state_sharded(st, p.shape[0], mesh)[0]
+@pytest.fixture(scope="module")
+def ff_indexes(wide):
+    """`narrow`'s and `wide`'s collections split at ff_bound 2-4 (the mega
+    engines need a run-split index with ff_bound >= 2): {(wide, ff):
+    index}."""
+    rng = np.random.default_rng(0x5CA7)
+    base = bytes(rng.choice(list(b"ACGT"), 300).astype("uint8"))
+    tbl, _ = build_index(random_docs(rng, 3, mutate_from=base))
+    return {(w, ff): ColPmlIndex.build(wide[0] if w else tbl, ff_bound=ff)
+            for w in (False, True) for ff in (2, 3, 4)}
+
+
+def _chunk_lanes(index, C: int, step_offset: int, rng):
+    """A (B, C) chunk of dense ids and per-lane read lengths that end at
+    every kind of place: 0 and 1 character, past the chunk, at its edge
+    and mid-chunk (lengths count from the read's end, so a lane is valid
+    at step s while step_offset + s < length)."""
+    B = 12
+    reads = [bytes(rng.choice(list(b"ACGTN"), C).astype("uint8"))
+             for _ in range(B)]
+    enc, _ = index.encode_patterns(reads, C)
+    ends = np.array([0, 1, C + 7, C, 5, 17, 30, C - 1, C + 100, 2, 0, 25])
+    lens = np.where(ends > 1, ends + step_offset, ends).astype(np.int32)
+    return enc.astype(np.uint8), lens
+
+
+def _start_state(st: dict, B: int, wide: bool):
+    full = (lambda v: np.full((B,), v, dtype=np.int32))
+    if wide:
+        vals = (st["r"] - 1, st["last_len"] - 1, st["pos0_lo"],
+                st["pos0_hi"], 0)
     else:
-        B = p.shape[0]
-        state = tuple(torch.full((B,), v, dtype=torch.int32)
-                      for v in (st["r"] - 1, st["last_len"] - 1,
-                                st["n"] - 1, 0))
-    s1 = tuple(t.clone() for t in state)
-    s2 = tuple(t.clone() for t in state)
-    got = TSM.scan_chunk(mesh, st, 0, p, ln, s1, step_offset,
-                         index.ff_bound, wide_engine)
-    assert routes == {"scan": 1, "step": 0}
-    want = TSM.step_chunk(mesh, st, 0, p, ln, s2, step_offset,
-                          index.ff_bound, wide_engine)
+        vals = (st["r"] - 1, st["last_len"] - 1, st["n"] - 1, 0)
+    return tuple(full(v) for v in vals)
+
+
+@pytest.mark.parametrize("wide_engine,step_offset,ff", [
+    # the first three keep the ids they had before the ff_bound grid
+    pytest.param(w, so, ff, id=f"{w}-{so}" if ff == 2 and (w, so) != (
+        False, 40) else f"{w}-{so}-ff{ff}")
+    for ff in (2, 3, 4) for w, so in ((False, 0), (True, 0), (False, 40),
+                                      (True, 40))])
+def test_step_route_equals_chunk_route(ff_indexes, routes, wide_engine,
+                                       step_offset, ff):
+    """The per-step route (a row over two device names, "cpu" and "cpu:0":
+    a prepared fetch a card summed over "ip", the step on (C, B) columns
+    and planes) equals the chunk route `scan_chunk` takes on a one-device
+    mesh and JAX's programs, in outputs and carried state: narrow,
+    `_sharded_mega_query` from its start state (the lengths shifted by
+    step_offset, so the same steps are valid); wide,
+    `_sharded_mega_wide_chunk` from a state carried out of an earlier
+    chunk of 40 columns.  Reads of 0 and 1 characters, past the chunk and
+    ending mid-chunk; ff_bound 2-4."""
+    index = ff_indexes[wide_engine, ff]
+    assert index.ff_bound == ff
+    C, ip = 48, 4
+    rng = np.random.default_rng(ff * 10 + step_offset + wide_engine)
+    enc, lens = _chunk_lanes(index, C, step_offset, rng)
+    B = enc.shape[0]
+    one = tmesh(1, ip)
+    two = tmesh(1, ip, devices=["cpu", "cpu:0"] * 2)
+    assert len(two.card_shards(two.shard(lambda i, dev: i), 0)) == 2
+    shard = TSW.shard_mega_wide if wide_engine else TSM.shard_mega
+    st1, st2 = shard(index, one), shard(index, two)
+    state = _start_state(st1, B, wide_engine)
+    jm = JP.make_mesh(1, ip)
+    if wide_engine and step_offset:
+        # the state an earlier chunk of 40 columns leaves, from the start
+        first, _ = _chunk_lanes(index, step_offset, 0, rng)
+        st0 = tuple(torch.from_numpy(a.copy()) for a in state)
+        TSM.scan_chunk(one, st1, 0, torch.from_numpy(first),
+                       torch.from_numpy(lens), st0, 0, ff, True)
+        assert routes == {"scan": 1, "step": 0}
+        state = tuple(t.numpy().copy() for t in st0)
+        routes.update(scan=0)
+    got = {}
+    for name, mesh, st in (("step", two, st2), ("scan", one, st1)):
+        s = tuple(torch.from_numpy(a.copy()) for a in state)
+        out = TSM.scan_chunk(mesh, st, 0, torch.from_numpy(enc),
+                             torch.from_numpy(lens), s, step_offset, ff,
+                             wide_engine)
+        got[name] = [t.numpy() for t in out + s]
     assert routes == {"scan": 1, "step": 1}
-    for a, b in zip(got + s1, want + s2):
-        assert torch.equal(a, b)
-    assert bool(got[0].any())
+    for a, b in zip(got["step"], got["scan"]):
+        np.testing.assert_array_equal(a, b)
+    if wide_engine:
+        jst = JSW.shard_mega_wide(index, jm)
+        (jp, jc), jfinal = JSW._sharded_mega_wide_chunk(
+            jm, jst["mega"], jst["length"], enc.astype(np.int32), lens,
+            state, np.int32(step_offset), jst["rows_padded"] // ip, jst["n_lo"],
+            jst["n_hi"], jst["r"], ff_bound=ff)
+        want = [jp, jc, *jfinal]
+    else:
+        jst = JSM.shard_mega(index, jm)
+        want = list(JSM._sharded_mega_query(
+            jm, jst["mega"], jst["length"], enc.astype(np.int32),
+            lens - np.where(
+                lens > 1, step_offset, 0).astype(np.int32),
+            jst["rows_padded"] // ip, jst["n"], jst["r"], jst["last_len"],
+            ff_bound=ff))
+    for a, b in zip(got["step"], want):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    valid = (np.arange(C)[None, ::-1] + step_offset) < lens[:, None]
+    assert not got["step"][0][~valid].any()
+    assert got["step"][0][valid].any()
+
+
+def _launch_args(wide: bool, B: int = 6, C: int = 5):
+    """Valid CPU arguments of StepMega (wide or narrow) and RoundCompact."""
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32)
+
+    pats = torch.zeros((C, B), dtype=torch.uint8)
+    state = tuple(i32(B) for _ in range(5 if wide else 4))
+    mega = [i32(B, 16), i32(9), 3, 7, 0, state, pats, i32(B), 0, 2,
+            i32(C, B), i32(C, B), i32(B), wide]
+    compact = [i32(B, 8), i32(B, 2), i32(B, 8), i32(9, B),
+               tuple(i32(B) for _ in range(4)), pats, i32(B), 3, 7, 2,
+               i32(C, B), i32(C, B), i32(B), i32(B), i32(B)]
+    return mega, compact
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values at an address 4 bytes past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    k = next(k for k in range(1, 4) if (buf.data_ptr() + 4 * k) % 16)
+    return buf[k:k + t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("launcher,fault", [
+    (name, fault)
+    for name in ("StepMega narrow", "StepMega wide", "RoundCompact", "Fetch")
+    for fault in ("dtype", "device", "shape", "alignment", "arity")
+    if (name, fault) not in (("Fetch", "arity"),
+                             ("RoundCompact", "alignment"))])
+def test_launchers_check_at_the_chunk_start(launcher, fault):
+    """The launchers made once a chunk (StepMega, RoundCompact, the
+    prepared fetch) make the checks the per-call wrappers made, when they
+    are made, and raise ValueError there: a wrong dtype, a tensor on
+    another device (the devices compared as objects: "meta" against the
+    CPU), a wrong shape, rows off their 16-byte alignment, a state of the
+    wrong arity.  The valid arguments make them without a complaint."""
+    from colbwt_tpu_torch.parallel import query_sharded as TS
+
+    wide = launcher.endswith("wide")
+    mega, compact = _launch_args(wide)
+    if launcher == "Fetch":
+        args = [[torch.zeros((9, 16), dtype=torch.int32)] * 2,
+                torch.zeros(6, dtype=torch.int32), None, 9, 0,
+                torch.zeros((6, 16), dtype=torch.int32)]
+        make, at = TMESH.Fetch, {"dtype": 1, "device": 1, "shape": 5,
+                                 "alignment": 0}
+    elif launcher == "RoundCompact":
+        args, make = compact, TS.RoundCompact
+        at = {"dtype": 6, "device": 12, "shape": 3, "arity": 4}
+    else:
+        args, make = mega, TSM.StepMega
+        at = {"dtype": 7, "device": 12, "shape": 10, "alignment": 0,
+              "arity": 5}
+    make(*args)  # valid
+    j = at[fault]
+    bad = list(args)
+    if fault == "dtype":
+        bad[j] = bad[j].to(torch.int64)
+    elif fault == "device":
+        bad[j] = torch.empty_like(bad[j], device="meta")
+    elif fault == "shape":
+        bad[j] = bad[j][:-1]
+    elif fault == "alignment":
+        bad[j] = ([_misaligned(t) for t in bad[j]] if isinstance(bad[j], list)
+                  else _misaligned(bad[j]))
+    else:
+        bad[j] = bad[j][:-1]
+    with pytest.raises(ValueError):
+        make(*bad)
+
+
+def test_step_route_raises_before_its_first_step(narrow, monkeypatch):
+    """`step_chunk` with int64 lengths: the launcher's checks raise at the
+    chunk's start, before any fetch or step, and the state is untouched."""
+    index, reads = narrow
+    mesh = tmesh(1, 2, devices=["cpu", "cpu:0"])
+    st = TSM.shard_mega(index, mesh)
+    enc, lens = index.encode_patterns(reads, None)
+    B = enc.shape[0]
+    state = tuple(torch.full((B,), v, dtype=torch.int32)
+                  for v in (st["r"] - 1, st["last_len"] - 1, st["n"] - 1, 0))
+    steps = []
+    monkeypatch.setattr(TSM, "sharded_step_mega_ref",
+                        lambda *a: steps.append(a))
+    with pytest.raises(ValueError, match="lengths"):
+        TSM.step_chunk(mesh, st, 0, torch.from_numpy(enc.astype(np.uint8)),
+                       torch.from_numpy(lens.astype(np.int64)), state, 0,
+                       index.ff_bound, False)
+    assert not steps
+    assert int(state[0][0]) == st["r"] - 1 and not state[3].any()
+
+
+@pytest.mark.parametrize("struct,block", [
+    ("StepMegaArgs", "query_sharded_mega._StepMegaArgs"),
+    ("RoundCompactArgs", "query_sharded._RoundCompactArgs")])
+def test_parameter_block_matches_the_c_struct(struct, block):
+    """The ctypes parameter blocks that the launchers fill name the fields
+    of csrc/query_sharded.cu's structs in their order, every one 8 bytes
+    (pointers and int64), so the layouts agree."""
+    import ctypes
+    import importlib
+    import re
+    from pathlib import Path
+
+    module, cls = block.rsplit(".", 1)
+    py = getattr(importlib.import_module(
+        f"colbwt_tpu_torch.parallel.{module}"), cls)
+    src = (Path(TSM.__file__).resolve().parents[1] / "csrc"
+           / "query_sharded.cu").read_text()
+    body = re.search(r"struct " + struct + r" \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for decl in body.split(";")[:-1]:
+        decl = re.sub(r"\b(const|void|int64_t)\b", "", decl)
+        names += [x.strip(" *\n") for x in decl.split(",")]
+    assert names == [name for name, _ in py._fields_]
+    assert ctypes.sizeof(py) == 8 * len(names)
