@@ -98,21 +98,22 @@ version on the card.  Phases:
 12. the sharded query API (colbwt_tpu_torch/parallel/), its ip shards as
    separate tensors on the one card (make_mesh over ["cuda:0"] * dp·ip):
    phase 4's 263,168 reads of <= 152 bp in one batch at (dp, ip) = (1, 2)
-   through sharded-pos (k = 3 on bench's index: K1, K13d, the one-launch
-   fetch, K13e), sharded compact (the K13a chunk scan, one launch) and
+   through sharded-pos (k = 3 on bench's index: K1, K13d, the K13e chunk
+   scan, one launch), sharded compact (the K13a chunk scan, one launch) and
    sharded-mega (the K13b chunk scan, one launch) on phase 9's ff_bound-2
    split, and sharded-mega-wide (K6b slices, the K13c chunk scan) on phase
    7's index at (1, 2), (2, 2) and (1, 4), with the 16 long reads in
    chunks of 2,048 (each wall split into shard placement, batch and long
    reads); then the route of shards on other cards once at (1, 2): the
+   pos engine's per-step route (a fetch and a K13e step a step), the
    compact engine's per-round route (a fetch and a K13a round kernel a
    gather round) on the split, and the mega engines' per-step route (the
    fetch and the per-step kernel K13b/K13c), narrow on the split and wide
    on phase 7's index; every output equal to the single-card engine's on
    the same reads (phase 4's pos records, K4, K5, phase 7's mega-wide
    records), every launch count the one its route gives; each kernel
-   equal to its plain version call by call (the compact engine's
-   per-round route on 8,192 of the reads; every engine but pos through
+   equal to its plain version call by call, K1 among them (the compact
+   engine's per-round route on 8,192 of the reads; every engine through
    both routes, the wide long reads too)
 
 Each query scan (K3-K7, the chunk scans) is also timed on 16 lanes of
@@ -193,6 +194,8 @@ KERNEL_INFO = {
                            "colbwt_tpu/parallel/query_sharded_pos.py:67"),
     "sharded_step_pos": ("K13e", "colbwt_tpu_torch/csrc/query_sharded.cu",
                          "colbwt_tpu/parallel/query_sharded_pos.py:163"),
+    "sharded_scan_pos": ("K13e", "colbwt_tpu_torch/csrc/query_sharded.cu",
+                         "colbwt_tpu/parallel/query_sharded_pos.py:163"),
     "sharded_scan_mega": (
         "K13b/K13c", "colbwt_tpu_torch/csrc/query_mega.cu",
         "colbwt_tpu/parallel/query_sharded_mega_wide.py:101"),
@@ -216,7 +219,8 @@ ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
 # run-length scales of the mega (n ~ 1.0e9) and mega-wide (n ~ 4.1e9) indexes
 MEGA_SCALE, WIDE_SCALE = 256, 1024
 # phase 12's counted runs of the per-step and per-round routes, by cell
-CELLS_G = {"sharded-compact (1,2) round route": "G-round",
+CELLS_G = {"sharded-pos (1,2) step route": "G-pos step",
+           "sharded-compact (1,2) round route": "G-round",
            "sharded-mega (1,2) step route": "G-step narrow",
            "sharded-mega-wide (1,2) step route": "G-step wide"}
 
@@ -257,6 +261,35 @@ def nbytes(*xs) -> int:
         elif hasattr(x, "nbytes"):
             total += int(x.nbytes)
     return total
+
+
+def least_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time of work moving `nbytes` and doing `ops` integer
+    operations, and which of the two sets it ("bytes", "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def t1_bytes(index, c: int, s: int, C: int) -> int:
+    """The bytes K1 must move for positions [s, s + C) and key char c:
+    each element of the r-sized arrays that the chunk's runs need, read
+    once, and its C 8-byte rows, written once.  The runs are those from
+    the run of s to that of s + C - 1: their idx, char, pred, succ, col_id
+    and lf_pos0; for the runs that do not match c, threshold and lf_pos0
+    at their clamped successors and length and lf_pos0 at their clamped
+    predecessors.  idx's C + 1 padding values are no part of it."""
+    idx = np.asarray(index.idx, dtype=np.int64)
+    r = idx.size
+    lo, hi = np.searchsorted(idx, [s, s + C - 1], side="right") - 1
+    runs = np.arange(lo, hi + 1)
+    other = runs[np.asarray(index.char)[runs] != c]
+    si = np.asarray(index.succ_jump[c], dtype=np.int64)[other]
+    pi = np.asarray(index.pred_jump[c], dtype=np.int64)[other]
+    succ = np.unique(np.minimum(si[si < r], r - 1))
+    pred = np.unique(np.maximum(pi[pi >= 0], 0))
+    lf = np.union1d(np.union1d(runs, succ), pred)
+    return 4 * (5 * runs.size + lf.size + succ.size + pred.size) + 8 * C
 
 
 def gathered(table, gathers: int, row_bytes: int) -> int:
@@ -357,10 +390,7 @@ class Checks:
         lib = library_ms
         by = "bytes"
         if bound is not None:
-            t_bytes = bound[0] / HBM_BYTES_PER_S * 1e3
-            t_ops = bound[1] / ALU_OPS_PER_S * 1e3
-            bound_ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                            else (t_ops, "operations"))
+            bound_ms, by = least_ms(*bound)
         floor = ""
         if chain is not None:
             key, steps, lanes16 = chain
@@ -419,7 +449,7 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, long_reads,
                      lambda: TQ.build_t1_chunk(buf, *args),
                      lambda: TQ.build_t1_chunk_ref(buf, *args),
                      f"one chunk of C={C} positions",
-                     bound=(nbytes(args) + C * 8, C * 40))
+                     bound=(t1_bytes(index, c, 0, C), C * 40))
     C2 = min(n, 1 << 20)
     a2 = TQ.t1_inputs(index, C2, dev)
     for c in (int(digits[0]), A_full - 1):
@@ -1543,6 +1573,33 @@ def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
     return v, launches
 
 
+def time_t1_pangenome(torch, dev, prefix: str, chk: Checks) -> None:
+    """K1 at phase 8's index (n = 72,000,016, r = 13,740,206: its r-sized
+    arrays outgrow the 50 MB L2), one chunk of 2**25 positions for the
+    first ACGT char, against its plain version."""
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+    n, C = index.n, TQ._T1_CHUNK
+    c = int(index.char_map[ord("A")])
+    a = TQ.t1_inputs(index, C, dev)
+    args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+            a["threshold"], to_device(index.pred_jump[c], dev),
+            to_device(index.succ_jump[c], dev), a["col_id"], c, 0, 0, n, C)
+    buf = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    chk.equal("build_t1_chunk", TQ.build_t1_chunk(buf, *args),
+              TQ.build_t1_chunk_ref(torch.empty_like(buf), *args),
+              f"phase 8's index, C={C}")
+    chk.time("build_t1_chunk", lambda: TQ.build_t1_chunk(buf, *args),
+             lambda: TQ.build_t1_chunk_ref(buf, *args),
+             f"one chunk of C={C} positions at phase 8's index (n={n}, "
+             f"r={index.r})", bound=(t1_bytes(index, c, 0, C), C * 40))
+    del a, args, buf
+    torch.cuda.empty_cache()
+
+
 def phase8bc(dev, cli_main, fastas: list[str], bench_prefix: str
              ) -> tuple[dict, list[dict]]:
     """Bench's collection through the chunked SA lane (8b) and in all mode
@@ -1851,8 +1908,9 @@ class Twins:
     """While active, each wrapped kernel wrapper (a module attribute) runs
     as itself, and with `check` also as its plain version on clones of its
     arguments: its result (or each tensor of a tuple it returns) and every
-    tensor argument (the outputs it writes in place) must then be equal.  Keeps clones of the arguments of call
-    number `nth` (from 0) of each (kernel, tag, key) for the timings."""
+    tensor argument (the outputs it writes in place) must then be equal.
+    Keeps clones of the arguments of call number `nth` (from 0) of each
+    (kernel, tag, key) for the timings."""
 
     def __init__(self, torch, chk: Checks, check: bool):
         self.torch, self.chk, self.check = torch, chk, check
@@ -1937,6 +1995,7 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops import query_pos as TQ
     from colbwt_tpu_torch.ops import query_xla as TX
     from colbwt_tpu_torch.parallel import make_mesh
     from colbwt_tpu_torch.parallel import mesh as PM
@@ -1957,9 +2016,9 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
 
     def twins(check: bool) -> Twins:
         tw = Twins(torch, chk, check)
-        # the fetch and the two per-step kernels launch through launchers
-        # made once a chunk (Fetch, RoundCompact, StepMega); each call is
-        # held and captured with its public function's arguments
+        # the fetch and the per-step kernels launch through launchers made
+        # once a chunk (Fetch, RoundCompact, StepMega, StepPos); each call
+        # is held and captured with its public function's arguments
         tw.wrap_launcher(PM, "Fetch", "sharded_fetch", PM.sharded_fetch_ref,
                          key=lambda a: (next(t for t in a[0] if t is not None
                                              ).shape[1], a[2] is None,
@@ -1973,10 +2032,21 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                          key=lambda a: a[0].shape[0], shared=(1,))
         tw.wrap(TSM, "sharded_scan_mega", TSM.sharded_scan_mega_ref,
                 key=lambda a: tuple(a[7].shape), shared=(0, 2), nth=0)
-        tw.wrap(TSP, "sharded_step_pos", TSP.sharded_step_pos_ref)
+        tw.wrap_launcher(TSP, "StepPos", "sharded_step_pos",
+                         TSP.sharded_step_pos_ref)
+        tw.wrap(TSP, "sharded_scan_pos", TSP.sharded_scan_pos_ref,
+                key=lambda a: tuple(a[2].shape), shared=(0,), nth=0)
         tw.wrap(TSP, "compose_sharded_tk", TSP.compose_sharded_tk_ref,
                 shared=(0,), nth=0)
+        # K1, six launches a table build (the buffer the only output)
+        tw.wrap(TQ, "build_t1_chunk", TQ.build_t1_chunk_ref,
+                shared=tuple(range(1, 9)), nth=0)
         return tw
+
+    def pos_step_route():
+        """Every sharded-pos row through the per-step route `step_row`,
+        the route of a row whose shards sit on other cards."""
+        return mock.patch.object(TSP, "scan_row", TSP.step_row)
 
     def step_route():
         """Every sharded mega chunk through the per-step route
@@ -2053,12 +2123,23 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
             st = TSP.shard_pos_tables(index, m12)
             return TSP.query_batch_sharded_pos(index, batch, mesh=m12, st=st)
 
-        # one fetch launch a gather (both shards on the card)
+        # one chunk-scan launch for the whole batch (both shards on the
+        # card), no fetch, no step; the tables: K1 once a char (A = 6, one
+        # chunk each), K13d once a shard
+        A = index.sigma + 1
         got = counted(cap, "sharded-pos (1,2) k=3", {
-            "build_t1_chunk": None, "compose_sharded_tk": 2,
-            "sharded_fetch": -(-M // 3), "sharded_step_pos": -(-M // 3)},
-            pos_run)
+            "build_t1_chunk": A, "compose_sharded_tk": 2,
+            "sharded_scan_pos": 1, "sharded_fetch": 0,
+            "sharded_step_pos": 0}, pos_run)
         same(got, ref4, 0, B, "sharded-pos")
+        # the per-step route: a fetch launch and a step launch a step
+        with pos_step_route():
+            tag = "sharded-pos (1,2) step route"
+            got = counted(cap, tag, {
+                "build_t1_chunk": A, "compose_sharded_tk": 2,
+                "sharded_scan_pos": 0, "sharded_fetch": -(-M // 3),
+                "sharded_step_pos": -(-M // 3)}, pos_run)
+        same(got, ref4, 0, B, tag)
         # one chunk-scan launch for the whole batch and one fetch (the
         # start offset); then the per-round route: a fetch a card and a
         # round kernel a gather round (four rounds a step at ff_bound 2)
@@ -2123,16 +2204,19 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         same(got, ref7, 0, B, tag)
         same(got_long, ref7, B, B + len(long_reads), tag + " long reads")
     log("[phase 12] every sharded engine equals the single-card engine, "
-        "both routes of the compact and mega engines")
+        "both routes of the pos, compact and mega engines")
 
     # every kernel call against its plain version: the full batch (the
     # compact engine's per-round route: its first 8,192 reads, a round
-    # call by call), the tables rebuilt under the check; the compact and
-    # mega engines (the wide one with its long reads) through both routes
+    # call by call), the tables rebuilt under the check (K1, K13d); every
+    # engine (the wide one with its long reads) through both routes
     t0 = time.perf_counter()
     with twins(True) as tw:
-        tw.tag = "pos"
-        TSP.query_batch_sharded_pos(index, batch, mesh=m12)
+        for tag, route in (("pos", contextlib.nullcontext),
+                           ("pos step route", pos_step_route)):
+            tw.tag = tag
+            with route():
+                TSP.query_batch_sharded_pos(index, batch, mesh=m12)
         tw.tag = "compact"
         TS.query_batch_sharded(split, batch, mesh=m12)
         tw.tag = "compact round route"
@@ -2155,8 +2239,8 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
                     wide, long_reads, mesh=m12, chunk=2048, st=st_wide)
     del st_mega, st_wide
     torch.cuda.empty_cache()
-    log(f"[phase 12] K13a-K13e and the chunk scan equal to their plain "
-        f"versions call by call ({time.perf_counter() - t0:.1f}s)")
+    log(f"[phase 12] K1, K13a-K13e and the chunk scans equal to their "
+        f"plain versions call by call ({time.perf_counter() - t0:.1f}s)")
 
     # times at the counted runs' shapes: each per-step kernel's ninth call
     # (step 8) of its shape, the chunk scan's first of its shape, K13d its
@@ -2171,7 +2255,8 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
             (step_tag, (16, True, B), "wide rows"),
             (step_tag, (16, True, len(long_reads)),
              "wide rows, the long reads' lanes"),
-            ("sharded-pos (1,2) k=3", (2, False, B), "pos rows, key selector"),
+            ("sharded-pos (1,2) step route", (2, False, B),
+             "pos rows, key selector"),
             ("sharded-compact (1,2) round route", (8, True, B),
              "compact run rows")):
         a = arg("sharded_fetch", tag, key)
@@ -2194,13 +2279,41 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
              lambda: TSP.compose_sharded_tk_ref(*a),
              f"shard 0 of T{kk}: {rows} rows, A={A}, n_local={n_local}",
              bound=(rows * 8 + gathered(t1, rows * kk, 8), rows * kk * 12))
-    a = arg("sharded_step_pos", "sharded-pos (1,2) k=3")
+    a = arg("sharded_step_pos", "sharded-pos (1,2) step route")
     Bs = a[0].shape[0]
+    what = f"one step of {Bs} lanes, k={kk}"
     chk.time("sharded_step_pos", lambda: TSP.sharded_step_pos(*a),
              lambda: TSP.sharded_step_pos_ref(*a),
-             f"one step of {Bs} lanes, k={kk}",
+             f"{what} (the public wrapper, checked in full)",
              bound=(a[0].nbytes + 2 * nbytes(a[1], a[2]) + Bs * kk * 5
                     + nbytes(a[8], a[9]), Bs * kk * 10))
+    # the route's call: the launcher made once a batch, then on the card
+    # alone
+    step_pos = TSP.StepPos(*a[:4], *a[5:])
+    log(f"[time] sharded_step_pos {what}: launcher "
+        f"{cuda_ms(torch, lambda: step_pos(a[4])):.4f} ms, on the card "
+        f"{gpu_ms(torch, lambda: step_pos(a[4])):.4f} ms")
+    # the K13e chunk scan: 16 long-read lanes from the start state (their
+    # last 2,049 characters, 683 steps: the chain floor's step), then the
+    # counted run's batch; each call includes the wrapper's transpose
+    a = arg("sharded_scan_pos", "sharded-pos (1,2) k=3", (B, -(-M // 3) * 3))
+    enc, _ = index.encode_patterns([x[-2049:] for x in long_reads], 2049)
+    pos16 = (a[0], a[1], torch.from_numpy(enc.astype(np.uint8)).to(dev),
+             *a[3:])
+    for b in (pos16, a):
+        shards, _, pats, kk, _, _ = b
+        steps = pats.shape[1] // kk
+        lanes = pats.shape[0]
+        chk.equal("sharded_scan_pos", TSP.sharded_scan_pos(*b),
+                  TSP.sharded_scan_pos_ref(*b), f"{lanes} lanes")
+        chk.time("sharded_scan_pos", lambda: TSP.sharded_scan_pos(*b),
+                 lambda: TSP.sharded_scan_pos_ref(*b),
+                 f"{lanes} lanes x {steps} steps of k={kk}, {len(shards)} "
+                 f"shards, one launch and the wrapper's transpose",
+                 reps=1 if lanes <= 16 else 3,
+                 bound=(gathered(shards, lanes * steps, 8) + pats.numel() * 5,
+                        pats.numel() * 10),
+                 chain=("sharded_scan_pos", steps, lanes <= 16))
     for tag, lanes in (("sharded-mega (1,2) step route", B), (step_tag, B),
                        (step_tag, len(long_reads))):
         a = arg("sharded_step_mega", tag, lanes)
@@ -2306,7 +2419,7 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     log(f"[time] sharded_step_compact {what}: launchers "
         f"{cuda_ms(torch, launched):.4f} ms, on the card "
         f"{gpu_ms(torch, launched):.4f} ms")
-    del cap, first, caps, a, rounds, step
+    del cap, first, caps, a, rounds, step, step_pos
     torch.cuda.empty_cache()
     log(f"[phase 12] done in {time.perf_counter() - t_phase:.1f}s")
     return walls, launches
@@ -2656,6 +2769,7 @@ def run(torch) -> tuple[dict, list[dict]]:
     # phases 8-8c: the build path through the CLI; 11-11c: without the
     # native library
     v8, lc8 = phase8(torch, dev, cli_main, chk)
+    time_t1_pangenome(torch, dev, str(WORK / "pangenome"), chk)
     v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
     v11, lc11 = phase11(dev, cli_main, fastas, prefix, v3)
     v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8, chk)

@@ -15,12 +15,13 @@
 // (8.2 GB more at (2,2)); the rows it gathers for one output key all lie
 // in one n-row block of T_kb (32 MB at n = 4M), and on a real index the
 // positions it gathers keep the run locality of the LF mapping.  K1 reads
-// r-sized arrays (a few MB, L2-resident) and streams its output.
+// r-sized arrays (a few MB at bench's r, 55 MB each at r = 13.7M) and
+// streams its output.
 //
-// The design: one thread per output element for K1; for K2 one block a
-// (key, tile of positions), 8-byte rows (below); for K3 one thread per read
-// in blocks of one warp, so that the main path's batch of 8,192 reads
-// spreads over every SM, each step's outputs one vector store (below).
+// The design: for K1 one block a tile of positions (below); for K2 one
+// block a (key, tile of positions), 8-byte rows (below); for K3 one thread
+// per read in blocks of one warp, so that the main path's batch of 8,192
+// reads spreads over every SM, each step's outputs one vector store (below).
 //
 // Every word is handled as uint32_t: bit 31 holds a match flag (T1) or
 // the top match bit of a k = 4 row, and shifts into it must not be signed
@@ -35,59 +36,158 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t size) {
   return i < 0 ? 0 : (i >= size ? size - 1 : i);
 }
 
-// Largest run i with idx[i] <= pos (idx strictly increasing, idx[0] = 0):
-// the run that holds rank position pos.
-__device__ __forceinline__ int64_t run_of(const int32_t* __restrict__ idx,
-                                          int64_t r, int64_t pos) {
-  int64_t lo = 0, hi = r;  // first i with idx[i] > pos lies in [lo, hi]
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(idx[mid]) <= pos) lo = mid + 1; else hi = mid;
+// K1: T1 rows [row0, row0 + C) for positions [s, s + C) and key char c.
+//
+// A chunk's positions are contiguous and runs are n / r positions long on
+// average (3.1 on bench's index), so the run of a position is found once a
+// tile, not by a binary search a position (21 dependent loads at r = 1.3M,
+// out of the L2 at r = 13.7M), and a run's fields are read once, not once
+// for each of its positions.  One block a tile of kT1Tile positions:
+// - warps 0 and 1 find the runs of the tile's first and last positions,
+//   side by side, each by a 32-way search over idx: a round's 32 lanes
+//   probe 32 evenly spaced runs at once, so 5 dependent rounds at r =
+//   13.7M where a binary search takes 24;
+// - the tile's runs (at most kT1Tile: idx is strictly increasing) are read
+//   with coalesced loads, one thread a run, and their position-free fields
+//   kept in shared memory: the start, lf_pos0 - idx (LF of a position is
+//   that plus the position), col_id, the threshold, the pred and succ
+//   landings, and flags (match, has_pred, has_succ); a run that starts
+//   inside the tile marks its first position;
+// - each warp takes a contiguous segment of the tile, 32 positions at a
+//   time: a position's run is the segment's first run plus the marks up to
+//   it, a warp ballot and a popcount (the running max of the run-start
+//   marks of the JAX code), and its row is one 8-byte store, a warp's 32
+//   rows coalesced.
+// Dynamic shared memory, 26 bytes a position of the tile.
+constexpr int kT1Threads = 256;
+constexpr int kT1Tile = 2048;
+constexpr int kT1SmemBytes = kT1Tile * (6 * 4 + 2);
+enum : uint8_t { kT1Match = 1, kT1Pred = 2, kT1Succ = 4 };
+
+// The largest run i with idx[i] <= pos (idx strictly increasing, idx[0] =
+// 0), the run that holds rank position pos, found by one warp (all 32
+// lanes call it; every lane returns the run).
+__device__ __forceinline__ int64_t warp_run_of(const int32_t* __restrict__ idx,
+                                               int64_t r, int64_t pos,
+                                               int lane) {
+  int64_t lo = 0, hi = r;  // idx[lo] <= pos; the run lies in [lo, hi)
+  while (hi - lo > 1) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t probe = lo + lane * step;  // lane 0 probes lo itself
+    const unsigned le = __ballot_sync(
+        0xFFFFFFFFu,
+        probe < hi && static_cast<int64_t>(__ldg(idx + probe)) <= pos);
+    lo += (31 - __clz(le)) * step;
+    hi = lo + step < hi ? lo + step : hi;
   }
-  return lo - 1;
+  return lo;
 }
 
-// K1: T1 rows [row0, row0 + C) for positions [s, s + C) and key char c.
-__global__ void build_t1_chunk_kernel(
-    int32_t* __restrict__ buf, const int32_t* __restrict__ run_char,
+// The last of the tile's runs [0, runs) that starts at or before pos.
+__device__ __forceinline__ int tile_run(const int32_t* s_start, int runs,
+                                        int64_t pos) {
+  int lo = 0, hi = runs;  // s_start[0] <= pos: the answer lies in [lo, hi)
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(s_start[mid]) <= pos) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kT1Threads) build_t1_chunk_kernel(
+    int2* __restrict__ buf, const int32_t* __restrict__ run_char,
     const int32_t* __restrict__ idx, const int32_t* __restrict__ length,
     const int32_t* __restrict__ lf_pos0, const int32_t* __restrict__ threshold,
     const int32_t* __restrict__ pred_row, const int32_t* __restrict__ succ_row,
     const int32_t* __restrict__ col_id, int64_t r, int32_t c, int64_t row0,
     int64_t s, int64_t n, int64_t C) {
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       t < C; t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t pos = s + t;
-    const int64_t run = run_of(idx, r, pos);
-    const int32_t offset = static_cast<int32_t>(pos - idx[run]);
-    const int32_t lf_match = lf_pos0[run] + offset;
-    const bool match = run_char[run] == c;
-    const int32_t si = succ_row[run];
-    const int32_t pi = pred_row[run];
-    const bool has_succ = si < r;
-    const bool has_pred = pi >= 0;
-    const int64_t sic = si < r - 1 ? si : r - 1;
-    const int64_t thr = has_succ ? static_cast<int64_t>(threshold[sic]) : n;
-    const int32_t succ_pos = lf_pos0[sic];
-    const int64_t pic = pi > 0 ? pi : 0;
-    const int32_t pred_pos = lf_pos0[pic] + length[pic] - 1;
+  extern __shared__ int32_t t1_smem[];
+  int32_t* s_start = t1_smem;
+  uint32_t* s_base = reinterpret_cast<uint32_t*>(s_start + kT1Tile);
+  int32_t* s_cid = reinterpret_cast<int32_t*>(s_base + kT1Tile);
+  int32_t* s_thr = s_cid + kT1Tile;
+  uint32_t* s_pred = reinterpret_cast<uint32_t*>(s_thr + kT1Tile);
+  uint32_t* s_succ = s_pred + kT1Tile;
+  uint8_t* s_flags = reinterpret_cast<uint8_t*>(s_succ + kT1Tile);
+  uint8_t* s_begin = s_flags + kT1Tile;
+  __shared__ int64_t s_ends[2];
+
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kT1Tile;
+  const int len = static_cast<int>(C - t0 < kT1Tile ? C - t0 : kT1Tile);
+  const int64_t p0 = s + t0;  // the tile's first position
+  for (int i = threadIdx.x; i < kT1Tile / 4; i += kT1Threads) {
+    reinterpret_cast<uint32_t*>(s_begin)[i] = 0;
+  }
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int64_t run = warp_run_of(idx, r, warp == 0 ? p0 : p0 + len - 1,
+                                    threadIdx.x & 31);
+    if ((threadIdx.x & 31) == 0) s_ends[warp] = run;
+  }
+  __syncthreads();
+  const int64_t first = s_ends[0];
+  const int runs = static_cast<int>(s_ends[1] - first + 1);
+  for (int j = threadIdx.x; j < runs; j += kT1Threads) {
+    const int64_t run = first + j;
+    const int32_t start = __ldg(idx + run);
+    const int32_t si = __ldg(succ_row + run);
+    const int32_t pi = __ldg(pred_row + run);
+    const bool match = __ldg(run_char + run) == c;
+    const bool has_succ = si < r, has_pred = pi >= 0;
+    s_start[j] = start;
+    s_base[j] = static_cast<uint32_t>(__ldg(lf_pos0 + run)) -
+                static_cast<uint32_t>(start);
+    s_cid[j] = __ldg(col_id + run);
+    if (!match && has_succ) {
+      const int64_t sic = si < r - 1 ? si : r - 1;
+      s_thr[j] = __ldg(threshold + sic);
+      s_succ[j] = static_cast<uint32_t>(__ldg(lf_pos0 + sic));
+    }
+    if (!match && has_pred) {
+      const int64_t pic = pi > 0 ? pi : 0;
+      s_pred[j] = static_cast<uint32_t>(__ldg(lf_pos0 + pic)) +
+                  static_cast<uint32_t>(__ldg(length + pic)) - 1u;
+    }
+    s_flags[j] = (match ? kT1Match : 0) | (has_pred ? kT1Pred : 0) |
+                 (has_succ ? kT1Succ : 0);
+    if (j > 0) s_begin[start - p0] = 1;  // p0 < start <= p0 + len - 1
+  }
+  __syncthreads();
+
+  constexpr int kSeg = kT1Tile / (kT1Threads / 32);  // positions a warp
+  const int lane = threadIdx.x & 31;
+  const int seg0 = warp * kSeg;
+  if (seg0 >= len) return;
+  // the run of the position before the segment (the tile's first run for
+  // the first segment: no run starts at p0's offset 0)
+  int carry = seg0 == 0 ? 0 : tile_run(s_start, runs, p0 + seg0 - 1);
+  int2* out = buf + row0 + t0;
+  for (int i0 = seg0; i0 < seg0 + kSeg && i0 < len; i0 += 32) {
+    const int i = i0 + lane;
+    const unsigned marks = __ballot_sync(0xFFFFFFFFu, s_begin[i] != 0);
+    const int j = carry + __popc(marks & (0xFFFFFFFFu >> (31 - lane)));
+    carry += __popc(marks);
+    if (i >= len) continue;
     // threshold_step priority (include/col_bwt.hpp:531-574): pred iff
-    // pos < thr and a pred exists; else succ; else LF from the same state.
-    const bool take_pred = pos < thr && has_pred;
-    const bool take_succ = !take_pred && has_succ;
-    const int32_t repos = take_pred ? pred_pos
-                                    : (take_succ ? succ_pos : lf_match);
-    const uint32_t new_pos = static_cast<uint32_t>(match ? lf_match : repos);
-    const uint32_t w0 = new_pos | (static_cast<uint32_t>(match) << 31);
-    const int64_t row = row0 + t;
-    buf[2 * row] = static_cast<int32_t>(w0);
-    buf[2 * row + 1] = col_id[run];
+    // pos < thr and a pred exists (thr = n, so always, without a succ);
+    // else succ; else LF from the same state
+    const int64_t pos = p0 + i;
+    const uint8_t f = s_flags[j];
+    const uint32_t lf = s_base[j] + static_cast<uint32_t>(pos);
+    uint32_t np;
+    if (f & kT1Match) {
+      np = lf;
+    } else if (f & kT1Succ) {
+      np = (f & kT1Pred) && pos < s_thr[j] ? s_pred[j] : s_succ[j];
+    } else {
+      np = (f & kT1Pred) ? s_pred[j] : lf;
+    }
+    const uint32_t w0 = np | ((f & kT1Match) ? 0x80000000u : 0u);
+    out[i] = make_int2(static_cast<int32_t>(w0), s_cid[j]);
   }
 }
 
@@ -317,25 +417,43 @@ __global__ void __launch_bounds__(kPosThreads) query_chunk_pos_kernel(
   mlen_out[b] = static_cast<int32_t>(ml);
 }
 
-int64_t grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(1) << 20;  // grid-stride loops cover the rest
-  return blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+// K1's dynamic shared memory passes 48 KB, which a kernel opts into on
+// each device: once a device, not once a launch.
+cudaError_t t1_allow_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(build_t1_chunk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kT1SmemBytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
+// buf (>= row0 + C, 2) int32, 8-byte aligned; the r-sized arrays int32,
+// idx strictly increasing from idx[0] = 0; 0 <= s, s + C <= n.
 int colbwt_build_t1_chunk(void* buf, const void* run_char, const void* idx,
                           const void* length, const void* lf_pos0,
                           const void* threshold, const void* pred_row,
                           const void* succ_row, const void* col_id, int64_t r,
                           int64_t c, int64_t row0, int64_t s, int64_t n,
                           int64_t C, void* stream) {
-  build_t1_chunk_kernel<<<grid_for(C), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(buf), static_cast<const int32_t*>(run_char),
+  if (r < 1 || C < 1 || s < 0 || s + C > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = (C + kT1Tile - 1) / kT1Tile;
+  const cudaError_t err = t1_allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  build_t1_chunk_kernel<<<static_cast<unsigned>(tiles), kT1Threads,
+                          kT1SmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int2*>(buf), static_cast<const int32_t*>(run_char),
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(length),
       static_cast<const int32_t*>(lf_pos0),
       static_cast<const int32_t*>(threshold),

@@ -15,8 +15,10 @@
 //       colbwt_sharded_scan_mega in query_mega.cu
 //   K13d colbwt_compose_sharded_tk <- query_sharded_pos.py:67
 //       _build_sharded_tk
-//   K13e colbwt_sharded_step_pos <- query_sharded_pos.py:163
-//       _sharded_pos_query
+//   K13e colbwt_sharded_scan_pos <- query_sharded_pos.py:163
+//       _sharded_pos_query (the lax.scan of a fetch summed over "ip" and a
+//       k-character step), one launch a batch where every shard of the dp
+//       row sits on this card; colbwt_sharded_step_pos, one step, elsewhere
 //
 // The table shards over "ip" in contiguous blocks.  A table access is a
 // gather masked to the shard that owns the row (0 elsewhere), then a sum over
@@ -33,8 +35,8 @@
 // pos, 32 B and 8 B compact) whose address depends on the step before:
 // memory latency, as in K3-K6a, plus a launch per fetch and step (a few
 // microseconds each) that the single-card scans do not pay; where every
-// shard of a row sits on one card, the chunk scans (K13a here, K13b/K13c in
-// query_mega.cu) remove both launches.  A compact step is a chain of four
+// shard of a row sits on one card, the chunk scans (K13a and K13e here,
+// K13b/K13c in query_mega.cu) remove both launches.  A compact step is a chain of four
 // dependent row reads (ff_bound 2), so its chunk scan keeps the state in
 // registers and issues each round's independent reads together (the run
 // and jump rows of round 1, the succ and pred rows of round 2), a 32-byte
@@ -42,7 +44,7 @@
 // warp's stores of a step are coalesced.  The fetch: a lane's owner by one
 // 32-bit division, W a template parameter (2, 8, 16), 8- or 16-byte vector
 // loads through the read-only path, 32-bit lane indices.  The steps and
-// rounds (K13a-K13c): one thread per read, state in (B,) int32 arrays
+// rounds (K13a-K13c, K13e): one thread per read, state in (B,) int32 arrays
 // between launches, the chunk's patterns and the pml and cid planes
 // column-major ((C, B): a step's character column and its outputs are
 // contiguous, so a warp's loads and stores of a step fill whole sectors,
@@ -256,48 +258,6 @@ __global__ void __launch_bounds__(kTkThreads) compose_sharded_tk_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K13e: step t of the positional scan, k characters from one (B, 2) row.
-// Writes the packed outputs ln << 8 | cid of processed chars t*k .. t*k+k-1
-// (columns M-1-q); the state runs on past a read's end, as in JAX; emits the
-// next step's position and key.
-
-__global__ void sharded_step_pos_kernel(const int2* __restrict__ rows,
-                                        int32_t* __restrict__ pos,
-                                        int32_t* __restrict__ mlen,
-                                        const uint8_t* __restrict__ patterns,
-                                        int64_t B, int64_t M, int64_t t, int k,
-                                        int32_t A, int32_t* __restrict__ packed,
-                                        int32_t* __restrict__ g_next,
-                                        int32_t* __restrict__ s_next) {
-  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (b >= B) return;
-  const int pb = 32 - k;
-  const int2 w = rows[b];
-  const uint32_t w0 = static_cast<uint32_t>(w.x);
-  const uint32_t w1 = static_cast<uint32_t>(w.y);
-  uint32_t ln = static_cast<uint32_t>(mlen[b]);
-  const uint8_t* pat = patterns + b * M;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t m = (w0 >> (pb + j)) & 1u;
-    ln = (ln + 1u) * m;
-    const int64_t col = M - 1 - (t * k + j);
-    packed[b * M + col] =
-        static_cast<int32_t>((ln << 8) | ((w1 >> (8 * j)) & 0xFFu));
-  }
-  const int32_t npos = static_cast<int32_t>(w0 & ((1u << pb) - 1u));
-  pos[b] = npos;
-  mlen[b] = static_cast<int32_t>(ln);
-  if ((t + 1) * k < M) {
-    int32_t key = 0;
-    for (int j = 0; j < k; ++j) {
-      key = add32(mul32(key, A), pat[M - 1 - ((t + 1) * k + j)]);
-    }
-    g_next[b] = npos;
-    s_next[b] = key;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The per-step kernels' layouts.  kStepColMajor: the chunk's patterns and
 // the pml and cid planes are (C, B), step s at row C-1-s (else (B, C) rows,
 // the layout before the redesign, which scan_designs.py times beside it).
@@ -310,6 +270,53 @@ constexpr bool kStepInterleave = false;
 __device__ __forceinline__ int64_t step_at(int64_t col, int64_t b, int64_t B,
                                            int64_t C) {
   return kStepColMajor ? col * B + b : b * C + col;
+}
+
+// ---------------------------------------------------------------------------
+// K13e: step t of the positional scan, k characters from one summed (B, 2)
+// row at (key, pos).  Writes the packed outputs ln << 8 | cid of processed
+// chars t*k .. t*k+k-1 (rows M-1-q of the (M, B) plane, each store a
+// warp's 32 neighbouring words); the state runs on past a read's end, as
+// in JAX; emits the next step's position and key, its k characters loaded
+// from the (M, B) columns before the row.  The row is 8 bytes a lane and
+// the step does no dependent load: what bounds it is the ~47 bytes a lane
+// it moves (12.4 MB at G-pos's 263,168 lanes, k = 3) and the launch.
+
+__global__ void __launch_bounds__(kThreads) sharded_step_pos_kernel(
+    const int2* __restrict__ rows, int32_t* __restrict__ pos,
+    int32_t* __restrict__ mlen, const uint8_t* __restrict__ patterns,
+    int64_t B, int64_t M, int64_t t, int k, int32_t A,
+    int32_t* __restrict__ packed, int32_t* __restrict__ g_next,
+    int32_t* __restrict__ s_next) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  const int pb = 32 - k;
+  const bool more = (t + 1) * k < M;
+  int32_t key = 0;
+  if (more) {
+    for (int j = 0; j < k; ++j) {
+      const int64_t col = M - 1 - ((t + 1) * k + j);
+      key = add32(mul32(key, A), __ldg(patterns + step_at(col, b, B, M)));
+    }
+  }
+  const int2 w = __ldg(rows + b);
+  const uint32_t w0 = static_cast<uint32_t>(w.x);
+  const uint32_t w1 = static_cast<uint32_t>(w.y);
+  uint32_t ln = static_cast<uint32_t>(mlen[b]);
+  for (int j = 0; j < k; ++j) {
+    const uint32_t m = (w0 >> (pb + j)) & 1u;
+    ln = (ln + 1u) * m;
+    const int64_t col = M - 1 - (t * k + j);
+    packed[step_at(col, b, B, M)] =
+        static_cast<int32_t>((ln << 8) | ((w1 >> (8 * j)) & 0xFFu));
+  }
+  const int32_t npos = static_cast<int32_t>(w0 & ((1u << pb) - 1u));
+  pos[b] = npos;
+  mlen[b] = static_cast<int32_t>(ln);
+  if (more) {
+    g_next[b] = npos;
+    s_next[b] = key;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -642,6 +649,61 @@ __global__ void sharded_scan_compact_kernel(
   length_io[b] = length;
 }
 
+// K13e chunk scan: one thread a read, every step of the (B, M) batch in
+// one launch, every shard of the dp row on this card.  pos (n - 1 at the
+// start) and the match length live in registers.  A step folds the lane's
+// next k characters into its key (high digit first, the int32 wrap of
+// add32/mul32) while the row is in flight, as K3 does, then reads the
+// 8-byte row key * L + clip(pos - i * L, 0, L - 1) of the shard i that owns
+// pos (shards.cuh; zeros where no shard of the card owns it, as JAX's
+// masked take summed over "ip"), and writes its k outputs ln << 8 | cid.
+// The outputs go to an (M, B) plane, which the wrapper transposes, so a
+// warp's k stores of a step are each 32 neighbouring words ((B, M) rows
+// would put 4 bytes into each of 32 sectors; at k = 3 a step's outputs
+// are no vector store).  What bounds it: the chain of 51 dependent row
+// reads a lane at G-pos's shape, each a cold 32-byte sector of a 7 GB
+// table, and the 160 MB of outputs.
+__global__ void __launch_bounds__(kScanThreads) sharded_scan_pos_kernel(
+    const long long* __restrict__ tab, int ip, int64_t L,
+    const uint8_t* __restrict__ patterns, int64_t B, int64_t M, int k,
+    int32_t A, int64_t n, int32_t* __restrict__ packed) {
+  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (b >= B) return;
+  const int pb = 32 - k;
+  const uint32_t mask = (1u << pb) - 1u;
+  const uint8_t* pat = patterns + b * M;
+  const int64_t steps = M / k;
+  int32_t key = 0;
+  for (int j = 0; j < k; ++j) key = add32(mul32(key, A), __ldg(pat + M - 1 - j));
+  int32_t pos = static_cast<int32_t>(n - 1);
+  uint32_t ln = 0;
+  for (int64_t t = 0; t < steps; ++t) {
+    int2 w = make_int2(0, 0);
+    const colbwt::ShardRow o = colbwt::shard_row(tab, ip, L, pos);
+    if (o.base != nullptr) {
+      const int64_t row = static_cast<int64_t>(key) * L + o.local;
+      w = __ldg(static_cast<const int2*>(o.base) + clip(row, o.rows));
+    }
+    // the next step's key, loaded while the row is in flight
+    int32_t next = 0;
+    if (t + 1 < steps) {
+      for (int j = 0; j < k; ++j) {
+        next = add32(mul32(next, A), __ldg(pat + M - 1 - ((t + 1) * k + j)));
+      }
+    }
+    const uint32_t w0 = static_cast<uint32_t>(w.x);
+    const uint32_t w1 = static_cast<uint32_t>(w.y);
+    for (int j = 0; j < k; ++j) {
+      ln = (ln + 1u) * ((w0 >> (pb + j)) & 1u);
+      const int64_t col = M - 1 - (t * k + j);
+      packed[col * B + b] =
+          static_cast<int32_t>((ln << 8) | ((w1 >> (8 * j)) & 0xFFu));
+    }
+    pos = static_cast<int32_t>(w0 & mask);
+    key = next;
+  }
+}
+
 int blocks_for(int64_t B, int threads = kThreads) {
   const int64_t blocks = (B + threads - 1) / threads;
   return static_cast<int>(blocks < 1 ? 1 : blocks);
@@ -696,19 +758,50 @@ int colbwt_compose_sharded_tk(const void* t1, int64_t t1_rows, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows (B, 2); pos, mlen (B,) updated in place; patterns (B, M) uint8;
-// packed (B, M) int32; g_next, s_next (B,) int32.
-int colbwt_sharded_step_pos(const void* rows, void* pos, void* mlen,
+// K13e's parameter block, prepared once a batch (field for field
+// parallel/query_sharded_pos.py _StepPosArgs): rows (B, 2) int32, 8-byte
+// aligned; pos, mlen (B,) int32, updated in place; patterns (M, B) uint8;
+// packed (M, B) int32; g_next, s_next (B,) int32.
+struct StepPosArgs {
+  const void* rows;
+  void *pos, *mlen;
+  const void* patterns;
+  int64_t B, M, k, A;
+  void *packed, *g_next, *s_next;
+  void* stream;
+};
+
+// step t of the batch (0 <= t < M / k).
+int colbwt_sharded_step_pos(const void* args, int64_t t) {
+  const auto& a = *static_cast<const StepPosArgs*>(args);
+  if (a.k < 1 || a.k > 4 || a.M % a.k || t < 0 || t >= a.M / a.k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sharded_step_pos_kernel<<<blocks_for(a.B), kThreads, 0,
+                            static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const int2*>(a.rows), static_cast<int32_t*>(a.pos),
+      static_cast<int32_t*>(a.mlen), static_cast<const uint8_t*>(a.patterns),
+      a.B, a.M, t, static_cast<int>(a.k), static_cast<int32_t>(a.A),
+      static_cast<int32_t*>(a.packed), static_cast<int32_t*>(a.g_next),
+      static_cast<int32_t*>(a.s_next));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tab (2 * ip,) int64: the card's shards of the T_k table ((A**k * L, 2)
+// int32 each, 8-byte aligned); patterns (B, M) uint8, M a multiple of k;
+// packed (M, B) int32 (column-major), every entry written.
+int colbwt_sharded_scan_pos(const void* tab, int64_t ip, int64_t L,
                             const void* patterns, int64_t B, int64_t M,
-                            int64_t t, int64_t k, int64_t A, void* packed,
-                            void* g_next, void* s_next, void* stream) {
-  sharded_step_pos_kernel<<<blocks_for(B), kThreads, 0,
+                            int64_t k, int64_t A, int64_t n, void* packed,
+                            void* stream) {
+  if (k < 1 || k > 4 || M % k || n < 1 || L < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sharded_scan_pos_kernel<<<blocks_for(B, kScanThreads), kScanThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int2*>(rows), static_cast<int32_t*>(pos),
-      static_cast<int32_t*>(mlen), static_cast<const uint8_t*>(patterns), B,
-      M, t, static_cast<int>(k), static_cast<int32_t>(A),
-      static_cast<int32_t*>(packed), static_cast<int32_t*>(g_next),
-      static_cast<int32_t*>(s_next));
+      static_cast<const long long*>(tab), static_cast<int>(ip), L,
+      static_cast<const uint8_t*>(patterns), B, M, static_cast<int>(k),
+      static_cast<int32_t>(A), n, static_cast<int32_t*>(packed));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,7 +47,7 @@ KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "doubling_round", "lcp_lift", "segmented_argmin",
            "sharded_fetch", "compose_sharded_tk", "sharded_step_pos",
            "sharded_step_mega", "sharded_step_compact", "sharded_scan_mega",
-           "sharded_scan_compact")
+           "sharded_scan_compact", "sharded_scan_pos")
 launches: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -82,14 +82,15 @@ _SIGNATURES = {
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
     "colbwt_sharded_fetch": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
-    "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
     # a parameter block prepared once, then the step (and round, last)
+    "colbwt_sharded_step_pos": [_P, _I],
     "colbwt_sharded_step_mega": [_P, _I],
     "colbwt_sharded_step_compact": [_P, _I, _I, _I],
     "colbwt_sharded_scan_mega": ([_I, _P, _I, _I, _P, _I, _I] + [_P] * 7
                                  + [_I] * 4 + [_P] * 3),
     "colbwt_sharded_scan_compact": ([_P, _P, _I, _I] + [_P] * 6 + [_I] * 5
                                     + [_P] * 3),
+    "colbwt_sharded_scan_pos": [_P, _I, _I, _P] + [_I] * 5 + [_P, _P],
 }
 
 
@@ -218,6 +219,54 @@ class Launcher:
                 code = self._fn(*self._fixed, *per_call)
         check(self._kernel, code)
         launches[self._kernel] += 1
+
+
+def block_fields(*spec: tuple[str, str]) -> list:
+    """A parameter block's ctypes fields, field for field with its C
+    struct: (name, "p") a pointer, (name, "i") an int64."""
+    return [(name, ctypes.c_void_p if kind == "p" else ctypes.c_int64)
+            for name, kind in spec]
+
+
+class BatchLauncher:
+    """A kernel's launcher for one batch over a parameter block made once.
+    A subclass checks its arguments once in its constructor (device,
+    dtype, shape, ...) and passes them on as `fixed`; it names the C
+    `entry`, the `kernel` its launches count under, `params` (the ctypes
+    block of `fixed`, unchecked) and `ref` (the plain version, called
+    with `args(*call)`), and checks each call in `check_call`.  A call
+    launches the kernel with the block and `per_call(*call)`, or runs the
+    plain version on the CPU; a batch of no lanes launches nothing.  The
+    tensors are rewritten in place between calls, never replaced."""
+
+    entry = kernel = ""
+
+    def __init__(self, device: torch.device, fixed: tuple, lanes: int):
+        self._fixed = fixed
+        self._plain = device.type == "cpu"
+        self._launch = None
+        if not self._plain and lanes:
+            block = self.params(*fixed)
+            self._launch = Launcher(device, self.entry, self.kernel,
+                                    ctypes.addressof(block), keep=block)
+
+    def args(self, *call) -> tuple:
+        """The public per-call wrapper's arguments for this call."""
+        raise NotImplementedError
+
+    def check_call(self, *call) -> None:
+        """Raise on a call outside the batch."""
+
+    def per_call(self, *call) -> tuple:
+        """The entry point's arguments after the block."""
+        return call
+
+    def __call__(self, *call) -> None:
+        self.check_call(*call)
+        if self._plain:
+            self.ref(*self.args(*call))
+        elif self._launch is not None:
+            self._launch(*self.per_call(*call))
 
 
 def check(name: str, code: int) -> None:

@@ -135,6 +135,7 @@ def build_t1_chunk(buf, char, idx_pad, length, lf_pos0, threshold, pred_row,
             "pred_row": pred_row, "succ_row": succ_row, "col_id": col_id}
     for name, t in args.items():
         K.require(t, name, torch.int32, dev)
+    K.require_aligned(buf, "buf", 8)  # one 8-byte store a row
     r = char.shape[0]
     if not (0 <= s and s + C <= n and 0 <= row0
             and row0 + C <= buf.shape[0] and idx_pad.shape[0] >= r):

@@ -126,15 +126,13 @@ def sharded_step_compact_ref(rnd: int, last: bool, row_a, row_b, scratch,
 class _RoundCompactArgs(ctypes.Structure):
     """K13a's parameter block (csrc/query_sharded.cu RoundCompactArgs,
     field for field)."""
-    _fields_ = [(name, ctypes.c_void_p if kind == "p" else ctypes.c_int64)
-                for name, kind in (
-                    ("row_a", "p"), ("row_jump", "p"), ("row_run", "p"),
-                    ("scratch", "p"), ("interval", "p"), ("offset", "p"),
-                    ("pos", "p"), ("length", "p"), ("patterns", "p"),
-                    ("lengths", "p"), ("B", "i"), ("M", "i"), ("r", "i"),
-                    ("n", "i"), ("ff_bound", "i"), ("pml", "p"),
-                    ("cid", "p"), ("g_a", "p"), ("g_b", "p"), ("s_b", "p"),
-                    ("stream", "p"))]
+    _fields_ = K.block_fields(
+        ("row_a", "p"), ("row_jump", "p"), ("row_run", "p"),
+        ("scratch", "p"), ("interval", "p"), ("offset", "p"), ("pos", "p"),
+        ("length", "p"), ("patterns", "p"), ("lengths", "p"), ("B", "i"),
+        ("M", "i"), ("r", "i"), ("n", "i"), ("ff_bound", "i"), ("pml", "p"),
+        ("cid", "p"), ("g_a", "p"), ("g_b", "p"), ("s_b", "p"),
+        ("stream", "p"))
 
 
 def round_compact_params(row_a, row_jump, row_run, scratch, state, patterns,
@@ -162,14 +160,17 @@ def _round_args(fixed: tuple, rnd: int, last: bool, i: int) -> tuple:
             + fixed[7:])
 
 
-class RoundCompact:
+class RoundCompact(K.BatchLauncher):
     """K13a's launcher for one batch: `sharded_step_compact`'s arguments
     but the round, `last` and the step, with the rows of rounds 1 and 2
     apart (row_jump (B, 2), row_run (B, 8); None where no call makes that
     round), checked once here (device, dtype, shape, contiguity), their
     pointers kept in a parameter block; a call launches one round (the
-    plain version on the CPU).  The tensors are rewritten in place between
-    calls, never replaced."""
+    plain version on the CPU)."""
+
+    entry, kernel = "colbwt_sharded_step_compact", "sharded_step_compact"
+    params = staticmethod(round_compact_params)
+    ref = staticmethod(sharded_step_compact_ref)
 
     def __init__(self, row_a, row_jump, row_run, scratch, state, patterns,
                  lengths, r: int, n: int, ff_bound: int, pml, cid, g_a, g_b,
@@ -202,30 +203,23 @@ class RoundCompact:
             K.require(t, name, torch.int32, dev)
             if t.shape != (M, B):
                 raise ValueError(f"{name} must have shape ({M}, {B})")
-        self._fixed = (row_a, row_jump, row_run, scratch, state, patterns,
-                       lengths, r, n, ff_bound, pml, cid, g_a, g_b, s_b)
         self._M = M
-        self._plain = dev.type == "cpu"
-        self._launch = None
-        if not self._plain and B:
-            params = round_compact_params(*self._fixed)
-            self._launch = K.Launcher(
-                dev, "colbwt_sharded_step_compact", "sharded_step_compact",
-                ctypes.addressof(params), keep=params)
+        super().__init__(dev, (row_a, row_jump, row_run, scratch, state,
+                               patterns, lengths, r, n, ff_bound, pml, cid,
+                               g_a, g_b, s_b), B)
 
     def args(self, rnd: int, last: bool, i: int) -> tuple:
         """`sharded_step_compact`'s arguments for this call."""
         return _round_args(self._fixed, rnd, last, i)
 
-    def __call__(self, rnd: int, last: bool, i: int) -> None:
+    def check_call(self, rnd: int, last: bool, i: int) -> None:
         if not 0 <= i < self._M or rnd not in (1, 2, 3, 4, 5):
             raise ValueError(f"step {i} of {self._M}, round {rnd}")
         if rnd in (1, 2) and self._fixed[rnd] is None:
             raise ValueError(f"round {rnd} needs its rows")
-        if self._plain:
-            sharded_step_compact_ref(*self.args(rnd, last, i))
-        elif self._launch is not None:
-            self._launch(rnd, int(last), i)
+
+    def per_call(self, rnd: int, last: bool, i: int) -> tuple:
+        return rnd, int(last), i
 
 
 def sharded_step_compact(rnd: int, last: bool, row_a, row_b, scratch, state,

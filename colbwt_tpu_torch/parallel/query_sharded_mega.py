@@ -138,15 +138,13 @@ def sharded_step_mega_ref(rows, length, r: int, n_lo: int, n_hi: int, state,
 class _StepMegaArgs(ctypes.Structure):
     """K13b/K13c's parameter block (csrc/query_sharded.cu StepMegaArgs,
     field for field)."""
-    _fields_ = [(name, ctypes.c_void_p if kind == "p" else ctypes.c_int64)
-                for name, kind in (
-                    ("rows", "p"), ("length", "p"), ("r", "i"),
-                    ("n_lo", "i"), ("n_hi", "i"), ("interval", "p"),
-                    ("offset", "p"), ("pos_lo", "p"), ("pos_hi", "p"),
-                    ("mlen", "p"), ("patterns", "p"), ("lengths", "p"),
-                    ("B", "i"), ("C", "i"), ("step_offset", "i"),
-                    ("ff_bound", "i"), ("wide", "i"), ("pml", "p"),
-                    ("cid", "p"), ("g_next", "p"), ("stream", "p"))]
+    _fields_ = K.block_fields(
+        ("rows", "p"), ("length", "p"), ("r", "i"), ("n_lo", "i"),
+        ("n_hi", "i"), ("interval", "p"), ("offset", "p"), ("pos_lo", "p"),
+        ("pos_hi", "p"), ("mlen", "p"), ("patterns", "p"), ("lengths", "p"),
+        ("B", "i"), ("C", "i"), ("step_offset", "i"), ("ff_bound", "i"),
+        ("wide", "i"), ("pml", "p"), ("cid", "p"), ("g_next", "p"),
+        ("stream", "p"))
 
 
 def step_mega_params(rows, length, r: int, n_lo: int, n_hi: int, state,
@@ -165,12 +163,15 @@ def step_mega_params(rows, length, r: int, n_lo: int, n_hi: int, state,
         cid.data_ptr(), g_next.data_ptr(), K.stream_handle(patterns.device))
 
 
-class StepMega:
+class StepMega(K.BatchLauncher):
     """K13b/K13c's launcher for one chunk: `sharded_step_mega`'s arguments
     but the step, checked once here (device, dtype, shape, contiguity, the
     rows' 16-byte alignment), their pointers kept in a parameter block; a
-    call launches step s (the plain version on the CPU).  The tensors are
-    rewritten in place between calls, never replaced."""
+    call launches step s (the plain version on the CPU)."""
+
+    entry, kernel = "colbwt_sharded_step_mega", "sharded_step_mega"
+    params = staticmethod(step_mega_params)
+    ref = staticmethod(sharded_step_mega_ref)
 
     def __init__(self, rows, length, r: int, n_lo: int, n_hi: int, state,
                  patterns, lengths, step_offset: int, ff_bound: int, pml,
@@ -197,30 +198,19 @@ class StepMega:
             K.require(t, name, torch.int32, dev)
             if t.shape != (C, B):
                 raise ValueError(f"{name} must have shape ({C}, {B})")
-        self._fixed = (rows, length, r, n_lo, n_hi, state, patterns,
-                       lengths, step_offset, ff_bound, pml, cid, g_next,
-                       wide)
         self._C = C
-        self._plain = dev.type == "cpu"
-        self._launch = None
-        if not self._plain and B:
-            params = step_mega_params(*self._fixed)
-            self._launch = K.Launcher(
-                dev, "colbwt_sharded_step_mega", "sharded_step_mega",
-                ctypes.addressof(params), keep=params)
+        super().__init__(dev, (rows, length, r, n_lo, n_hi, state, patterns,
+                               lengths, step_offset, ff_bound, pml, cid,
+                               g_next, wide), B)
 
     def args(self, s: int) -> tuple:
         """`sharded_step_mega`'s arguments for step s."""
         a = self._fixed
         return a[:8] + (s,) + a[8:]
 
-    def __call__(self, s: int) -> None:
+    def check_call(self, s: int) -> None:
         if not 0 <= s < self._C:
             raise ValueError(f"step {s} of {self._C}")
-        if self._plain:
-            sharded_step_mega_ref(*self.args(s))
-        elif self._launch is not None:
-            self._launch(s)
 
 
 def sharded_step_mega(rows, length, r: int, n_lo: int, n_hi: int, state,

@@ -12,16 +12,27 @@ indexes key · n_local + local_pos, so A^k · n/ip < 2**31 suffices.
 T1 (A · n · 8 bytes, A = sigma + 1, every dense char a key) is built with
 the port's K1 (query_pos.build_t1) and replicated, and each shard composes
 its own T_k block from it with K13d `compose_sharded_tk`; positions past n
-(the ip padding) get inert self-loop rows.  K13e `sharded_step_pos`
-advances the scan k characters from one summed row.  Both kernels are in
-csrc/query_sharded.cu, with plain PyTorch versions beside their wrappers.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+(the ip padding) get inert self-loop rows.
+
+The scan (K13e) takes one of two routes (`scan_row`), by where the dp
+row's shards lie.  All on the row's device: the chunk scan
+`sharded_scan_pos` runs every step of the batch in one launch, each lane
+reading its row from the owning shard, pos and the match length in
+registers.  Spread over cards or ranks: `step_row` fetches each step's
+rows with one launch a card, sums them over "ip", and advances the scan k
+characters with the per-step kernel `sharded_step_pos` through a launcher
+made once a batch (`StepPos`), on (M, B) pattern columns and an (M, B)
+output plane.  The kernels are in csrc/query_sharded.cu, each with its
+plain PyTorch version beside its wrapper (`sharded_scan_pos_ref`, the step
+loop of the plain fetch and `sharded_step_pos_ref`).  A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises.
 
 Reads split over "dp" and never communicate.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -30,7 +41,8 @@ from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.ops import query_pos
 from colbwt_tpu_torch.parallel.mesh import (Mesh, pad_batch, resolve_mesh,
-                                            shard_reads, unpad)
+                                            shard_pointers, shard_reads,
+                                            sharded_fetch_ref, unpad)
 
 INT32_MAX = 2**31 - 1
 
@@ -157,90 +169,218 @@ def shard_pos_tables(index: ColPmlIndex, mesh: Mesh, k: int | None = None,
 # K13e: the scan
 # ---------------------------------------------------------------------------
 
-def first_keys(patterns: torch.Tensor, k: int, A: int) -> torch.Tensor:
-    """The key of the first k processed chars (columns M-1 .. M-k), the
-    first the high digit."""
-    M = patterns.shape[1]
-    key = torch.zeros(patterns.shape[0], dtype=torch.int32,
-                      device=patterns.device)
+def step_keys(cols: torch.Tensor, t: int, k: int, A: int) -> torch.Tensor:
+    """The key of step t of a scan over (M, B) pattern columns: processed
+    chars t·k .. t·k+k-1 (rows M-1-t·k down to M-k-t·k), the first the high
+    digit, in int32."""
+    M = cols.shape[0]
+    key = torch.zeros(cols.shape[1], dtype=torch.int32, device=cols.device)
     for j in range(k):
-        key = key * A + patterns[:, M - 1 - j].to(torch.int32)
+        key = key * A + cols[M - 1 - (t * k + j)].to(torch.int32)
     return key
 
 
 def sharded_step_pos_ref(rows, pos, mlen, patterns, t: int, k: int, A: int,
                          packed, g_next, s_next) -> None:
     """Plain PyTorch K13e; same contract as `sharded_step_pos`."""
-    M = patterns.shape[1]
+    M = patterns.shape[0]
     pb = query_pos.pos_bits(k)
     w0, w1 = rows[:, 0], rows[:, 1]
     ln = mlen
     for j in range(k):
         m = (w0 >> (pb + j)) & 1
         ln = (ln + 1) * m
-        packed[:, M - 1 - (t * k + j)] = (ln << 8) | ((w1 >> (8 * j)) & 0xFF)
+        packed[M - 1 - (t * k + j)] = (ln << 8) | ((w1 >> (8 * j)) & 0xFF)
     pos.copy_(w0 & query_pos.pos_mask(k))
     mlen.copy_(ln)
     if (t + 1) * k < M:
         g_next.copy_(pos)
-        s_next.copy_(first_keys(patterns[:, :M - (t + 1) * k], k, A))
+        s_next.copy_(step_keys(patterns, t + 1, k, A))
+
+
+class _StepPosArgs(ctypes.Structure):
+    """K13e's parameter block (csrc/query_sharded.cu StepPosArgs, field for
+    field)."""
+    _fields_ = K.block_fields(
+        ("rows", "p"), ("pos", "p"), ("mlen", "p"), ("patterns", "p"),
+        ("B", "i"), ("M", "i"), ("k", "i"), ("A", "i"), ("packed", "p"),
+        ("g_next", "p"), ("s_next", "p"), ("stream", "p"))
+
+
+def step_pos_params(rows, pos, mlen, patterns, k: int, A: int, packed,
+                    g_next, s_next) -> _StepPosArgs:
+    """The parameter block of `StepPos`'s arguments, unchecked (StepPos
+    checks them first), on the current stream of the patterns' card."""
+    M, B = patterns.shape
+    return _StepPosArgs(
+        rows.data_ptr(), pos.data_ptr(), mlen.data_ptr(),
+        patterns.data_ptr(), B, M, int(k), int(A), packed.data_ptr(),
+        g_next.data_ptr(), s_next.data_ptr(), K.stream_handle(patterns.device))
+
+
+class StepPos(K.BatchLauncher):
+    """K13e's launcher for one batch: `sharded_step_pos`'s arguments but
+    the step, checked once here (device, dtype, shape, contiguity, the
+    rows' 8-byte alignment, M a multiple of k), their pointers kept in a
+    parameter block; a call launches step t (the plain version on the
+    CPU)."""
+
+    entry, kernel = "colbwt_sharded_step_pos", "sharded_step_pos"
+    params = staticmethod(step_pos_params)
+    ref = staticmethod(sharded_step_pos_ref)
+
+    def __init__(self, rows, pos, mlen, patterns, k: int, A: int, packed,
+                 g_next, s_next):
+        dev = patterns.device
+        K.require(patterns, "patterns", torch.uint8, dev)
+        if patterns.dim() != 2:
+            raise ValueError("patterns must be (M, B)")
+        M, B = patterns.shape
+        if not 1 <= k <= query_pos.MAX_K or M % k:
+            raise ValueError(f"a (M={M}, B) scan at k={k}: M must be a "
+                             f"multiple of k in [1, {query_pos.MAX_K}]")
+        K.require(rows, "rows", torch.int32, dev)
+        K.require_aligned(rows, "rows", 8)
+        if rows.shape != (B, 2):
+            raise ValueError(f"rows must have shape ({B}, 2)")
+        for name, t in (("pos", pos), ("mlen", mlen), ("g_next", g_next),
+                        ("s_next", s_next)):
+            K.require(t, name, torch.int32, dev)
+            if t.shape != (B,):
+                raise ValueError(f"{name} must have shape ({B},)")
+        K.require(packed, "packed", torch.int32, dev)
+        if packed.shape != (M, B):
+            raise ValueError(f"packed must have shape ({M}, {B})")
+        self._steps = M // k
+        super().__init__(dev, (rows, pos, mlen, patterns, k, A, packed,
+                               g_next, s_next), B)
+
+    def args(self, t: int) -> tuple:
+        """`sharded_step_pos`'s arguments for step t."""
+        a = self._fixed
+        return a[:4] + (t,) + a[4:]
+
+    def check_call(self, t: int) -> None:
+        if not 0 <= t < self._steps:
+            raise ValueError(f"step {t} of {self._steps}")
 
 
 def sharded_step_pos(rows, pos, mlen, patterns, t: int, k: int, A: int,
                      packed, g_next, s_next) -> None:
-    """K13e (replaces colbwt_tpu/parallel/query_sharded_pos.py:162
-    _sharded_pos_query): step t of the positional scan from the summed
-    (B, 2) rows at (key, pos): writes the packed outputs ln << 8 | cid of
-    processed chars t·k .. t·k+k-1 (columns M-1-q of `packed`, (B, M)
-    int32), updates (pos, mlen) in place, and writes the next step's
-    position and key into g_next and s_next.  The state runs on past a
-    read's end (`lengths` play no part, as in JAX).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    if patterns.device.type == "cpu":
-        return sharded_step_pos_ref(rows, pos, mlen, patterns, t, k, A,
-                                    packed, g_next, s_next)
+    """K13e per step (replaces one step of the lax.scan of
+    colbwt_tpu/parallel/query_sharded_pos.py:162 _sharded_pos_query, for
+    `step_row`): step t of the positional scan from the summed (B, 2) rows
+    at (key, pos).  `patterns` is the batch's (M, B) uint8 columns (M a
+    multiple of k).  Writes the packed outputs ln << 8 | cid of processed
+    chars t·k .. t·k+k-1 (rows M-1-q of `packed`, (M, B) int32), updates
+    (pos, mlen) in place, and writes the next step's position and key into
+    g_next and s_next.  The state runs on past a read's end (`lengths` play
+    no part, as in JAX).  One call, checked in full (a `StepPos` made and
+    called once); CPU tensors take the plain version, CUDA tensors launch
+    the kernel."""
+    StepPos(rows, pos, mlen, patterns, k, A, packed, g_next, s_next)(t)
+
+
+def sharded_scan_pos_ref(shards: list, L: int, patterns, k: int, A: int,
+                         n: int) -> torch.Tensor:
+    """Plain PyTorch K13e chunk scan; same contract as `sharded_scan_pos`:
+    a step loop of the plain fetch (the sum over the shards) and the plain
+    step."""
     dev = patterns.device
     B, M = patterns.shape
+    if B == 0 or M == 0:
+        return torch.zeros((B, M), dtype=torch.int32, device=dev)
+    cols = patterns.t().contiguous()
+    packed = torch.zeros((M, B), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    mlen = torch.zeros((B,), dtype=torch.int32, device=dev)
+    g, s = pos.clone(), step_keys(cols, 0, k, A)
+    for t in range(M // k):
+        rows = sharded_fetch_ref(shards, g, s, L, L)
+        sharded_step_pos_ref(rows, pos, mlen, cols, t, k, A, packed, g, s)
+    return packed.t().contiguous()
+
+
+def sharded_scan_pos(shards: list, L: int, patterns, k: int, A: int, n: int
+                     ) -> torch.Tensor:
+    """K13e chunk scan (replaces the lax.scan inside shard_map of
+    colbwt_tpu/parallel/query_sharded_pos.py:162 _sharded_pos_query): all
+    M/k steps of a (B, M) uint8 right-aligned batch (M a multiple of k) in
+    one launch, every shard of the dp row on this card, from pos n - 1 and
+    match length 0.  shards[i] is the T_k table's (A**k · L, 2) int32 shard
+    i (positions [i·L, (i+1)·L) of every key); a position that no shard
+    owns reads as zeros.  Returns the packed (B, M) int32 outputs ln << 8 |
+    cid.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if patterns.device.type == "cpu":
+        return sharded_scan_pos_ref(shards, L, patterns, k, A, n)
+    dev = patterns.device
+    if any(t is None for t in shards):
+        raise ValueError("the chunk scan needs every shard on the card")
+    tab = shard_pointers(shards, dev, 2)
     K.require(patterns, "patterns", torch.uint8, dev)
-    K.require(rows, "rows", torch.int32, dev)
-    K.require_aligned(rows, "rows", 8)
-    if rows.shape != (B, 2):
-        raise ValueError(f"rows must have shape ({B}, 2)")
-    for name, t_ in (("pos", pos), ("mlen", mlen), ("g_next", g_next),
-                     ("s_next", s_next)):
-        K.require(t_, name, torch.int32, dev)
-        if t_.shape != (B,):
-            raise ValueError(f"{name} must have shape ({B},)")
-    K.require(packed, "packed", torch.int32, dev)
-    if packed.shape != (B, M) or M % k or not 0 <= t < M // k:
-        raise ValueError(f"step {t} of a (B, {M}) scan at k={k}")
-    if B:
-        code = K.on(dev).colbwt_sharded_step_pos(
-            rows.data_ptr(), pos.data_ptr(), mlen.data_ptr(),
-            patterns.data_ptr(), B, M, int(t), int(k), int(A),
-            packed.data_ptr(), g_next.data_ptr(), s_next.data_ptr(),
-            K.stream_handle(dev))
-        K.check("sharded_step_pos", code)
-        K.launches["sharded_step_pos"] += 1
+    if patterns.dim() != 2:
+        raise ValueError("patterns must be (B, M)")
+    B, M = patterns.shape
+    if not 1 <= k <= query_pos.MAX_K or M % k:
+        raise ValueError(f"a (B, M={M}) scan at k={k}: M must be a multiple "
+                         f"of k in [1, {query_pos.MAX_K}]")
+    # a column-major plane (a warp's stores of a step coalesced),
+    # transposed here as the JAX scan transposes its stacked steps
+    packed = torch.empty((M, B), dtype=torch.int32, device=dev)
+    if B and M:
+        code = K.on(dev).colbwt_sharded_scan_pos(
+            tab.data_ptr(), len(shards), int(L), patterns.data_ptr(), B, M,
+            int(k), int(A), int(n), packed.data_ptr(), K.stream_handle(dev))
+        K.check("sharded_scan_pos", code)
+        K.launches["sharded_scan_pos"] += 1
+    return packed.t().contiguous()
+
+
+def step_row(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor
+             ) -> torch.Tensor:
+    """The per-step route of `scan_row`: each step one fetch a card of the
+    row's shards it holds, the sum over "ip" (adds across cards, all_reduce
+    across ranks) into one (B, 2) buffer, then the per-step kernel
+    `sharded_step_pos`.  The batch's patterns are transposed once to (M, B)
+    columns, the fetch and the step prepared once (their checks made here:
+    `Mesh.gatherer`, `StepPos`), and the (M, B) plane, which the steps
+    write whole, transposed once at the end."""
+    dev = patterns.device
+    B, M = patterns.shape
+    if B == 0 or M == 0:
+        return torch.zeros((B, M), dtype=torch.int32, device=dev)
+    k, A, n, L = st["k"], st["A"], st["n"], st["n_local"]
+    cols = patterns.t().contiguous()
+    packed = torch.empty((M, B), dtype=torch.int32, device=dev)
+    pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    mlen = torch.zeros((B,), dtype=torch.int32, device=dev)
+    g, s = pos.clone(), step_keys(cols, 0, k, A)
+    rows = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    step = StepPos(rows, pos, mlen, cols, k, A, packed, g, s)
+    fetch = mesh.gatherer(st["table"], d, L, g, s, stride=L, out=rows)
+    for t in range(M // k):
+        fetch()
+        step(t)
+    return packed.t().contiguous()
 
 
 def scan_row(mesh: Mesh, st: dict, d: int, patterns: torch.Tensor
              ) -> torch.Tensor:
     """dp row d's scan of (B, M) uint8 dense ids (M a multiple of k):
-    returns the packed (B, M) int32 outputs ln << 8 | cid."""
+    returns the packed (B, M) int32 outputs ln << 8 | cid.
+
+    The route follows where the row's shards lie: all of them on the row's
+    device (a repeated device list, any ip = 1 mesh, every CPU mesh) takes
+    the chunk scan `sharded_scan_pos`, one launch; shards on other cards or
+    ranks take `step_row`."""
     dev = patterns.device
-    B, M = patterns.shape
-    k, A, n, L = st["k"], st["A"], st["n"], st["n_local"]
-    packed = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    if B == 0 or M == 0:
-        return packed
-    pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
-    mlen = torch.zeros((B,), dtype=torch.int32, device=dev)
-    g, s = pos.clone(), first_keys(patterns, k, A)
-    for t in range(M // k):
-        rows = mesh.gather(st["table"], d, L, g, s, stride=L)  # one sum
-        sharded_step_pos(rows, pos, mlen, patterns, t, k, A, packed, g, s)
-    return packed
+    cards = mesh.card_shards(st["table"], d)
+    if len(cards) == 1 and str(cards[0][0]) == str(dev) and all(
+            t is not None for t in cards[0][1]):
+        return sharded_scan_pos(cards[0][1], st["n_local"], patterns,
+                                st["k"], st["A"], st["n"])
+    return step_row(mesh, st, d, patterns)
 
 
 def query_batch_sharded_pos(index: ColPmlIndex, patterns: list[bytes],

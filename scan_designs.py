@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Design sweep of the scans K3, K5, K6a and K7, the col-split walk K10a,
-the LCP lift K11b, the sharded table composition K13d and the sharded
-per-step kernels K13a-K13c on one CUDA card.
+"""Design sweep of the T1 build K1, the scans K3, K5, K6a and K7, the
+col-split walk K10a, the LCP lift K11b, the sharded table composition K13d,
+the sharded per-step kernels K13a-K13c and K13e and the K13e chunk scan on
+one CUDA card.
 
     python3 scan_designs.py [--parent DIR]
                             [--groups scans,lcp,tk,pos,walk,step]
@@ -34,8 +35,15 @@ shipped source with one change, compiled into a library of its own:
 - tk (query_sharded.cu; K13d for shard 0 of T3 at (dp, ip) = (1, 2) on
   bench's index, G-pos's shape): positions a thread, the fan's width and
   the block order (prefix-major in place of tile-major);
-- pos (query_pos.cu; K3 on bench's index at the shapes the main path
-  gives it: cell A's dispatch batch of 8,192 x 252 (k = 4, 2-bit digits,
+- pos (query_pos.cu; K1 for one chunk of the first ACGT char at bench's
+  index (C = n = 4,000,004, r = 1,281,530) and at chip_smoke.py's
+  pangenome index (phase 8's build, n = 72,000,016, r = 13,734,195; C =
+  2**25): tiles of 1,024 or 4,096 positions in place of 2,048
+  ("t1-tile-1024", "t1-tile-4096"), a position's run by a binary search
+  of the tile's run starts in place of the warp's running count
+  ("t1-search"), the tile's first and last runs by two threads' binary
+  searches in place of two warps' 32-way searches ("t1-binary-ends");
+  K3 on bench's index at the shapes the main path gives it: cell A's dispatch batch of 8,192 x 252 (k = 4, 2-bit digits,
   the u16 plane), S-A's of 32,768, the N reads' general-T1 batch of 1,024
   (k = 1) and the long reads' second chunk of 2,048 with carried state):
   64 or 128 threads a block in place of 32, one store an output or
@@ -56,16 +64,23 @@ shipped source with one change, compiled into a library of its own:
   them): the shipped launchers made once a chunk over the port's own
   library ("shipped") against the public per-call wrapper
   ("step-wrapper"), row-major (B, M) planes and patterns in place of
-  column-major (M, B) ("step-row-major"), a step's pml and cid as one
-  8-byte store into an interleaved plane (K13b/K13c, "step-interleaved")
-  and every value of the round kernel stored in its scratch, as before
-  the redesign, in place of only those a later round reads (K13a,
-  "step-scratch-full"); the variants launch through `K.Launcher` over a
-  parameter block made once.  With --parent, the parent's own wrappers
-  and routes run too (its parallel/ modules loaded from DIR, their
-  launches through its library), and each tree's G-round and G-step
-  walls are timed in turns (parent, shipped, shipped, parent), every
-  run's outputs equal to the first's.  Each time is taken twice: between
+  column-major (M, B) ("step-row-major") and a step's pml and cid as one
+  8-byte store into an interleaved plane (K13b/K13c, "step-interleaved");
+  the variants launch through `K.Launcher` over a parameter block made
+  once.  K13e at G-pos's shape (bench's index, (dp, ip) = (1, 2), k = 3,
+  263,168 lanes): one step ("shipped": the StepPos launcher;
+  "step-wrapper"; "step-row-major"), and the whole batch's scan: the
+  chunk scan as the route calls it (the kernel and the wrapper's
+  transpose), the kernel alone ("shipped-kernel"), with row-major (B, M)
+  outputs ("scan-pos-row-major"), and the per-step route `step_row` (51
+  fetches and 51 steps, "step-route").  With --parent, the parent's own
+  launchers, wrappers and routes run too (its parallel/ modules loaded
+  from DIR, their launches through its library; a parent without StepPos
+  steps K13e through its per-call wrapper and scans the batch with 51
+  fetches and 51 steps), and each tree's G-pos, G-pos step (a tree with
+  `step_row`), G-round and G-step walls are timed in turns (parent,
+  shipped, shipped, parent), every run's outputs equal to the first's.
+  Each time is taken twice: between
   CUDA events around the calls as the host makes them (the wrapper or
   launcher included), and on the card alone (the calls queued behind a
   sleep kernel, chip_smoke.py's `gpu_ms`).
@@ -73,9 +88,10 @@ shipped source with one change, compiled into a library of its own:
 With --parent DIR (a checkout of the parent commit) its sources of each
 group are timed too, called as its wrappers called them (int32 ids for
 K7, row-major planes); its entry points must take the shipped ones'
-arguments, but for those in PARENT_SIGNATURES (K13b/K13c's and K13a's
-per-step entry points, which took every argument where the shipped ones
-take a parameter block prepared once and the step).
+arguments, but for those in PARENT_SIGNATURES (K13e's per-step entry
+point, which took every argument where the shipped one takes a parameter
+block prepared once and the step); an entry point the parent lacks (the
+K13e chunk scan) is not bound there.
 --designs names the designs to time and build (default: all, the
 shipped kernel first and again last); the shipped kernel runs at every
 shape anyway, as the reference that every design's outputs must equal,
@@ -84,14 +100,16 @@ group holds every design to the first it times, the parent's where
 given).  A time is the mean of
 `reps` calls between CUDA events after one warm-up, a column-major
 design's device transposes included.  Prints the card's name and power
-limit first, the ptxas register counts of K3's, K10a's, K11b's, K13d's
-and the per-step kernels' shipped sources, and one JSON line of every time last (also
-written to build/scan_designs/times.json); exits nonzero without CUDA.
+limit first, the ptxas register counts of K1's, K3's, K10a's, K11b's,
+K13d's, the per-step kernels' and the K13e chunk scan's shipped
+sources, and one JSON line of every time last (also written to
+build/scan_designs/times.json); exits nonzero without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import shutil
@@ -116,7 +134,8 @@ SOURCES = tuple(f for group in GROUPS.values() for f in group)
 PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
                  "compose_sharded_tk_kernel", "query_chunk_pos_kernel",
                  "tunneled_walk_kernel", "sharded_step_mega_kernel",
-                 "sharded_step_compact_kernel")
+                 "sharded_step_compact_kernel", "build_t1_chunk_kernel",
+                 "sharded_step_pos_kernel", "sharded_scan_pos_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
                 "    cid_out[col * B + b] = cid;\n")
@@ -145,7 +164,33 @@ _WALK_THREADS = "constexpr int kTunnelThreads = 128;\n"
 _WALK_FORWARD = "constexpr int kMaxForward = 8;\n"
 _STEP_COL_MAJOR = "constexpr bool kStepColMajor = true;\n"
 _STEP_INTERLEAVE = "constexpr bool kStepInterleave = false;\n"
-_STEP_TRIM = "constexpr bool kScratchTrim = true;\n"
+_T1_TILE = "constexpr int kT1Tile = 2048;\n"
+_T1_MARKS = (
+    "    const unsigned marks = __ballot_sync(0xFFFFFFFFu, s_begin[i] != 0);\n"
+    "    const int j = carry + __popc(marks & (0xFFFFFFFFu >> (31 - lane)));\n"
+    "    carry += __popc(marks);\n")
+_T1_WARP_RUN_OF = "__device__ __forceinline__ int64_t warp_run_of("
+# one thread's binary search for a position's run (the parent's run_of)
+_T1_RUN_OF = (
+    "__device__ __forceinline__ int64_t run_of(const int32_t* __restrict__ "
+    "idx,\n"
+    "                                          int64_t r, int64_t pos) {\n"
+    "  int64_t lo = 0, hi = r;\n"
+    "  while (lo < hi) {\n"
+    "    int64_t mid = (lo + hi) >> 1;\n"
+    "    if (static_cast<int64_t>(__ldg(idx + mid)) <= pos) lo = mid + 1;\n"
+    "    else hi = mid;\n"
+    "  }\n"
+    "  return lo - 1;\n"
+    "}\n\n")
+_T1_ENDS = (
+    "  if (warp < 2) {\n"
+    "    const int64_t run = warp_run_of(idx, r, warp == 0 ? p0 : p0 + len - 1,"
+    "\n"
+    "                                    threadIdx.x & 31);\n"
+    "    if ((threadIdx.x & 31) == 0) s_ends[warp] = run;\n"
+    "  }\n")
+_SCAN_POS_STORE = "      packed[col * B + b] =\n"
 # variant -> [(source, shipped text, the variant's text)]
 VARIANTS = {
     "row-major": [
@@ -231,8 +276,22 @@ VARIANTS = {
     "step-interleaved": [
         ("query_sharded.cu", _STEP_INTERLEAVE,
          _STEP_INTERLEAVE.replace("false", "true"))],
-    "step-scratch-full": [
-        ("query_sharded.cu", _STEP_TRIM, _STEP_TRIM.replace("true", "false"))],
+    "scan-pos-row-major": [
+        ("query_sharded.cu", _SCAN_POS_STORE,
+         _SCAN_POS_STORE.replace("col * B + b", "b * M + col"))],
+    "t1-tile-1024": [
+        ("query_pos.cu", _T1_TILE, _T1_TILE.replace("2048", "1024"))],
+    "t1-tile-4096": [
+        ("query_pos.cu", _T1_TILE, _T1_TILE.replace("2048", "4096"))],
+    "t1-search": [
+        ("query_pos.cu", _T1_MARKS,
+         "    const int j = tile_run(s_start, runs, p0 + i);\n")],
+    "t1-binary-ends": [
+        ("query_pos.cu", _T1_WARP_RUN_OF, _T1_RUN_OF + _T1_WARP_RUN_OF),
+        ("query_pos.cu", _T1_ENDS,
+         "  if ((threadIdx.x & 31) == 0 && warp < 2) {\n"
+         "    s_ends[warp] = run_of(idx, r, warp == 0 ? p0 : p0 + len - 1);\n"
+         "  }\n")],
 }
 FUSED_VARIANTS = ("row-major", "jump-on-mismatch", "threads-32",
                   "threads-128")
@@ -243,27 +302,27 @@ LCP_VARIANTS = ("lcp-span-8", "lcp-span-16", "lcp-blocked",
 TK_VARIANTS = ("tk-unroll-1", "tk-unroll-4", "tk-fan-4", "tk-fan-8",
                "tk-prefix-major")
 POS_VARIANTS = ("pos-threads-64", "pos-threads-128", "pos-scalar-stores",
-                "pos-column-major", "pos-key-after")
+                "pos-column-major", "pos-key-after", "t1-tile-1024",
+                "t1-tile-4096", "t1-search", "t1-binary-ends")
 WALK_VARIANTS = ("walk-threads-32", "walk-threads-64", "walk-threads-256",
                  "walk-forward-2", "walk-forward-32", "walk-no-pair")
-STEP_VARIANTS = ("step-row-major", "step-interleaved", "step-scratch-full")
+STEP_VARIANTS = ("step-row-major", "step-interleaved", "scan-pos-row-major")
 # the entry points each group's libraries bind
 ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                           "colbwt_query_chunk_mega",
                           "colbwt_query_chunk_mega_wide"),
                 "lcp": ("colbwt_lcp_lift",),
                 "tk": ("colbwt_compose_sharded_tk",),
-                "pos": ("colbwt_query_chunk_pos",),
+                "pos": ("colbwt_query_chunk_pos", "colbwt_build_t1_chunk"),
                 "walk": ("colbwt_tunneled_walk",),
-                "step": ("colbwt_sharded_fetch", "colbwt_sharded_step_mega",
-                         "colbwt_sharded_step_compact")}
+                "step": ("colbwt_sharded_fetch", "colbwt_compose_sharded_tk",
+                         "colbwt_sharded_step_mega",
+                         "colbwt_sharded_step_compact",
+                         "colbwt_sharded_step_pos", "colbwt_sharded_scan_pos")}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # the parent's entry points whose arguments differ from the shipped ones'
 PARENT_SIGNATURES = {
-    "colbwt_sharded_step_mega": ([_I, _P, _P] + [_I] * 3 + [_P] * 7
-                                 + [_I] * 5 + [_P] * 3 + [_P]),
-    "colbwt_sharded_step_compact": ([_I, _I] + [_P] * 9 + [_I] * 6
-                                    + [_P] * 5 + [_P])}
+    "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P]}
 # the variants of each group
 GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
                                                 + MEGA_VARIANTS)),
@@ -326,6 +385,8 @@ def build_libraries(parent: Path | None, groups: list[str],
     for name in trees:
         lib = ctypes.CDLL(str(WORK / name / "lib.so"))
         for fn in ENTRY_POINTS[name.split("/")[0]]:
+            if name.endswith("/parent") and not hasattr(lib, fn):
+                continue  # a kernel the parent did not have
             getattr(lib, fn).argtypes = (
                 PARENT_SIGNATURES[fn] if name.endswith("/parent")
                 and fn in PARENT_SIGNATURES else K._SIGNATURES[fn])
@@ -760,10 +821,80 @@ def sweep_pos(torch, libs: dict, compare, bench: dict) -> None:
         del got, wp, wc
         designs = {name: (lambda lib=lib, a=a, rm=name != "pos-column-major":
                           scan(lib, *a, rm))
-                   for name, lib in libs.items()}
+                   for name, lib in libs.items() if not name.startswith("t1-")}
         compare(f"K3 {label}", designs, reps)
     del pt, cells
     torch.cuda.empty_cache()
+    sweep_t1(torch, {name: lib for name, lib in libs.items()
+                     if not name.startswith("pos-")}, compare,
+             (("bench's index", index, 20),
+              ("the pangenome's index", pangenome_index(torch), 5)))
+
+
+def pangenome_index(torch):
+    """chip_smoke.py's phase 8 index: its 16 x 4.5 Mbp pangenome through
+    `col-bwt-torch build -m tunnels -s 10 -l 20` on the card."""
+    from chip_smoke import pangenome_docs, write_reads
+    from colbwt_tpu_torch.cli import main as cli_main
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+
+    t0 = time.perf_counter()
+    fastas = []
+    for i, d in enumerate(pangenome_docs()):
+        fastas.append(str(WORK / f"pan{i}.fa"))
+        write_reads(Path(fastas[-1]), [(f"hap{i}", d)])
+    prefix = str(WORK / "pangenome")
+    if cli_main(["build", "-o", prefix, "-m", "tunnels", "-s", "10", "-l",
+                 "20", "--device", "cuda", *fastas]):
+        raise RuntimeError("the pangenome's build failed")
+    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+    log(f"[designs] the pangenome's index (n = {index.n}, r = {index.r}) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return index
+
+
+def sweep_t1(torch, libs: dict, compare, cells) -> None:
+    """K1 for one chunk of the first ACGT char (s = 0, C = min(n, 2**25))
+    at each index of `cells` ((label, index, reps)), the shipped kernel
+    against its plain version first; each design writes a buffer of its
+    own.  The shape's label carries its bound (chip_smoke.py `t1_bytes`)."""
+    from chip_smoke import least_ms, t1_bytes
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for label, index, reps in cells:
+        n, r = index.n, index.r
+        C = min(n, TQ._T1_CHUNK)
+        c = int(index.char_map[ord("A")])
+        a = TQ.t1_inputs(index, C, dev)
+        arrays = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+                  a["threshold"], to_device(index.pred_jump[c], dev),
+                  to_device(index.succ_jump[c], dev), a["col_id"])
+
+        def build(lib, buf):
+            K.check("build_t1_chunk", lib.colbwt_build_t1_chunk(
+                buf.data_ptr(), *(t.data_ptr() for t in arrays), r, c, 0, 0,
+                n, C, stream))
+            return (buf,)
+
+        def fresh():
+            return torch.empty((C, 2), dtype=torch.int32, device=dev)
+
+        got = build(libs["shipped"], fresh())[0]
+        if not torch.equal(got, TQ.build_t1_chunk_ref(fresh(), *arrays, c,
+                                                      0, 0, n, C)):
+            raise RuntimeError(f"K1 {label}: differs from its plain version")
+        del got
+        designs = {name: (lambda lib=lib, buf=fresh(): build(lib, buf))
+                   for name, lib in libs.items()}
+        bound, by = least_ms(t1_bytes(index, c, 0, C), C * 40)
+        compare(f"K1 {label}: one chunk of C={C} positions, n={n}, r={r}, "
+                f"bound {bound:.4f} ms ({by})", designs, reps)
+        del a, arrays, designs
+        torch.cuda.empty_cache()
 
 
 def sweep_walk(torch, libs: dict, compare, bench: dict) -> None:
@@ -845,13 +976,17 @@ def parent_tree(parent: Path, lib):
                     return fn(*args)
             return call
 
+    def launcher(device, entry, kernel, *fixed, keep=None):
+        """The parent's `_kernels.Launcher`, bound to its own library."""
+        return K.Launcher(device, entry, kernel, *fixed, lib=lib, keep=keep)
+
     shim = types.SimpleNamespace(
         require=K.require, require_aligned=K.require_aligned,
         check=K.check, stream_handle=K.stream_handle, launches=Counter(),
-        on=OnParent)
+        on=OnParent, Launcher=launcher)
     mods = {}
     for name in ("mesh", "query_sharded", "query_sharded_mega",
-                 "query_sharded_mega_wide"):
+                 "query_sharded_mega_wide", "query_sharded_pos"):
         spec = importlib.util.spec_from_file_location(
             f"parent_{name}",
             parent / "colbwt_tpu_torch" / "parallel" / f"{name}.py")
@@ -863,7 +998,7 @@ def parent_tree(parent: Path, lib):
     return types.SimpleNamespace(
         make_mesh=mods["mesh"].make_mesh, compact=mods["query_sharded"],
         mega=mods["query_sharded_mega"],
-        wide=mods["query_sharded_mega_wide"])
+        wide=mods["query_sharded_mega_wide"], pos=mods["query_sharded_pos"])
 
 
 def shipped_tree():
@@ -873,9 +1008,10 @@ def shipped_tree():
     from colbwt_tpu_torch.parallel import query_sharded as TS
     from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
     from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
 
     return types.SimpleNamespace(make_mesh=make_mesh, compact=TS, mega=TSM,
-                                 wide=TSW)
+                                 wide=TSW, pos=TSP)
 
 
 # the public arguments of the two step functions: (patterns, pml, cid) and
@@ -886,20 +1022,20 @@ _MEGA_AT = (6, 11, 12, 8)
 
 def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
                timed: set | None, times: dict) -> None:
-    """K13a's round kernel and K13b/K13c's step at the four shapes of
-    phase 12's per-step routes, and the routes' walls (G-round, G-step
-    narrow, G-step wide with the long reads), the parent's against the
-    shipped code."""
+    """K13a's round kernel, K13b/K13c's step and K13e's step at the five
+    shapes of phase 12's per-step routes, the K13e scan of G-pos's batch,
+    and the walls (G-pos, G-pos step, G-round, G-step narrow, G-step wide
+    with the long reads), the parent's against the shipped code."""
     from unittest import mock
 
-    from chip_smoke import Checks, Twins, cuda_ms, gpu_ms, scale_table
+    from chip_smoke import Checks, Twins, scale_table
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.ops import query_mega as TM
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    tbl = bench["tbl"]
+    tbl, index = bench["tbl"], bench["index"]
     reads, n_reads, long_reads = bench["reads"]
     batch = reads + n_reads
     split = ColPmlIndex.build(tbl, ff_bound=2)
@@ -919,52 +1055,68 @@ def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
     source = "parent" if "parent" in trees else "shipped"
 
     def routes(name: str, tw) -> tuple[dict, dict]:
-        """G-round, G-step narrow and G-step wide through `name`'s routes
-        of shards on other cards, on a (1, 2) mesh over cuda:0; each
-        synchronised and timed."""
+        """G-pos (its tables and the batch, as phase 12 runs it: the
+        parent's per-step loop, the shipped chunk scan), G-pos step (the
+        shipped tree's per-step route), G-round, G-step narrow and G-step
+        wide through `name`'s routes of shards on other cards, on a (1, 2)
+        mesh over cuda:0; each synchronised and timed."""
         tree = trees[name]
         m = tree.make_mesh(1, 2, devices=["cuda:0"] * 2)
         st_mega = tree.mega.shard_mega(split, m, mt=mt)
         st_wide = tree.wide.shard_mega_wide(wide, m)
-        runs = (
+
+        def pos_run():
+            st = tree.pos.shard_pos_tables(index, m)
+            return tree.pos.query_batch_sharded_pos(index, batch, mesh=m,
+                                                    st=st)
+
+        routed = [(tree.compact, "scan_row", tree.compact.round_row),
+                  (tree.mega, "scan_chunk", tree.mega.step_chunk)]
+        runs = [("G-pos", pos_run, [])]
+        if hasattr(tree.pos, "step_row"):
+            runs.append(("G-pos step", pos_run,
+                         [(tree.pos, "scan_row", tree.pos.step_row)]))
+        runs += [
             ("G-round", lambda: tree.compact.query_batch_sharded(
-                split, batch, mesh=m)),
+                split, batch, mesh=m), routed),
             ("G-step narrow", lambda: tree.mega.query_batch_sharded_mega(
-                split, batch, mesh=m, st=st_mega)),
+                split, batch, mesh=m, st=st_mega), routed),
             ("G-step wide", lambda: (
                 tree.wide.query_batch_sharded_mega_wide(
                     wide, batch, mesh=m, st=st_wide),
                 tree.wide.query_long_reads_sharded_mega_wide(
-                    wide, long_reads, mesh=m, chunk=2048, st=st_wide))))
+                    wide, long_reads, mesh=m, chunk=2048, st=st_wide)),
+             routed)]
         outs, walls = {}, {}
-        with mock.patch.object(tree.compact, "scan_row",
-                               tree.compact.round_row), \
-                mock.patch.object(tree.mega, "scan_chunk",
-                                  tree.mega.step_chunk):
-            for label, fn in runs:
+        for label, fn, patches in runs:
+            with contextlib.ExitStack() as stack:
+                for obj, attr, value in patches:
+                    stack.enter_context(mock.patch.object(obj, attr, value))
                 tw.tag = label
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 outs[label] = fn()
                 torch.cuda.synchronize()
                 walls[label] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
         del st_mega, st_wide
         return outs, walls
 
     # the walls in turns, each run's outputs equal to the first's; the
     # first run of the source tree captures the ninth call of each shape
+    # (a tree without StepPos calls K13e's per-call wrapper on (B, M)
+    # patterns and plane in its per-step loop, G-pos)
     cap = Twins(torch, Checks(torch), False)
     tree = trees[source]
-    if source == "parent":
-        cap.wrap(tree.compact, "sharded_step_compact", None,
-                 key=lambda a: a[0])
-        cap.wrap(tree.mega, "sharded_step_mega", None,
-                 key=lambda a: a[0].shape[0], shared=(1,))
+    cap.wrap_launcher(tree.compact, "RoundCompact", "sharded_step_compact",
+                      None, key=lambda a: a[0])
+    cap.wrap_launcher(tree.mega, "StepMega", "sharded_step_mega", None,
+                      key=lambda a: a[0].shape[0], shared=(1,))
+    pos_rows = not hasattr(tree.pos, "StepPos")
+    if pos_rows:
+        cap.wrap(tree.pos, "sharded_step_pos", None)
     else:
-        cap.wrap_launcher(tree.compact, "RoundCompact",
-                          "sharded_step_compact", None, key=lambda a: a[0])
-        cap.wrap_launcher(tree.mega, "StepMega", "sharded_step_mega", None,
-                          key=lambda a: a[0].shape[0], shared=(1,))
+        cap.wrap_launcher(tree.pos, "StepPos", "sharded_step_pos", None)
     order = list(trees) + list(reversed(trees))
     walls: dict = {name: [] for name in trees}
     first = None
@@ -976,7 +1128,8 @@ def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
             outs, w = routes(name, Twins(torch, Checks(torch), False))
         first = first or outs
         for label in outs:
-            got, want = outs[label], first[label]
+            # the parent has no per-step pos route: its G-pos is one
+            got, want = outs[label], first.get(label, first["G-pos"])
             if label == "G-step wide":
                 got, want = got[0] + got[1], want[0] + want[1]
             for g, x in zip(got, want):
@@ -987,16 +1140,6 @@ def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
         log(f"[designs] {name} walls: " + json.dumps(w))
     times["walls"] = walls
     caps = cap.first
-
-    def columns(a, at):
-        """Captured parent-layout arguments in the shipped contract:
-        patterns transposed, (M, B) planes."""
-        p, pl, ci, _ = at
-        a = list(a)
-        a[p] = a[p].t().contiguous()
-        a[pl] = torch.zeros(a[pl].t().shape, dtype=torch.int32, device=dev)
-        a[ci] = torch.zeros_like(a[pl])
-        return tuple(a)
 
     shapes = (
         ("K13a rounds 1-4 (one character step), 263,168 lanes", True,
@@ -1011,47 +1154,213 @@ def sweep_step(torch, libs: dict, bench: dict, parent: Path | None,
          200))
     for shape, compact, calls, reps in shapes:
         at = _COMPACT_AT if compact else _MEGA_AT
-        designs = step_designs(torch, libs, trees, compact, calls, at,
-                               source, columns, wanted)
-        ref_name, ref = None, None
-        for name, (make, run, out) in designs.items():
-            obj = make()
-            run(obj)
-            got = [x.clone() for x in out(obj)]
-            if ref is None:
-                ref_name, ref = name, got
-            elif not all(torch.equal(g, w) for g, w in zip(got, ref)):
-                raise RuntimeError(f"{shape}: {name} differs from "
-                                   f"{ref_name}")
-        del ref
-        names = list(designs) + (["shipped"] if "shipped" in designs
-                                 else [])
-        ms = {}
-        for name in names:
-            key = "shipped (again)" if name in ms else name
-            make, run, _ = designs[name]
-            obj = make()
-            ms[key] = {"ms": cuda_ms(torch, lambda: run(obj), reps),
-                       "gpu_ms": gpu_ms(torch, lambda: run(obj), reps)}
-            del obj
-        times[shape] = ms
-        log(f"[designs] {shape}: " + ", ".join(
-            f"{k} {v['ms']:.4f} ms ({v['gpu_ms']:.4f} on the card)"
-            for k, v in ms.items()))
-        del designs
-        torch.cuda.empty_cache()
-    del caps, cap
+        time_step_designs(torch, shape, step_designs(
+            torch, libs, trees, compact, calls, at, wanted), reps, times)
+    pos_call = caps[("sharded_step_pos",
+                     "G-pos" if pos_rows else "G-pos step", None)]
+    time_step_designs(torch, "K13e one step, 263,168 lanes, k = 3",
+                      pos_step_designs(torch, libs, trees, pos_call,
+                                       pos_rows, wanted), 20, times)
+    del caps, cap, pos_call
     K.reset_launches()
+    torch.cuda.empty_cache()
+    sweep_pos_scan(torch, libs, trees, index, batch, source, wanted, times)
     torch.cuda.empty_cache()
 
 
+def time_step_designs(torch, shape: str, designs: dict, reps: int,
+                      times: dict) -> None:
+    """Hold every design of `designs` ({name: (make, run, out)}) to the
+    first, then time each from fresh clones, as the host calls it and on
+    the card alone (the shipped design first and last)."""
+    from chip_smoke import cuda_ms, gpu_ms
+
+    ref_name, ref = None, None
+    for name, (make, run, out) in designs.items():
+        obj = make()
+        run(obj)
+        got = [x.clone() for x in out(obj)]
+        if ref is None:
+            ref_name, ref = name, got
+        elif not all(torch.equal(g, w) for g, w in zip(got, ref)):
+            raise RuntimeError(f"{shape}: {name} differs from {ref_name}")
+    del ref
+    names = list(designs) + (["shipped"] if "shipped" in designs else [])
+    ms = {}
+    for name in names:
+        key = "shipped (again)" if name in ms else name
+        make, run, _ = designs[name]
+        obj = make()
+        ms[key] = {"ms": cuda_ms(torch, lambda: run(obj), reps),
+                   "gpu_ms": gpu_ms(torch, lambda: run(obj), reps)}
+        del obj
+    times[shape] = ms
+    log(f"[designs] {shape}: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms ({v['gpu_ms']:.4f} on the card)"
+        for k, v in ms.items()))
+
+
+def pos_step_designs(torch, libs: dict, trees: dict, call: tuple,
+                     rows_captured: bool, wanted) -> dict:
+    """{design: (make, run, out)} for K13e's step from the captured call
+    (`sharded_step_pos`'s arguments, (B, M) patterns and plane where
+    `rows_captured`, else (M, B)): the parent's step as its route calls it
+    (its StepPos, else its per-call wrapper), the shipped StepPos
+    launcher, the public per-call wrapper and the row-major variant under
+    `K.Launcher`; out() gives the step's k output columns as (k, B), the
+    state and the next position and key."""
+    import ctypes as C
+
+    from chip_smoke import clone_args
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    def flip(c):
+        """Patterns and plane between (B, M) and (M, B)."""
+        c = list(c)
+        c[3], c[7] = c[3].t().contiguous(), c[7].t().contiguous()
+        return tuple(c)
+
+    rows_call = call if rows_captured else flip(call)
+    cols_call = flip(call) if rows_captured else call
+    t, k = call[4], call[5]
+
+    def out(c, layout: str) -> list:
+        M = c[3].shape[1 if layout == "rows" else 0]
+        cols = [M - 1 - (t * k + j) for j in range(k)]
+        plane = c[7][:, cols].t() if layout == "rows" else c[7][cols]
+        return [plane.contiguous(), c[1], c[2], c[8], c[9]]
+
+    def fresh(c):
+        return lambda: clone_args(torch, c)
+
+    def launcher(lib, mod=TSP):
+        """mod's StepPos (lib None) on (M, B) columns, or a variant's
+        library under `K.Launcher` on (B, M) memory in (M, B) shapes."""
+        def make():
+            if lib is None:
+                c = clone_args(torch, cols_call)
+                return c, mod.StepPos(*c[:4], *c[5:])
+            c = clone_args(torch, rows_call)
+            B, M = c[3].shape
+            v = list(c)
+            v[3], v[7] = c[3].view(M, B), c[7].view(M, B)
+            params = TSP.step_pos_params(*v[:4], *v[5:])
+            return c, K.Launcher(c[3].device, "colbwt_sharded_step_pos",
+                                 "sharded_step_pos", C.addressof(params),
+                                 lib=lib, keep=params)
+        return (make, lambda o: o[1](t),
+                lambda o: out(o[0], "cols" if lib is None else "rows"))
+
+    designs = {}
+    if "parent" in trees and wanted("parent"):
+        pmod = trees["parent"].pos
+        if hasattr(pmod, "StepPos"):
+            designs["parent"] = launcher(None, pmod)
+        else:
+            designs["parent"] = (fresh(rows_call),
+                                 lambda c: pmod.sharded_step_pos(*c),
+                                 lambda c: out(c, "rows"))
+    if "shipped" not in trees:
+        return designs
+    if wanted("shipped"):
+        designs["shipped"] = launcher(None)
+    if wanted("step-wrapper"):
+        designs["step-wrapper"] = (fresh(cols_call),
+                                   lambda c: TSP.sharded_step_pos(*c),
+                                   lambda c: out(c, "cols"))
+    if "step-row-major" in libs:
+        designs["step-row-major"] = launcher(libs["step-row-major"])
+    return designs
+
+
+def sweep_pos_scan(torch, libs: dict, trees: dict, index, batch: list,
+                   source: str, wanted, times: dict) -> None:
+    """K13e's scan of G-pos's batch (263,168 reads, k = 3, 51 steps) on the
+    T3 shards of a (1, 2) mesh over cuda:0: the parent's scan as its route
+    makes it (51 fetches and 51 steps through its wrappers), the shipped
+    chunk scan as the route calls it (the kernel and the wrapper's
+    transpose), the kernel alone ("shipped-kernel"), the row-major variant
+    ("scan-pos-row-major") and the shipped per-step route ("step-route":
+    51 fetches and 51 StepPos steps); every design's packed (B, M) outputs
+    equal to the first's, each timed as the host calls it and on the card
+    alone (the shipped design first and last)."""
+    from chip_smoke import cuda_ms, gpu_ms
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+    from colbwt_tpu_torch.parallel.mesh import shard_pointers
+
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    meshes = {name: tree.make_mesh(1, 2, devices=["cuda:0"] * 2)
+              for name, tree in trees.items()}
+    st = trees[source].pos.shard_pos_tables(index, meshes[source])
+    k, A, n, L = st["k"], st["A"], st["n"], st["n_local"]
+    M = -(-max(len(x) for x in batch) // k) * k
+    enc, _ = index.encode_patterns(batch, M)
+    pats = torch.from_numpy(enc.astype(np.uint8)).to(dev)
+    B = pats.shape[0]
+    shards = [st["table"][("cuda:0", i)] for i in range(2)]
+    tab = shard_pointers(shards, dev, 2)
+
+    def direct(lib, col_major: bool):
+        plane = torch.empty((M, B) if col_major else (B, M),
+                            dtype=torch.int32, device=dev)
+
+        def run():
+            K.check("sharded_scan_pos", lib.colbwt_sharded_scan_pos(
+                tab.data_ptr(), 2, L, pats.data_ptr(), B, M, k, A, n,
+                plane.data_ptr(), stream))
+            return plane.t() if col_major else plane
+        return run
+
+    designs = {}
+    if "parent" in trees and wanted("parent"):
+        designs["parent"] = lambda: trees["parent"].pos.scan_row(
+            meshes["parent"], st, 0, pats)
+    if "shipped" in trees:
+        if wanted("shipped"):
+            designs["shipped"] = lambda: TSP.sharded_scan_pos(
+                shards, L, pats, k, A, n)
+        if wanted("shipped-kernel"):
+            designs["shipped-kernel"] = direct(libs["shipped"], True)
+        if "scan-pos-row-major" in libs:
+            designs["scan-pos-row-major"] = direct(
+                libs["scan-pos-row-major"], False)
+        if wanted("step-route"):
+            designs["step-route"] = lambda: TSP.step_row(
+                meshes["shipped"], st, 0, pats)
+    shape = (f"K13e scan of G-pos's batch, {B} lanes x {M // k} steps, "
+             f"k = {k}, 2 shards")
+    ref_name, ref = None, None
+    for name, fn in designs.items():
+        got = fn().clone()
+        if ref is None:
+            ref_name, ref = name, got
+        elif not torch.equal(got, ref):
+            raise RuntimeError(f"{shape}: {name} differs from {ref_name}")
+    del ref
+    ms = {}
+    for name in list(designs) + (["shipped"] if "shipped" in designs
+                                 else []):
+        key = "shipped (again)" if name in ms else name
+        ms[key] = {"ms": cuda_ms(torch, designs[name], 5),
+                   "gpu_ms": gpu_ms(torch, designs[name], 5)}
+    times[shape] = ms
+    log(f"[designs] {shape}: " + ", ".join(
+        f"{k_} {v['ms']:.4f} ms ({v['gpu_ms']:.4f} on the card)"
+        for k_, v in ms.items()))
+    del st, shards, designs
+
+
 def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
-                 at: tuple, source: str, columns, wanted) -> dict:
+                 at: tuple, wanted) -> dict:
     """{design: (make, run, out)} for one shape: make() prepares fresh
-    clones of the captured calls (and the design's launchers), run(obj)
-    makes the calls (and nothing else: it is what is timed), out(obj)
-    returns the step's outputs (its pml and cid column, the state and the
-    next indices) in one layout for every design."""
+    clones of the captured calls ((C, B) patterns and planes) and the
+    design's launchers, run(obj) makes the calls (and nothing else: it is
+    what is timed), out(obj) returns the step's outputs (its pml and cid
+    column, the state and the next indices) in one layout for every
+    design."""
     import ctypes as C
 
     from chip_smoke import clone_args
@@ -1059,8 +1368,7 @@ def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
 
     p_at, pl_at, ci_at, s_at = at
     shared = () if compact else (1,)
-    col_of = [c[p_at].shape[1] - 1 - c[s_at] for c in calls]
-    parent_layout = source == "parent"
+    col_of = [c[p_at].shape[0] - 1 - c[s_at] for c in calls]
 
     def outputs(cs, layout: str) -> list:
         out = []
@@ -1078,62 +1386,43 @@ def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
         return out
 
     def rows_of(c):
-        """Captured shipped-layout arguments as the parent took them."""
+        """Captured arguments on (B, C) patterns and planes (the planes'
+        contents carried over: a round that writes no outputs leaves its
+        column as it found it)."""
         c = list(c)
-        c[p_at] = c[p_at].t().contiguous()
-        c[pl_at] = torch.zeros(c[pl_at].t().shape, dtype=torch.int32,
-                               device=c[pl_at].device)
-        c[ci_at] = torch.zeros_like(c[pl_at])
+        for j in (p_at, pl_at, ci_at):
+            c[j] = c[j].t().contiguous()
         return tuple(c)
 
     def fresh(row_layout: bool):
         def make():
             cs = [clone_args(torch, c, shared) for c in calls]
-            if parent_layout and not row_layout:
-                cs = [columns(c, at) for c in cs]
-            elif row_layout and not parent_layout:
-                cs = [rows_of(c) for c in cs]
-            return cs
+            return [rows_of(c) for c in cs] if row_layout else cs
         return make
 
-    designs = {}
-    if "parent" in trees:
-        pmod = trees["parent"].compact if compact else trees["parent"].mega
-        parent_fn = (pmod.sharded_step_compact if compact
-                     else pmod.sharded_step_mega)
-
-        def run_parent(cs):
-            for c in cs:
-                parent_fn(*c)
-        designs["parent"] = (fresh(True), run_parent,
-                             lambda cs: outputs(cs, "rows"))
-    if "shipped" not in trees:
-        return designs
     from colbwt_tpu_torch.parallel import query_sharded as TS
     from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
 
-    def launcher(c):
-        """The shipped launcher of call c (its public arguments), over the
-        port's library."""
+    def launcher(c, tree):
+        """`tree`'s launcher of call c (its public arguments)."""
         if compact:
             rnd = c[0]
-            return TS.RoundCompact(
+            return tree.compact.RoundCompact(
                 c[2], c[3] if rnd == 1 else None, c[3] if rnd == 2 else None,
                 *c[4:8], *c[9:]), (c[0], c[1], c[8])
-        return TSM.StepMega(*c[:8], *c[9:]), (c[8],)
+        return tree.mega.StepMega(*c[:8], *c[9:]), (c[8],)
 
-    def launched(lib, layout: str):
-        """A design of the shipped launch path: the shipped launchers (lib
-        None), or a variant's library under `K.Launcher` over a parameter
-        block made once, the row-major and interleaved variants given
-        their planes as the kernel reads them, past the launchers' shape
-        checks."""
+    def launched(lib, layout: str, tree=None):
+        """A design of a launch path: `tree`'s launchers (lib None), or a
+        variant's library under `K.Launcher` over a parameter block made
+        once, the row-major and interleaved variants given their planes as
+        the kernel reads them, past the launchers' shape checks."""
         def make():
             cs = fresh(layout == "rows")()
             ls = []
             for j, c in enumerate(cs):
                 if lib is None:
-                    ls.append(launcher(c))
+                    ls.append(launcher(c, tree))
                     continue
                 c = list(c)
                 B = c[pl_at].shape[layout != "rows"]
@@ -1173,8 +1462,13 @@ def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
                 go(*call)
         return make, run, lambda obj: outputs(obj[0], layout)
 
+    designs = {}
+    if "parent" in trees:
+        designs["parent"] = launched(None, "cols", trees["parent"])
+    if "shipped" not in trees:
+        return designs
     if wanted("shipped"):
-        designs["shipped"] = launched(None, "cols")
+        designs["shipped"] = launched(None, "cols", trees["shipped"])
     if wanted("step-wrapper"):
         wrapper_fn = (TS.sharded_step_compact if compact
                       else TSM.sharded_step_mega)
@@ -1184,12 +1478,11 @@ def step_designs(torch, libs: dict, trees: dict, compact: bool, calls: list,
                 wrapper_fn(*c)
         designs["step-wrapper"] = (fresh(False), run_wrapper,
                                    lambda cs: outputs(cs, "cols"))
-    for name, layout in (("step-row-major", "rows"),
-                         ("step-interleaved", "pairs"),
-                         ("step-scratch-full", "cols")):
-        if name in libs and (compact == (name == "step-scratch-full")
-                             or name == "step-row-major"):
-            designs[name] = launched(libs[name], layout)
+    if "step-row-major" in libs:
+        designs["step-row-major"] = launched(libs["step-row-major"], "rows")
+    if "step-interleaved" in libs and not compact:
+        designs["step-interleaved"] = launched(libs["step-interleaved"],
+                                               "pairs")
     return designs
 
 

@@ -94,6 +94,72 @@ def test_t1_chunks(dev, case):
             _equal(got, want)
 
 
+def t1_case_docs(name: str) -> list[bytes]:
+    """The collections of K1's edge cases (here and in
+    tests/test_torch_query_pos.py), made from a seed: noisy copies of one
+    base sequence, or a collection whose BWT has a run longer than 4,096."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def acgt(m):
+        return rng.choice(np.frombuffer(b"ACGT", np.uint8), m)
+
+    if name == "long run":
+        return [b"A" * 5000 + acgt(300).tobytes(), acgt(400).tobytes(),
+                b"A" * 200 + acgt(100).tobytes()]
+    base = acgt(60 if name == "n below the tile" else 2000)
+    docs = []
+    for _ in range(3):
+        a = base.copy()
+        a[rng.integers(0, a.size, a.size // 20)] = acgt(a.size // 20)
+        docs.append(a.tobytes())
+    return docs
+
+
+# K1's edge cases: case -> (collection, ff_bound (None: no run split), the
+# chunk sizes C (None: n)), each chunk at s = 0 and at the tail s = n - C
+T1_CASES = {
+    "runs of length 1": ("runs of length 1", 1, (1000, 4097)),
+    "long run": ("long run", None, (None, 4097)),
+    "n below the tile": ("n below the tile", None, (None, 50)),
+    "C not a multiple of the tile": ("C", None, (5000, 3000)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(T1_CASES))
+def test_t1_edge_cases(dev, name):
+    """K1 against its plain version for every char at the first and the
+    tail chunk: every run of length 1 (ff_bound 1), a run longer than
+    4,096 positions, n below 1,024, C not a multiple of 1,024 (the
+    collections of tests/test_torch_query_pos.py's cases, built with the
+    port's oracle)."""
+    docs, ff, sizes = T1_CASES[name]
+    text, ranks, _ = O.concat_collection(t1_case_docs(docs))
+    sa = O.suffix_array(ranks)
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    tbl = O.build_col_pml(
+        heads, lens, np.zeros(0, np.int64), np.zeros(0, np.int64),
+        O.compute_thresholds(heads, lens, O.lcp_kasai(ranks, sa)))
+    index = (ColPmlIndex.from_table(tbl) if ff is None
+             else ColPmlIndex.build(tbl, ff_bound=ff))
+    n = index.n
+    assert name != "long run" or int(index.length.max()) > 4096
+    assert name != "runs of length 1" or index.r == n
+    for C in sizes:
+        C = n if C is None else C
+        a = TQ.t1_inputs(index, C, dev)
+        for c in range(index.sigma + 1):
+            pred = to_device(index.pred_jump[c], dev)
+            succ = to_device(index.succ_jump[c], dev)
+            for s in sorted({0, n - C}):
+                args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+                        a["threshold"], pred, succ, a["col_id"], c, s, s, n,
+                        C)
+                got = TQ.build_t1_chunk(torch.zeros(
+                    (n, 2), dtype=torch.int32, device=dev), *args)
+                _equal(got, TQ.build_t1_chunk_ref(torch.zeros(
+                    (n, 2), dtype=torch.int32, device=dev), *args))
+
+
 @pytest.mark.parametrize("ka,kb", [(1, 1), (2, 1), (2, 2)])
 def test_compose(dev, case, ka, kb):
     _, index, _ = case
@@ -938,23 +1004,11 @@ def _held(launch, ref, args, calls) -> None:
     calls.append(args[0])
 
 
-def _twin(monkeypatch, module, name, ref):
-    """Run every call of module.name as the kernel and, on clones of its
-    arguments, as the plain version `ref` (`_held`)."""
-    kern = getattr(module, name)
-    calls = []
-
-    def both(*args):
-        _held(lambda: kern(*args), ref, args, calls)
-
-    monkeypatch.setattr(module, name, both)
-    return calls
-
-
 def _twin_launcher(monkeypatch, module, cls, ref):
-    """As `_twin`, for a launcher class (module.cls, made once a chunk, a
-    call a launch): every call held with its public function's arguments,
-    `launcher.args(*call)`."""
+    """Run every call of a launcher class (module.cls, made once a chunk, a
+    call a launch) as the kernel and, on clones of its public function's
+    arguments `launcher.args(*call)`, as the plain version `ref`
+    (`_held`)."""
     base = getattr(module, cls)
     calls = []
 
@@ -1007,9 +1061,9 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
     """K13b/K13c per step through the per-step route `step_chunk` (narrow
     and wide steps, the wide one also over 64-column chunks with carried
     state, and at the long reads' shape: 16 lanes, chunks of 128 from
-    the right, step_offset > 0 past the first) and K13e (k = 3) equal to
-    their plain versions step by step; the outputs equal the single-card
-    engines."""
+    the right, step_offset > 0 past the first) and K13e (k = 3) through
+    the per-step route `step_row`, each equal to its plain version step by
+    step; the outputs equal the single-card engines."""
     from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
     from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
     from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
@@ -1017,9 +1071,14 @@ def test_sharded_steps(dev, shard_case, monkeypatch, ip, engine):
     _, unsplit, split, wide, reads = shard_case
     mesh = _mesh(ip)
     if engine == "pos":
-        calls = _twin(monkeypatch, TSP, "sharded_step_pos",
-                      TSP.sharded_step_pos_ref)
+        # every row through the per-step route, as shards on other cards
+        # take it
+        monkeypatch.setattr(TSP, "scan_row", TSP.step_row)
+        calls = _twin_launcher(monkeypatch, TSP, "StepPos",
+                               TSP.sharded_step_pos_ref)
+        before = K.launches["sharded_scan_pos"]
         got = TSP.query_batch_sharded_pos(unsplit, reads, mesh=mesh, k=3)
+        assert K.launches["sharded_scan_pos"] == before
         ref = TQ.query_batch(unsplit, reads, k=3, device=dev)
     else:
         # every chunk through the per-step route, as shards on other cards
@@ -1116,6 +1175,79 @@ def test_sharded_scan_mega(dev, shard_case, ip, wide_engine):
     s_r = tuple(t.clone() for t in s_k)
     for j, lo in enumerate((2048, 0)):
         both(p[:, lo:lo + 2048].contiguous(), ln, s_k, s_r, j * 2048)
+
+
+@pytest.mark.parametrize("ip", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_sharded_scan_pos(dev, shard_case, monkeypatch, ip, k):
+    """The K13e chunk scan, one launch a batch, against its plain version
+    (the step loop of the plain fetch and step): a 263,168-lane batch of
+    about 152 columns (M a multiple of k) on the case's T_k shards (ip = 3
+    does not divide n), then 4,096 lanes on a random table whose rows send
+    a third of the lanes past every shard (those rows read as zeros) and
+    keys past A**k - 1 (clipped to the shard); and the per-step route
+    `step_row`, its StepPos launches held to the plain step, equal to the
+    chunk scan on the random table."""
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    _, unsplit, _, _, reads = shard_case
+    mesh = _mesh(ip)
+    st = TSP.shard_pos_tables(unsplit, mesh, k=k)
+    A, L, n = st["A"], st["n_local"], st["n"]
+    shards = [st["table"][("cuda:0", i)] for i in range(ip)]
+    rng = np.random.default_rng(ip * 8 + k)
+
+    def both(p, tables):
+        before = K.launches["sharded_scan_pos"]
+        got = TSP.sharded_scan_pos(tables, L, p, k, A, n)
+        assert K.launches["sharded_scan_pos"] == before + 1
+        _equal(got, TSP.sharded_scan_pos_ref(tables, L, p, k, A, n))
+        assert bool((got >> 8).any())
+        return got
+
+    p, _ = _scan_inputs(dev, unsplit, reads, 263_168, k * (152 // k), rng)
+    both(p, shards)
+    rows = A ** k * L
+    pos = rng.integers(0, ip * L, ip * rows)
+    far = rng.random(ip * rows) < 0.35
+    pos[far] = rng.integers(ip * L, ip * L + 1000, int(far.sum()))
+    w0 = pos | (rng.integers(0, 1 << k, ip * rows) << (32 - k))
+    w1 = rng.integers(0, 1 << 32, ip * rows, dtype=np.uint64)
+    table = np.stack([w0, w1], 1).astype(np.uint32).view(np.int32)
+    rand = [torch.from_numpy(table[i * rows:(i + 1) * rows].copy()).to(dev)
+            for i in range(ip)]
+    p = torch.from_numpy(rng.integers(0, A + 1, (4096, 12 * k)).astype(
+        np.uint8)).to(dev)
+    got = both(p, rand)
+    assert bool((got == 0).any())
+    st_rand = dict(st, table={("cuda:0", i): t for i, t in enumerate(rand)})
+    steps = _twin_launcher(monkeypatch, TSP, "StepPos",
+                           TSP.sharded_step_pos_ref)
+    before = K.launches["sharded_step_pos"]
+    _equal(TSP.step_row(mesh, st_rand, 0, p), got)
+    assert K.launches["sharded_step_pos"] == before + 12
+    assert len(steps) == 12
+
+
+@pytest.mark.parametrize("dp,ip", [(1, 2), (2, 2), (1, 4)])
+def test_sharded_pos_chunk_route_on_card(dev, shard_case, dp, ip):
+    """Shards on one card: the sharded positional engine is one chunk-scan
+    launch a dp row, with no fetch and no per-step launch, and its outputs
+    equal the single-card pos engine's."""
+    from colbwt_tpu_torch.parallel import query_sharded_pos as TSP
+
+    _, unsplit, _, _, reads = shard_case
+    st = TSP.shard_pos_tables(unsplit, _mesh(ip, dp), k=3)
+    K.reset_launches()
+    got = TSP.query_batch_sharded_pos(unsplit, reads, mesh=_mesh(ip, dp),
+                                      st=st)
+    assert K.launches["sharded_scan_pos"] == dp
+    assert K.launches["sharded_fetch"] == 0
+    assert K.launches["sharded_step_pos"] == 0
+    ref = TQ.query_batch(unsplit, reads, k=3, device=dev)
+    for j in range(len(reads)):
+        np.testing.assert_array_equal(got[0][j], ref[0][j])
+        np.testing.assert_array_equal(got[1][j], ref[1][j])
 
 
 @pytest.mark.parametrize("ip", [1, 2, 4])

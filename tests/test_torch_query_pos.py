@@ -17,6 +17,7 @@ from colbwt_tpu_torch.models.tensors import (pos_tables_from_numpy,
 from colbwt_tpu_torch.ops import query_pos as TQ
 from tests.conftest import random_docs
 from tests.test_query_xla import build_index, make_reads
+from tests.test_torch_kernels import T1_CASES, t1_case_docs
 
 CPU = torch.device("cpu")
 
@@ -101,6 +102,83 @@ def test_t1_tail_chunk_matches_jax(case):
                             a["lf_pos0"], a["threshold"], t(pred, np.int32),
                             t(succ, np.int32), a["col_id"], c, n + s, s, n, C)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def t1_case_index(name: str):
+    docs, ff, _ = T1_CASES[name]
+    tbl, index = build_index(t1_case_docs(docs))
+    if ff is not None:
+        index = index.build(tbl, ff_bound=ff)
+    return index
+
+
+@pytest.mark.parametrize("name", sorted(T1_CASES))
+def test_t1_chunk_edge_cases_match_jax(name):
+    """K1's plain version against JAX's _build_t1_chunk for every char, at
+    the first chunk and the tail chunk s = n - C (which overlaps the one
+    before it): every run of length 1 (ff_bound 1: r = n), a run longer
+    than 4,096 positions, n below 1,024 positions, C not a multiple of
+    1,024."""
+    index = t1_case_index(name)
+    n = index.n
+    if name == "runs of length 1":
+        assert index.r == n and index.ff_bound == 1
+    elif name == "long run":
+        assert int(index.length.max()) > 4096
+    elif name == "n below the tile":
+        assert n < 1024
+    for C in T1_CASES[name][2]:
+        C = n if C is None else C
+        assert C <= n and (C == n or C % 1024)
+        a = TQ.t1_inputs(index, C, CPU)
+        arrays = [jnp.asarray(a[key].numpy()) for key in (
+            "char", "idx_pad", "length", "lf_pos0", "threshold")]
+        for c in range(index.sigma + 1):
+            pred, succ = index.pred_jump[c], index.succ_jump[c]
+            for s in sorted({0, n - C}):
+                want = JQ._build_t1_chunk(
+                    jnp.zeros((n, 2), jnp.int32), *arrays, jnp.asarray(pred),
+                    jnp.asarray(succ), jnp.asarray(a["col_id"].numpy()),
+                    jnp.int32(c), jnp.int32(s), jnp.int32(s), n=n, C=C)
+                got = TQ.build_t1_chunk(
+                    torch.zeros((n, 2), dtype=torch.int32), a["char"],
+                    a["idx_pad"], a["length"], a["lf_pos0"], a["threshold"],
+                    t(pred, np.int32), t(succ, np.int32), a["col_id"], c, s,
+                    s, n, C)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                              err_msg=f"c={c} s={s} C={C}")
+
+
+@pytest.mark.parametrize("s,C", [(0, None), (5, 37), (-64, 64), (0, 1)])
+def test_t1_bytes_counts_what_the_chunk_reads(case, s, C):
+    """chip_smoke.py's K1 byte bound against a walk of the chunk's
+    positions: each array element a position's run reads (its fields, and
+    the clamped successor's and predecessor's where the run does not
+    match c) counted once, and 8 bytes a row written; s < 0 counts from
+    n."""
+    from chip_smoke import t1_bytes
+
+    _, index, _, _ = case
+    n, r = index.n, index.r
+    C = n if C is None else C
+    s = s % n
+    idx = np.asarray(index.idx, np.int64)
+    for c in range(index.sigma + 1):
+        read = set()
+        for pos in range(s, s + C):
+            run = int(np.searchsorted(idx, pos, side="right")) - 1
+            read |= {(name, run) for name in ("idx", "char", "pred", "succ",
+                                              "col_id", "lf_pos0")}
+            if index.char[run] == c:
+                continue
+            si = int(index.succ_jump[c][run])
+            pi = int(index.pred_jump[c][run])
+            if si < r:
+                read |= {("threshold", min(si, r - 1)),
+                         ("lf_pos0", min(si, r - 1))}
+            if pi >= 0:
+                read |= {("length", pi), ("lf_pos0", pi)}
+        assert t1_bytes(index, c, s, C) == 4 * len(read) + 8 * C, c
 
 
 @pytest.mark.parametrize("ka,kb", [(1, 1), (2, 1), (2, 2)])
