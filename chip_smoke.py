@@ -1185,7 +1185,8 @@ def scan_inputs(arrays) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
                  what: str) -> None:
     """mum_window equal to its plain version on every chunk of C positions
-    (the slices find_multi_mums_chunked feeds it); the first is timed."""
+    (the slices find_multi_mums_chunked feeds it); the first and the last
+    (the tail) are timed."""
     from colbwt_tpu_torch.ops import construct as TC
 
     lcp, sa_docs, rc = scan_inputs(arrays)
@@ -1197,15 +1198,17 @@ def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
         return torch.from_numpy(np.concatenate(
             [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
 
+    last = (n - 1) // C
     for k, s in enumerate(range(0, n, C)):
         args = (sl(lcp, s, 0, np.int32), sl(sa_docs, s, 65535, np.uint16),
                 sl(rc, s, 1, np.uint8), min(n - N - s, C), 20, N)
-        label = f"{what} chunk {k} (C = {C}, N = {N}, uint16 documents)"
+        label = (f"{what} chunk {k} of {last + 1} (C = {C}, N = {N}, uint16 "
+                 f"documents, {min(n - s, C)} positions in range)")
         got = TC.mum_scan_chunk(*args)
         want = TC.mum_scan_chunk_ref(*args)
         chk.equal("mum_window", got[0], want[0], label + " hits")
         chk.equal("mum_window", got[1], want[1], label + " ell")
-        if k == 0:
+        if k in (0, last):
             chk.time("mum_window", lambda: TC.mum_scan_chunk(*args),
                      lambda: TC.mum_scan_chunk_ref(*args), label,
                      bound=(nbytes(args[:3], got), args[3] * 6 * N))
@@ -1227,17 +1230,39 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
     num_docs, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
     lcp, sa_docs, rc = scan_inputs(arrays)
     prev_rank = np.asarray(arrays[0])[arrays[1] - 1].astype(np.int32)
+    n = lcp.size
     t = [torch.from_numpy(a).to(dev) for a in (lcp, sa_docs, prev_rank)]
     got = TC.multi_mum_scan(*t, num_docs, 20)
     want = TC.multi_mum_scan_ref(*t, num_docs, 20)
-    what = f"K9 route, n = {lcp.size}, N = {num_docs}"
+    what = f"K9 route, n = {n}, N = {num_docs}"
     chk.equal("mum_window", got[0], want[0], what + " is_mum")
     chk.equal("mum_window", got[1], want[1], what + " ell")
-    chk.time("mum_window", lambda: TC.multi_mum_scan(*t, num_docs, 20),
-             lambda: TC.multi_mum_scan_ref(*t, num_docs, 20), what,
-             bound=(nbytes(t, got), lcp.size * 6 * num_docs))
-    del got, want, t
+    # the kernel alone on the padded array, then the wrapper around it
+    padded = TC.pad_whole_array(*t, num_docs)
+    args = (*padded, n - num_docs, 20, num_docs)
+    packed, ell = TC.mum_scan_chunk(*args)
+    kernel_ms = chk.time(
+        "mum_window", lambda: TC.mum_scan_chunk(*args),
+        lambda: TC.mum_scan_chunk_ref(*args),
+        f"{what}: the kernel on the whole array padded as one chunk (int32 "
+        "documents)", bound=(nbytes(padded, packed, ell), n * 6 * num_docs))
+    wrapper_ms = cuda_ms(torch, lambda: TC.multi_mum_scan(*t, num_docs, 20))
+    pad_ms = cuda_ms(torch, lambda: TC.pad_whole_array(*t, num_docs))
+    unpack_ms = cuda_ms(torch, lambda: TC.unpackbits_little(packed, n))
+    log(f"[time] mum_window {what}, multi_mum_scan: {wrapper_ms:.4f} ms = "
+        f"the kernel {kernel_ms:.4f} + padding copies {pad_ms:.4f} + "
+        f"unpackbits_little {unpack_ms:.4f} (each timed alone)")
+    del got, want, t, padded, args, packed, ell
     check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk, "bench")
+    # the large-N route's two-pass kernels, its switch lowered, on bench's
+    # chunks
+    tile_max = TC._TILE_MAX_N
+    TC._TILE_MAX_N = 1
+    try:
+        check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk,
+                     "bench, the large-N route (two passes),")
+    finally:
+        TC._TILE_MAX_N = tile_max
     cl, cp = TC.find_multi_mums_chunked(lcp, sa_docs, rc, num_docs, 20,
                                         chunk=1 << 20, device=dev)
     require(np.array_equal(cl, ml) and np.array_equal(cp, mp),
@@ -1439,28 +1464,48 @@ def check_sa_kernels(torch, dev, prefix: str, arrays, chk: Checks) -> None:
     del pyramid, rank
 
     heads, lens = F.read_rlbwt(f"{prefix}.fa")
-    segs = [(torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
-            for _, lo, hi in TC.threshold_segments(heads, lens)]
-    for c, (lo, hi) in enumerate(segs):
-        chk.equal("segmented_argmin", TC.segmented_argmin(lcp, lo, hi),
-                  TC.segmented_argmin_ref(lcp, lo, hi),
-                  f"character {c}, {lo.shape[0]} segments")
+    check_argmin(torch, dev, lcp, heads, lens, chk, "bench")
     thr = TC.compute_thresholds(heads, lens, lcp_native, device=dev)
     require(np.array_equal(thr, O.compute_thresholds_fast(heads, lens,
                                                           lcp_native))
             and np.array_equal(thr, F.read_thresholds_file(
                 f"{prefix}.fa.thr_pos")),
             "K12's thresholds differ from O.compute_thresholds_fast")
-    covered = sum(int((hi - lo + 1).sum()) for lo, hi in segs)
-    m = sum(lo.shape[0] for lo, _ in segs)
-    chk.time("segmented_argmin",
-             lambda: [TC.segmented_argmin(lcp, lo, hi) for lo, hi in segs],
-             lambda: [TC.segmented_argmin_ref(lcp, lo, hi)
-                      for lo, hi in segs],
-             f"{len(segs)} characters, {m} segments over {covered} "
-             "positions",
-             bound=(4 * covered + 24 * m, 4 * covered))
     torch.cuda.empty_cache()
+
+
+def check_argmin(torch, dev, lcp, heads, lens, chk: Checks, what: str
+                 ) -> None:
+    """K12 on every character's threshold segments of (heads, lens) against
+    its plain version, then timed as compute_thresholds calls it: the five
+    calls together (one workspace), then each character's call apart, the
+    terminator's first; bound 4 bytes a covered position and 24 a
+    segment."""
+    from colbwt_tpu_torch.ops import construct as TC
+
+    norm = TC.normalize_heads(heads)
+    segs = [(int(norm[runs[0]]), torch.from_numpy(lo).to(dev),
+             torch.from_numpy(hi).to(dev))
+            for runs, lo, hi in TC.threshold_segments(heads, lens)]
+    ws = TC.ArgminWorkspace(lcp.shape[0], dev)
+    for c, lo, hi in segs:
+        chk.equal("segmented_argmin", TC.segmented_argmin(lcp, lo, hi, ws),
+                  TC.segmented_argmin_ref(lcp, lo, hi),
+                  f"{what}, character {c}, {lo.shape[0]} segments")
+    for picked in [segs] + [[sg] for sg in segs]:
+        covered = sum(int((hi - lo + 1).sum()) for _, lo, hi in picked)
+        m = sum(lo.shape[0] for _, lo, _ in picked)
+        longest = max(int((hi - lo).max()) + 1 for _, lo, hi in picked)
+        label = (f"{len(segs)} characters" if len(picked) > 1
+                 else f"character {picked[0][0]}")
+        chk.time("segmented_argmin",
+                 lambda: [TC.segmented_argmin(lcp, lo, hi, ws)
+                          for _, lo, hi in picked],
+                 lambda: [TC.segmented_argmin_ref(lcp, lo, hi)
+                          for _, lo, hi in picked],
+                 f"{what}, {label}: {m} segments over {covered} positions "
+                 f"(longest {longest}), {len(picked)} calls of two launches",
+                 bound=(4 * covered + 24 * m, 4 * covered))
 
 
 def window_conditions(arrays, starts: np.ndarray, N: int, min_mum: int
@@ -1719,7 +1764,8 @@ def phase11b(torch, dev, pan_prefix: str, v8: dict, chk: Checks
         f"{v8['sa_lcp_s']:.3f} (native SA-IS + Kasai), device memory peak "
         f"{v['device_mem_peak_bytes']} B; " + json.dumps(v)
         + "; launches " + json.dumps(launches))
-    v["sa_lcp_split"] = sa_lcp_split(torch, dev, docs, v["sa_lcp_s"], chk)
+    v["sa_lcp_split"] = sa_lcp_split(torch, dev, docs, v["sa_lcp_s"], chk,
+                                     pan_prefix)
     return v, launches
 
 
@@ -1732,7 +1778,7 @@ def lcp_bound(n: int, R: int) -> tuple[int, int]:
 
 
 def sa_lcp_split(torch, dev, docs: list[bytes], sa_lcp_s: float,
-                 chk: Checks) -> dict:
+                 chk: Checks, pan_prefix: str) -> dict:
     """stage_mums's suffix array and LCP on the card once more at phase
     11b's n, as pipeline/build.py runs them (suffix_array, lcp_from_pyramid
     on the int64 ranks, lcp and sa copied back), each part synchronised and
@@ -1741,8 +1787,11 @@ def sa_lcp_split(torch, dev, docs: list[bytes], sa_lcp_s: float,
     largest rank), the second upload (the int64 ranks, cast on the card),
     K11b, the copies of lcp and sa back; host is the run's wall less those
     parts.  Then each round is timed alone (with its radix passes and
-    bound) and K11b is held to its plain version and timed.  Returns the
-    split in seconds."""
+    bound), K11b is held to its plain version and timed, and K12 at this
+    lcp and phase 8's RLBWT (`pan_prefix`): held to its plain version and
+    timed (check_argmin), its thresholds equal to phase 8's .thr_pos.
+    Returns the split in seconds."""
+    from colbwt_tpu_torch.io import formats as F
     from colbwt_tpu_torch.ops import construct as TC
     from colbwt_tpu_torch.ops import oracle as O
 
@@ -1812,7 +1861,15 @@ def sa_lcp_split(torch, dev, docs: list[bytes], sa_lcp_s: float,
                       lambda: TC.lcp_from_pyramid_ref(r0, sa, pyramid),
                       f"n = {n}, R = {R} (phase 11b)",
                       bound=lcp_bound(n, R))
-    del lcp, sa, pyramid, rank, r0
+    del sa, pyramid, rank, r0
+    torch.cuda.empty_cache()
+    heads, lens = F.read_rlbwt(f"{pan_prefix}.fa")
+    check_argmin(torch, dev, lcp, heads, lens, chk, "pangenome")
+    require(np.array_equal(
+        TC.compute_thresholds(heads, lens, lcp, device=dev),
+        F.read_thresholds_file(f"{pan_prefix}.fa.thr_pos")),
+        "phase 11b: K12's thresholds differ from phase 8's .thr_pos")
+    del lcp
     torch.cuda.empty_cache()
     split["rounds_warm_s"] = sum(rounds_ms) / 1e3
     split["lcp_lift_warm_s"] = lcp_ms / 1e3

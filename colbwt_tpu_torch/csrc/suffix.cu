@@ -45,10 +45,30 @@
 //   probe reads -1 for q and -2 for p, so it never matches.  Positions are
 //   int64 inside: p + h passes 2^31 - 1 near the top of int32 n, where
 //   JAX's int32 arithmetic would wrap.
-// - K12 `colbwt_segmented_argmin` (:494 _segmented_argmin): one warp per
-//   segment [lo, hi] of the lcp array takes the minimum of (lcp, position),
-//   so the first position of the minimum wins, as np.argmin's does; JAX's
-//   two segment_min passes over a per-position segment id are not needed.
+// - K12 `colbwt_segmented_argmin` (:494 _segmented_argmin): the first
+//   position of the minimum lcp in each of m disjoint ascending segments
+//   [lo, hi], the minimum of one packed 64-bit key a position,
+//   (lcp ^ 2^31) << 32 | position (the flipped sign bit keeps int32 order;
+//   the wrappers keep n < 2^31), so the first position of the minimum
+//   wins, as np.argmin's does; JAX's two segment_min passes over a
+//   per-position segment id are not needed.  The work is split by
+//   positions, not by segments: the span [lo[0], hi[m-1]] is cut into
+//   tiles of kArgTile positions (from lo[0] rounded down to a multiple of
+//   32), and a warp (as many as stay resident on the card) takes a run of
+//   consecutive tiles, in shared memory of its own and synced with itself
+//   alone.  It finds its first tile's first segment once (a 32-way search
+//   over hi) and walks on from there; for each tile it marks its
+//   segments' starts and finds a segment's positions by a prefix count of
+//   the marks, while the next tile's lcp values and first segment bounds
+//   are in flight.  A lane reduces kArgPer consecutive positions (16-byte
+//   loads) in registers: it stores the minimum of a segment that lies
+//   inside its positions, and takes a shared atomicMin for its first and
+//   last segments, which other lanes may share.  A segment inside the
+//   tile is stored at once; a segment that crosses tiles takes a global
+//   atomicMin into the key of the tile where it starts, which also keeps
+//   its id, and a second short kernel unpacks those keys and puts the
+//   all-ones keys back (the workspace stays ready for the next call).  Two
+//   launches a call.
 //
 // What bounds them on an H100: K11a and K12 move bytes.  K11a's passes read
 // and write 8 bytes a position (a 4-byte key and a 4-byte index), with
@@ -64,7 +84,13 @@
 // stores of a warp fall on four consecutive sectors, where lanes a run of
 // positions apart would touch 32, and a scatter into SA order would cost a
 // random write a position where the gather costs a random read.
-// K12 reads each position of its segments once, coalesced within a warp.
+// K12 reads each position of its segments once, coalesced, and each
+// segment's bounds about once; a warp a segment (the first port's design)
+// left a segment as long as the terminator's (750,895 positions in
+// bench's collection) to one warp.  Measured, the tile kernel is held by
+// instruction issue more than by bytes: a tile's fixed work (its
+// segments' marks, their prefix, the stores) is why a warp takes 512
+// positions at a time.
 //
 // All positions are < 2^31 (the wrappers check n); ranks and offsets are
 // int32.  Plain C interface (ctypes); every entry launches on the caller's
@@ -577,33 +603,270 @@ __global__ void isa_scatter_kernel(const int32_t* __restrict__ sa, int64_t n,
   }
 }
 
-__global__ void segmented_argmin_kernel(const int32_t* __restrict__ lcp,
-                                        const int64_t* __restrict__ lo,
-                                        const int64_t* __restrict__ hi,
-                                        int64_t m,
-                                        int64_t* __restrict__ out) {
-  const int64_t g = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) >> 5;
+constexpr int kArgTile = 512;  // positions a warp's tile
+constexpr int kArgWarps = 8;   // warps a block
+constexpr int kArgThreads = 32 * kArgWarps;
+constexpr int kArgPer = kArgTile / 32;  // positions a lane
+constexpr int kArgWords = kArgTile / 32;  // mark words a tile
+// a warp's shared memory: keys and ends of up to kArgTile + 1 segments, the
+// marks and their prefix; 16-byte aligned
+constexpr int kArgWarpBytes =
+    ((kArgTile + 1) * 12 + kArgWords * 8 + 15) / 16 * 16;
+constexpr int kArgSmemBytes = kArgWarps * kArgWarpBytes;
+
+static_assert(kArgPer % 4 == 0 && 32 % kArgPer == 0 && kArgWords <= 32,
+              "a lane's positions are whole 16-byte loads inside one mark "
+              "word; a lane takes at most one mark word");
+
+// (lcp, position) as one key whose unsigned order is (lcp, position)'s
+__device__ __forceinline__ unsigned long long arg_key(int32_t v, int64_t p) {
+  return static_cast<unsigned long long>(static_cast<uint32_t>(v) ^
+                                         0x80000000u) << 32 |
+         static_cast<uint32_t>(p);
+}
+
+// a lane's kArgPer consecutive lcp values of the tile at a (a multiple of
+// 32), len positions: 16-byte loads where lcp is 16-byte aligned
+__device__ __forceinline__ void load_tile(const int32_t* __restrict__ lcp,
+                                          int64_t a, int len, bool vec,
+                                          int32_t (&v)[kArgPer]) {
+  const int q0 = (threadIdx.x & 31) * kArgPer;
+  if (vec && q0 + kArgPer <= len) {
+    const int4* p = reinterpret_cast<const int4*>(lcp + a + q0);
+#pragma unroll
+    for (int j = 0; j < kArgPer / 4; ++j) {
+      const int4 x = __ldg(p + j);
+      v[4 * j] = x.x;
+      v[4 * j + 1] = x.y;
+      v[4 * j + 2] = x.z;
+      v[4 * j + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kArgPer; ++j) {
+      v[j] = q0 + j < len ? __ldg(lcp + a + q0 + j) : 0;
+    }
+  }
+}
+
+// Tile t covers positions [a, e) of the span, a = base + t * kArgTile
+// (base: lo[0] rounded down to a multiple of 32); a warp takes
+// tiles_per_warp consecutive tiles, a lane kArgPer consecutive positions
+// of each, and syncs only with itself.  A tile's segments are g0 .. g0 +
+// nseg - 1, g0 the first with hi >= a: found by the warp's search for its
+// first tile, then by the walk (the next tile starts at the last segment
+// if it crosses, else after it).  A segment wholly inside a tile gets
+// out[g] there, one that crosses tiles a min into part[tile of lo[g]]
+// (owner[that tile] = g).  While a tile is reduced, the next one's lcp
+// values and first bounds are in flight.
+__global__ void __launch_bounds__(kArgThreads)
+    argmin_tile_kernel(const int32_t* __restrict__ lcp,
+                       const int64_t* __restrict__ lo,
+                       const int64_t* __restrict__ hi, int64_t m,
+                       int64_t tiles_per_warp, int64_t* __restrict__ out,
+                       unsigned long long* __restrict__ part,
+                       int32_t* __restrict__ owner) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  if (g >= m) return;  // a whole warp: g is the same on all its lanes
-  int32_t best = INT32_MAX;
-  int64_t where = INT64_MAX;
-  for (int64_t p = lo[g] + lane; p <= hi[g]; p += 32) {
-    const int32_t v = lcp[p];
-    if (v < best) {  // strict: a lane keeps its first position of a tie
-      best = v;
-      where = p;
+  unsigned char* mine = smem + (threadIdx.x >> 5) * kArgWarpBytes;
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(mine);
+  int32_t* s_end = reinterpret_cast<int32_t*>(s_key + kArgTile + 1);
+  uint32_t* s_marks = reinterpret_cast<uint32_t*>(s_end + kArgTile + 1);
+  uint32_t* s_wp = s_marks + kArgWords;
+  const int64_t span0 = __ldg(lo) & ~int64_t{31};
+  const int64_t span_end = __ldg(hi + m - 1) + 1;
+  const bool vec = (reinterpret_cast<uintptr_t>(lcp) & 15) == 0;
+  const int64_t t0 =
+      (static_cast<int64_t>(blockIdx.x) * kArgWarps + (threadIdx.x >> 5)) *
+      tiles_per_warp;
+  const int64_t t1 = t0 + tiles_per_warp;
+  if (span0 + t0 * kArgTile >= span_end) return;  // the whole warp
+  auto tile_len = [&](int64_t t) {
+    const int64_t a = span0 + t * kArgTile;
+    return static_cast<int>(a >= span_end ? 0
+                            : min(int64_t{kArgTile}, span_end - a));
+  };
+  int32_t v[kArgPer];
+  load_tile(lcp, span0 + t0 * kArgTile, tile_len(t0), vec, v);
+  // the first g with hi[g] >= a lies in [l, h] (hi[m-1] >= a): 32 probes
+  // a round shrink the range 32-fold (every lane holds the same l, h)
+  int64_t g0;
+  {
+    const int64_t a = span0 + t0 * kArgTile;
+    int64_t l = 0, h = m - 1;
+    while (l < h) {
+      const int64_t step = (h - l + 31) / 32;
+      const int64_t q = min(l + lane * step, h);
+      const unsigned ok = __ballot_sync(0xffffffffu, __ldg(hi + q) >= a);
+      if (ok == 0) {
+        l = l + 31 * step + 1;
+      } else {
+        const int f = __ffs(ok) - 1;
+        h = min(l + f * step, h);
+        l = f == 0 ? h : l + (f - 1) * step + 1;
+      }
     }
+    g0 = l;
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int32_t ob = __shfl_down_sync(0xffffffffu, best, o);
-    const int64_t ow = __shfl_down_sync(0xffffffffu, where, o);
-    if (ob < best || (ob == best && ow < where)) {
-      best = ob;
-      where = ow;
+  // the bounds of the tile's first 32 segments, read ahead
+  int64_t nl = g0 + lane < m ? __ldg(lo + g0 + lane) : INT64_MAX;
+  int64_t nh = g0 + lane < m ? __ldg(hi + g0 + lane) : 0;
+  // one tile: its lcp values in v, the next tile's read into w; false past
+  // the span (the same for every lane)
+  auto step = [&](int64_t t, const int32_t (&v)[kArgPer],
+                  int32_t (&w)[kArgPer]) {
+    const int len = tile_len(t);
+    if (len == 0) return false;
+    const int64_t a = span0 + t * kArgTile;
+    const int64_t e = a + len;
+    if (lane < kArgWords) s_marks[lane] = 0;
+    __syncwarp();  // the zeroed marks; the last tile's reads done
+    // the tile's segments: start marks, ends clipped to the tile; lo0 the
+    // first one's lo
+    int nseg = 0;
+    int64_t lo0 = 0;
+    for (int64_t base = g0;; base += 32) {
+      const int64_t g = base + lane;
+      int64_t gl = nl, gh = nh;
+      if (base != g0) {
+        gl = g < m ? __ldg(lo + g) : INT64_MAX;
+        gh = g < m ? __ldg(hi + g) : 0;
+      } else {
+        lo0 = __shfl_sync(0xffffffffu, gl, 0);
+      }
+      const bool in = gl < e;
+      if (in) {
+        const int u = static_cast<int>(g - g0);
+        const int start = gl > a ? static_cast<int>(gl - a) : 0;
+        atomicOr(&s_marks[start >> 5], 1u << (start & 31));
+        s_end[u] = gh < e ? static_cast<int>(gh - a) : len;
+        s_key[u] = ~0ull;
+      }
+      const int count = __popc(__ballot_sync(0xffffffffu, in));
+      nseg += count;
+      if (count < 32) break;
     }
+    __syncwarp();
+    // the next tile: its first segment (this tile's last if it crosses),
+    // its lcp values and first bounds read ahead
+    const int64_t next_g0 =
+        g0 + nseg - (nseg > 0 && s_end[nseg - 1] == len ? 1 : 0);
+    load_tile(lcp, a + kArgTile, t + 1 < t1 ? tile_len(t + 1) : 0, vec, w);
+    if (t + 1 < t1) {
+      nl = next_g0 + lane < m ? __ldg(lo + next_g0 + lane) : INT64_MAX;
+      nh = next_g0 + lane < m ? __ldg(hi + next_g0 + lane) : 0;
+    }
+    // marks below each word: an exclusive scan over the first kArgWords
+    // lanes
+    {
+      const int c = lane < kArgWords ? __popc(s_marks[lane]) : 0;
+      int incl = c;
+      for (int o = 1; o < kArgWords; o <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane < kArgWords) s_wp[lane] = incl - c;
+    }
+    __syncwarp();
+    {
+      // the lane's positions lie in one mark word: a segment starts at
+      // each mark.  A run of one segment's positions between the lane's
+      // first and last run lies inside the lane, which stores its minimum
+      // key; the first and last runs may share their segment with other
+      // lanes and end in a shared atomicMin each, taken by the whole warp
+      // at two places (the 64-bit min is a compare-and-swap loop)
+      const int q0 = lane * kArgPer;
+      const uint32_t word = s_marks[q0 >> 5];
+      int u = s_wp[q0 >> 5] + __popc(word & ((1u << (q0 & 31)) - 1)) - 1;
+      int end = u >= 0 ? s_end[u] : -1;
+      int run = -1, first = -1;
+      unsigned long long key = ~0ull, first_key = ~0ull;
+#pragma unroll
+      for (int j = 0; j < kArgPer; ++j) {
+        const int q = q0 + j;
+        if ((word >> (q & 31)) & 1) {
+          end = s_end[++u];
+        }
+        if (q < len && u >= 0 && q <= end) {
+          const unsigned long long k = arg_key(v[j], a + q);
+          if (u != run) {
+            if (run == first) {
+              first_key = key;
+            } else {
+              s_key[run] = key;
+            }
+            if (first < 0) first = u;
+            run = u;
+            key = k;
+          } else {
+            key = min(key, k);
+          }
+        }
+      }
+      if (run == first) first_key = min(first_key, key);
+      if (first >= 0) atomicMin(&s_key[first], first_key);
+      if (run != first) atomicMin(&s_key[run], key);
+    }
+    __syncwarp();
+    for (int u = lane; u < nseg; u += 32) {
+      const unsigned long long key = s_key[u];
+      const bool left = u == 0 && lo0 < a;  // began in an earlier tile
+      if (!left && s_end[u] < len) {
+        out[g0 + u] = static_cast<int64_t>(key & 0xffffffffull);
+      } else {
+        if (!left) owner[t] = static_cast<int32_t>(g0 + u);
+        atomicMin(part + (left ? (lo0 - span0) / kArgTile : t), key);
+      }
+    }
+    __syncwarp();
+    g0 = next_g0;
+    return true;
+  };
+  // the two buffers take turns, so no copy waits on a load in flight
+  int32_t w[kArgPer];
+  for (int64_t t = t0; t < t1; t += 2) {
+    if (!step(t, v, w) || t + 1 == t1 || !step(t + 1, w, v)) break;
   }
-  if (lane == 0) out[g] = where;
+}
+
+// out[owner[b]] from the key of every tile b where a crossing segment
+// starts; the key goes back to all ones
+__global__ void argmin_finish_kernel(unsigned long long* __restrict__ part,
+                                     const int32_t* __restrict__ owner,
+                                     int64_t tiles, int64_t* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (b >= tiles) return;
+  const unsigned long long key = part[b];
+  if (key == ~0ull) return;
+  out[owner[b]] = static_cast<int64_t>(key & 0xffffffffull);
+  part[b] = ~0ull;
+}
+
+// The tile kernel's warps that stay resident on the current card (its
+// shared memory past 48 KB allowed first), once a device.
+cudaError_t argmin_slots(int64_t* slots) {
+  constexpr int kMaxDevices = 64;
+  static int64_t known[kMaxDevices] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev]) {
+    *slots = known[dev];
+    return cudaSuccess;
+  }
+  if ((err = cudaFuncSetAttribute(argmin_tile_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kArgSmemBytes)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, argmin_tile_kernel, kArgThreads, kArgSmemBytes))) {
+    return err;
+  }
+  *slots = int64_t{sms} * (per_sm > 0 ? per_sm : 1) * kArgWarps;
+  if (dev < kMaxDevices) known[dev] = *slots;
+  return cudaSuccess;
 }
 
 // The state buffer a round of n positions needs: the histogram, the tile
@@ -733,15 +996,34 @@ int colbwt_lcp_lift(const void* ranks0, const void* sa,
 }
 
 // out[g] = the first position of min lcp[lo[g] .. hi[g]] (inclusive), for
-// m segments
-int colbwt_segmented_argmin(const void* lcp, const void* lo, const void* hi,
-                            int64_t m, void* out, void* stream) {
-  const int64_t threads = 256;
-  const int64_t blocks = (m * 32 + threads - 1) / threads;
-  segmented_argmin_kernel<<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+// m >= 1 disjoint ascending nonempty segments of lcp's n positions (n <
+// 2^31).  `part` holds ceil(n / kArgTile) keys, all ones (and left so),
+// `owner` as many int32.  Two launches: the tiles, then the keys of the
+// segments that cross tiles.
+int colbwt_segmented_argmin(const void* lcp, int64_t n, const void* lo,
+                            const void* hi, int64_t m, void* part,
+                            void* owner, void* out, void* stream) {
+  if (n < 1 || n >= (int64_t{1} << 31) || m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t slots = 0;
+  cudaError_t err = argmin_slots(&slots);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a resident warp a slot, each a run of consecutive tiles; the tiles of
+  // n positions bound the span's
+  const int64_t tiles = ceil_div(n, kArgTile);
+  const int64_t per_warp = ceil_div(tiles, tiles < slots ? tiles : slots);
+  argmin_tile_kernel<<<ceil_div(ceil_div(tiles, per_warp), kArgWarps),
+                       kArgThreads, kArgSmemBytes, s>>>(
       static_cast<const int32_t*>(lcp), static_cast<const int64_t*>(lo),
-      static_cast<const int64_t*>(hi), m, static_cast<int64_t*>(out));
+      static_cast<const int64_t*>(hi), m, per_warp,
+      static_cast<int64_t*>(out), static_cast<unsigned long long*>(part),
+      static_cast<int32_t*>(owner));
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  argmin_finish_kernel<<<ceil_div(tiles, 256), 256, 0, s>>>(
+      static_cast<unsigned long long*>(part),
+      static_cast<const int32_t*>(owner), tiles, static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

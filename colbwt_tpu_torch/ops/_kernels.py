@@ -71,7 +71,9 @@ _SIGNATURES = {
     "colbwt_upload_rows": [_P, _P, _I, _I, _P],
     "colbwt_host_stage": [_P, _I, _I],
     "colbwt_upload_threads": [],
-    "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
+    "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 2 + [_P],
+    "colbwt_mum_window_two_pass": ([_P, _P, _I, _P] + [_I] * 4 + [_P] * 3
+                                   + [_P]),
     "colbwt_tunneled_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],
     "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
@@ -79,7 +81,7 @@ _SIGNATURES = {
     "colbwt_doubling_round": ([_P] + [_I] * 3 + [_P] * 6 + [_I] * 2
                               + [_P] * 3 + [_P]),
     "colbwt_lcp_lift": [_P] * 3 + [_I] * 2 + [_P] * 3,
-    "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P],
+    "colbwt_segmented_argmin": [_P, _I, _P, _P, _I] + [_P] * 3 + [_P],
     "colbwt_sharded_fetch": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "colbwt_compose_sharded_tk": [_P] + [_I] * 6 + [_P, _P],
     # a parameter block prepared once, then the step (and round, last)

@@ -19,8 +19,11 @@ Suffix array, LCP and thresholds, kernels in csrc/suffix.cu:
   its predecessor leaves; the plain version keeps JAX's descending lift.
 - K12 `segmented_argmin` (replaces construct_jax.py:494
   `_segmented_argmin`): the first argmin of the LCP over each segment
-  between two runs of one character; `compute_thresholds`
-  (construct_jax.py:505) drives it, one launch a character.
+  between two runs of one character, the work split by positions (a warp
+  a run of tiles of _ARGMIN_TILE positions of the segments' span, packed
+  64-bit (lcp, position) keys, a segment that crosses tiles finished by a
+  second kernel through an `ArgminWorkspace`); `compute_thresholds`
+  (construct_jax.py:505) drives it, one call (two launches) a character.
 
 A multi-MUM of N documents is a height-N window [i, i+N) of the suffix
 array whose suffixes come one from each document, share a prefix of length
@@ -28,7 +31,11 @@ ell = min lcp[i+1 .. i+N-1] >= min_mum that neither neighbour shares
 (lcp[i] < ell, lcp[i+N] < ell), and are left-maximal (the preceding
 characters are not all equal).  oracle.find_multi_mums is the definition.
 
-One kernel carries both device forms, `mum_window` in csrc/construct.cu:
+One kernel carries both device forms, `mum_window` in csrc/construct.cu
+(a block a tile of window starts staged in shared memory, ell by doubling
+passes there, left-maximality by a prefix count, coverage tested lazily;
+one launch), for N up to _TILE_MAX_N; above it the wrapper routes by shape
+to the earlier two-pass kernels (`mum_window_route`):
 
 - K8 (replaces construct_jax.py:245 `_mum_scan_chunk`): the window test
   on one chunk of C positions with a 2N+2 halo; `find_multi_mums_chunked`
@@ -60,6 +67,14 @@ from colbwt_tpu_torch.utils.device import resolve_device
 # above this n, stream fixed-size chunks instead of the one-shot scan
 # (construct_jax.py:463): O(C) device memory at any n
 _CHUNKED_SCAN_MIN_N = 1 << 22
+# csrc/construct.cu kMumTileMaxN: the largest N of mum_window's tile route
+# (its halo of N + 1 positions stays near half the 2,048 starts of a tile
+# or below, and a candidate's coverage probe past N = 64 grows as N**2);
+# above it the two-pass kernels
+_TILE_MAX_N = 1024
+# csrc/suffix.cu kArgTile: positions a warp of segmented_argmin takes at a
+# time (its workspace: a key a tile)
+_ARGMIN_TILE = 512
 # csrc/suffix.cu: positions a radix-sort tile holds, the digit width, the
 # state's histogram (4 passes of 256 counts) and tile counters in bytes,
 # pyramid levels a launch takes
@@ -324,14 +339,38 @@ def segmented_argmin_ref(lcp: torch.Tensor, lo: torch.Tensor,
     return first.scatter_reduce(0, seg_id, cand, "amin")[:m]
 
 
-def segmented_argmin(lcp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+def argmin_tiles(n: int) -> int:
+    """The tiles `segmented_argmin` splits an lcp of n positions into at
+    most (the segments' span, from lo[0] rounded down to a multiple of 32,
+    takes the first of them); its workspace holds a key a tile."""
+    return -(-n // _ARGMIN_TILE)
+
+
+class ArgminWorkspace:
+    """K12's scratch for an lcp of n positions, made once per
+    `compute_thresholds` and reused for every character: a key a tile, all
+    ones between calls (the second kernel puts back each key it takes), and
+    the id of the segment that starts in the tile and crosses its end."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.n = n
+        tiles = argmin_tiles(n)
+        self.keys = torch.full((tiles,), -1, dtype=torch.int64, device=device)
+        self.owner = torch.empty(tiles, dtype=torch.int32, device=device)
+
+
+def segmented_argmin(lcp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     workspace: ArgminWorkspace | None = None
                      ) -> torch.Tensor:
     """K12: outputs as `segmented_argmin_ref`.  CPU tensors take the plain
-    version; CUDA tensors launch `segmented_argmin`, one warp a segment."""
+    version; CUDA tensors launch `segmented_argmin` (two kernels), which
+    needs the segments nonempty, disjoint and ascending within lcp.
+    `workspace` (made here when absent) is reused across calls."""
     if lcp.device.type == "cpu":
         return segmented_argmin_ref(lcp, lo, hi)
     dev = lcp.device
-    _check_n(lcp.shape[0])
+    n = lcp.shape[0]
+    _check_n(n)
     K.require(lcp, "lcp", torch.int32, dev)
     K.require(lo, "lo", torch.int64, dev)
     K.require(hi, "hi", torch.int64, dev)
@@ -341,9 +380,13 @@ def segmented_argmin(lcp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
     out = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return out
-    code = K.on(dev).colbwt_segmented_argmin(lcp.data_ptr(), lo.data_ptr(),
-                                             hi.data_ptr(), m, out.data_ptr(),
-                                             K.stream_handle(dev))
+    ws = workspace or ArgminWorkspace(n, dev)
+    if ws.n != n or ws.keys.device != dev:
+        raise ValueError(f"workspace is for n = {ws.n} on {ws.keys.device}")
+    code = K.on(dev).colbwt_segmented_argmin(
+        lcp.data_ptr(), n, lo.data_ptr(), hi.data_ptr(), m,
+        ws.keys.data_ptr(), ws.owner.data_ptr(), out.data_ptr(),
+        K.stream_handle(dev))
     K.check("segmented_argmin", code)
     K.launches["segmented_argmin"] += 1
     return out
@@ -382,10 +425,11 @@ def compute_thresholds(heads: np.ndarray, lens: np.ndarray, lcp,
         raise ValueError(f"n = {n}: the device thresholds need n < 2**31 "
                          "(oracle.compute_thresholds_fast takes any n)")
     lcp_t = _int32_on(lcp, dev)
+    ws = ArgminWorkspace(n, dev) if dev.type == "cuda" else None
     thresholds = np.zeros(lens.size, dtype=np.int64)
     for runs, lo, hi in threshold_segments(heads, lens):
         arg = segmented_argmin(lcp_t, torch.from_numpy(lo).to(dev),
-                               torch.from_numpy(hi).to(dev))
+                               torch.from_numpy(hi).to(dev), ws)
         thresholds[runs] = arg.cpu().numpy()
     return thresholds
 
@@ -505,12 +549,20 @@ def mum_scan_chunk_ref(lcp_s: torch.Tensor, docs_s: torch.Tensor,
     return packbits_little(is_mum), ell
 
 
+def mum_window_route(num_docs: int) -> str:
+    """The kernels `mum_scan_chunk` launches for N documents: "tile" (one
+    launch) up to _TILE_MAX_N, "two-pass" (the next-same-document distances
+    into a scratch array, then the window test) above it."""
+    return "tile" if num_docs <= _TILE_MAX_N else "two-pass"
+
+
 def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
                    chg_s: torch.Tensor, limit: int, min_mum: int,
                    num_docs: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K8 (replaces colbwt_tpu/ops/construct_jax.py:245 _mum_scan_chunk):
     the window test on one chunk, outputs as `mum_scan_chunk_ref`.  CPU
-    tensors take the plain version; CUDA tensors launch `mum_window`."""
+    tensors take the plain version; CUDA tensors launch `mum_window`, by
+    the route `mum_window_route` picks for the shape."""
     if lcp_s.device.type == "cpu":
         return mum_scan_chunk_ref(lcp_s, docs_s, chg_s, limit, min_mum,
                                   num_docs)
@@ -532,13 +584,18 @@ def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
     # whole 32-bit ballot words; the tail past ceil(C/8) bytes is dropped
     packed = torch.empty(-(-C // 32) * 4, dtype=torch.uint8, device=dev)
     ell = torch.empty(C, dtype=torch.int32, device=dev)
-    scratch = torch.empty(C + N, dtype=torch.int32, device=dev)
     limit = max(min(int(limit), C), -1)  # in-chunk arithmetic is int32
-    code = K.on(dev).colbwt_mum_window(
-        lcp_s.data_ptr(), docs_s.data_ptr(),
-        1 if docs_s.dtype == torch.uint16 else 0, chg_s.data_ptr(), C, N,
-        limit, int(min_mum), scratch.data_ptr(), packed.data_ptr(),
-        ell.data_ptr(), K.stream_handle(dev))
+    args = (lcp_s.data_ptr(), docs_s.data_ptr(),
+            1 if docs_s.dtype == torch.uint16 else 0, chg_s.data_ptr(), C, N,
+            limit, int(min_mum))
+    if mum_window_route(N) == "tile":
+        code = K.on(dev).colbwt_mum_window(
+            *args, packed.data_ptr(), ell.data_ptr(), K.stream_handle(dev))
+    else:
+        scratch = torch.empty(C + N, dtype=torch.int32, device=dev)
+        code = K.on(dev).colbwt_mum_window_two_pass(
+            *args, scratch.data_ptr(), packed.data_ptr(), ell.data_ptr(),
+            K.stream_handle(dev))
     K.check("mum_window", code)
     K.launches["mum_window"] += 1
     return packed[:-(-C // 8)], ell
@@ -554,17 +611,27 @@ def multi_mum_scan(lcp: torch.Tensor, sa_docs: torch.Tensor,
     if lcp.device.type == "cpu":
         return multi_mum_scan_ref(lcp, sa_docs, prev_rank, num_docs, min_mum)
     n = lcp.shape[0]
-    N = num_docs
+    packed, ell = mum_scan_chunk(*pad_whole_array(lcp, sa_docs, prev_rank,
+                                                  num_docs),
+                                 n - num_docs, min_mum, num_docs)
+    return unpackbits_little(packed, n), ell
+
+
+def pad_whole_array(lcp: torch.Tensor, sa_docs: torch.Tensor,
+                    prev_rank: torch.Tensor, num_docs: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9's one chunk: (lcp_s int32, docs_s int32, chg_s uint8) of n + 2N +
+    2 positions, lcp 0, documents -1 and run changes 1 past n."""
+    n = lcp.shape[0]
     dev = lcp.device
-    L = n + 2 * N + 2
+    L = n + 2 * num_docs + 2
     lcp_s = torch.zeros(L, dtype=torch.int32, device=dev)
     lcp_s[:n] = lcp
     docs_s = torch.full((L,), -1, dtype=torch.int32, device=dev)
     docs_s[:n] = sa_docs
     chg_s = torch.ones(L, dtype=torch.uint8, device=dev)
     chg_s[1:n] = (prev_rank[1:] != prev_rank[:-1]).to(torch.uint8)
-    packed, ell = mum_scan_chunk(lcp_s, docs_s, chg_s, n - N, min_mum, N)
-    return unpackbits_little(packed, n), ell
+    return lcp_s, docs_s, chg_s
 
 
 def _slice_padded(arr, s: int, size: int, fill: int, dtype) -> np.ndarray:

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Design sweep of the T1 build K1, the scans K3, K5, K6a and K7, the
-col-split walk K10a, the LCP lift K11b, the sharded table composition K13d,
+multi-MUM window K8/K9, the col-split walk K10a, the LCP lift K11b, the
+thresholds' segmented argmin K12, the sharded table composition K13d,
 the sharded per-step kernels K13a-K13c and K13e and the K13e chunk scan on
 one CUDA card.
 
     python3 scan_designs.py [--parent DIR]
-                            [--groups scans,lcp,tk,pos,walk,step]
+                            [--groups scans,lcp,tk,pos,walk,step,mums,thr]
                             [--designs NAME,...]
 
 Each group times, on the same inputs and in turns, the shipped kernels of
@@ -84,14 +85,35 @@ shipped source with one change, compiled into a library of its own:
   CUDA events around the calls as the host makes them (the wrapper or
   launcher included), and on the card alone (the calls queued behind a
   sleep kernel, chip_smoke.py's `gpu_ms`).
+- mums (construct.cu; bench's collection and chip_smoke.py's 16 x 4.5
+  Mbp pangenome, their SA and LCP built on the card): K8 on the first
+  chunk find_multi_mums_chunked gives it (C = 2**20, N = 4 at bench, as
+  chip_smoke.py's phase 3 cuts it; C = 2**26, N = 16 at the pangenome)
+  and on the tail chunk, and the K9 route at bench's n (the kernel on the
+  padded array; the wrapper's padding copies and unpackbits timed apart):
+  tiles of 1,024 or 4,096 window starts in place of 2,048
+  ("mums-tile-1024", "mums-tile-4096"), 128 or 512 threads a block in
+  place of 256, scalar staging loads in place of 16-byte ones
+  ("mums-scalar-loads");
+- thr (suffix.cu, K12 alone; the same collections): each character's
+  call (two launches) apart, the terminator's among them, and the five
+  as compute_thresholds makes them: a warp's tiles of 256 or 1,024
+  positions in place of 512 ("thr-tile-256", "thr-tile-1024"), 4 or 16
+  warps a block in place of 8, a lane's runs reduced by 32-bit atomics in
+  two passes (the minimum lcp, then its first position;
+  "thr-two-pass-32") or by a 64-bit atomicMin at the end of every run
+  ("thr-atomic-a-run") in place of a store for the runs inside a lane and
+  two atomics for its first and last runs, and the kernel's registers
+  capped for 6 blocks an SM ("thr-min-blocks-6").
 
 With --parent DIR (a checkout of the parent commit) its sources of each
 group are timed too, called as its wrappers called them (int32 ids for
 K7, row-major planes); its entry points must take the shipped ones'
 arguments, but for those in PARENT_SIGNATURES (K13e's per-step entry
 point, which took every argument where the shipped one takes a parameter
-block prepared once and the step); an entry point the parent lacks (the
-K13e chunk scan) is not bound there.
+block prepared once and the step; the parent's K8, which took a scratch
+array, and K12, which took no workspace); an entry point the parent
+lacks (the K13e chunk scan, K8's two-pass entry) is not bound there.
 --designs names the designs to time and build (default: all, the
 shipped kernel first and again last); the shipped kernel runs at every
 shape anyway, as the reference that every design's outputs must equal,
@@ -116,6 +138,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -128,14 +151,18 @@ GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
           "tk": ("query_sharded.cu",),
           "pos": ("query_pos.cu",),
           "walk": ("colsplit.cu",),
-          "step": ("query_sharded.cu",)}
+          "step": ("query_sharded.cu",),
+          "mums": ("construct.cu",),
+          "thr": ("suffix.cu",)}
 SOURCES = tuple(f for group in GROUPS.values() for f in group)
 # the shipped kernels whose ptxas counts the sweep prints
 PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
                  "compose_sharded_tk_kernel", "query_chunk_pos_kernel",
                  "tunneled_walk_kernel", "sharded_step_mega_kernel",
                  "sharded_step_compact_kernel", "build_t1_chunk_kernel",
-                 "sharded_step_pos_kernel", "sharded_scan_pos_kernel")
+                 "sharded_step_pos_kernel", "sharded_scan_pos_kernel",
+                 "mum_tile_kernel", "argmin_tile_kernel",
+                 "argmin_finish_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
                 "    cid_out[col * B + b] = cid;\n")
@@ -191,6 +218,111 @@ _T1_ENDS = (
     "    if ((threadIdx.x & 31) == 0) s_ends[warp] = run;\n"
     "  }\n")
 _SCAN_POS_STORE = "      packed[col * B + b] =\n"
+_MUM_TILE = "constexpr int kMumTile = 2048;"
+_MUM_THREADS = "constexpr int kMumThreads = 256;\n"
+_MUM_WIDE = "  if ((reinterpret_cast<uintptr_t>(src + base) & 15) == 0) {\n"
+_ARG_TILE = "constexpr int kArgTile = 512;"
+_ARG_WARPS = "constexpr int kArgWarps = 8;"
+# K12's reduction: one shared 64-bit atomicMin of a run's packed key
+_ARG_KEYS = "  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(mine);\n"
+_ARG_INIT = "        s_key[u] = ~0ull;\n"
+_ARG_READ = "      const unsigned long long key = s_key[u];\n"
+_ARG_REDUCE = (
+    "      int run = -1, first = -1;\n"
+    "      unsigned long long key = ~0ull, first_key = ~0ull;\n"
+    "#pragma unroll\n"
+    "      for (int j = 0; j < kArgPer; ++j) {\n"
+    "        const int q = q0 + j;\n"
+    "        if ((word >> (q & 31)) & 1) {\n"
+    "          end = s_end[++u];\n"
+    "        }\n"
+    "        if (q < len && u >= 0 && q <= end) {\n"
+    "          const unsigned long long k = arg_key(v[j], a + q);\n"
+    "          if (u != run) {\n"
+    "            if (run == first) {\n"
+    "              first_key = key;\n"
+    "            } else {\n"
+    "              s_key[run] = key;\n"
+    "            }\n"
+    "            if (first < 0) first = u;\n"
+    "            run = u;\n"
+    "            key = k;\n"
+    "          } else {\n"
+    "            key = min(key, k);\n"
+    "          }\n"
+    "        }\n"
+    "      }\n"
+    "      if (run == first) first_key = min(first_key, key);\n"
+    "      if (first >= 0) atomicMin(&s_key[first], first_key);\n"
+    "      if (run != first) atomicMin(&s_key[run], key);\n")
+# the first tile reduction in its place: an atomicMin at the end of every
+# run, inside the loop
+_ARG_ATOMIC_A_RUN = (
+    "      int run = -1;\n"
+    "      unsigned long long key = ~0ull;\n"
+    "#pragma unroll\n"
+    "      for (int j = 0; j < kArgPer; ++j) {\n"
+    "        const int q = q0 + j;\n"
+    "        if ((word >> (q & 31)) & 1) {\n"
+    "          end = s_end[++u];\n"
+    "        }\n"
+    "        if (q < len && u >= 0 && q <= end) {\n"
+    "          const unsigned long long k = arg_key(v[j], a + q);\n"
+    "          if (u != run) {\n"
+    "            if (run >= 0) atomicMin(&s_key[run], key);\n"
+    "            run = u;\n"
+    "            key = k;\n"
+    "          } else {\n"
+    "            key = min(key, k);\n"
+    "          }\n"
+    "        }\n"
+    "      }\n"
+    "      if (run >= 0) atomicMin(&s_key[run], key);\n")
+# the two 32-bit passes in its place: a run's minimum lcp into s_min, then
+# the first position of that minimum into s_pos
+_ARG_TWO_PASS = (
+    "      int run = -1;\n"
+    "      const int u0 = u;\n"
+    "      int best = INT32_MAX;\n"
+    "#pragma unroll\n"
+    "      for (int j = 0; j < kArgPer; ++j) {\n"
+    "        const int q = q0 + j;\n"
+    "        if ((word >> (q & 31)) & 1) {\n"
+    "          end = s_end[++u];\n"
+    "        }\n"
+    "        if (q < len && u >= 0 && q <= end) {\n"
+    "          if (u != run) {\n"
+    "            if (run >= 0) atomicMin(&s_min[run], best);\n"
+    "            run = u;\n"
+    "            best = v[j];\n"
+    "          } else {\n"
+    "            best = min(best, v[j]);\n"
+    "          }\n"
+    "        }\n"
+    "      }\n"
+    "      if (run >= 0) atomicMin(&s_min[run], best);\n"
+    "      __syncwarp();\n"
+    "      u = u0;\n"
+    "      end = u >= 0 ? s_end[u] : -1;\n"
+    "      run = -1;\n"
+    "      int want = 0, first = INT32_MAX;\n"
+    "#pragma unroll\n"
+    "      for (int j = 0; j < kArgPer; ++j) {\n"
+    "        const int q = q0 + j;\n"
+    "        if ((word >> (q & 31)) & 1) {\n"
+    "          end = s_end[++u];\n"
+    "        }\n"
+    "        if (q < len && u >= 0 && q <= end) {\n"
+    "          if (u != run) {\n"
+    "            if (first != INT32_MAX) atomicMin(&s_pos[run], first);\n"
+    "            run = u;\n"
+    "            want = s_min[u];\n"
+    "            first = INT32_MAX;\n"
+    "          }\n"
+    "          if (v[j] == want && first == INT32_MAX) first = q;\n"
+    "        }\n"
+    "      }\n"
+    "      if (first != INT32_MAX) atomicMin(&s_pos[run], first);\n")
 # variant -> [(source, shipped text, the variant's text)]
 VARIANTS = {
     "row-major": [
@@ -279,6 +411,39 @@ VARIANTS = {
     "scan-pos-row-major": [
         ("query_sharded.cu", _SCAN_POS_STORE,
          _SCAN_POS_STORE.replace("col * B + b", "b * M + col"))],
+    "mums-tile-1024": [
+        ("construct.cu", _MUM_TILE, _MUM_TILE.replace("2048", "1024"))],
+    "mums-tile-4096": [
+        ("construct.cu", _MUM_TILE, _MUM_TILE.replace("2048", "4096"))],
+    "mums-threads-128": [
+        ("construct.cu", _MUM_THREADS, _MUM_THREADS.replace("256", "128"))],
+    "mums-threads-512": [
+        ("construct.cu", _MUM_THREADS, _MUM_THREADS.replace("256", "512"))],
+    "mums-scalar-loads": [
+        ("construct.cu", _MUM_WIDE, "  if (false) {\n")],
+    "thr-two-pass-32": [
+        ("suffix.cu", _ARG_KEYS,
+         _ARG_KEYS + "  int32_t* s_min = reinterpret_cast<int32_t*>(mine);\n"
+         "  int32_t* s_pos = s_min + kArgTile + 1;\n"),
+        ("suffix.cu", _ARG_INIT,
+         "        s_min[u] = INT32_MAX;\n        s_pos[u] = INT32_MAX;\n"),
+        ("suffix.cu", _ARG_REDUCE, _ARG_TWO_PASS),
+        ("suffix.cu", _ARG_READ,
+         "      const unsigned long long key = arg_key(s_min[u], a + "
+         "s_pos[u]);\n")],
+    "thr-atomic-a-run": [("suffix.cu", _ARG_REDUCE, _ARG_ATOMIC_A_RUN)],
+    "thr-min-blocks-6": [
+        ("suffix.cu", "__global__ void __launch_bounds__(kArgThreads)\n"
+         "    argmin_tile_kernel(",
+         "__global__ void __launch_bounds__(kArgThreads, 6)\n"
+         "    argmin_tile_kernel(")],
+    "thr-tile-256": [
+        ("suffix.cu", _ARG_TILE, _ARG_TILE.replace("512", "256"))],
+    "thr-tile-1024": [
+        ("suffix.cu", _ARG_TILE, _ARG_TILE.replace("512", "1024"))],
+    "thr-warps-4": [("suffix.cu", _ARG_WARPS, _ARG_WARPS.replace("8", "4"))],
+    "thr-warps-16": [
+        ("suffix.cu", _ARG_WARPS, _ARG_WARPS.replace("8", "16"))],
     "t1-tile-1024": [
         ("query_pos.cu", _T1_TILE, _T1_TILE.replace("2048", "1024"))],
     "t1-tile-4096": [
@@ -307,6 +472,11 @@ POS_VARIANTS = ("pos-threads-64", "pos-threads-128", "pos-scalar-stores",
 WALK_VARIANTS = ("walk-threads-32", "walk-threads-64", "walk-threads-256",
                  "walk-forward-2", "walk-forward-32", "walk-no-pair")
 STEP_VARIANTS = ("step-row-major", "step-interleaved", "scan-pos-row-major")
+MUMS_VARIANTS = ("mums-tile-1024", "mums-tile-4096", "mums-threads-128",
+                 "mums-threads-512", "mums-scalar-loads")
+THR_VARIANTS = ("thr-tile-256", "thr-tile-1024", "thr-warps-4",
+                "thr-warps-16", "thr-two-pass-32", "thr-atomic-a-run",
+                "thr-min-blocks-6")
 # the entry points each group's libraries bind
 ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                           "colbwt_query_chunk_mega",
@@ -318,17 +488,23 @@ ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                 "step": ("colbwt_sharded_fetch", "colbwt_compose_sharded_tk",
                          "colbwt_sharded_step_mega",
                          "colbwt_sharded_step_compact",
-                         "colbwt_sharded_step_pos", "colbwt_sharded_scan_pos")}
+                         "colbwt_sharded_step_pos", "colbwt_sharded_scan_pos"),
+                "mums": ("colbwt_mum_window", "colbwt_mum_window_two_pass"),
+                "thr": ("colbwt_segmented_argmin",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # the parent's entry points whose arguments differ from the shipped ones'
 PARENT_SIGNATURES = {
-    "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P]}
+    "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
+    # the two-pass K8 (a scratch array) and one-warp-a-segment K12
+    "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
+    "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P]}
 # the variants of each group
 GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
                                                 + MEGA_VARIANTS)),
                   "lcp": LCP_VARIANTS, "tk": TK_VARIANTS,
                   "pos": POS_VARIANTS, "walk": WALK_VARIANTS,
-                  "step": STEP_VARIANTS}
+                  "step": STEP_VARIANTS, "mums": MUMS_VARIANTS,
+                  "thr": THR_VARIANTS}
 
 
 def log(msg: str) -> None:
@@ -462,6 +638,15 @@ def main() -> int:
 
     if "lcp" in groups:
         sweep_lcp(torch, of("lcp"), compare)
+    if {"mums", "thr"} & set(groups):
+        for label, docs in collections():
+            cols = collection_arrays(torch, label, docs)
+            if "mums" in groups:
+                sweep_mums(torch, of("mums"), compare, cols)
+            if "thr" in groups:
+                sweep_thr(torch, of("thr"), compare, cols)
+            del cols
+            torch.cuda.empty_cache()
     if {"scans", "tk", "pos", "walk", "step"} & set(groups):
         bench = bench_index(torch)
         if "walk" in groups:
@@ -563,6 +748,192 @@ def sweep_lcp(torch, libs: dict, compare) -> None:
         compare(f"K11b {label} n={n} R={R}", designs, reps)
         del sa, r0, pyr, levels, plcp
         torch.cuda.empty_cache()
+
+
+def collections():
+    """bench.py's collection and chip_smoke.py's pangenome, as (label,
+    documents), one at a time."""
+    from bench import make_docs
+    from chip_smoke import pangenome_docs
+
+    yield "bench", make_docs()
+    yield "pangenome", pangenome_docs()
+
+
+def collection_arrays(torch, label: str, docs: list[bytes]) -> dict:
+    """A collection's arrays as the build makes them, the suffix array and
+    LCP on the card (suffix_array, lcp_from_pyramid): the window test's
+    inputs (lcp, per-rank documents, run-change marks, numpy) and the
+    thresholds' (the RLBWT's heads and lengths, lcp on the card)."""
+    from chip_smoke import scan_inputs
+    from colbwt_tpu_torch.ops import construct as TC
+    from colbwt_tpu_torch.ops import oracle as O
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    text, ranks, doc_ids = O.concat_collection(docs)
+    sa_t, _, pyr = TC.suffix_array(ranks, with_pyramid=True, device=dev)
+    lcp_t = TC.lcp_from_pyramid(ranks, sa_t, pyr)
+    del pyr
+    sa = sa_t.cpu().numpy()
+    del sa_t
+    lcp, sa_docs, rc = scan_inputs((ranks, sa, lcp_t.cpu().numpy(),
+                                    doc_ids))
+    heads, lens = O.rle(O.bwt_from_sa(text, sa))
+    log(f"[designs] {label}'s arrays (n = {sa.size:,}, {len(docs)} "
+        f"documents, r = {heads.size:,}) in {time.perf_counter() - t0:.1f}s")
+    return {"label": label, "N": len(docs), "lcp": lcp, "sa_docs": sa_docs,
+            "rc": rc, "lcp_t": lcp_t, "heads": heads, "lens": lens}
+
+
+def sweep_mums(torch, libs: dict, compare, cols: dict) -> None:
+    """K8 on the first chunk find_multi_mums_chunked gives it (bench: C =
+    2**20, N = 4; the pangenome: C = 2**26, N = 16) and on the pangenome's
+    tail chunk, and the K9 route at bench's n: the kernel on the padded
+    array (int32 documents) and, apart from it, the wrapper's padding
+    copies and its unpackbits; the shipped kernel against its plain version
+    first.  A shape's label carries its bound (chip_smoke.py check_chunks's
+    count: the inputs and outputs once)."""
+    from chip_smoke import cuda_ms, least_ms, nbytes
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import construct as TC
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lcp, sa_docs, rc, N = cols["lcp"], cols["sa_docs"], cols["rc"], cols["N"]
+    n = lcp.size
+    halo = 2 * N + 2
+
+    def window(lib, parent, args, out):
+        lcp_s, docs_s, chg_s, limit, min_mum, N = args
+        C = lcp_s.shape[0] - halo
+        ptrs = (lcp_s.data_ptr(), docs_s.data_ptr(),
+                int(docs_s.dtype == torch.uint16), chg_s.data_ptr(), C, N,
+                limit, min_mum)
+        packed, ell, scratch = out
+        K.check("mum_window", lib.colbwt_mum_window(
+            *ptrs, *((scratch.data_ptr(),) if parent else ()),
+            packed.data_ptr(), ell.data_ptr(), stream))
+        return packed[:-(-C // 8)], ell
+
+    def run(shape, args, reps):
+        C = args[0].shape[0] - halo
+        got = window(libs["shipped"], False, args, outputs(C))
+        for g, w in zip(got, TC.mum_scan_chunk_ref(*args)):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"K8 {shape}: differs from its plain "
+                                   "version")
+        bound, by = least_ms(nbytes(args[:3], got), args[3] * 6 * N)
+        del got
+        designs = {name: (lambda lib=lib, o=outputs(C), p=name == "parent":
+                          window(lib, p, args, o))
+                   for name, lib in libs.items()}
+        compare(f"K8 {cols['label']} {shape}, bound {bound:.4f} ms ({by})",
+                designs, reps)
+
+    def outputs(C):
+        return (torch.empty(-(-C // 32) * 4, dtype=torch.uint8, device=dev),
+                torch.empty(C, dtype=torch.int32, device=dev),
+                torch.empty(C + N, dtype=torch.int32, device=dev))
+
+    def chunk(s, C):
+        def sl(a, fill, dtype):
+            x = a[s:s + C + halo].astype(dtype)
+            return torch.from_numpy(np.concatenate(
+                [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
+        return (sl(lcp, 0, np.int32), sl(sa_docs, 65535, np.uint16),
+                sl(rc, 1, np.uint8), min(n - N - s, C), 20, N)
+
+    C = min(1 << 26, 1 << max(13, (n - 1).bit_length()))
+    if cols["label"] == "bench":
+        C = 1 << 20  # chip_smoke.py phase 3's chunks
+    run(f"first chunk, C = {C}, N = {N}, uint16 documents", chunk(0, C),
+        20 if C <= 1 << 20 else 5)
+    last = (n - 1) // C * C
+    if last:
+        args = chunk(last, C)
+        run(f"tail chunk at {last}, {n - last} of C = {C} in range, N = {N}",
+            args, 5)
+    if cols["label"] != "bench":
+        return
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev)
+         for a in (lcp, sa_docs)]
+    prev = torch.from_numpy(np.cumsum(rc[1:] != 0).astype(np.int32))
+    prev = torch.cat([prev.new_zeros(1), prev]).to(dev)  # changes as ranks
+    padded = TC.pad_whole_array(*t, prev, N)
+    run(f"K9 route's chunk, the whole array (n = {n}) padded, int32 "
+        "documents", (*padded, n - N, 20, N), 20)
+    pad_ms = cuda_ms(torch, lambda: TC.pad_whole_array(*t, prev, N), 20)
+    packed = TC.mum_scan_chunk(*padded, n - N, 20, N)[0]
+    unpack_ms = cuda_ms(torch, lambda: TC.unpackbits_little(packed, n), 20)
+    wrapper_ms = cuda_ms(torch, lambda: TC.multi_mum_scan(*t, prev, N, 20),
+                         20)
+    log(f"[designs] K9 route at n = {n}: multi_mum_scan {wrapper_ms:.4f} ms "
+        f"= padding copies {pad_ms:.4f} + the kernel (above) + "
+        f"unpackbits_little {unpack_ms:.4f}")
+
+
+def sweep_thr(torch, libs: dict, compare, cols: dict) -> None:
+    """K12 on each character's threshold segments of the collection's
+    RLBWT, one launch (call) at a time, the terminator's apart, then the
+    five as compute_thresholds makes them; the shipped kernel against its
+    plain version first.  A label carries its bound (4 bytes a covered
+    position, 24 a segment: chip_smoke.py's count)."""
+    from chip_smoke import least_ms
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import construct as TC
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lcp = cols["lcp_t"]
+    n = lcp.shape[0]
+    heads = TC.normalize_heads(cols["heads"])
+    segs = [(int(heads[runs[0]]), torch.from_numpy(lo).to(dev),
+             torch.from_numpy(hi).to(dev))
+            for runs, lo, hi in TC.threshold_segments(heads, cols["lens"])]
+
+    def argmin(lib, parent, lo, hi, out, ws):
+        m = lo.shape[0]
+        if parent:
+            code = lib.colbwt_segmented_argmin(
+                lcp.data_ptr(), lo.data_ptr(), hi.data_ptr(), m,
+                out.data_ptr(), stream)
+        else:
+            code = lib.colbwt_segmented_argmin(
+                lcp.data_ptr(), n, lo.data_ptr(), hi.data_ptr(), m,
+                ws.keys.data_ptr(), ws.owner.data_ptr(), out.data_ptr(),
+                stream)
+        K.check("segmented_argmin", code)
+        return out
+
+    def design(lib, parent, picked):
+        # keys for the smallest tile a design takes (256 positions)
+        ws = types.SimpleNamespace(
+            keys=torch.full((-(-n // 256),), -1, dtype=torch.int64,
+                            device=dev),
+            owner=torch.empty(-(-n // 256), dtype=torch.int32, device=dev))
+        outs = [torch.empty(lo.shape[0], dtype=torch.int64, device=dev)
+                for _, lo, _ in picked]
+        return lambda: [argmin(lib, parent, lo, hi, o, ws)
+                        for (_, lo, hi), o in zip(picked, outs)]
+
+    reps = 20 if cols["label"] == "bench" else 5
+    for c, lo, hi in segs:
+        got = design(libs["shipped"], False, [(c, lo, hi)])()[0]
+        if not torch.equal(got, TC.segmented_argmin_ref(lcp, lo, hi)):
+            raise RuntimeError(f"K12 character {c}: differs from its plain "
+                               "version")
+    for picked, what in [([sg], f"character {sg[0]}") for sg in segs] + [
+            (segs, f"all {len(segs)} characters")]:
+        m = sum(lo.shape[0] for _, lo, _ in picked)
+        covered = sum(int((hi - lo + 1).sum()) for _, lo, hi in picked)
+        longest = max(int((hi - lo).max()) + 1 for _, lo, hi in picked)
+        bound, by = least_ms(4 * covered + 24 * m, 4 * covered)
+        designs = {name: design(lib, name == "parent", picked)
+                   for name, lib in libs.items()}
+        compare(f"K12 {cols['label']} {what}: {m} segments over {covered} "
+                f"positions (longest {longest}), bound {bound:.4f} ms "
+                f"({by})", designs, reps)
 
 
 def sweep_tk(torch, libs: dict, compare, bench: dict) -> None:

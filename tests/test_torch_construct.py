@@ -5,6 +5,9 @@ and K9 run.  Every value is an integer or a bit, so every comparison is
 exact.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ from colbwt_tpu.ops import oracle as O
 from colbwt_tpu_torch.ops import construct as TC
 from colbwt_tpu_torch.ops import mum_scan_stream as TMS
 from tests.conftest import random_docs
+from tests.test_torch_kernels import MUM_SHAPES, MUM_TILE, mum_synthetic
 
 CPU = "cpu"
+_CONSTRUCT_CU = Path(TC.__file__).resolve().parents[1] / "csrc" / "construct.cu"
 
 
 def _t(a, dtype=np.int32):
@@ -85,6 +90,30 @@ def test_multi_mum_scan_matches_jax(rng, n_docs):
         assert bool(got[0].any())
 
 
+@pytest.mark.parametrize("n_docs", [2, 3, 8])
+def test_k9_padded_chunk_matches_jax(rng, n_docs):
+    """K9's route on the card, on the CPU: the whole array padded as one
+    chunk (pad_whole_array), scanned by the chunk's plain version and
+    unpacked, equals JAX's multi_mum_scan."""
+    base = bytes(rng.choice(list(b"ACGT"), 150).astype("uint8"))
+    _, ranks, doc_ids, sa, lcp = _arrays(random_docs(rng, n_docs,
+                                                     mutate_from=base))
+    prev_rank = ranks[sa - 1]
+    n = sa.size
+    want = CJ.multi_mum_scan(jnp.asarray(lcp, jnp.int32),
+                             jnp.asarray(doc_ids[sa].astype(np.int32)),
+                             jnp.asarray(prev_rank.astype(np.int32)),
+                             n_docs, 4)
+    padded = TC.pad_whole_array(_t(lcp), _t(doc_ids[sa]), _t(prev_rank),
+                                n_docs)
+    assert padded[0].shape == (n + 2 * n_docs + 2,)
+    packed, ell = TC.mum_scan_chunk_ref(*padded, n - n_docs, 4, n_docs)
+    np.testing.assert_array_equal(TC.unpackbits_little(packed, n).numpy(),
+                                  np.asarray(want[0]))
+    np.testing.assert_array_equal(ell.numpy(), np.asarray(want[1]))
+    assert bool(np.asarray(want[0]).any())
+
+
 @pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
 def test_mum_scan_chunk_matches_jax(rng, u16):
     """Chunk by chunk at C = 2**13 with the 2N+2 halo, uint16 documents
@@ -112,6 +141,134 @@ def test_mum_scan_chunk_matches_jax(rng, u16):
             np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
         hits += int(np.unpackbits(np.asarray(wp)).sum())
     assert hits > 0
+
+
+# mum_window's tile kernel (csrc/construct.cu mum_tile_kernel) in NumPy,
+# tile by tile: the inputs staged past the chunk's end as fills (lcp 0,
+# document 0, no run change), ell by the doubling passes, left-maximality by
+# prefix counts of the run-change marks, coverage tested only where the
+# other conditions hold, by the 64-bit mask or the capped probe.  The
+# kernel runs on the card only; this model holds its arithmetic to JAX's
+# _mum_scan_chunk and to the plain version.
+def _cu_int(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _CONSTRUCT_CU.read_text()).group(1))
+
+
+def distinct_model(d, N: int, stats: dict) -> bool:
+    """The kernel's coverage test of one window's N documents."""
+    v = np.asarray(d, np.int64) & 0xFFFFFFFF  # as the kernel's uint32
+    if N <= 64:
+        mask = 0
+        for x in v:
+            mask |= 1 << int(x & 63)
+        if bin(mask).count("1") == N:
+            stats["mask"] += 1
+            return True
+        if (v < 64).all():
+            stats["mask"] += 1
+            return False
+    stats["probe"] += 1
+    for j in range(N - 1):
+        if (v[j + 1:] == v[j]).any():
+            return False
+    return True
+
+
+def mum_tile_model(lcp_s, docs_s, chg_s, limit: int, min_mum: int, N: int,
+                   T: int, stats: dict):
+    """(packed hits, ell) as the tile kernel writes them for tiles of T."""
+    L = lcp_s.size
+    C = L - (2 * N + 2)
+    w = N - 1
+    bits = np.zeros(C, bool)
+    ell_out = np.empty(C, np.int32)
+
+    def stage(a, count):
+        x = np.zeros(count, np.int64)
+        avail = max(0, min(count, L - t0))
+        x[:avail] = np.asarray(a[t0:t0 + avail], np.int64)
+        return x
+
+    for t0 in range(0, C, T):
+        s_lcp = stage(lcp_s, T + N + 1)
+        s_docs = stage(docs_s, T + N)
+        words = ((T + N) >> 5) + 1
+        below = np.r_[0, np.cumsum(stage(chg_s, 32 * words) != 0)]
+        f = s_lcp[1:]
+        s = 1
+        while 2 * s <= w:
+            ln = T + w - 2 * s
+            f = np.minimum(f[:ln], f[s:s + ln])
+            s *= 2
+        k = np.arange(min(T, C - t0))
+        ell = np.minimum(f[k], f[k + w - s])
+        uniq = (s_lcp[k] < ell) & (s_lcp[k + N] < ell)
+        left = below[k + N] > below[k + 1]
+        edge = left & (below[k + N] - below[k + N - 1] == below[k + N]
+                       - below[k + 1])
+        cand = (ell >= min_mum) & uniq & left & (t0 + k <= limit)
+        stats["edge"] += int((cand & edge).sum())
+        for j in np.flatnonzero(cand):
+            bits[t0 + j] = distinct_model(s_docs[j:j + N], N, stats)
+        ell_out[t0:t0 + k.size] = ell
+    stats["hits"] += int(bits.sum())
+    return np.packbits(bits, bitorder="little"), ell_out
+
+
+@pytest.mark.parametrize("wide_ids", [False, True], ids=["ids", "wide ids"])
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+@pytest.mark.parametrize("num_docs", [2, 4, 16, 65, 130])
+@pytest.mark.parametrize("shape", sorted(MUM_SHAPES))
+def test_mum_tile_model_matches_jax(shape, num_docs, u16, wide_ids):
+    """The tile kernel's split and arithmetic at tiles of 64 and the
+    shipped tile, on the synthetic chunks of the `cuda` tests (every branch:
+    the mask, the probe, a run change only at a window's last position),
+    against JAX's _mum_scan_chunk and the plain version."""
+    C, limit = MUM_SHAPES[shape]
+    a = mum_synthetic(num_docs, C, limit, u16, num_docs, wide_ids)
+    wp, we = CJ._mum_scan_chunk(*(jnp.asarray(x) for x in a),
+                                jnp.int32(limit), jnp.int32(12),
+                                num_docs=num_docs)
+    gp, ge = TC.mum_scan_chunk_ref(*(torch.from_numpy(x) for x in a), limit,
+                                   12, num_docs)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ge.numpy(), np.asarray(we))
+    for T in (64, MUM_TILE):
+        stats = dict.fromkeys(("mask", "probe", "edge", "hits"), 0)
+        mp, me = mum_tile_model(*a, limit, 12, num_docs, T, stats)
+        np.testing.assert_array_equal(mp, np.asarray(wp))
+        np.testing.assert_array_equal(me, np.asarray(we))
+    if limit >= 0:
+        assert stats["hits"] > 0 and stats["edge"] > 0
+        # the probe decides past 64 documents and for ids past 63
+        assert (stats["probe"] > 0) == (num_docs > 64 or wide_ids)
+
+
+def test_mum_window_route_and_tile():
+    """The wrapper's route by shape, the kernel's tile and its shared
+    memory at the route's largest N."""
+    assert MUM_TILE == _cu_int("kMumTile")
+    assert TC._TILE_MAX_N == _cu_int("kMumTileMaxN")
+    assert TC.mum_window_route(2) == "tile"
+    assert TC.mum_window_route(TC._TILE_MAX_N) == "tile"
+    assert TC.mum_window_route(TC._TILE_MAX_N + 1) == "two-pass"
+    assert TC.mum_window_route(10_000) == "two-pass"
+    for doc_bytes in (2, 4):  # csrc/construct.cu tile_smem_bytes
+        N = TC._TILE_MAX_N
+        lcp_slots = -(-(MUM_TILE + N + 1) // 4) * 4
+        doc_slots = -(-(MUM_TILE + N) // (16 // doc_bytes)) * (16 // doc_bytes)
+        words = ((MUM_TILE + N) >> 5) + 1
+        smem = 12 * lcp_slots + doc_bytes * doc_slots + 40 * words
+        assert smem <= 232_448  # the H100's shared memory a block
+
+
+def test_mum_window_route_lowered(monkeypatch):
+    """A test lowers the switch, as the `cuda` test of the large-N route
+    does; the plain version on the CPU is the same either way."""
+    monkeypatch.setattr(TC, "_TILE_MAX_N", 3)
+    assert TC.mum_window_route(3) == "tile"
+    assert TC.mum_window_route(4) == "two-pass"
 
 
 def test_find_multi_mums_chunked_route_matches_jax(rng, monkeypatch):

@@ -36,6 +36,7 @@ from colbwt_tpu_torch.ops import colsplit as TCS
 from colbwt_tpu_torch.ops import construct as TC
 from colbwt_tpu_torch.pipeline import build_pipeline
 from tests.conftest import random_docs
+from tests.test_torch_kernels import ARGMIN_CASES, argmin_case
 
 CPU = "cpu"
 GOLD = Path(__file__).parent / "goldens"
@@ -234,6 +235,160 @@ def test_lcp_from_pyramid_matches_jax_and_kasai(case):
 # runs on the card only; this model holds the walk's logic to JAX's lift
 # on the texts that break such walks.
 _SUFFIX_CU = Path(TC.__file__).resolve().parents[1] / "csrc" / "suffix.cu"
+
+
+# K12's kernels (csrc/suffix.cu argmin_tile_kernel, argmin_finish_kernel)
+# in NumPy: tiles of P positions from the span's first position rounded
+# down to a multiple of 32, a block a run of consecutive tiles, its first
+# tile's first segment by the warp's 32-way search and the next tiles' by
+# the walk, a position's segment by the prefix count of the segments'
+# start marks, a lane's P / 32 consecutive positions reduced run by run
+# into shared keys, inside segments stored at once, crossing ones min-ed into
+# the key of the tile where they start and unpacked by the second kernel.  The kernels run on the card only; this model holds
+# the split to JAX's two segment_min passes and to the plain version.
+_KEY_MAX = np.uint64(2**64 - 1)
+
+
+def argmin_key(lcp, pos):
+    """(lcp ^ 2**31) << 32 | position, as uint64: unsigned order is (lcp,
+    position) order for every int32 lcp and position < 2**31."""
+    flipped = (np.asarray(lcp, np.int64) & 0xFFFFFFFF) ^ 0x80000000
+    return (flipped.astype(np.uint64) << np.uint64(32)) | np.asarray(
+        pos, np.uint64)
+
+
+def first_segment_model(hi, a):
+    """The first g with hi[g] >= a, as the kernel's warp finds it (32
+    probes a round; hi[-1] >= a)."""
+    l, h = 0, hi.size - 1
+    while l < h:
+        step = (h - l + 31) // 32
+        ok = hi[np.minimum(l + np.arange(32) * step, h)] >= a
+        if not ok.any():
+            l = l + 31 * step + 1
+        else:
+            f = int(np.argmax(ok))
+            h = min(l + f * step, h)
+            l = h if f == 0 else l + (f - 1) * step + 1
+    return l
+
+
+def argmin_tile_model(lcp, lo, hi, P, per_block):
+    """segmented_argmin's output by the kernels' split into tiles of P, a
+    block `per_block` consecutive tiles."""
+    n, m = lcp.size, lo.size
+    keys = argmin_key(lcp, np.arange(n))
+    tiles = -(-n // P)
+    part = np.full(tiles, _KEY_MAX, np.uint64)
+    owner = np.full(tiles, -1, np.int64)
+    out = np.full(m, -9, np.int64)
+    span0, span_end = int(lo[0]) // 32 * 32, int(hi[-1]) + 1
+    for b in range(tiles):
+        a = span0 + b * P
+        if a >= span_end:
+            continue
+        if b % per_block == 0:
+            g0 = first_segment_model(hi, a)
+        assert g0 == np.searchsorted(hi, a)
+        e = min(a + P, span_end)
+        length = e - a
+        gs = np.arange(g0, g0 + np.searchsorted(lo[g0:], e))
+        ends = np.where(hi[gs] < e, hi[gs] - a, length)
+        marks = np.zeros(P, bool)
+        marks[np.maximum(lo[gs], a) - a] = True
+        q = np.arange(length)
+        v = np.cumsum(marks)[:length] - 1
+        inseg = (v >= 0) & (q <= ends[np.maximum(v, 0)])
+        seg_key = np.full(gs.size, _KEY_MAX, np.uint64)
+        per = P // 32
+        for q0 in range(0, length, per):  # a lane's positions
+            mine = np.arange(q0, min(q0 + per, length))
+            mine = mine[inseg[mine]]
+            for u in np.unique(v[mine]):  # a run of one segment: its min
+                run = mine[v[mine] == u]
+                assert np.all(np.diff(run) == 1)
+                seg_key[u] = min(seg_key[u], keys[a + run].min())
+        for u, g in enumerate(gs):
+            if lo[g] >= a and hi[g] < e:
+                assert out[g] == -9
+                out[g] = int(seg_key[u] & np.uint64(0xFFFFFFFF))
+            else:
+                if lo[g] >= a:
+                    owner[b] = g
+                t = (lo[g] - span0) // P
+                part[t] = min(part[t], seg_key[u])
+        # the walk: the next tile starts at this one's last segment if it
+        # crosses, else after it
+        g0 = g0 + gs.size - int(gs.size > 0 and ends[-1] == length)
+    for b in np.flatnonzero(part != _KEY_MAX):
+        out[owner[b]] = int(part[b] & np.uint64(0xFFFFFFFF))
+    assert (out >= 0).all()
+    return out
+
+
+def _shipped_arg_tile():
+    return int(re.search(r"constexpr int kArgTile = (\d+);",
+                         _SUFFIX_CU.read_text()).group(1))
+
+
+def test_argmin_key_orders_as_lcp_then_position():
+    rng = np.random.default_rng(11)
+    lcp = np.r_[rng.integers(-2**31, 2**31, 2000), -2**31, 2**31 - 1, -1, 0,
+                0, 0].astype(np.int32)
+    pos = np.r_[rng.integers(0, 2**31, 2000), 7, 7, 7, 5, 0, 2**31 - 1]
+    want = np.lexsort((pos, lcp))
+    np.testing.assert_array_equal(np.argsort(argmin_key(lcp, pos),
+                                             kind="stable"), want)
+
+
+def test_argmin_tile_constants():
+    """The wrapper's tile (its workspace: a key a tile) is the kernel's."""
+    assert TC._ARGMIN_TILE == _shipped_arg_tile()
+    P = TC._ARGMIN_TILE
+    for n in (1, P - 1, P, P + 1, 4_000_004):
+        assert TC.argmin_tiles(n) == -(-n // P)
+    ws = TC.ArgminWorkspace(2 * P + 1, torch.device("cpu"))
+    assert ws.keys.shape == (3,) and bool((ws.keys == -1).all())
+    assert ws.owner.shape == (3,)
+
+
+@pytest.mark.parametrize("P", [32, "shipped"])
+@pytest.mark.parametrize("name", ("collection",) + ARGMIN_CASES)
+def test_argmin_tile_model_matches_jax(name, P):
+    """The tile split at a tile of 32 and at the shipped one, a tile a
+    block and runs of 3 tiles (the walk), on the segments of a collection's
+    BWT and on K12's edge cases, against JAX's _segmented_argmin and the
+    plain version."""
+    P = _shipped_arg_tile() if P == "shipped" else P
+    if name == "collection":
+        heads, lens, lcp = _bwt_case(random_docs(np.random.default_rng(5), 3,
+                                                 lo=200, hi=400))
+        lcp = lcp.astype(np.int32)
+        segs = [(lo, hi) for _, lo, hi in TC.threshold_segments(heads, lens)]
+    else:
+        lcp, segs = argmin_case(name, P)
+    n = lcp.size
+    crossing = 0
+    for lo, hi in segs:
+        lo, hi = lo.astype(np.int64), hi.astype(np.int64)
+        bounds = np.empty(2 * lo.size, dtype=np.int64)
+        bounds[0::2], bounds[1::2] = lo, hi + 1
+        pos_seg = np.searchsorted(bounds, np.arange(n), side="right")
+        seg_id = np.where(pos_seg % 2 == 1, pos_seg // 2, lo.size)
+        want = np.asarray(CJ._segmented_argmin(
+            jnp.asarray(lcp), jnp.asarray(seg_id, jnp.int32),
+            lo.size + 1))[:lo.size]
+        for per_block in (1, 3):
+            np.testing.assert_array_equal(
+                argmin_tile_model(lcp, lo, hi, P, per_block), want)
+        np.testing.assert_array_equal(TC.segmented_argmin_ref(
+            torch.from_numpy(lcp), torch.from_numpy(lo),
+            torch.from_numpy(hi)).numpy(), want)
+        crossing += int(((lo - lo[0]) // P != (hi - lo[0]) // P).sum())
+    # segments that cross tiles, where the case has any at a tile of 32
+    if P == 32 and name not in ("segments of length 1", "m = 1 inside a tile",
+                                "ends on tile edges"):
+        assert crossing > 0
 
 
 def _shipped_layout():

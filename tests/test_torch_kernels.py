@@ -501,9 +501,110 @@ def _build_arrays(num_docs, base_len, seed):
     return ranks, sa, lcp, doc_ids, O.build_fl_table(heads, lens)
 
 
+# mum_window's tile shapes (csrc/construct.cu kMumTile starts a block): a
+# case's C and limit against the tile
+MUM_TILE = 2048
+MUM_SHAPES = {
+    "C not a multiple of the tile, limit in the last tile":
+        (3 * MUM_TILE + 100, 3 * MUM_TILE + 37),
+    "shorter than a tile": (MUM_TILE // 2 - 3, MUM_TILE // 2 - 3),
+    "limit -1": (MUM_TILE + 50, -1),
+}
+
+
+def mum_synthetic(num_docs: int, C: int, limit: int, u16: bool, seed: int,
+                  wide_ids: bool = False):
+    """One chunk of C window starts and its 2N+2 halo made to reach every
+    branch of the window test, padded past limit + N as
+    find_multi_mums_chunked pads a chunk past n (lcp 0, documents 65535 or
+    -1, run changes 1): lcp plateaus between drops N apart (uniq holds at
+    each drop; a few lower values break ell >= 12), documents cycling
+    through N ids, about one in 2N redrawn (windows that cover and windows
+    that repeat), sparse run changes, and
+    at some drops a window whose one run change is its last position or
+    lies just outside it.  `wide_ids` adds 1,000 to every id (mask bits
+    past 63: the probe decides).  (lcp_s, docs_s, chg_s) as numpy."""
+    rng = np.random.default_rng(seed)
+    N = num_docs
+    L = C + 2 * N + 2
+    lcp = rng.integers(12, 40, L)
+    drops = np.arange(0, L, N)
+    lcp[drops] = rng.integers(0, 10, drops.size)
+    extra = rng.integers(0, L, L // (8 * N) + 1)
+    lcp[extra] = rng.integers(0, 12, extra.size)
+    docs = np.arange(L) % N
+    redraw = rng.random(L) < 0.5 / N
+    docs[redraw] = rng.integers(0, N, int(redraw.sum()))
+    if wide_ids:
+        docs += 1000
+    chg = (rng.random(L) < 0.08).astype(np.uint8)
+    for j, i in enumerate(drops[:-2][::3]):
+        chg[i + 1:i + N] = 0
+        if j % 2:
+            chg[i + N - 1] = 1  # the window's last position
+        else:
+            chg[i] = chg[i + N] = 1  # just outside the window
+    n_local = max(limit + N, 0)
+    dt, fill = (np.uint16, 65535) if u16 else (np.int32, -1)
+    lcp[n_local:] = 0
+    docs[n_local:] = fill
+    chg[n_local:] = 1
+    return lcp.astype(np.int32), docs.astype(dt), chg
+
+
+def argmin_case(name: str, P: int):
+    """K12's cases for a tile of P positions (tiles start at lo[0] rounded
+    down to a multiple of 32): (lcp int32, [(lo, hi) int64, ...]), each
+    (lo, hi) one call's disjoint ascending segments."""
+    rng = np.random.default_rng(0xA76)
+    if name == "long segment, ties at tile edges":
+        n = 10 * P + 71
+        lcp = rng.integers(5, 50, n)
+        lo0 = 64
+        for k in (1, 2, 5):  # the minimum on both sides of three edges
+            lcp[lo0 + k * P - 1] = lcp[lo0 + k * P] = 1
+        return lcp.astype(np.int32), [(np.array([lo0]),
+                                       np.array([n - 2]))]
+    if name == "segments of length 1":
+        n = 3 * P + 5
+        pos = np.arange(1, n, 2)
+        return (rng.integers(0, 4, n).astype(np.int32), [(pos, pos.copy())])
+    if name == "one segment, the whole array":
+        n = 4 * P + 1
+        return (rng.integers(0, 3, n).astype(np.int32),
+                [(np.array([0]), np.array([n - 1]))])
+    if name == "m = 1 inside a tile":
+        return (rng.integers(0, 9, 2 * P).astype(np.int32),
+                [(np.array([P // 2]), np.array([P // 2 + 5]))])
+    if name == "one lcp value":
+        n = 5 * P + 11
+        cuts = np.sort(rng.choice(np.arange(1, n), 40, replace=False))
+        lo, hi = cuts[0:-1:2], cuts[1::2] - 1
+        return np.full(n, 7, np.int32), [(lo, hi)]
+    if name == "ends on tile edges":
+        n = 6 * P + 64
+        lo0 = 64
+        starts = lo0 + np.array([0, P, 2 * P, 3 * P, 4 * P, 4 * P + 1])
+        ends = np.r_[starts[1:] - 1, lo0 + 5 * P - 1]
+        return rng.integers(0, 6, n).astype(np.int32), [(starts, ends)]
+    if name == "negative lcp":
+        n = 7 * P + 3
+        cuts = np.sort(rng.choice(np.arange(n), min(300, n // 4 * 2),
+                                  replace=False))
+        lo, hi = cuts[0::2], cuts[1::2]
+        return rng.integers(-50, 50, n).astype(np.int32), [(lo, hi)]
+    raise KeyError(name)
+
+
+ARGMIN_CASES = ("long segment, ties at tile edges", "segments of length 1",
+                "one segment, the whole array", "m = 1 inside a tile",
+                "one lcp value", "ends on tile edges", "negative lcp")
+
+
 @pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
 @pytest.mark.parametrize("num_docs,base_len", [(2, 3000), (4, 2000),
-                                                (16, 600), (130, 600)])
+                                                (16, 600), (65, 600),
+                                                (130, 600)])
 def test_mum_window(dev, num_docs, base_len, u16):
     """K8 chunk by chunk (C = 2**13 with the 2N+2 halo) and K9 (the whole
     array as one chunk) against their plain versions, and the device
@@ -540,6 +641,58 @@ def test_mum_window(dev, num_docs, base_len, u16):
     for g, w in zip(TC.find_multi_mums(ranks, sa, lcp, doc_ids, N, 8,
                                        device=dev), (ml, mp)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("wide_ids", [False, True], ids=["ids", "wide ids"])
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+@pytest.mark.parametrize("num_docs", [2, 4, 16, 65, 130])
+@pytest.mark.parametrize("shape", sorted(MUM_SHAPES))
+def test_mum_window_tiles(dev, shape, num_docs, u16, wide_ids):
+    """The tile route at the tile's edges, one launch each: C not a multiple
+    of the tile with limit in the last tile, a chunk shorter than a tile,
+    limit -1; synthetic chunks that reach every branch of the window
+    test (ids past 63 included), against the plain version."""
+    C, limit = MUM_SHAPES[shape]
+    a = mum_synthetic(num_docs, C, limit, u16, num_docs, wide_ids)
+    args = (*(to_device(x, dev, x.dtype) for x in a), limit, 12, num_docs)
+    before = K.launches["mum_window"]
+    got = TC.mum_scan_chunk(*args)
+    assert K.launches["mum_window"] == before + 1
+    want = TC.mum_scan_chunk_ref(*args)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    if limit >= 0:
+        bits = np.unpackbits(want[0].cpu().numpy(), bitorder="little")
+        assert bits.sum() > 0
+
+
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+def test_mum_window_large_n_route(dev, monkeypatch, u16):
+    """The two-pass kernels (the route above _TILE_MAX_N), with the
+    constant lowered: chunks and the K9 route against their plain versions,
+    and find_multi_mums against the oracle."""
+    monkeypatch.setattr(TC, "_TILE_MAX_N", 3)
+    for num_docs in (4, 16):
+        assert TC.mum_window_route(num_docs) == "two-pass"
+        C, limit = MUM_SHAPES["C not a multiple of the tile, limit in the "
+                              "last tile"]
+        a = mum_synthetic(num_docs, C, limit, u16, 7)
+        args = (*(to_device(x, dev, x.dtype) for x in a), limit, 12,
+                num_docs)
+        for g, w in zip(TC.mum_scan_chunk(*args),
+                        TC.mum_scan_chunk_ref(*args)):
+            _equal(g, w)
+        ranks, sa, lcp, doc_ids, _ = _build_arrays(num_docs, 1500, num_docs)
+        prev_rank = ranks[sa - 1]
+        t = [to_device(x, dev) for x in (lcp, doc_ids[sa], prev_rank)]
+        for g, w in zip(TC.multi_mum_scan(*t, num_docs, 8),
+                        TC.multi_mum_scan_ref(*t, num_docs, 8)):
+            _equal(g, w)
+        ml, mp = O.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs, 8)
+        assert ml.size > 0
+        for g, w in zip(TC.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs,
+                                           8, device=dev), (ml, mp)):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_mum_window_chunked_route(dev, monkeypatch):
@@ -892,6 +1045,27 @@ def test_segmented_argmin(dev, case, lcp_top):
     np.testing.assert_array_equal(
         TC.compute_thresholds(heads, lens, lcp, device=dev),
         O.compute_thresholds(heads, lens, lcp))
+
+
+@pytest.mark.parametrize("name", ARGMIN_CASES)
+def test_segmented_argmin_tiles(dev, name):
+    """K12 at its tile's edges (the shipped tile, TC._ARGMIN_TILE): a
+    segment over many tiles with its minimum tied on both sides of three
+    tile edges (the first wins), segments of length 1, one segment the
+    whole array, m = 1, one lcp value (ties everywhere), segment ends on
+    tile edges, negative lcp; one call (two launches) each, against the
+    plain version; the workspace's keys are all ones again after each."""
+    lcp, segs = argmin_case(name, TC._ARGMIN_TILE)
+    lcp_t = to_device(lcp, dev)
+    ws = TC.ArgminWorkspace(lcp.size, dev)
+    for lo, hi in segs:
+        args = (lcp_t, to_device(lo, dev, np.int64),
+                to_device(hi, dev, np.int64))
+        before = K.launches["segmented_argmin"]
+        got = TC.segmented_argmin(*args, ws)
+        assert K.launches["segmented_argmin"] == before + 1
+        _equal(got, TC.segmented_argmin_ref(*args))
+        assert bool((ws.keys == -1).all())
 
 
 # ---------------------------------------------------------------------------
