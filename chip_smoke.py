@@ -620,8 +620,12 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, long_reads,
             chk.equal("query_batch_xla", got[0], want[0], what + " pml")
             chk.equal("query_batch_xla", got[1], want[1], what + " cid")
             if idx is index:
-                # about ten 4-byte gathers a valid step (the fast-forward's
-                # data-dependent length reads counted as one)
+                # the bound counts 40 B gathered a valid step (about ten
+                # 4-byte gathers of the first-port design, the
+                # fast-forward's data-dependent reads counted as one); the
+                # kernel reads a 32-byte run row and an 8-byte pair a step,
+                # two rows (64 B) more on a mismatch and a row's length a
+                # fast-forward round past the first
                 lane = np.minimum(ln, M)
                 steps = int(lane.sum())
                 chk.time("query_batch_xla",
@@ -633,6 +637,12 @@ def check_kernels(torch, dev, index, tbl, reads, n_reads, long_reads,
                                 + gathered(tb, steps, 40), steps * 30),
                          chain=("query_batch_xla unsplit", int(lane.max()),
                                 len(batch) <= 16))
+                if len(batch) <= 16:
+                    log("[time] query_batch_xla chain floor reference: the "
+                        "first-port design (nine 4-byte fields, four or "
+                        "five dependent loads a step) took 1.8941 us a step "
+                        "on these 16 lanes, 0.2860 ms for the main-path "
+                        "batch's 151 steps, on an H100 80GB HBM3 at 700 W")
     torch.cuda.empty_cache()
     return split
 
@@ -1293,6 +1303,17 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
              lambda: TCS.tunneled_walk_ref(*a16),
              f"16 MUMs of the first bucket x T = {T}, rate 10, N = "
              f"{num_docs}", reps=20, chain=("tunneled_walk", T, True))
+    # K10b's: the bucket's 16 longest MUMs (a walker moves only while t <
+    # its MUM's length)
+    b16 = (fd, p0[-16:].contiguous(), lt[-16:].contiguous(),
+           int(lt[-16:].max()), 10, num_docs)
+    for j, (g, w) in enumerate(zip(TCS.all_walk(*b16),
+                                   TCS.all_walk_ref(*b16))):
+        chk.equal("all_walk", g, w, f"16 longest MUMs, output {j}")
+    chk.time("all_walk", lambda: TCS.all_walk(*b16),
+             lambda: TCS.all_walk_ref(*b16),
+             f"the first bucket's 16 longest MUMs x T = {b16[3]}, rate 10, "
+             f"N = {num_docs}", reps=20, chain=("all_walk", b16[3], True))
     for name, kern, ref, rate in (
             ("tunneled_walk", TCS.tunneled_walk, TCS.tunneled_walk_ref, 10),
             ("all_walk", TCS.all_walk, TCS.all_walk_ref, 10)):
@@ -1305,8 +1326,7 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
                  lambda: ref(fd, p0, lt, T, rate, num_docs),
                  f"{what}, rate {rate}, N = {num_docs}",
                  bound=(nbytes(fl_arrays, p0, lt, got), walkers * T * 100),
-                 chain=(("tunneled_walk", T, False)
-                        if name == "tunneled_walk" else None))
+                 chain=(name, T, False))
     torch.cuda.empty_cache()
 
 
@@ -2692,8 +2712,10 @@ def run(torch) -> tuple[dict, list[dict]]:
     pat5 = WORK / "reads_small.fa"
     write_reads(pat5, [records[i] for i in sel])
     K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     v5 = run_query(lambda: cli_main(["query", prefix, "-p", str(pat5)]))
     launches5 = dict(K.launches)
+    peak5 = torch.cuda.max_memory_allocated()
     require(v5.get("engine") == "xla",
             f"phase 5 engine {v5.get('engine')}, expected xla")
     require(launches5["query_batch_xla"] > 0,
@@ -2707,7 +2729,8 @@ def run(torch) -> tuple[dict, list[dict]]:
                 f"phase 5 record {records[i][0]} differs from phase 4")
     log(f"[phase 5] engine {v5['engine']}: {len(sel)} reads ({chars5} "
         f"characters) in {v5['wall_s']:.3f}s (scan {v5['scan_s']:.3f}s), "
-        f"records equal phase 4's; launches {json.dumps(launches5)}")
+        f"device memory peak {peak5} B, records equal phase 4's; launches "
+        f"{json.dumps(launches5)}")
     log("[main path] " + json.dumps(main_path))
 
     # phases 6-7: the mega and mega-wide paths, the same reads through the

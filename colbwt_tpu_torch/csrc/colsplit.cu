@@ -33,22 +33,30 @@
 // neighbouring words of row t.
 //
 // K10b, all mode (N <= 64): the MUM's N-high range is N unit walkers
-// d = 0..N-1, one thread each, Np = next power of two >= N threads a MUM,
-// 128 / Np MUMs a block.  A walker becomes a fragment head for good once
-// it stands on a run head (sep); p moves only while t < len; a head's
-// height is the distance to the next head above it, found through the
-// walkers' head flags in shared memory.  Outputs are the dense (T, M, N)
-// planes of JAX.
+// d = 0..N-1, each the same move-structure walker as K10a's (p, u and its
+// run's row in registers, `locate` for the next row), over the same rows.
+// A walker becomes a fragment head for good once it stands on a run head,
+// p == start of its run (sep, set only while t < len and d > 0; at u == 0
+// the row is run 0's, whose start lies above p); p, u and the row move
+// only while t < len.  A head's height is the distance to the next head
+// above it: the MUM's walkers sit in one warp, so the heads are a mask of
+// one __ballot_sync a step (two at N > 32), and the next head above d is
+// the lowest set bit above bit d, else N; no shared memory and no block
+// barrier in the step loop.  Up to N = 32 a warp holds floor(32 / N)
+// MUMs, a lane a walker (lanes past the last whole MUM stay out of every
+// mask and store nothing); from N = 33 a warp holds one MUM, a lane the
+// walkers d and d + 32.  Outputs are the dense (T, M, N) planes of JAX; at
+// each step a warp's lanes store neighbouring words along (m, d).
 //
 // What bounds them on an H100: latency, a chain of dependent loads a
-// step.  K10b's step is a binary search of idx and then dest_interval,
-// dest_offset and idx, about log2(r) + 4 loads; at bench's r = 1.3M runs
-// idx is 5 MB and the three run arrays 15 MB, which the 50 MB L2 holds, so
-// a step costs some tens of L2 round trips.  K10a's step is one 16-byte
-// row (20 MB at bench's r), plus the rare fast-forward rows.  Both keep
-// one walker per thread with its state in registers and rely on many MUMs
-// in flight to hide the rest; the outputs are written once, coalesced
-// along m (K10a) or d (K10b).
+// step.  A step is one 16-byte row (20 MB at bench's r = 1.3M runs, which
+// the 50 MB L2 holds), plus the rare fast-forward rows; the parent K10b
+// ran a binary search of idx and then three dependent loads a step, about
+// log2(r) + 4 round trips.  Both kernels keep one walker a thread (K10b:
+// one or two) with its state in registers and rely on many MUMs in flight
+// to hide the rest; the outputs are written once, coalesced along m
+// (K10a) or (m, d) (K10b).  K10b's outputs are 9 bytes a walker a step
+// (150 MB on bench's first bucket), at least 0.045 ms of HBM writes.
 //
 // Plain C interface (ctypes); launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError().
@@ -59,15 +67,16 @@
 namespace {
 
 constexpr int kTunnelThreads = 128;
-// K10a: fast-forward rows before the binary search takes over, and whether
-// a step loads the destination run's row and the one after it together
+// fast-forward rows before the binary search takes over, and whether a
+// step loads the destination run's row and the one after it together: so
+// K10a, not K10b (10% faster without on an H100, scan_designs.py: a step
+// lands past its destination run about one time in four, and K10b's N
+// walkers a MUM would load the extra row N times)
 constexpr int kMaxForward = 8;
 constexpr bool kWalkPair = true;
+constexpr bool kAllPair = false;
 constexpr int kAllThreads = 128;
-
-__device__ __forceinline__ int32_t clip(int32_t i, int32_t r) {
-  return i < 0 ? 0 : (i >= r ? r - 1 : i);
-}
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // searchsorted(idx, v, side="right"): the number of run starts <= v
 __device__ __forceinline__ int32_t upper_bound(const int32_t* __restrict__ idx,
@@ -90,21 +99,13 @@ __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
                               static_cast<uint32_t>(b));
 }
 
-// one FL step from p, given i = clip(upper_bound(p) - 1)
-__device__ __forceinline__ int32_t fl_step(const int32_t* __restrict__ idx,
-                                           const int32_t* __restrict__ di,
-                                           const int32_t* __restrict__ doff,
-                                           int32_t r, int32_t i, int32_t p) {
-  const int32_t start = idx[i];
-  return wrap_add(wrap_add(idx[clip(di[i], r)], doff[i]),
-                  wrap_add(p, -start));
-}
-
 // K10a's row of run j is an int4: x its start, y the next run's start, z
 // dest_head, w clip(dest_interval).
 //
 // u = searchsorted(idx, p, "right") and the row of run max(u-1, 0), from
-// the row of a run `from` at or before p's (fast-forward), else searched
+// the row of a run `from` at or before p's (fast-forward, the next row
+// loaded beside it when Pair), else searched
+template <bool Pair>
 __device__ __forceinline__ int4 locate(const int32_t* __restrict__ idx,
                                        const int4* __restrict__ rows,
                                        int32_t r, int32_t from, int32_t p,
@@ -112,10 +113,10 @@ __device__ __forceinline__ int4 locate(const int32_t* __restrict__ idx,
   int32_t j = from;
   int4 w = __ldg(&rows[j]);
   int4 w1 = w;
-  if (kWalkPair && j < r - 1) w1 = __ldg(&rows[j + 1]);
+  if (Pair && j < r - 1) w1 = __ldg(&rows[j + 1]);
   if (p >= w.x) {
     int f = 0;
-    if (kWalkPair && j < r - 1 && p >= w.y) {
+    if (Pair && j < r - 1 && p >= w.y) {
       w = w1;
       ++j;
       ++f;
@@ -151,49 +152,80 @@ __global__ void tunneled_walk_kernel(
     const int64_t o = t * M + m;
     pos_out[o] = p;
     valid_out[o] = alive && t % rate == 0 && t < len;
-    if (t + 1 < T) w = locate(idx, rows, r, w.w, p, u);
+    if (t + 1 < T) w = locate<kWalkPair>(idx, rows, r, w.w, p, u);
   }
 }
 
+// K10b's head mask of a warp's one MUM past 32 walkers: bit d set where
+// walker d (lane d % 32, its walker d / 32) heads a fragment
+__device__ __forceinline__ uint64_t head_mask64(bool f0, bool f1) {
+  return static_cast<uint64_t>(__ballot_sync(kFullMask, f0)) |
+         static_cast<uint64_t>(__ballot_sync(kFullMask, f1)) << 32;
+}
+
+// W walkers a lane: 1 up to N = 32 (floor(32 / N) MUMs a warp), 2 past it
+// (one MUM a warp)
+template <int W>
 __global__ void all_walk_kernel(
-    const int32_t* __restrict__ idx, const int32_t* __restrict__ di,
-    const int32_t* __restrict__ doff, int32_t r,
-    const int32_t* __restrict__ p0, const int32_t* __restrict__ lens,
-    int64_t M, int32_t T, int32_t rate, int32_t N, int32_t Np,
-    int32_t* __restrict__ pos_out, int32_t* __restrict__ height_out,
-    uint8_t* __restrict__ valid_out) {
-  __shared__ int32_t head[kAllThreads];  // d if walker d is a head, else N
-  const int32_t tid = threadIdx.x;
-  const int32_t base = tid / Np * Np;  // this MUM's first walker slot
-  const int32_t d = tid - base;
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * (kAllThreads / Np) +
-                    tid / Np;
-  const bool in = m < M && d < N;
-  int32_t p = in ? wrap_add(p0[m], d) : 0;
-  const int32_t len = in ? lens[m] : 0;
-  bool sep = false;
+    const int32_t* __restrict__ idx, const int4* __restrict__ rows,
+    int32_t r, const int32_t* __restrict__ p0,
+    const int32_t* __restrict__ lens, int64_t M, int32_t T, int32_t rate,
+    int32_t N, int32_t* __restrict__ pos_out,
+    int32_t* __restrict__ height_out, uint8_t* __restrict__ valid_out) {
+  const int32_t lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int32_t per_warp = W == 1 ? 32 / N : 1;  // MUMs a warp
+  const int32_t slot = W == 1 ? lane / N : 0;    // the lane's MUM in it
+  const int64_t m = warp * per_warp + slot;
+  const bool mum = slot < per_warp && m < M;
+  const int32_t base = slot * N;  // the MUM's first lane (W == 1)
+  const uint32_t span = N >= 32 ? kFullMask : (1u << N) - 1;
+  int32_t d[W], p[W], u[W];
+  int4 w[W];
+  bool in[W], sep[W];
+  const int32_t len = mum ? lens[m] : 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    d[k] = W == 1 ? lane - base : lane + 32 * k;
+    in[k] = mum && d[k] < N;
+    p[k] = in[k] ? wrap_add(p0[m], d[k]) : 0;
+    u[k] = in[k] ? upper_bound(idx, r, p[k]) : 0;
+    w[k] = in[k] ? __ldg(&rows[u[k] > 0 ? u[k] - 1 : 0])
+                 : make_int4(0, 0, 0, 0);
+    sep[k] = false;
+  }
   for (int32_t t = 0; t < T; ++t) {
     const bool active = t < len;
-    const int32_t i = clip(upper_bound(idx, r, p) - 1, r);
-    sep = sep || (p == idx[i] && active && d > 0);
-    const int32_t p_next = fl_step(idx, di, doff, r, i, p);
-    if (active) p = p_next;
-    const bool first = sep || d == 0;
-    head[tid] = in && first ? d : N;
-    __syncthreads();
-    int32_t next_head = N;
-    for (int32_t e = d + 1; e < N; ++e) {
-      if (head[base + e] != N) {
-        next_head = e;
-        break;
+    bool first[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (in[k] && active) {
+        sep[k] = sep[k] || (p[k] == w[k].x && d[k] > 0);
+        p[k] = wrap_add(w[k].z, wrap_add(p[k], -w[k].x));
+        if (t + 1 < T) {
+          w[k] = locate<kAllPair>(idx, rows, r, w[k].w, p[k], u[k]);
+        }
       }
+      first[k] = in[k] && (sep[k] || d[k] == 0);
     }
-    __syncthreads();
-    if (in) {
-      const int64_t o = (t * M + m) * N + d;
-      pos_out[o] = p;
-      height_out[o] = next_head - d;
-      valid_out[o] = first && active && t % rate == 0;
+    uint64_t heads;  // the MUM's head mask, bit d for walker d
+    if constexpr (W == 1) {
+      heads = (__ballot_sync(kFullMask, first[0]) >> base) & span;
+    } else {
+      heads = head_mask64(first[0], first[W - 1]);
+    }
+    const bool mark = active && t % rate == 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (!in[k]) continue;
+      // the lowest head above d, else N (2 << 63 wraps to 0: none above)
+      const uint64_t above = heads & ~((uint64_t{2} << d[k]) - 1);
+      const int32_t next_head = above ? __ffsll(above) - 1 : N;
+      const int64_t o = (t * M + m) * N + d[k];
+      pos_out[o] = p[k];
+      height_out[o] = next_head - d[k];
+      valid_out[o] = first[k] && mark;
     }
   }
 }
@@ -219,24 +251,23 @@ int colbwt_tunneled_walk(const void* idx, const void* rows, int64_t r,
   return static_cast<int>(cudaGetLastError());
 }
 
-int colbwt_all_walk(const void* idx, const void* dest_interval,
-                    const void* dest_offset, int64_t r, const void* p0,
-                    const void* lens, int64_t M, int64_t T, int64_t rate,
-                    int64_t N, void* pos, void* height, void* valid,
-                    void* stream) {
-  int32_t Np = 1;
-  while (Np < N) Np *= 2;
-  const int64_t per_block = kAllThreads / Np;
-  const int64_t blocks = (M + per_block - 1) / per_block;
-  all_walk_kernel<<<blocks, kAllThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(dest_interval),
-      static_cast<const int32_t*>(dest_offset), static_cast<int32_t>(r),
-      static_cast<const int32_t*>(p0), static_cast<const int32_t*>(lens), M,
-      static_cast<int32_t>(T), static_cast<int32_t>(rate),
-      static_cast<int32_t>(N), Np, static_cast<int32_t*>(pos),
-      static_cast<int32_t*>(height), static_cast<uint8_t*>(valid));
+// rows and idx as colbwt_tunneled_walk takes them; pos and height
+// (T, M, N) int32, valid (T, M, N) uint8
+int colbwt_all_walk(const void* idx, const void* rows, int64_t r,
+                    const void* p0, const void* lens, int64_t M, int64_t T,
+                    int64_t rate, int64_t N, void* pos, void* height,
+                    void* valid, void* stream) {
+  const int64_t per_warp = N <= 32 ? 32 / N : 1;
+  const int64_t warps = (M + per_warp - 1) / per_warp;
+  const int64_t blocks = (warps * 32 + kAllThreads - 1) / kAllThreads;
+  const auto kernel = N <= 32 ? all_walk_kernel<1> : all_walk_kernel<2>;
+  kernel<<<blocks, kAllThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int4*>(rows),
+      static_cast<int32_t>(r), static_cast<const int32_t*>(p0),
+      static_cast<const int32_t*>(lens), M, static_cast<int32_t>(T),
+      static_cast<int32_t>(rate), static_cast<int32_t>(N),
+      static_cast<int32_t*>(pos), static_cast<int32_t*>(height),
+      static_cast<uint8_t*>(valid));
   return static_cast<int>(cudaGetLastError());
 }
 

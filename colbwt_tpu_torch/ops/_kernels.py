@@ -57,7 +57,7 @@ _SIGNATURES = {
     "colbwt_compose_tables": [_P] * 3 + [_I] * 5 + [_P],
     "colbwt_query_chunk_pos": ([_P, _I, _I, _P, _I, _P, _P, _P] + [_I] * 8
                                + [_P] * 4 + [_P]),
-    "colbwt_query_batch_xla": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3
+    "colbwt_query_batch_xla": [_P] * 2 + [_I] * 3 + [_P] * 2 + [_I] * 3
                               + [_P] * 2 + [_P],
     "colbwt_query_chunk_mega": ([_P, _I, _P, _I, _I, _P, _P] + [_P] * 4
                                 + [_I] * 6 + [_P] * 6 + [_P]),
@@ -76,7 +76,7 @@ _SIGNATURES = {
                                    + [_P]),
     "colbwt_tunneled_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],
-    "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
+    "colbwt_all_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
                        + [_P],
     "colbwt_doubling_round": ([_P] + [_I] * 3 + [_P] * 6 + [_I] * 2
                               + [_P] * 3 + [_P]),

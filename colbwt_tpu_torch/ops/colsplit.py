@@ -29,6 +29,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from colbwt_tpu_torch.models.tensors import wrap32
 from colbwt_tpu_torch.ops.oracle import FLTableArrays
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.utils.device import resolve_device
@@ -38,7 +39,8 @@ FL_FIELDS = ("idx", "dest_interval", "dest_offset")
 
 def fl_tensors(fl: FLTableArrays, device) -> dict[str, torch.Tensor]:
     """The FL table's arrays as int32 tensors on `device` (the counterpart
-    of colsplit_jax.fl_device_arrays), and K10a's rows (`walk_rows`)."""
+    of colsplit_jax.fl_device_arrays), and the rows K10a and K10b walk
+    (`walk_rows`)."""
     dev = resolve_device(device)
     fd = {f: torch.from_numpy(np.asarray(getattr(fl, f), dtype=np.int32))
           .to(dev) for f in FL_FIELDS}
@@ -46,22 +48,17 @@ def fl_tensors(fl: FLTableArrays, device) -> dict[str, torch.Tensor]:
     return fd
 
 
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values wrapped to int32, as int32 sums wrap."""
-    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
-
-
 def walk_rows(fd: dict) -> torch.Tensor:
-    """K10a's move-structure rows, (r, 4) int32, one a run j: idx[j], the
-    next run's start idx[j+1] (INT32_MAX past the last run, which the
-    kernel never compares), dest_head = idx[clip(dest_interval[j])] +
-    dest_offset[j] wrapped to int32, and clip(dest_interval[j]).  The plain
-    version does not read them."""
+    """K10a's and K10b's move-structure rows, (r, 4) int32, one a run j:
+    idx[j], the next run's start idx[j+1] (INT32_MAX past the last run,
+    which the kernels never compare), dest_head = idx[clip(dest_interval[j])]
+    + dest_offset[j] wrapped to int32, and clip(dest_interval[j]).  The
+    plain versions do not read them."""
     idx = fd["idx"]
     r = idx.shape[0]
     dest = fd["dest_interval"].long().clamp(0, r - 1)
     nxt = torch.cat([idx[1:], idx.new_full((1,), (1 << 31) - 1)])
-    head = _wrap32(idx.long()[dest] + fd["dest_offset"].long())
+    head = wrap32(idx.long()[dest] + fd["dest_offset"].long())
     return torch.stack([idx, nxt, head, dest.to(torch.int32)], 1).contiguous()
 
 
@@ -150,6 +147,13 @@ def _check_walk_args(fd: dict, p0: torch.Tensor, lens: torch.Tensor):
     return dev, r
 
 
+def _check_rows(fd: dict, dev, r: int) -> None:
+    K.require(fd["rows"], "rows", torch.int32, dev)
+    K.require_aligned(fd["rows"], "rows", 16)
+    if fd["rows"].shape != (r, 4):
+        raise ValueError(f"rows must have shape ({r}, 4)")
+
+
 def tunneled_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
                   num_steps: int, rate: int, num_docs: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -160,10 +164,7 @@ def tunneled_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
     if p0.device.type == "cpu":
         return tunneled_walk_ref(fd, p0, lens, num_steps, rate, num_docs)
     dev, r = _check_walk_args(fd, p0, lens)
-    K.require(fd["rows"], "rows", torch.int32, dev)
-    K.require_aligned(fd["rows"], "rows", 16)
-    if fd["rows"].shape != (r, 4):
-        raise ValueError(f"rows must have shape ({r}, 4)")
+    _check_rows(fd, dev, r)
     M = p0.shape[0]
     pos = torch.empty((num_steps, M), dtype=torch.int32, device=dev)
     valid = torch.empty((num_steps, M), dtype=torch.bool, device=dev)
@@ -181,11 +182,13 @@ def all_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
              num_steps: int, rate: int, num_docs: int
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K10b (replaces colbwt_tpu/ops/colsplit_jax.py:84 _all_walk): outputs
-    as `all_walk_ref`, for num_docs <= 64.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    as `all_walk_ref`, for num_docs <= 64, walked over fd["rows"] as K10a
+    walks them.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if p0.device.type == "cpu":
         return all_walk_ref(fd, p0, lens, num_steps, rate, num_docs)
     dev, r = _check_walk_args(fd, p0, lens)
+    _check_rows(fd, dev, r)
     if not 1 <= num_docs <= 64:
         raise ValueError(f"all_walk takes 1 <= num_docs <= 64, got "
                          f"{num_docs} (col_split walks more on the host)")
@@ -196,7 +199,7 @@ def all_walk(fd: dict, p0: torch.Tensor, lens: torch.Tensor,
     valid = torch.empty(shape, dtype=torch.bool, device=dev)
     if M and num_steps:
         code = K.on(dev).colbwt_all_walk(
-            *(fd[f].data_ptr() for f in FL_FIELDS), r, p0.data_ptr(),
+            fd["idx"].data_ptr(), fd["rows"].data_ptr(), r, p0.data_ptr(),
             lens.data_ptr(), M, int(num_steps), int(rate), int(num_docs),
             pos.data_ptr(), height.data_ptr(), valid.data_ptr(),
             K.stream_handle(dev))

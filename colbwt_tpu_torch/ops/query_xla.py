@@ -8,9 +8,12 @@ not fit.
 
 One kernel carries it, K4 in csrc/query_xla.cu (replaces query_xla.py:153
 query_batch_device with query_step, lf_fast_forward and _gather_jump), with
-the plain PyTorch version `query_batch_device_ref` beside it.  The wrapper
-runs the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+the plain PyTorch version `query_batch_device_ref` beside it.  The kernel
+reads the 32-byte run rows and [succ, pred] pairs that `index_tensors`
+puts on a CUDA device (models/tensors.py compact_rows, jump_pairs); the
+plain version reads the index's fields.  The wrapper runs the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,8 +22,7 @@ import numpy as np
 import torch
 
 from colbwt_tpu_torch.models.index import ColPmlIndex
-from colbwt_tpu_torch.models.tensors import (SOA_FIELDS, index_tensors,
-                                             to_device)
+from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.utils.device import resolve_device
 
@@ -110,14 +112,20 @@ def query_batch_device(tb: dict, patterns: torch.Tensor,
     right-aligned; left-pad columns are 0).  ff_bound = 0 fast-forwards
     until landing; ff_bound = K >= 1 takes K-1 bounded rounds (run-split
     indexes).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel over tb["rows"] and tb["pairs"] (`index_tensors` on the card)."""
     patterns = patterns.to(torch.int32).contiguous()
     if patterns.device.type == "cpu":
         return query_batch_device_ref(tb, patterns, lengths, ff_bound)
     dev = patterns.device
     B, M = patterns.shape
-    for name in SOA_FIELDS:
-        K.require(tb[name], name, torch.int32, dev)
+    r = tb["r"]
+    rows, pairs = tb["rows"], tb["pairs"]
+    K.require(rows, "rows", torch.int32, dev)
+    K.require_aligned(rows, "rows", 16)
+    K.require(pairs, "pairs", torch.int32, dev)
+    K.require_aligned(pairs, "pairs", 8)
+    if rows.shape != (r, 8) or pairs.dim() != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"rows must have shape ({r}, 8), pairs (J, 2)")
     K.require(lengths, "lengths", torch.int32, dev)
     if lengths.shape != (B,):
         raise ValueError(f"lengths must have shape ({B},)")
@@ -125,10 +133,9 @@ def query_batch_device(tb: dict, patterns: torch.Tensor,
     cid = torch.empty((B, M), dtype=torch.int32, device=dev)
     if B and M:
         code = K.on(dev).colbwt_query_batch_xla(
-            *(tb[f].data_ptr() for f in SOA_FIELDS), tb["r"],
-            tb["pred_jump"].numel(), tb["n"], patterns.data_ptr(),
-            lengths.data_ptr(), B, M, int(ff_bound), pml.data_ptr(),
-            cid.data_ptr(), K.stream_handle(dev))
+            rows.data_ptr(), pairs.data_ptr(), r, pairs.shape[0], tb["n"],
+            patterns.data_ptr(), lengths.data_ptr(), B, M, int(ff_bound),
+            pml.data_ptr(), cid.data_ptr(), K.stream_handle(dev))
         K.check("query_batch_xla", code)
         K.launches["query_batch_xla"] += 1
     return pml, cid

@@ -7,7 +7,9 @@ FASTA's reads, writes its own part files, and rank 0 concatenates them in
 read order after a barrier — the output does not depend on the process
 count.
 
-Runs unchanged single-process (P = 1).
+Runs unchanged single-process (P = 1).  `shutdown_distributed` ends a
+run: it closes the meshes, whose process groups would otherwise outlive
+`destroy_process_group` into interpreter exit.
 
 ASSUMPTION: the part-file merge needs a filesystem every process sees.
 Without one, point each process's pattern_file at local scratch and
@@ -17,6 +19,7 @@ self-delimiting, so plain byte concatenation in process order is the merge.
 
 from __future__ import annotations
 
+import gc
 import os
 from pathlib import Path
 
@@ -56,6 +59,26 @@ def init_distributed(device=None) -> tuple[int, int]:
                      f"{os.environ['MASTER_PORT']}"),
         rank=rank, world_size=world)
     return rank, world
+
+
+def shutdown_distributed(*meshes) -> None:
+    """The end of a distributed run, `init_distributed`'s counterpart: a
+    barrier (no rank tears down while another still has collectives in
+    flight), then `meshes` closed and the process groups destroyed.
+
+    A mesh over the ranks holds its dp and ip process groups, and their
+    gloo or NCCL worker threads, for as long as it is referenced, past
+    `destroy_process_group`; left to interpreter exit, those threads are
+    torn down in no set order and can abort the process ("terminate called
+    without an active exception").  Closing the meshes first ends them
+    here.  Without a group, only the meshes are closed."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+    for mesh in meshes:
+        mesh.close()
+    gc.collect()  # a device mesh may sit in a reference cycle
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def host_read_slice(num_reads: int, pid: int, nproc: int) -> tuple[int, int]:

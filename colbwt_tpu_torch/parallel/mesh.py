@@ -189,6 +189,12 @@ class Mesh:
     def shape(self) -> dict:
         return {"dp": self.dp, "ip": self.ip}
 
+    def close(self) -> None:
+        """Drop the mesh's devices and its device mesh, whose dp and ip
+        process groups (and their worker threads) live as long as it is
+        referenced; a closed mesh computes nothing."""
+        self._grid = self._device = self._dm = self._coord = None
+
     @property
     def distributed(self) -> bool:
         return self._dm is not None

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Design sweep of the T1 build K1, the scans K3, K5, K6a and K7, the
-multi-MUM window K8/K9, the col-split walk K10a, the LCP lift K11b, the
-thresholds' segmented argmin K12, the sharded table composition K13d,
-the sharded per-step kernels K13a-K13c and K13e and the K13e chunk scan on
-one CUDA card.
+"""Design sweep of the T1 build K1, the scans K3, K4, K5, K6a and K7, the
+multi-MUM window K8/K9, the col-split walks K10a and K10b, the LCP lift
+K11b, the thresholds' segmented argmin K12, the sharded table composition
+K13d, the sharded per-step kernels K13a-K13c and K13e and the K13e chunk
+scan on one CUDA card.
 
     python3 scan_designs.py [--parent DIR]
-                            [--groups scans,lcp,tk,pos,walk,step,mums,thr]
+                            [--groups scans,lcp,tk,pos,walk,xla,step,mums,thr]
                             [--designs NAME,...]
 
 Each group times, on the same inputs and in turns, the shipped kernels of
@@ -55,6 +55,23 @@ shipped source with one change, compiled into a library of its own:
   block in place of 128, 2 or 32 fast-forward rows before the binary
   search in place of 8, and the destination's row alone in place of it
   and the next one together; the fast-forward rows a step logged first;
+  K10b on bench's first all-mode bucket (the same 17,543 MUMs, N = 4), its
+  first tunnels-mode bucket (chip_smoke.py's phase 3 shape), its 16
+  longest MUMs (the chain floor), its starts walked with N = 48 (two
+  walkers a lane) and the pangenome's first all-mode bucket (N = 16):
+  64 or 256 threads a block in place of 128, the next row loaded beside
+  the destination's ("allwalk-pair"), the head mask of N > 32 through
+  shared memory in place of two ballots ("allwalk-shared-mask"); the
+  walk group's K10a variants run at K10b's shapes too (K10b shares
+  `locate` and kMaxForward);
+- xla (query_xla.cu; K4 at chip_smoke.py's shapes: the main-path batch of
+  8,192 x 256 on bench's index at ff_bound 0 and on its ff_bound-2 split
+  at 2 and 0, the 16 long reads' last 2,048 characters (the chain floor),
+  cell B's two batches): 64 or 128 threads a block in place of 32,
+  column-major planes transposed on the device, one store a column, 4
+  columns a store in place of 8, the pair loaded on a mismatch alone;
+  then cell B's query through `col-bwt-torch query`, a process each for
+  the parent's tree and the shipped one, for its device memory peak;
 - step (query_sharded.cu; the per-step route of shards on other cards,
   run on one card at (dp, ip) = (1, 2) over bench's index split to
   ff_bound 2 and its x1024 wide index, with chip_smoke.py's 263,168 reads
@@ -122,10 +139,11 @@ group holds every design to the first it times, the parent's where
 given).  A time is the mean of
 `reps` calls between CUDA events after one warm-up, a column-major
 design's device transposes included.  Prints the card's name and power
-limit first, the ptxas register counts of K1's, K3's, K10a's, K11b's,
-K13d's, the per-step kernels' and the K13e chunk scan's shipped
-sources, and one JSON line of every time last (also written to
-build/scan_designs/times.json); exits nonzero without CUDA.
+limit first, the ptxas register counts of K1's, K3's, K4's, K8's,
+K10a's, K10b's, K11b's, K12's, K13d's, the per-step kernels' and the
+K13e chunk scan's shipped sources, and one JSON line of every time last
+(also written to build/scan_designs/times.json); exits nonzero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -134,6 +152,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -151,12 +170,14 @@ GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
           "tk": ("query_sharded.cu",),
           "pos": ("query_pos.cu",),
           "walk": ("colsplit.cu",),
+          "xla": ("query_xla.cu",),
           "step": ("query_sharded.cu",),
           "mums": ("construct.cu",),
           "thr": ("suffix.cu",)}
 SOURCES = tuple(f for group in GROUPS.values() for f in group)
 # the shipped kernels whose ptxas counts the sweep prints
 PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
+                 "all_walk_kernel", "query_batch_xla_kernel",
                  "compose_sharded_tk_kernel", "query_chunk_pos_kernel",
                  "tunneled_walk_kernel", "sharded_step_mega_kernel",
                  "sharded_step_compact_kernel", "build_t1_chunk_kernel",
@@ -189,6 +210,18 @@ _POS_THREADS = "constexpr int kPosThreads = 32;\n"
 _POS_STORE = "constexpr int kPosStore = 2;\n"
 _WALK_THREADS = "constexpr int kTunnelThreads = 128;\n"
 _WALK_FORWARD = "constexpr int kMaxForward = 8;\n"
+_ALL_THREADS = "constexpr int kAllThreads = 128;\n"
+_ALL_MASK = ("  return static_cast<uint64_t>(__ballot_sync(kFullMask, f0)) |\n"
+             "         static_cast<uint64_t>(__ballot_sync(kFullMask, f1)) "
+             "<< 32;\n")
+_XLA_THREADS = "constexpr int kThreads = 32;\n"
+_XLA_STORE = ("  store_cols<G>(pml_out, b * M + g * G, pb);\n"
+              "  store_cols<G>(cid_out, b * M + g * G, cb);\n")
+_XLA_PAIR = ("  const int2 pair = __ldg(\n"
+             "      &pairs[clip(static_cast<int64_t>(c) * r + s.interval, "
+             "pair_count)]);\n")
+_XLA_GROUP = ("  const int group = !aligned ? 1 : (M % 8 == 0 ? 8 : "
+              "(M % 4 == 0 ? 4 : 1));\n")
 _STEP_COL_MAJOR = "constexpr bool kStepColMajor = true;\n"
 _STEP_INTERLEAVE = "constexpr bool kStepInterleave = false;\n"
 _T1_TILE = "constexpr int kT1Tile = 2048;\n"
@@ -385,6 +418,49 @@ VARIANTS = {
     "pos-key-after": [
         ("query_pos.cu", "constexpr bool kPosKeyAhead = true;",
          "constexpr bool kPosKeyAhead = false;")],
+    "allwalk-pair": [
+        ("colsplit.cu", "constexpr bool kAllPair = false;",
+         "constexpr bool kAllPair = true;")],
+    "allwalk-threads-64": [
+        ("colsplit.cu", _ALL_THREADS, _ALL_THREADS.replace("128", "64"))],
+    "allwalk-threads-256": [
+        ("colsplit.cu", _ALL_THREADS, _ALL_THREADS.replace("128", "256"))],
+    "allwalk-shared-mask": [
+        ("colsplit.cu", _ALL_MASK,
+         "  __shared__ unsigned long long s_mask[kAllThreads / 32];\n"
+         "  const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+         "  if (lane == 0) s_mask[wi] = 0;\n"
+         "  __syncwarp();\n"
+         "  const unsigned long long bits =\n"
+         "      (f0 ? 1ull << lane : 0ull) |\n"
+         "      (f1 ? 1ull << (lane + 32) : 0ull);\n"
+         "  if (bits) atomicOr(&s_mask[wi], bits);\n"
+         "  __syncwarp();\n"
+         "  const uint64_t mask = s_mask[wi];\n"
+         "  __syncwarp();\n"
+         "  return mask;\n")],
+    "xla-pair-on-mismatch": [
+        ("query_xla.cu", _XLA_PAIR, ""),
+        ("query_xla.cu", "    const int32_t si = pair.x, pi = pair.y;\n",
+         _XLA_PAIR.replace("  ", "    ", 1)
+         + "    const int32_t si = pair.x, pi = pair.y;\n")],
+    "xla-threads-64": [
+        ("query_xla.cu", _XLA_THREADS, _XLA_THREADS.replace("32", "64"))],
+    "xla-threads-128": [
+        ("query_xla.cu", _XLA_THREADS, _XLA_THREADS.replace("32", "128"))],
+    "xla-column-major": [
+        ("query_xla.cu", _XLA_STORE,
+         "#pragma unroll\n"
+         "  for (int j = 0; j < G; ++j) {\n"
+         "    pml_out[(g * G + j) * B + b] = pb[j];\n"
+         "    cid_out[(g * G + j) * B + b] = cb[j];\n"
+         "  }\n")],
+    "xla-scalar-stores": [
+        ("query_xla.cu", _XLA_GROUP,
+         "  const int group = aligned ? 1 : 1;\n")],
+    "xla-group-4": [
+        ("query_xla.cu", _XLA_GROUP,
+         "  const int group = !aligned ? 1 : (M % 4 == 0 ? 4 : 1);\n")],
     "walk-threads-32": [
         ("colsplit.cu", _WALK_THREADS, _WALK_THREADS.replace("128", "32"))],
     "walk-threads-64": [
@@ -470,7 +546,11 @@ POS_VARIANTS = ("pos-threads-64", "pos-threads-128", "pos-scalar-stores",
                 "pos-column-major", "pos-key-after", "t1-tile-1024",
                 "t1-tile-4096", "t1-search", "t1-binary-ends")
 WALK_VARIANTS = ("walk-threads-32", "walk-threads-64", "walk-threads-256",
-                 "walk-forward-2", "walk-forward-32", "walk-no-pair")
+                 "walk-forward-2", "walk-forward-32", "walk-no-pair",
+                 "allwalk-pair", "allwalk-threads-64",
+                 "allwalk-threads-256", "allwalk-shared-mask")
+XLA_VARIANTS = ("xla-threads-64", "xla-threads-128", "xla-column-major",
+                "xla-scalar-stores", "xla-group-4", "xla-pair-on-mismatch")
 STEP_VARIANTS = ("step-row-major", "step-interleaved", "scan-pos-row-major")
 MUMS_VARIANTS = ("mums-tile-1024", "mums-tile-4096", "mums-threads-128",
                  "mums-threads-512", "mums-scalar-loads")
@@ -484,7 +564,8 @@ ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                 "lcp": ("colbwt_lcp_lift",),
                 "tk": ("colbwt_compose_sharded_tk",),
                 "pos": ("colbwt_query_chunk_pos", "colbwt_build_t1_chunk"),
-                "walk": ("colbwt_tunneled_walk",),
+                "walk": ("colbwt_tunneled_walk", "colbwt_all_walk"),
+                "xla": ("colbwt_query_batch_xla",),
                 "step": ("colbwt_sharded_fetch", "colbwt_compose_sharded_tk",
                          "colbwt_sharded_step_mega",
                          "colbwt_sharded_step_compact",
@@ -494,6 +575,11 @@ ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # the parent's entry points whose arguments differ from the shipped ones'
 PARENT_SIGNATURES = {
+    # the first-port K4 (nine field arrays) and K10b (the FL arrays)
+    "colbwt_query_batch_xla": [_P] * 9 + [_I] * 3 + [_P] * 2 + [_I] * 3
+                              + [_P] * 2 + [_P],
+    "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
+                       + [_P],
     "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
     # the two-pass K8 (a scratch array) and one-warp-a-segment K12
     "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
@@ -503,6 +589,7 @@ GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
                                                 + MEGA_VARIANTS)),
                   "lcp": LCP_VARIANTS, "tk": TK_VARIANTS,
                   "pos": POS_VARIANTS, "walk": WALK_VARIANTS,
+                  "xla": XLA_VARIANTS,
                   "step": STEP_VARIANTS, "mums": MUMS_VARIANTS,
                   "thr": THR_VARIANTS}
 
@@ -647,10 +734,13 @@ def main() -> int:
                 sweep_thr(torch, of("thr"), compare, cols)
             del cols
             torch.cuda.empty_cache()
-    if {"scans", "tk", "pos", "walk", "step"} & set(groups):
+    if {"scans", "tk", "pos", "walk", "xla", "step"} & set(groups):
         bench = bench_index(torch)
         if "walk" in groups:
             sweep_walk(torch, of("walk"), compare, bench)
+        if "xla" in groups:
+            sweep_xla(torch, of("xla"), compare, bench)
+            xla_peaks(bench, args.parent, times)
         if "pos" in groups:
             sweep_pos(torch, of("pos"), compare, bench)
         if "tk" in groups:
@@ -1202,26 +1292,33 @@ def sweep_pos(torch, libs: dict, compare, bench: dict) -> None:
               ("the pangenome's index", pangenome_index(torch), 5)))
 
 
+PANGENOME_PREFIX = WORK / "pangenome"
+_pangenome: list = []
+
+
 def pangenome_index(torch):
     """chip_smoke.py's phase 8 index: its 16 x 4.5 Mbp pangenome through
-    `col-bwt-torch build -m tunnels -s 10 -l 20` on the card."""
+    `col-bwt-torch build -m tunnels -s 10 -l 20 --keep` on the card, built
+    once a run (its artifacts kept at PANGENOME_PREFIX)."""
     from chip_smoke import pangenome_docs, write_reads
     from colbwt_tpu_torch.cli import main as cli_main
     from colbwt_tpu_torch.models.index import ColPmlIndex
 
+    if _pangenome:
+        return _pangenome[0]
     t0 = time.perf_counter()
     fastas = []
     for i, d in enumerate(pangenome_docs()):
         fastas.append(str(WORK / f"pan{i}.fa"))
         write_reads(Path(fastas[-1]), [(f"hap{i}", d)])
-    prefix = str(WORK / "pangenome")
+    prefix = str(PANGENOME_PREFIX)
     if cli_main(["build", "-o", prefix, "-m", "tunnels", "-s", "10", "-l",
-                 "20", "--device", "cuda", *fastas]):
+                 "20", "--keep", "--device", "cuda", *fastas]):
         raise RuntimeError("the pangenome's build failed")
-    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
-    log(f"[designs] the pangenome's index (n = {index.n}, r = {index.r}) in "
-        f"{time.perf_counter() - t0:.1f}s")
-    return index
+    _pangenome.append(ColPmlIndex.load(f"{prefix}.colpml.npz"))
+    log(f"[designs] the pangenome's index (n = {_pangenome[0].n}, r = "
+        f"{_pangenome[0].r}) in {time.perf_counter() - t0:.1f}s")
+    return _pangenome[0]
 
 
 def sweep_t1(torch, libs: dict, compare, cells) -> None:
@@ -1318,6 +1415,205 @@ def sweep_walk(torch, libs: dict, compare, bench: dict) -> None:
                    for name, lib in libs.items()}
         compare(f"K10a {label}, {m} MUMs x T={T}, rate {rate}, N={N}, "
                 f"r={r}", designs, reps)
+    del fd
+    torch.cuda.empty_cache()
+    sweep_all_walk(torch, libs, compare, bench)
+
+
+def all_walk_shapes(torch, prefix: str, label: str, tunnels_too: bool):
+    """The FL tensors of the index built at `prefix` and K10b's shapes
+    there, (label, fd, p0, lens, T, N, reps): the first bucket col_split
+    walks in all mode and its 16 longest MUMs, the chain floor; with
+    `tunnels_too`, also the first tunnels-mode bucket, the shape
+    chip_smoke.py's phase 3 times, and the first all-mode bucket's starts
+    walked with N = 48 walkers a MUM (no collection of 48 documents is
+    built: the walk is defined for any start, and N = 48 takes the
+    kernel's two walkers a lane), as many MUMs as the step budget allows."""
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.ops import colsplit as TCS
+    from colbwt_tpu_torch.ops import oracle as O
+
+    dev = torch.device("cuda")
+    N, ml, mp = F.read_col_mums(f"{prefix}.fa.col_mums")
+    fd = TCS.fl_tensors(O.build_fl_table(*F.read_rlbwt(f"{prefix}.fa")), dev)
+    order = np.argsort(mp, kind="stable")
+    ls = ml[order]
+    by_len = np.argsort(ls, kind="stable")
+    first = next(TCS.buckets(ls, by_len, False, N, 1 << 24))
+    cuts = [("the first all-mode bucket", first, N)]
+    if tunnels_too:
+        cuts.append(("the first tunnels-mode bucket",
+                     next(TCS.buckets(ls, by_len, True, N, 1 << 24)), N))
+        wide = 48
+        cut = (1 << 24) // (wide * int(ls[first].max()))
+        cuts.append((f"the first all-mode bucket's {cut} longest MUMs' "
+                     f"starts at N = {wide}", first[-cut:], wide))
+    cuts.append(("the first all-mode bucket's 16 longest MUMs, the chain "
+                 "floor", first[-16:], N))
+    out = []
+    for what, sel, walkers in cuts:
+        T = int(ls[sel].max())
+        p0 = torch.from_numpy(mp[order][sel].astype(np.int32)).to(dev)
+        lt = torch.from_numpy(ls[sel].astype(np.int32)).to(dev)
+        out.append((f"{label}, {what}", fd, p0, lt, T, walkers, 20))
+    return out
+
+
+def xla_peaks(bench: dict, parent: Path | None, times: dict) -> None:
+    """Cell B's query (chip_smoke.py's phase 5: every 44th of bench's
+    reads, 32 N reads, 8 long reads) through `col-bwt-torch query` on
+    bench's index, the compact engine's path, each run in a process of its
+    own with one tree's package (the parent's, the shipped, the shipped
+    again, the parent's again): the device memory peak of each."""
+    from bench import N_READS
+    from chip_smoke import write_reads
+
+    reads, n_reads, long_reads = bench["reads"]
+    batch = ([reads[44 * i] for i in range(N_READS // 44)] + n_reads[:32]
+             + long_reads[:8])
+    pat = WORK / "reads_b.fa"
+    write_reads(pat, [(f"r{i}", x) for i, x in enumerate(batch)])
+    code = ("import sys, torch; from colbwt_tpu_torch.cli import main; "
+            "torch.cuda.reset_peak_memory_stats(); "
+            "rc = main(['query', sys.argv[1], '-p', sys.argv[2]]); "
+            "print('PEAK', rc, torch.cuda.max_memory_allocated())")
+    trees = [("shipped", REPO)]
+    if parent is not None:
+        trees = [("parent", parent.resolve()), ("shipped", REPO),
+                 ("shipped (again)", REPO),
+                 ("parent (again)", parent.resolve())]
+    peaks = {}
+    for name, root in trees:
+        out = subprocess.run(
+            [sys.executable, "-c", code, bench["prefix"], str(pat)],
+            cwd=root, capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=str(root)))
+        line = [x for x in out.stdout.splitlines() if x.startswith("PEAK")]
+        if out.returncode or not line or line[-1].split()[1] != "0":
+            raise RuntimeError(f"cell B's query, {name}: "
+                               f"{out.stderr[-2000:]}")
+        peaks[name] = int(line[-1].split()[2])
+    times["B query device memory peak, bytes"] = peaks
+    log(f"[designs] cell B's query ({len(batch)} reads), device memory "
+        "peak: " + ", ".join(f"{k} {v} B" for k, v in peaks.items()))
+
+
+def sweep_all_walk(torch, libs: dict, compare, bench: dict) -> None:
+    """K10b on bench's first all-mode bucket (N = 4), on the first
+    tunnels-mode bucket (the shape of chip_smoke.py's phase 3), on 16 MUMs
+    (the chain floor) and on the pangenome's first all-mode bucket (N =
+    16); the shipped kernel against its plain version first.  The parent
+    is called with its own arguments (the FL arrays, not the rows)."""
+    from colbwt_tpu_torch.ops import colsplit as TCS
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rate = 10
+
+    def walk(lib, parent, fd, p0, lt, T, N):
+        M = p0.shape[0]
+        pos = torch.empty((T, M, N), dtype=torch.int32, device=dev)
+        height = torch.empty_like(pos)
+        valid = torch.empty((T, M, N), dtype=torch.bool, device=dev)
+        tables = ((fd["idx"].data_ptr(), fd["dest_interval"].data_ptr(),
+                   fd["dest_offset"].data_ptr()) if parent
+                  else (fd["idx"].data_ptr(), fd["rows"].data_ptr()))
+        K.check("all_walk", lib.colbwt_all_walk(
+            *tables, fd["idx"].shape[0], p0.data_ptr(), lt.data_ptr(), M, T,
+            rate, N, pos.data_ptr(), height.data_ptr(), valid.data_ptr(),
+            stream))
+        return pos, height, valid
+
+    shapes = all_walk_shapes(torch, bench["prefix"], "bench", True)
+    pangenome_index(torch)
+    shapes += all_walk_shapes(torch, str(PANGENOME_PREFIX), "the pangenome",
+                              False)[:1]
+    for label, fd, p0, lt, T, N, reps in shapes:
+        got = walk(libs["shipped"], False, fd, p0, lt, T, N)
+        want = TCS.all_walk_ref(fd, p0, lt, T, rate, N)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"K10b {label}: differs from its plain "
+                               "version")
+        del got, want
+        designs = {name: (lambda lib=lib, par=name == "parent":
+                          walk(lib, par, fd, p0, lt, T, N))
+                   for name, lib in libs.items()}
+        compare(f"K10b {label}, {p0.shape[0]} MUMs x T={T}, rate {rate}, "
+                f"N={N}, r={fd['idx'].shape[0]}", designs, reps)
+    del shapes
+    torch.cuda.empty_cache()
+
+
+def sweep_xla(torch, libs: dict, compare, bench: dict) -> None:
+    """K4 at the shapes chip_smoke.py gives it: the main-path batch (8,192
+    x 256: 7,936 of bench's reads and 256 N reads) on the unsplit index at
+    ff_bound 0 and on its ff_bound-2 split at 2 and 0; the 16 long reads
+    cut to their last 2,048 characters (the chain floor); and cell B's two
+    batches as phase 5 dispatches them (5,989 reads x 256, 8 long reads x
+    8,192).  The shipped kernel against its plain version first; the
+    parent called with its own arguments (the structure-of-arrays
+    fields)."""
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.models.tensors import (SOA_FIELDS, index_tensors,
+                                                 to_device)
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_xla as TX
+    from bench import N_READS
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = bench["index"]
+    split = ColPmlIndex.build(bench["tbl"], ff_bound=2)
+    reads, n_reads, long_reads = bench["reads"]
+    sample = reads[:8192 - 256] + n_reads[:256]
+    # phase 5's reads: every 44th read, 32 N reads, 8 long reads, in the
+    # two batches of their padded lengths
+    short5 = [reads[44 * i] for i in range(N_READS // 44)] + n_reads[:32]
+
+    def scan(lib, parent, tb, soa, pats, lens, ff, col_major=False):
+        B, M = pats.shape
+        shape = (M, B) if col_major else (B, M)
+        pml = torch.empty(shape, dtype=torch.int32, device=dev)
+        cid = torch.empty(shape, dtype=torch.int32, device=dev)
+        tables = ((*(soa[f].data_ptr() for f in SOA_FIELDS), tb["r"],
+                   soa["pred_jump"].numel()) if parent
+                  else (tb["rows"].data_ptr(), tb["pairs"].data_ptr(),
+                        tb["r"], tb["pairs"].shape[0]))
+        K.check("query_batch_xla", lib.colbwt_query_batch_xla(
+            *tables, tb["n"], pats.data_ptr(), lens.data_ptr(), B, M, ff,
+            pml.data_ptr(), cid.data_ptr(), stream))
+        if col_major:
+            return pml.t().contiguous(), cid.t().contiguous()
+        return pml, cid
+
+    cells = ((index, 0, "16 long reads' last 2,048, the chain floor",
+              [x[-2048:] for x in long_reads], 2048, 20),
+             (index, 0, "main-path batch", sample, 256, 20),
+             (split, 2, "main-path batch", sample, 256, 20),
+             (split, 0, "main-path batch", sample, 256, 20),
+             (index, 0, "B's first batch", short5, 256, 20),
+             (index, 0, "B's second batch", long_reads[:8], 8192, 5))
+    for idx, ff, label, batch, M, reps in cells:
+        tb = index_tensors(idx, dev)
+        # the parent's kernel reads each field as its own array
+        soa = ({f: tb[f].contiguous() for f in SOA_FIELDS}
+               if "parent" in libs else None)
+        enc, ln = idx.encode_patterns(batch, M)
+        pats, lens = to_device(enc, dev), to_device(ln, dev)
+        got = scan(libs["shipped"], False, tb, soa, pats, lens, ff)
+        want = TX.query_batch_device_ref(tb, pats, lens, ff_bound=ff)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"K4 {label}: differs from its plain version")
+        del got, want
+        designs = {name: (lambda lib=lib, par=name == "parent",
+                          cm=name == "xla-column-major":
+                          scan(lib, par, tb, soa, pats, lens, ff, cm))
+                   for name, lib in libs.items()}
+        compare(f"K4 {label} {len(batch)}x{M}, r={idx.r}, ff_bound={ff}",
+                designs, reps)
+        del tb, soa
+    torch.cuda.empty_cache()
 
 
 def parent_tree(parent: Path, lib):

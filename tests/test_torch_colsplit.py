@@ -293,3 +293,143 @@ def test_walk_model_matches_plain_and_jax(rng, num_docs, rate, max_forward):
     assert (ff >= -1).all() and valid.any()
     if max_forward == 0:
         assert (ff <= 0).all()  # every step found in place or searched
+
+
+# ---------------------------------------------------------------------------
+# K10b's all-mode walk, modelled in NumPy (csrc/colsplit.cu all_walk_kernel)
+# ---------------------------------------------------------------------------
+
+def locate_model(rows, dest, p, max_forward=8):
+    """K10a's `locate` for many walkers: u = searchsorted(start, p,
+    "right") from the row of run `dest` by at most `max_forward` rows of
+    fast-forward, else the binary search; checked against searchsorted."""
+    start, nxt = rows[:, 0].astype(np.int64), rows[:, 1].astype(np.int64)
+    r = start.size
+    jj = np.asarray(dest, np.int64).copy()
+    ok = p >= start[jj]
+
+    def inside(jj):
+        return (jj == r - 1) | (p < nxt[jj])
+
+    go = ok & ~inside(jj)
+    for _ in range(max_forward):
+        if not go.any():
+            break
+        jj[go] += 1
+        go &= ~inside(jj)
+    found = ok & inside(jj)
+    u = np.where(found, jj + 1, np.searchsorted(start, p, side="right"))
+    assert np.array_equal(u, np.searchsorted(start, p, side="right"))
+    return u
+
+
+def all_walk_model(rows, p0, lens, num_steps, rate, num_docs,
+                   max_forward=8):
+    """The kernel's all-mode walk over `rows` (TCS.walk_rows), lane by
+    lane: up to N = 32 a warp holds floor(32 / N) MUMs, a lane a walker d;
+    past it a warp holds one MUM, a lane the walkers d and d + 32.  Each
+    walker steps as K10a's (is_head = p == its row's start, checked against
+    searchsorted); a step's heads are the warp's ballots of `first`, and a
+    head's height the lowest set bit above d of its MUM's mask, else N.
+    Every (t, m, d) is written once.  Returns pos, height (T, M, N) int32
+    and valid (T, M, N) bool."""
+    start, head, dest = (rows[:, c].astype(np.int64) for c in (0, 2, 3))
+    N = num_docs
+    M = len(p0)
+    W = 1 if N <= 32 else 2
+    per_warp = 32 // N if W == 1 else 1
+    warps = -(-M // per_warp)
+    lane = np.tile(np.arange(32), warps)
+    warp = np.repeat(np.arange(warps), 32)
+    slot = lane // N if W == 1 else np.zeros_like(lane)
+    base = slot * N
+    m = warp * per_warp + slot
+    mum = (slot < per_warp) & (m < M)
+    # walkers (warp lane, walker k of the lane)
+    d = np.stack([lane - base if W == 1 else lane + 32 * k
+                  for k in range(W)])
+    inn = mum[None, :] & (d < N)
+    mm = np.where(mum, m, 0)
+    p = np.where(inn, _wrap(np.asarray(p0, np.int64)[mm][None, :] + d), 0)
+    u = np.where(inn, np.searchsorted(start, p, side="right"), 0)
+    ln = np.where(mum, np.asarray(lens, np.int64)[mm], 0)
+    sep = np.zeros_like(inn)
+    pos = np.full((num_steps, M, N), -7, np.int64)
+    height = np.full((num_steps, M, N), -7, np.int64)
+    valid = np.zeros((num_steps, M, N), bool)
+    written = np.zeros((num_steps, M, N), np.int64)
+    for t in range(num_steps):
+        act = inn & (t < ln)[None, :]
+        j = np.maximum(u - 1, 0)
+        is_head = p == start[j]
+        assert np.array_equal(
+            is_head[act],
+            (p == start[np.clip(np.searchsorted(start, p, side="right") - 1,
+                                0, start.size - 1)])[act])
+        sep |= act & is_head & (d > 0)
+        p = np.where(act, _wrap(head[j] + _wrap(p - start[j])), p)
+        if t + 1 < num_steps:
+            moved = locate_model(rows, dest[j].ravel(), p.ravel(),
+                                 max_forward).reshape(u.shape)
+            u = np.where(act, moved, u)
+        first = inn & (sep | (d == 0))
+        # 32-bit ballots, a 64-bit mask: unsigned, as the kernel's
+        ballot = np.zeros((W, warps), np.uint64)
+        for k in range(W):
+            np.add.at(ballot[k], warp,
+                      first[k].astype(np.uint64) << lane.astype(np.uint64))
+        if W == 1:
+            heads = ((ballot[0][warp] >> base.astype(np.uint64))
+                     & np.uint64((1 << N) - 1))
+        else:
+            heads = ballot[0][warp] | (ballot[1][warp] << np.uint64(32))
+        for k in range(W):
+            sel = inn[k]
+            dk = d[k][sel]
+            below = np.array([(2 << int(x)) - 1 for x in dk], np.uint64)
+            above = heads[sel] & ~below
+            low = above & (~above + np.uint64(1))
+            nxt_head = np.where(above != 0,
+                                np.log2(np.maximum(low, 1)).astype(np.int64),
+                                N)
+            pos[t, m[sel], dk] = p[k][sel]
+            height[t, m[sel], dk] = nxt_head - dk
+            valid[t, m[sel], dk] = first[k][sel] & (t < ln[sel]) & (
+                t % rate == 0)
+            written[t, m[sel], dk] += 1
+    assert (written == 1).all()
+    return pos.astype(np.int32), height.astype(np.int32), valid
+
+
+# N = 1, 2, 3, 4, 31, 32, 33, 64: a MUM a lane, MUMs of a warp not a power
+# of two (lanes left over), one MUM filling the warp, two walkers a lane;
+# rates 1 and 10, the binary search forced (max_forward 0)
+ALL_WALK_MODEL_CASES = [(1, 1, 8), (2, 10, 8), (3, 1, 8), (4, 10, 8),
+                        (31, 10, 8), (32, 1, 8), (33, 10, 8), (64, 1, 8),
+                        (5, 3, 0), (48, 10, 1)]
+
+
+@pytest.mark.parametrize("num_docs,rate,max_forward", ALL_WALK_MODEL_CASES)
+def test_all_walk_model_matches_plain_and_jax(rng, num_docs, rate,
+                                              max_forward):
+    """K10b's walk as the kernel lays it out on a warp, on a random
+    collection's FL table with random starts and the walk's edges (the
+    last run, within N - 1 of n, past n, negative, near 2**31), lengths
+    past T among them: equal to the plain version and JAX's _all_walk."""
+    fl, ml, mp = _collection(rng, 4, 300, 6)
+    n = int(fl.n)
+    p0 = _edge_starts(fl, rng.integers(0, n, 40), num_docs, rng)
+    lens = rng.integers(0, 30, p0.size).astype(np.int32)
+    lens[:3] = (0, 1, 200)  # no step, one step, past every step
+    T = 24
+    fd = TCS.fl_tensors(fl, "cpu")
+    got = all_walk_model(fd["rows"].numpy(), p0, lens, T, rate, num_docs,
+                         max_forward)
+    want = TCS.all_walk_ref(fd, torch.from_numpy(p0), torch.from_numpy(lens),
+                            T, rate, num_docs)
+    _assert_same(got, [x.numpy() for x in want])
+    jax_want = CS._all_walk(CS.fl_device_arrays(fl), jnp.asarray(p0),
+                            jnp.asarray(lens), T, rate, num_docs)
+    _assert_same(got, jax_want)
+    if num_docs > 1:
+        assert (got[1][got[2]] < num_docs).any()  # fragments did split

@@ -3,23 +3,29 @@ distributed.py) and its sharded engines across processes.
 
 The single-process cases mirror tests/test_distributed.py.  The two
 2-process runs start this machine's Python twice with torchrun's
-environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) over gloo on
-127.0.0.1: dp = 2 (the part files merged by rank 0 byte-equal to a
-one-process query, and every sharded engine's dp all-gather) and ip = 2
-(every sharded engine's masked gathers summed by all_reduce over the ip
-group, equal to the unsharded engines).  Each process has its own timeout
-and is killed when it runs over, so nothing hangs the suite.
+environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and
+TORCHELASTIC_USE_AGENT_STORE) over gloo on 127.0.0.1, the test process
+hosting the rendezvous store as torchrun's agent does: dp = 2 (the part
+files merged by rank 0 byte-equal to a one-process query, and every
+sharded engine's dp all-gather) and ip = 2 (every sharded engine's masked
+gathers summed by all_reduce over the ip group, equal to the unsharded
+engines).  Each rank ends through `shutdown_distributed`, which closes
+its mesh before the groups go: a mesh left open kept its groups' gloo
+threads alive into interpreter exit, where a rank aborted now and then
+under load.  Each process has its own timeout and is killed when it runs
+over, so nothing hangs the suite.
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch.distributed as dist
 
 from colbwt_tpu.models.index import ColPmlIndex
 from colbwt_tpu.parallel import distributed as JD
@@ -27,10 +33,12 @@ from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
 from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
 from colbwt_tpu_torch.ops import query_mega as TM
 from colbwt_tpu_torch.ops import query_mega_wide as TW
+from colbwt_tpu_torch.parallel import make_mesh
 from colbwt_tpu_torch.parallel.distributed import (distributed_query,
                                                    host_read_slice,
                                                    init_distributed,
-                                                   merge_part_files)
+                                                   merge_part_files,
+                                                   shutdown_distributed)
 from tests.conftest import random_docs
 from tests.test_query_wide import scale_table
 from tests.test_query_xla import build_index, make_reads
@@ -68,6 +76,20 @@ def test_init_distributed_without_group(monkeypatch):
     assert init_distributed(device="cpu") == (0, 1)
 
 
+def test_shutdown_distributed_without_group():
+    """With no process group, shutdown_distributed closes the meshes and
+    nothing else; a closed mesh holds no devices."""
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    shutdown_distributed(mesh)
+    assert not dist.is_initialized()
+    # no group's gloo thread is left to be torn down at interpreter exit
+    tasks = Path("/proc/self/task")
+    if tasks.is_dir():
+        names = [(t / "comm").read_text().strip() for t in tasks.iterdir()]
+        assert not any("gloo" in x for x in names), names
+    assert not mesh.distributed and mesh._grid is None
+
+
 @pytest.fixture(scope="module")
 def case():
     rng = np.random.default_rng(0xD157)
@@ -103,6 +125,7 @@ def test_distributed_query_single_process(tmp_path, case):
 
 WORKER = textwrap.dedent("""
     import sys
+    from pathlib import Path
 
     import numpy as np
     import torch
@@ -114,7 +137,8 @@ WORKER = textwrap.dedent("""
     from colbwt_tpu_torch.parallel import (make_mesh, query_batch_sharded,
                                            query_batch_sharded_pos)
     from colbwt_tpu_torch.parallel.distributed import (distributed_query,
-                                                       init_distributed)
+                                                       init_distributed,
+                                                       shutdown_distributed)
     from colbwt_tpu_torch.parallel.query_sharded_mega import (
         query_batch_sharded_mega)
     from colbwt_tpu_torch.parallel.query_sharded_mega_wide import (
@@ -150,45 +174,59 @@ WORKER = textwrap.dedent("""
         out[name + "_pml"] = np.concatenate(p)
         out[name + "_cid"] = np.concatenate(c)
     np.savez(f"{work}/{mode}{rank}.npz", **out)
-    dist.destroy_process_group()
+    shutdown_distributed(mesh)
+    assert not dist.is_initialized()
+    # no group's gloo thread is left to be torn down at interpreter exit
+    tasks = Path("/proc/self/task")
+    if tasks.is_dir():
+        names = [(t / "comm").read_text().strip() for t in tasks.iterdir()]
+        assert not any("gloo" in x for x in names), names
 """)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _run_two(work: Path, mode: str) -> None:
     """Start the two ranks with torchrun's environment; kill both when one
-    runs over its timeout or fails."""
+    runs over its timeout or fails; report both ranks' return codes and
+    the ends of both stderrs when either fails.
+
+    This process hosts the ranks' TCP store, as torchrun's agent does: it
+    binds port 0 itself and holds the store until both ranks have exited,
+    and TORCHELASTIC_USE_AGENT_STORE makes every rank a client of it.  So
+    no port is picked, freed and then taken by another process before a
+    rank binds it, and no rank tears the store down while the other still
+    uses it (rank 0 hosted it before, and aborted at exit under load)."""
     script = work / "worker.py"
     script.write_text(WORKER)
-    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=timedelta(seconds=PROC_TIMEOUT))
     procs = []
-    for rank in range(2):
-        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
-                   WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [str(REPO), os.environ.get("PYTHONPATH", "")]))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script), mode, str(work)], cwd=REPO,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    errs = []
+    errs = ["", ""]
     try:
-        for p in procs:
-            _, err = p.communicate(timeout=PROC_TIMEOUT)
-            errs.append(err)
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(store.port),
+                       TORCHELASTIC_USE_AGENT_STORE="True",
+                       OMP_NUM_THREADS="1",
+                       PYTHONPATH=os.pathsep.join(
+                           [str(REPO), os.environ.get("PYTHONPATH", "")]))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), mode, str(work)], cwd=REPO,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        for rank, p in enumerate(procs):
+            errs[rank] = p.communicate(timeout=PROC_TIMEOUT)[1]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{err[-4000:]}"
+        del store
+    codes = [p.returncode for p in procs]
+    assert codes == [0, 0], "\n".join(
+        f"rank {rank} exited with {code}:\n{err[-3000:]}"
+        for rank, (code, err) in enumerate(zip(codes, errs)))
 
 
 @pytest.fixture(scope="module")

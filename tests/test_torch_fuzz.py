@@ -1,7 +1,7 @@
-"""Randomized differential fuzz of the port's pos scan (K3) and col-split
-walk (K10a), the port's counterpart of
+"""Randomized differential fuzz of the port's pos scan (K3), col-split
+walk (K10a) and compact engine's scan (K4), the port's counterpart of
 tests/test_fuzz_differential.py::test_fuzz_device_engines_vs_cpp for
-these two kernels.
+these three kernels.
 
 Cases are made from numpy seeds as that file's `_random_case` makes them
 (its alphabets, SNP-style and independent documents, real or synthetic col
@@ -11,7 +11,9 @@ On the CPU, the plain versions run: the pos scan is held to the JAX
 package's `query_chunk_pos` on the same tables and digits and, through the
 port's batch and long-read drivers, to the port's oracle; the walk is held
 to JAX's `_tunneled_walk` and to the NumPy model of the kernel
-(tests/test_torch_colsplit.py::walk_model) on random FL tables.  The
+(tests/test_torch_colsplit.py::walk_model) on random FL tables; the
+compact scan, on the unsplit index and on run-split ones at ff_bound 1-4,
+to JAX's `query_batch_device` and to the port's oracle.  The
 `cuda` cases hold the kernels to their plain versions on the same cases on
 the card.  Every value is an integer: tolerance 0.
 
@@ -27,11 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from colbwt_tpu_torch.models import tensors as TT
 from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.models.tensors import to_device
 from colbwt_tpu_torch.ops import colsplit as TCS
 from colbwt_tpu_torch.ops import oracle as O
 from colbwt_tpu_torch.ops import query_pos as TQ
+from colbwt_tpu_torch.ops import query_xla as TX
 
 ALPHABETS = [b"ACGT", b"AC", b"ACGTN", bytes(range(60, 80)), b"Z"]
 
@@ -296,3 +300,65 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K4, the compact engine's scan
+# ---------------------------------------------------------------------------
+
+# (seed, ff_bound): the unsplit index (0) and indexes split to ff_bound 1-4
+# (the split may achieve a larger bound; the scan takes the achieved one)
+XLA_CASES = [(0x3C1 + 11 * i, ff) for i, ff in enumerate(
+    [0, 0, 0, 1, 1, 2, 2, 2, 3, 3, 4, 4])]
+
+
+def xla_case(seed, ff):
+    """The case's table, its index (unsplit at ff 0, else
+    ColPmlIndex.build(tbl, ff_bound=ff)), reads, their dense ids and
+    lengths (as wide as the longest read, at least 1)."""
+    tbl, reads, _ = random_case(np.random.default_rng(seed))
+    index = (ColPmlIndex.from_table(tbl) if ff == 0
+             else ColPmlIndex.build(tbl, ff_bound=ff))
+    enc, lens = index.encode_patterns(
+        reads, max(1, max(len(x) for x in reads)))
+    return tbl, index, reads, enc, lens
+
+
+@pytest.mark.parametrize("seed,ff", XLA_CASES)
+def test_xla_scan_fuzz(seed, ff):
+    """The plain K4 equals JAX's query_batch_device on the same index and
+    ids, and every read's unpadded outputs equal the port's oracle."""
+    import jax.numpy as jnp
+
+    from colbwt_tpu.ops import query_xla as JX
+
+    tbl, index, reads, enc, lens = xla_case(seed, ff)
+    k = index.ff_bound  # the bound the split achieved, >= the one asked
+    assert k >= ff and (k == 0) == (ff == 0)
+    gp, gc = TX.query_batch_device(TT.index_tensors(index, "cpu"),
+                                   torch.from_numpy(enc),
+                                   torch.from_numpy(lens), ff_bound=k)
+    wp, wc = JX.query_batch_device(JX.index_device_arrays(index),
+                                   jnp.asarray(enc), jnp.asarray(lens),
+                                   ff_bound=k)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    M = enc.shape[1]
+    for j, read in enumerate(reads):
+        ep, ec = O.query_pml_oracle(tbl, read)
+        np.testing.assert_array_equal(gp[j, M - len(read):].numpy(), ep)
+        np.testing.assert_array_equal(gc[j, M - len(read):].numpy(), ec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,ff", XLA_CASES)
+def test_xla_scan_fuzz_cuda(dev, seed, ff):
+    """K4 equals its plain version on the same cases, on the card."""
+    _, index, _, enc, lens = xla_case(seed, ff)
+    tb = TT.index_tensors(index, dev)
+    args = (tb, to_device(enc, dev), to_device(lens, dev))
+    k = index.ff_bound
+    for g, w in zip(TX.query_batch_device(*args, ff_bound=k),
+                    TX.query_batch_device_ref(*args, ff_bound=k)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)

@@ -278,22 +278,42 @@ def test_scan_general_t1(dev, case):
         np.testing.assert_array_equal(pml[b, 252 - len(n_reads[b]):], ep)
 
 
-@pytest.mark.parametrize("ff", [0, 2])
-def test_compact_scan(dev, case, ff):
+# (ff_bound, M, B, patterns at a 4-byte offset): 8-, 4- and 1-column
+# groups (M = 256, 252, 255; 128 reads past every 8-column group's
+# columns), batches of no whole warp, and patterns that the vector loads
+# cannot take (one column a group then)
+COMPACT_SHAPES = [(0, 256, 300, False), (2, 256, 300, False),
+                  (0, 252, 300, False), (3, 255, 300, False),
+                  (2, 128, 77, False), (0, 256, 300, True),
+                  (1, 7, 33, False)]
+
+
+@pytest.mark.parametrize("ff,M,B,offset", COMPACT_SHAPES)
+def test_compact_scan(dev, case, ff, M, B, offset):
+    """K4 against its plain version on the unsplit index (ff_bound 0) and
+    on indexes split to ff_bound 1-3, at each column grouping; reads with
+    an N (a mismatch with neither succ nor pred), every read cut to M."""
     tbl, unsplit, reads = case
-    index = ColPmlIndex.build(tbl, ff_bound=2) if ff else unsplit
+    index = ColPmlIndex.build(tbl, ff_bound=ff) if ff else unsplit
+    k = index.ff_bound
     tb = index_tensors(index, dev)
-    enc, lens = index.encode_patterns(reads, 256)
-    args = (tb, to_device(enc, dev), to_device(lens, dev))
-    got = TX.query_batch_device(*args, ff_bound=index.ff_bound if ff else 0)
-    want = TX.query_batch_device_ref(*args,
-                                     ff_bound=index.ff_bound if ff else 0)
+    batch = [x[-M:] for x in reads[:B]]
+    enc, lens = index.encode_patterns(batch, M)
+    pats = to_device(enc, dev)
+    if offset:  # a contiguous (B, M) view 4 bytes past 16-byte alignment
+        pats = torch.empty(B * M + 1, dtype=torch.int32,
+                           device=dev)[1:].view(B, M).copy_(pats)
+    args = (tb, pats, to_device(lens, dev))
+    before = K.launches["query_batch_xla"]
+    got = TX.query_batch_device(*args, ff_bound=k)
+    assert K.launches["query_batch_xla"] == before + 1
+    want = TX.query_batch_device_ref(*args, ff_bound=k)
     for g, w in zip(got, want):
         _equal(g, w)
     pml = got[0].cpu().numpy()
-    for b in range(0, len(reads), 37):
-        ep, _ = O.query_pml_oracle(tbl, reads[b])
-        np.testing.assert_array_equal(pml[b, 256 - len(reads[b]):], ep)
+    for b in range(0, B, 37):
+        ep, _ = O.query_pml_oracle(tbl, batch[b])
+        np.testing.assert_array_equal(pml[b, M - len(batch[b]):], ep)
 
 
 # ---------------------------------------------------------------------------
@@ -732,19 +752,43 @@ def test_tunneled_walk(dev, rate):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("num_docs,base_len", [(3, 2000), (33, 300),
-                                                (64, 200)])
-def test_all_walk(dev, num_docs, base_len):
+@pytest.mark.parametrize("num_docs,base_len,rate", [
+    (3, 2000, 2), (4, 2000, 10), (5, 600, 1), (31, 300, 10), (32, 300, 1),
+    (33, 300, 2), (64, 200, 10)])
+def test_all_walk(dev, num_docs, base_len, rate):
+    """K10b on a collection's MUMs: N not a power of two (lanes of a warp
+    left over), one MUM filling a warp, two walkers a lane past 32; the
+    col-split through it equals the oracle."""
     fl, ml, mp, fd, p0, lens, T = _walk_case(dev, num_docs, base_len, 6)
     before = K.launches["all_walk"]
-    got = TCS.all_walk(fd, p0, lens, T, 2, num_docs)
+    got = TCS.all_walk(fd, p0, lens, T, rate, num_docs)
     assert K.launches["all_walk"] == before + 1
-    for g, w in zip(got, TCS.all_walk_ref(fd, p0, lens, T, 2, num_docs)):
+    for g, w in zip(got, TCS.all_walk_ref(fd, p0, lens, T, rate,
+                                          num_docs)):
         _equal(g, w)
-    want = O.col_split_oracle(fl, ml, mp, num_docs, 2, "all")
-    for g, w in zip(TCS.col_split(fl, ml, mp, num_docs, 2, "all",
+    want = O.col_split_oracle(fl, ml, mp, num_docs, rate, "all")
+    for g, w in zip(TCS.col_split(fl, ml, mp, num_docs, rate, "all",
                                   device=dev), want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("num_docs", [1, 2, 3, 4, 31, 32, 33, 64])
+@pytest.mark.parametrize("rate", [1, 10])
+def test_all_walk_edges(dev, num_docs, rate):
+    """K10b on a random FL table (runs up to 200 long, so that the
+    fast-forward runs past its rows) from the walk's edge starts: random,
+    the last run, within N - 1 of n, past n, negative (u == 0) and near
+    2**31 (wrapping sums); lengths 0 and past T among them."""
+    from test_torch_fuzz import walk_case
+
+    fl, p0, lens, T = walk_case(0xE6 + num_docs, num_docs)
+    p0 = np.r_[p0, -1, -40, (1 << 31) - 1, (1 << 31) - num_docs,
+               -(1 << 31)].astype(np.int32)
+    lens = np.r_[lens, 0, T + 9, 3, 5, 7].astype(np.int32)
+    fd = TCS.fl_tensors(fl, dev)
+    args = (fd, to_device(p0, dev), to_device(lens, dev), T, rate, num_docs)
+    for g, w in zip(TCS.all_walk(*args), TCS.all_walk_ref(*args)):
+        _equal(g, w)
 
 
 # ---------------------------------------------------------------------------
@@ -1600,7 +1644,8 @@ import torch.distributed as dist
 
 from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.parallel import make_mesh
-from colbwt_tpu_torch.parallel.distributed import init_distributed
+from colbwt_tpu_torch.parallel.distributed import (init_distributed,
+                                                   shutdown_distributed)
 from test_torch_kernels import _engines
 
 dp, ip, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
@@ -1618,7 +1663,7 @@ for name, (p, c) in _engines(*idx, reads, mesh).items():
     out[name + "_pml"] = np.concatenate(p)
     out[name + "_cid"] = np.concatenate(c)
 np.savez(f"{work}/rank{rank}.npz", **out)
-dist.destroy_process_group()
+shutdown_distributed(mesh)
 """
 
 

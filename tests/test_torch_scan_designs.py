@@ -1,8 +1,8 @@
-"""scan_designs.py, the design sweep of the scans K3, K5, K6a and K7, the
-col-split walk K10a, the LCP lift K11b, the sharded composition K13d, the
-multi-MUM window K8/K9 and the thresholds' segmented argmin K12:
-every variant it times still
-applies to the shipped sources of its group, and without CUDA it exits
+"""scan_designs.py, the design sweep of the scans K3, K4, K5, K6a and K7,
+the col-split walks K10a and K10b, the LCP lift K11b, the sharded
+composition K13d, the multi-MUM window K8/K9 and the thresholds'
+segmented argmin K12: every variant it times still applies to the
+shipped sources of its group, and without CUDA it exits
 nonzero before it builds anything.  (The sweep itself runs on the card
 only.)"""
 
@@ -33,7 +33,7 @@ def test_every_variant_is_timed():
             | set(SD.LCP_VARIANTS) | set(SD.TK_VARIANTS)
             | set(SD.POS_VARIANTS) | set(SD.WALK_VARIANTS)
             | set(SD.STEP_VARIANTS) | set(SD.MUMS_VARIANTS)
-            | set(SD.THR_VARIANTS)) == set(SD.VARIANTS)
+            | set(SD.THR_VARIANTS) | set(SD.XLA_VARIANTS)) == set(SD.VARIANTS)
     assert set(SD.GROUP_VARIANTS) == set(SD.GROUPS) == set(SD.ENTRY_POINTS)
     timed = [v for names in SD.GROUP_VARIANTS.values() for v in names]
     assert sorted(timed) == sorted(SD.VARIANTS)
