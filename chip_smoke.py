@@ -26,7 +26,9 @@ version on the card.  Phases:
    beside the time of its row build and its fast-forward rows a step);
    K1-K4 at the main path's shapes; then the scaled
    indexes (run lengths x256 and x1024, ColPmlIndex.build with ff_bound 2,
-   r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7; then bench's
+   r = 1.37M) and K5, K6a-K6c at the shapes of phases 6-7 (the dispatch
+   batch masked, as the engines scan it, and unmasked; the long reads'
+   second and third chunks of 2,048); then bench's
    table run-split with ff_bound 2 and 1 (saved for phases 9-10), K7 at
    the fused path's shapes (8,192 x 256 and 16 x 8,192) on both and at
    the streamed batch (32,768 x 256, cell S-E) on the first, and K14
@@ -296,6 +298,19 @@ def gathered(table, gathers: int, row_bytes: int) -> int:
     """The bytes a gather scan needs from `table`: its gathers' bytes, at
     most the whole table."""
     return min(nbytes(table), int(gathers) * row_bytes)
+
+
+def mega_row_bytes(torch, pml, lane, first: int, second: int) -> int:
+    """The table bytes a mega scan's steps need: each step the first
+    `first` bytes of its row (what decides a match and its LF path), and a
+    mismatched step `second` bytes more (the threshold and the succ/pred
+    outcomes).  A lane walks the last `lane` columns of its row of the
+    (B, M) plane `pml` (the plain version's); a walked column holds pml 0
+    exactly where its step mismatched."""
+    M = pml.shape[1]
+    walked = torch.arange(M, device=pml.device) >= (M - lane)[:, None]
+    mismatches = int(((pml == 0) & walked).sum())
+    return int(lane.sum()) * first + mismatches * second
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
@@ -714,10 +729,12 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
               TW.initial_state_wide)]
     del tables, shared
 
-    # K5, K6a: one long-read chunk (16 x 2,048, masked, int32 packed plane,
-    # step_offset 2,048, state carried from the first chunk), its time a
-    # step the chain floors'; the dispatch batch (8,192 reads, 255 columns,
-    # uint8, fresh state, u16 plane); K5 also with two planes
+    # K5, K6a: the long-read chunks (16 x 2,048, masked, int32 packed
+    # plane, state carried from the chunks right of them): the second
+    # (every lane full), its time a step the chain floors', and the third
+    # (904 real columns a lane); the dispatch batch (8,192 reads, 255
+    # columns, uint8, fresh state, u16 plane) masked, as the engines scan
+    # it, and unmasked; K5 also with two planes
     sample = reads[:8192 - 256] + n_reads[:256]
     for name, label, idx, mt, kern, ref, init in scans:
         enc, ln = idx.encode_patterns(sample, 255)
@@ -726,19 +743,26 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
         enc, ln = idx.encode_patterns(long_reads, 3 * 2048)
         pat = to_device(enc, dev, np.uint8)
         lt = to_device(ln, dev)
-        _, st = ref(mt, pat[:, 4096:].contiguous(), lt,
-                    init(mt, len(long_reads)), 0, ff_bound=idx.ff_bound,
-                    packed_out=True)
-        long = (mt, pat[:, 2048:4096].contiguous(), lt, st, 2048)
-        fresh = dict(ff_bound=idx.ff_bound, masked=False, packed_out=True,
+        chunks, st = [], init(mt, len(long_reads))
+        for j in range(3):
+            lo = (2 - j) * 2048
+            chunks.append((mt, pat[:, lo:lo + 2048].contiguous(), lt, st,
+                           j * 2048))
+            _, st = ref(*chunks[-1], ff_bound=idx.ff_bound, packed_out=True)
+        long = dict(ff_bound=idx.ff_bound, masked=True, packed_out=True)
+        fresh = dict(ff_bound=idx.ff_bound, masked=True, packed_out=True,
                      fresh_state=True)
         cases = [(f"{label} long-read chunk 16x2048 masked int32 "
-                  f"step_offset 2048", long,
-                  dict(ff_bound=idx.ff_bound, masked=True, packed_out=True)),
-                 (f"{label} dispatch 8192x255 u16", disp, fresh)]
+                  f"step_offset 2048", chunks[1], long),
+                 (f"{label} dispatch 8192x255 u16 masked (the engine's "
+                  f"call)", disp, fresh),
+                 (f"{label} dispatch 8192x255 u16 unmasked", disp,
+                  dict(fresh, masked=False))]
         if name == "query_chunk_mega":
-            cases.append((f"{label} dispatch 8192x255 two planes", disp,
-                          dict(fresh, packed_out=False)))
+            cases.append((f"{label} dispatch 8192x255 two planes masked",
+                          disp, dict(fresh, packed_out=False)))
+        cases.append((f"{label} long-read chunk 16x2048 masked int32 "
+                      f"step_offset 4096", chunks[2], long))
         for what, args, kw in cases:
             (gp, gc), gst = kern(*args, **kw)
             (wp, wc), wst = ref(*args, **kw)
@@ -748,18 +772,29 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
                 chk.equal(name, gc, wc, what + " cid")
             for j, (g, w) in enumerate(zip(gst, wst)):
                 chk.equal(name, g, w, f"{what} state[{j}]")
-            # one row a valid step: 64 B (narrow, wide full), or a 40 B
-            # char row and a shared row (wide compact)
-            lane = (args[2].long() - args[4]).clamp(0, args[1].shape[1])
+            # the steps the function takes: a masked lane its read's, an
+            # unmasked one all M.  What they need: a walked column's
+            # character, the lengths and state read, the planes and state
+            # written, and a step's rows: the first 32 B of the 64-byte row
+            # (narrow, wide full) or the 32-byte shared row (wide compact),
+            # and on a mismatch the row's other 32 B or the 40-byte
+            # per-char row
+            M = args[1].shape[1]
+            lane = ((args[2].long() - args[4]).clamp(0, M) if kw["masked"]
+                    else torch.full_like(args[2], M, dtype=torch.int64))
             steps = int(lane.sum())
-            row = (40 + args[0]["shared"].shape[1] * 4
-                   if "shared" in args[0] else 64)
+            pml = (wp.view(torch.int16).to(torch.int32) & 0xFFFF
+                   if wp.dtype == torch.uint16 else wp)
+            pml = pml if wc is not None else pml >> 8
+            table_bytes = min(nbytes(args[0]), mega_row_bytes(
+                torch, pml, lane, 32, 40 if "shared" in args[0] else 32)
+                + steps * 4 * max(idx.ff_bound - 2, 0))
             chk.time(name, lambda: kern(*args, **kw),
                      lambda: ref(*args, **kw), what,
-                     bound=(nbytes(args[1:4], gp, gc, gst)
-                            + gathered(args[0], steps, row), steps * 25),
+                     bound=(steps + nbytes(args[2:4], gp, gc, gst)
+                            + table_bytes, steps * 25),
                      chain=(f"{name} {label}", int(lane.max()),
-                            args[1].shape[0] <= 16))
+                            args[4] == 2048))
     del scans
     torch.cuda.empty_cache()
     return wide
@@ -2445,13 +2480,19 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
         shards, _, length, _, _, _, state, pats, lens, step0, _, wide_ = a
         lane = (lens.long() - step0).clamp(0, pats.shape[1])
         lane_steps = int(lane.sum())
+        # a step's rows: the first 32 B of its 64-byte row, and on a
+        # mismatch (the plain version's pml 0) the other 32 B
+        pml, _ = TSM.sharded_scan_mega_ref(*clone_args(torch, a))
+        table_bytes = min(nbytes(shards),
+                          mega_row_bytes(torch, pml, lane, 32, 32))
+        del pml
         chk.time("sharded_scan_mega", lambda: TSM.sharded_scan_mega(*a),
                  lambda: TSM.sharded_scan_mega_ref(*a),
                  f"{what}: {pats.shape[0]} lanes x {pats.shape[1]} steps, "
                  f"{len(shards)} shards, {lane_steps} valid lane-steps, "
                  f"one launch", reps=1 if pats.shape[0] <= 16 else 3,
-                 bound=(gathered(shards, lane_steps, 64)
-                        + nbytes(pats, lens) + 2 * nbytes(state)
+                 bound=(table_bytes + lane_steps + nbytes(lens)
+                        + 2 * nbytes(state)
                         + 2 * pats.numel() * 4, lane_steps * 40),
                  chain=("sharded_scan_mega " + ("wide" if wide_
                                                 else "narrow"),

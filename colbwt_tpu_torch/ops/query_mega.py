@@ -190,13 +190,19 @@ def query_chunk_mega_ref(mt: dict, patterns, lengths, state,
 def out_planes(B: int, M: int, packed_out: bool, fresh_state: bool,
                device: torch.device):
     """The scan kernels' output planes and mode (0 two int32 planes, 1 one
-    packed int32 plane, 2 one packed uint16 plane)."""
+    packed int32 plane, 2 one packed uint16 plane), each 16-byte aligned
+    for the kernels' vector stores."""
     if packed_out:
         u16 = fresh_state and M <= 255
-        return (torch.empty((B, M), dtype=torch.uint16 if u16 else torch.int32,
-                            device=device), None, 2 if u16 else 1)
-    return (torch.empty((B, M), dtype=torch.int32, device=device),
-            torch.empty((B, M), dtype=torch.int32, device=device), 0)
+        out = (torch.empty((B, M), dtype=torch.uint16 if u16 else torch.int32,
+                           device=device), None, 2 if u16 else 1)
+    else:
+        out = (torch.empty((B, M), dtype=torch.int32, device=device),
+               torch.empty((B, M), dtype=torch.int32, device=device), 0)
+    for name, plane in zip(("out0", "out1"), out[:2]):
+        if plane is not None:
+            K.require_aligned(plane, name, 16)
+    return out
 
 
 def check_scan_args(patterns, lengths, state) -> None:
@@ -255,11 +261,14 @@ def query_chunk_mega(mt: dict, patterns, lengths, state, step_offset: int,
 
 def query_batch_mega(mt: dict, patterns, lengths, ff_bound: int = 2,
                      packed_out: bool = False):
-    """Fresh-state unmasked scan of a whole right-aligned batch
-    (query_mega.py:212)."""
+    """Fresh-state scan of a whole right-aligned batch (query_mega.py:212).
+    Masked, where JAX's is not: a lane walks only its read's columns, so
+    the pad columns hold zeros where JAX's hold the values its walk past
+    the read computes; every real column is the same, and the caller
+    unpads."""
     (pml, cid), _ = query_chunk_mega(
         mt, patterns, lengths, initial_state(mt, patterns.shape[0]), 0,
-        ff_bound=ff_bound, masked=False, packed_out=packed_out,
+        ff_bound=ff_bound, masked=True, packed_out=packed_out,
         fresh_state=True)
     return pml, cid
 

@@ -408,11 +408,12 @@ def query_chunk_mega_wide(mt: dict, patterns, lengths, state,
 
 def query_batch_mega_wide(mt: dict, patterns, lengths, ff_bound: int = 2,
                           packed_out: bool = False):
-    """Fresh-state unmasked scan of a whole right-aligned batch
-    (query_mega_wide.py:486)."""
+    """Fresh-state scan of a whole right-aligned batch
+    (query_mega_wide.py:486), masked as ops/query_mega.query_batch_mega's:
+    pad columns zeros, every real column JAX's."""
     (pml, cid), _ = query_chunk_mega_wide(
         mt, patterns, lengths, initial_state_wide(mt, patterns.shape[0]), 0,
-        ff_bound=ff_bound, masked=False, packed_out=packed_out,
+        ff_bound=ff_bound, masked=True, packed_out=packed_out,
         fresh_state=True)
     return pml, cid
 

@@ -17,13 +17,28 @@ shipped source with one change, compiled into a library of its own:
   chip_smoke.py's phase 3 builds them, the run-split indexes with
   ff_bound 2 and 1 and the indexes with run lengths x256 (mega) and x1024
   (mega-wide)):
-  - row-major (K7): the outputs stored (B, M) row-major, not transposed;
-  - column-major (K5, K6a): the outputs stored (M, B) column-major and
-    transposed on the device, as the mega chunk scan stores them;
-  - threads-32, threads-64 (K5, K6a), threads-128 (K7): that block size
-    in place of the shipped one (64 threads for K7, 128 for K5 and K6a);
-  - jump-on-mismatch (K7): the jump row loaded only when the step's
+  K7 (when one of its variants is built: not with --designs parent) at
+  E's and F's shapes:
+  - row-major: the outputs stored (B, M) row-major, not transposed;
+  - threads-32, threads-128: that block size in place of 64;
+  - jump-on-mismatch: the jump row loaded only when the step's
     character mismatches the run's, after the run row;
+  K5 and K6a (full, compact) at the dispatch batch (8,192 x 255, u16,
+  unmasked as the parent's engine scans it and masked as the shipped
+  one does; K5 also two planes) and at the 16 long reads' second and
+  third chunks of 2,048 (step_offset 2,048 and 4,096), and the K13b/K13c
+  chunk scan at G-mega's batch (263,168 reads, ip = 2) and G-wide's
+  second and third long-read chunks, the calls captured from the shipped
+  routes:
+  - mega-other-rows: every row reader the other way, the narrow and
+    full readers a row's mismatch half on demand and the compact one its
+    whole pair of rows a step;
+  - mega-vector-stores: the walk's outputs stored through a lane's
+    16-byte chunks too, not one at a time (the padding is in both);
+  - mega-scalar-stores: the padding stored one element at a time;
+  - mega-threads-64, mega-threads-128: that block size in place of 32;
+  - column-major: the outputs stored (M, B) column-major and transposed
+    on the device, as the mega chunk scan stores them;
 - lcp (suffix.cu; K11b on the suffix array and pyramid of bench's
   collection, n = 4,000,004, and of chip_smoke.py's 16 x 4.5 Mbp
   pangenome, n = 72,000,016, both built on the card): the walk's span
@@ -192,7 +207,43 @@ _FUSED_JUMP = ("      const int4 ja = __ldg(&jump_rows[2 * jf]);\n"
                "\n"
                "      const bool match = ra.x == c;\n")
 _FUSED_THREADS = "constexpr int kThreads = 64;\n"
-_MEGA_THREADS = "constexpr int kThreads = 128;\n"
+_MEGA_THREADS = "constexpr int kThreads = 32;\n"
+# the row readers' second halves: the narrow and wide full rows' succ/pred
+# outcomes, loaded with the row's first half; the compact per-char row,
+# loaded on a mismatch
+_MEGA_HALF = {"narrow_tail": ("    w.d = __ldg(p + 2);\n    w.e.x = __ldg("
+                              "reinterpret_cast<const int32_t*>(p + 3));\n"),
+              "wide_tail": ("    w.d = __ldg(p + 2);\n"
+                            "    w.e = __ldg(p + 3);\n")}
+_MEGA_TAIL = ("  __device__ __forceinline__ Tail tail(const Raw& w, int32_t,\n"
+              "                                       int32_t) const {{\n"
+              "    return {}(w);\n"
+              "  }}\n")
+_MEGA_TAIL_LOAD = ("  __device__ __forceinline__ Tail tail(Raw w, int32_t c,\n"
+                   "                                       int32_t interval) "
+                   "const {{\n"
+                   "    const int4* p = at(c, interval);\n"
+                   "{}"
+                   "    return {}(w);\n"
+                   "  }}\n")
+_MEGA_COMPACT = ("    w.b = __ldg(s + 1);\n    return w;\n",
+                 "    per_char(w, c, interval);\n    return {w.d.z")
+_MEGA_PUT = (
+    "  __device__ __forceinline__ void put(int64_t col, uint32_t v) {\n"
+    "    p[L == kColMajor ? col * r1 + r0 : r0 + col] = static_cast<T>(v);\n"
+    "  }\n")
+_MEGA_PAD = ("    const int64_t e = r0 + end;  "
+             "// elements [r0, e) are the padding\n")
+_MEGA_FINISH = (
+    "    const int64_t qe = e & ~(kN - 1);\n"
+    "    const int64_t qlo = (r0 + kN - 1) & ~(kN - 1);  "
+    "// the first whole chunk\n"
+    "    for (int64_t x = e - 1; x >= (qe > r0 ? qe : r0); --x) p[x] = 0;\n"
+    "    for (int64_t q = qe - kN; q >= qlo; q -= kN) {\n"
+    "      *reinterpret_cast<uint4*>(p + q) = make_uint4(0, 0, 0, 0);\n"
+    "    }\n"
+    "    for (int64_t x = (qlo < qe ? qlo : qe) - 1; x >= r0; --x) "
+    "p[x] = 0;\n")
 _LCP_SPAN = "constexpr int kLcpSpan = 32;\n"
 _LCP_GROUP = "constexpr int kLcpGroup = 32;\n"
 _LCP_STORE = ("      if (j == 0) plcp[p] = 0;\n",
@@ -373,10 +424,65 @@ VARIANTS = {
          "        jb = __ldg(&jump_rows[2 * jf + 1]);\n"
          "      }\n")],
     "threads-32": [
-        ("query_fused.cu", _FUSED_THREADS, _FUSED_THREADS.replace("64", "32")),
-        ("query_mega.cu", _MEGA_THREADS, _MEGA_THREADS.replace("128", "32"))],
-    "threads-64": [
-        ("query_mega.cu", _MEGA_THREADS, _MEGA_THREADS.replace("128", "64"))],
+        ("query_fused.cu", _FUSED_THREADS,
+         _FUSED_THREADS.replace("64", "32"))],
+    "mega-other-rows": [
+        *(sub for fn, half in _MEGA_HALF.items() for sub in (
+            ("query_mega.cu", half + "    return w;\n", "    return w;\n"),
+            ("query_mega.cu", _MEGA_TAIL.format(fn),
+             _MEGA_TAIL_LOAD.format(half, fn)))),
+        ("query_mega.cu", _MEGA_COMPACT[0],
+         _MEGA_COMPACT[0].replace("    return w;",
+                                  "    per_char(w, c, interval);\n"
+                                  "    return w;")),
+        ("query_mega.cu", _MEGA_COMPACT[1],
+         _MEGA_COMPACT[1].replace("    per_char(w, c, interval);\n", ""))],
+    "mega-vector-stores": [
+        ("query_mega.cu", _MEGA_PUT,
+         "  uint64_t lo = 0, hi = 0;  // the chunk being filled\n"
+         "  __device__ __forceinline__ void put(int64_t col, uint32_t v) {\n"
+         "    const int64_t e = r0 + col;\n"
+         "    const int64_t q = e & ~(kN - 1);\n"
+         "    if (L != kRowPadVector || q < r0 || q + kN > r1) {\n"
+         "      p[L == kColMajor ? col * r1 + r0 : e] = static_cast<T>(v);\n"
+         "      return;\n"
+         "    }\n"
+         "    const int bit = static_cast<int>((e - q) * 8 * sizeof(T));\n"
+         "    const uint64_t x = sizeof(T) == 2 ? (v & 0xFFFFu) : v;\n"
+         "    if (bit < 64) {\n"
+         "      lo |= x << bit;\n"
+         "    } else {\n"
+         "      hi |= x << (bit - 64);\n"
+         "    }\n"
+         "    if (e == q) {  // the chunk's leftmost element: it is full\n"
+         "      *reinterpret_cast<uint4*>(p + q) = make_uint4(\n"
+         "          static_cast<uint32_t>(lo),\n"
+         "          static_cast<uint32_t>(lo >> 32),\n"
+         "          static_cast<uint32_t>(hi),\n"
+         "          static_cast<uint32_t>(hi >> 32));\n"
+         "      lo = 0;\n"
+         "      hi = 0;\n"
+         "    }\n"
+         "  }\n"),
+        ("query_mega.cu", _MEGA_PAD,
+         "    int64_t e = r0 + end;  // elements [r0, e) are the padding\n"
+         "    const int64_t q0 = e & ~(kN - 1);\n"
+         "    if (L == kRowPadVector && e > q0 && q0 >= r0 &&\n"
+         "        q0 + kN <= r1) {\n"
+         "      e = q0;  // the walk's last chunk, its padding zeros\n"
+         "      *reinterpret_cast<uint4*>(p + q0) = make_uint4(\n"
+         "          static_cast<uint32_t>(lo),\n"
+         "          static_cast<uint32_t>(lo >> 32),\n"
+         "          static_cast<uint32_t>(hi),\n"
+         "          static_cast<uint32_t>(hi >> 32));\n"
+         "    }\n")],
+    "mega-scalar-stores": [
+        ("query_mega.cu", _MEGA_FINISH,
+         "    for (int64_t x = e - 1; x >= r0; --x) p[x] = 0;\n")],
+    "mega-threads-64": [
+        ("query_mega.cu", _MEGA_THREADS, _MEGA_THREADS.replace("32", "64"))],
+    "mega-threads-128": [
+        ("query_mega.cu", _MEGA_THREADS, _MEGA_THREADS.replace("32", "128"))],
     "threads-128": [
         ("query_fused.cu", _FUSED_THREADS,
          _FUSED_THREADS.replace("64", "128"))],
@@ -536,7 +642,9 @@ VARIANTS = {
 }
 FUSED_VARIANTS = ("row-major", "jump-on-mismatch", "threads-32",
                   "threads-128")
-MEGA_VARIANTS = ("column-major", "threads-32", "threads-64")
+MEGA_VARIANTS = ("mega-other-rows", "mega-vector-stores",
+                 "mega-scalar-stores", "mega-threads-64", "mega-threads-128",
+                 "column-major")
 LCP_VARIANTS = ("lcp-span-8", "lcp-span-16", "lcp-blocked",
                 "lcp-blocked-span-8", "lcp-group-4", "lcp-group-8",
                 "lcp-group-16", "lcp-scatter")
@@ -560,7 +668,8 @@ THR_VARIANTS = ("thr-tile-256", "thr-tile-1024", "thr-warps-4",
 # the entry points each group's libraries bind
 ENTRY_POINTS = {"scans": ("colbwt_query_batch_fused",
                           "colbwt_query_chunk_mega",
-                          "colbwt_query_chunk_mega_wide"),
+                          "colbwt_query_chunk_mega_wide",
+                          "colbwt_sharded_scan_mega"),
                 "lcp": ("colbwt_lcp_lift",),
                 "tk": ("colbwt_compose_sharded_tk",),
                 "pos": ("colbwt_query_chunk_pos", "colbwt_build_t1_chunk"),
@@ -1063,7 +1172,9 @@ def sweep_tk(torch, libs: dict, compare, bench: dict) -> None:
 
 
 def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
-    """K7 on the run-split indexes, K5 and K6a on the scaled ones."""
+    """K7 on the run-split indexes (when one of its variants is built), K5
+    and K6a on the scaled ones, the K13b/K13c chunk scan at cells G's
+    shapes."""
     from chip_smoke import scale_table
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import to_device
@@ -1077,7 +1188,6 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
     tbl = bench["tbl"]
     reads, n_reads, long_reads = bench["reads"]
     split = ColPmlIndex.build(tbl, ff_bound=2)
-    ff1 = ColPmlIndex.build(tbl, ff_bound=1)
     mega = ColPmlIndex.build(scale_table(tbl, 256), ff_bound=2)
     wide = ColPmlIndex.build(scale_table(tbl, 1024), ff_bound=2)
     log(f"[designs] scan indexes in {time.perf_counter() - t0:.1f}s")
@@ -1100,11 +1210,15 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
             return pml, cid
         return pml.t().contiguous(), cid.t().contiguous()
 
-    for idx, cells in ((split, (("E long reads", long_reads, 8192, 3),
+    fused_cells = ()
+    if any(name in libs for name in FUSED_VARIANTS):
+        fused_cells = ((split, (("E long reads", long_reads, 8192, 3),
                                 ("E dispatch", sample, 256, 20),
                                 ("S-E dispatch", streamed, 256, 20))),
-                       (ff1, (("F long reads", long_reads, 8192, 3),
-                              ("F dispatch", sample, 256, 20)))):
+                       (ColPmlIndex.build(tbl, ff_bound=1),
+                        (("F long reads", long_reads, 8192, 3),
+                         ("F dispatch", sample, 256, 20))))
+    for idx, cells in fused_cells:
         ft = TF.build_fused_tables(idx, dev)
         ff = idx.ff_bound
         for label, batch, M, reps in cells:
@@ -1113,12 +1227,11 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
             pats32 = to_device(enc, dev)
             lens = to_device(ln, dev)
             designs = {
-                name: (lambda lib=libs[name], rm=name == "row-major":
-                       fused(lib, ft, pats, lens, ff, row_major=rm))
-                for name in ("shipped",) + FUSED_VARIANTS}
-            if "parent" in libs:
-                designs["parent"] = lambda: fused(libs["parent"], ft, pats32,
-                                                  lens, ff, row_major=True)
+                name: (lambda lib=lib, rm=name in ("row-major", "parent"),
+                       p=pats32 if name == "parent" else pats:
+                       fused(lib, ft, p, lens, ff, row_major=rm))
+                for name, lib in libs.items()
+                if name in ("shipped", "parent") + FUSED_VARIANTS}
             compare(f"K7 {label} {len(batch)}x{M} ff_bound={ff}", designs,
                     reps)
         del ft
@@ -1157,6 +1270,11 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
             return out0, out1, *final
         return rows(torch, out0), rows(torch, out1), *final
 
+    def designs_of(fn):
+        return {name: (lambda lib=lib, name=name: fn(lib, name))
+                for name, lib in libs.items()
+                if name in ("shipped", "parent") + MEGA_VARIANTS}
+
     for label, idx, mt, init in (
             ("C", mega, TM.build_mega_table(mega, device=dev),
              TM.initial_state),
@@ -1166,34 +1284,106 @@ def sweep_scans(torch, libs: dict, compare, bench: dict) -> None:
             ("D compact", wide,
              TW.build_mega_table_wide(wide, compact=True, device=dev),
              TW.initial_state_wide)):
-        enc, ln = idx.encode_patterns(sample, 255)
-        disp = (to_device(enc, dev, np.uint8), to_device(ln, dev),
-                init(mt, len(sample)), 0, False)
-        enc, ln = idx.encode_patterns(long_reads, 3 * 2048)
-        pat = to_device(enc, dev, np.uint8)
-        lt = to_device(ln, dev)
         kern = (TM.query_chunk_mega if label == "C"
                 else TW.query_chunk_mega_wide)
         ff = idx.ff_bound
-        _, st = kern(mt, pat[:, 4096:].contiguous(), lt,
-                     init(mt, len(long_reads)), 0, ff_bound=ff,
-                     packed_out=True)
-        long = (pat[:, 2048:4096].contiguous(), lt, st, 2048, True)
-        cells = [("long-read chunk 16x2048 packed int32", long, 1, 3),
-                 ("dispatch 8192x255 u16", disp, 2, 20)]
+        enc, ln = idx.encode_patterns(sample, 255)
+        disp = (to_device(enc, dev, np.uint8), to_device(ln, dev),
+                init(mt, len(sample)), 0)
+        # the 16 long reads (5,000 bp) in chunks of 2,048: the second chunk
+        # (every lane full) and the third (904 real columns a lane), each
+        # from the state the chunks right of it leave
+        enc, ln = idx.encode_patterns(long_reads, 3 * 2048)
+        pat = to_device(enc, dev, np.uint8)
+        lt = to_device(ln, dev)
+        chunks, st = {}, init(mt, len(long_reads))
+        for j in range(3):
+            lo = (2 - j) * 2048
+            chunks[j] = (pat[:, lo:lo + 2048].contiguous(), lt, st,
+                         j * 2048)
+            _, st = kern(mt, *chunks[j], ff_bound=ff, packed_out=True)
+        cells = [("dispatch 8192x255 u16 unmasked", disp, False, 2, 20),
+                 ("dispatch 8192x255 u16 masked", disp, True, 2, 20)]
         if label == "C":
-            cells.append(("dispatch 8192x255 two planes", disp, 0, 20))
-        for what, a, mode, reps in cells:
-            designs = {
-                name: (lambda lib=libs[name], rm=name != "column-major":
-                       scan(lib, mt, ff, *a, mode, rm))
-                for name in ("shipped",) + MEGA_VARIANTS}
-            if "parent" in libs:
-                designs["parent"] = lambda: scan(libs["parent"], mt, ff, *a,
-                                                 mode, True)
+            cells += [("dispatch 8192x255 two planes unmasked", disp, False,
+                       0, 20),
+                      ("dispatch 8192x255 two planes masked", disp, True, 0,
+                       20)]
+        cells += [(f"long-read chunk 16x2048 packed int32 step_offset "
+                   f"{j * 2048}", chunks[j], True, 1, 5) for j in (1, 2)]
+        for what, a, masked, mode, reps in cells:
             compare(f"{'K5' if label == 'C' else 'K6a'} {label} {what}",
-                    designs, reps)
+                    designs_of(lambda lib, name, a=a, masked=masked,
+                               mode=mode: scan(
+                                   lib, mt, ff, *a[:4], masked, mode,
+                                   name != "column-major")), reps)
         del mt
+    torch.cuda.empty_cache()
+    sweep_sharded_scans(torch, designs_of, compare, split, wide,
+                        reads + n_reads, long_reads)
+
+
+def sweep_sharded_scans(torch, designs_of, compare, split, wide, batch,
+                        long_reads) -> None:
+    """The K13b/K13c chunk scan at G-mega's batch (263,168 reads, E's
+    ff_bound-2 split) and at G-wide's second and third long-read chunks
+    (D's index), both at (dp, ip) = (1, 2) on one card: the calls the
+    shipped routes make, captured, then each design's kernel on them (the
+    state cloned a call, the planes column-major as the kernel stores
+    them)."""
+    from unittest import mock
+
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.parallel import make_mesh
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+    from colbwt_tpu_torch.parallel import query_sharded_mega_wide as TSW
+    from colbwt_tpu_torch.parallel.mesh import shard_pointers
+
+    m = make_mesh(1, 2, devices=["cuda:0"] * 2)
+    calls = []
+    real = TSM.sharded_scan_mega
+
+    def capture(*a):
+        calls.append(a[:6] + (tuple(t.clone() for t in a[6]),) + a[7:])
+        return real(*a)
+
+    with mock.patch.object(TSM, "sharded_scan_mega", capture):
+        st = TSM.shard_mega(split, m,
+                            mt=TM.build_mega_table(split, device="cpu"))
+        TSM.query_batch_sharded_mega(split, batch, mesh=m, st=st)
+        del st
+        st = TSW.shard_mega_wide(wide, m)
+        TSW.query_long_reads_sharded_mega_wide(wide, long_reads, mesh=m,
+                                               chunk=2048, st=st)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def scan(lib, a):
+        shards, L, length, r, n_lo, n_hi, state0, pats, lens, off, ff, w = a
+        state = [t.clone() for t in state0]
+        B, C = pats.shape
+        dev = pats.device
+        pml = torch.empty((C, B), dtype=torch.int32, device=dev)
+        cid = torch.empty((C, B), dtype=torch.int32, device=dev)
+        ptrs = [t.data_ptr() for t in state]
+        if not w:
+            ptrs.insert(3, None)
+        K.check("sharded_scan_mega", lib.colbwt_sharded_scan_mega(
+            int(w), shard_pointers(shards, dev, 16).data_ptr(), len(shards),
+            int(L), length.data_ptr(), int(r),
+            int(n_hi) * TSW.LIMB + int(n_lo) if w else int(n_lo),
+            pats.data_ptr(), lens.data_ptr(), *ptrs, int(off), B, C,
+            int(ff), pml.data_ptr(), cid.data_ptr(), stream))
+        return pml, cid, *state
+
+    shapes = [(f"K13b G-mega {calls[0][7].shape[0]}x{calls[0][7].shape[1]}"
+               f", ip = 2", calls[0], 5)]
+    shapes += [(f"K13c G-wide long-read chunk 16x2048 step_offset "
+                f"{calls[j][9]}, ip = 2", calls[j], 5) for j in (2, 3)]
+    for what, a, reps in shapes:
+        compare(what, designs_of(lambda lib, name, a=a: scan(lib, a)), reps)
+    del calls
+    torch.cuda.empty_cache()
 
 
 def sweep_pos(torch, libs: dict, compare, bench: dict) -> None:

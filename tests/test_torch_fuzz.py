@@ -362,3 +362,167 @@ def test_xla_scan_fuzz_cuda(dev, seed, ff):
                     TX.query_batch_device_ref(*args, ff_bound=k)):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6a, the mega and mega-wide scans (and the K13b/K13c chunk scan)
+# ---------------------------------------------------------------------------
+
+# (seed, layout, ff_bound, masked, carried, output mode): the narrow table
+# and the wide full and compact layouts on a scaled table, ff_bound 2-4,
+# masked and unmasked, fresh and carried state, every output mode
+MEGA_CASES = [(0x5E1 + 17 * i, *s) for i, s in enumerate([
+    ("narrow", 2, False, False, "u16"), ("narrow", 3, True, False, "planes"),
+    ("narrow", 4, True, True, "i32"), ("narrow", 2, True, True, "planes"),
+    ("full", 2, False, False, "planes"), ("full", 3, True, True, "i32"),
+    ("full", 4, True, False, "u16"), ("full", 2, True, True, "planes"),
+    ("compact", 2, True, False, "u16"), ("compact", 3, False, True, "i32"),
+    ("compact", 4, True, True, "planes"), ("compact", 3, True, False,
+                                            "i32")])]
+MEGA_M = 64  # the chunk's columns; reads of 0, 1, M and more than M
+MEGA_FIRST = 32  # the carried state's first chunk: step_offset 32
+
+
+def mega_fuzz_case(seed, layout, ff):
+    """The case's table as the engine sees it (the wide layouts: run
+    lengths scaled as far as 2**29 allows, col ids taken mod 256 as the
+    wide tables require), its index, and reads: the generator's, one of
+    exactly MEGA_M characters and one of 3 * MEGA_M."""
+    from chip_smoke import scale_table
+
+    tbl, reads, docs = random_case(np.random.default_rng(seed))
+    if layout != "narrow":
+        tbl = scale_table(tbl, max(1, (1 << 29) // int(np.max(tbl.length))))
+        ids = np.asarray(tbl.col_id)
+        tbl.col_id = (ids.astype(np.int64) % 256).astype(ids.dtype)
+    index = ColPmlIndex.build(tbl, ff_bound=ff, wide=layout != "narrow")
+    text = b"".join(docs) * 4
+    reads = reads + [text[:MEGA_M], text[:3 * MEGA_M]]
+    return tbl, index, reads
+
+
+def mega_inputs(index, reads, carried, mode):
+    """The chunk's dense ids (each read's rightmost columns, right-aligned),
+    the reads' full lengths and the keyword arguments of one setting."""
+    first = MEGA_FIRST if carried else 0
+    W = MEGA_M + first
+    enc, _ = index.encode_patterns([r[-W:] for r in reads], W)
+    lens = np.array([len(r) for r in reads], dtype=np.int32)
+    kw = dict(packed_out=mode != "planes", fresh_state=mode == "u16")
+    return enc.astype(np.uint8), lens, first, kw
+
+
+def _mega_port(layout):
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops import query_mega_wide as TW
+
+    if layout == "narrow":
+        return (lambda idx, dev: TM.build_mega_table(idx, device=dev),
+                TM.query_chunk_mega, TM.query_chunk_mega_ref,
+                TM.initial_state, TM)
+    return (lambda idx, dev: TW.build_mega_table_wide(
+        idx, compact=layout == "compact", device=dev),
+        TW.query_chunk_mega_wide, TW.query_chunk_mega_wide_ref,
+        TW.initial_state_wide, TW)
+
+
+@pytest.mark.parametrize("seed,layout,ff,masked,carried,mode", MEGA_CASES)
+def test_mega_scan_fuzz(seed, layout, ff, masked, carried, mode):
+    """The plain K5 / K6a equals JAX's query_chunk_mega /
+    query_chunk_mega_wide on the same index, ids and state (the carried
+    state JAX's masked scan of the chunk right of it, so lanes of 32
+    characters or fewer have ended), pad columns included; the port's
+    query_batch and query_long_reads equal the port's oracle on every
+    read."""
+    import jax.numpy as jnp
+
+    from colbwt_tpu.ops import query_mega as JM
+    from colbwt_tpu.ops import query_mega_wide as JW
+
+    tbl, index, reads = mega_fuzz_case(seed, layout, ff)
+    build, kern, _, _, mod = _mega_port(layout)
+    if layout == "narrow":
+        jmt, jscan, jinit = JM.build_mega_table(index), \
+            JM.query_chunk_mega, JM.initial_state
+    else:
+        jmt, jscan, jinit = JW.build_mega_table_wide(
+            index, compact=layout == "compact"), JW.query_chunk_mega_wide, \
+            JW.initial_state_wide
+    mt = build(index, "cpu")
+    enc, lens, first, kw = mega_inputs(index, reads, carried, mode)
+    state = jinit(jmt, len(reads))
+    if first:
+        _, state = jscan(jmt, jnp.asarray(enc[:, MEGA_M:]), jnp.asarray(lens),
+                         state, jnp.int32(0), ff_bound=index.ff_bound)
+    cols = enc[:, :MEGA_M]
+    (wp, wc), wst = jscan(jmt, jnp.asarray(cols), jnp.asarray(lens), state,
+                          jnp.int32(first), ff_bound=index.ff_bound,
+                          masked=masked, **kw)
+    t = torch.from_numpy
+    (gp, gc), gst = kern(mt, t(np.ascontiguousarray(cols)), t(lens),
+                         tuple(t(np.array(s)) for s in state), first,
+                         ff_bound=index.ff_bound, masked=masked, **kw)
+    assert gp.numpy().dtype == np.asarray(wp).dtype
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    if mode == "planes":
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    else:
+        assert gc is None and wc is None
+    for g, w in zip(gst, wst):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    short = [r[:255] for r in reads]
+    for got, rds in ((mod.query_batch(index, short, mt=mt), short),
+                     (mod.query_long_reads(index, reads, chunk=48, mt=mt),
+                      reads)):
+        for j, read in enumerate(rds):
+            ep, ec = O.query_pml_oracle(tbl, read)
+            np.testing.assert_array_equal(got[0][j], ep, err_msg=f"{j}")
+            np.testing.assert_array_equal(got[1][j], ec, err_msg=f"{j}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,layout,ff,masked,carried,mode", MEGA_CASES)
+def test_mega_scan_fuzz_cuda(dev, seed, layout, ff, masked, carried, mode):
+    """K5 / K6a equal their plain versions on the same cases, on the card;
+    on the narrow and full tables split over ip = 2 shards, the K13b/K13c
+    chunk scan (always masked) equals its plain version too."""
+    from colbwt_tpu_torch.parallel import query_sharded_mega as TSM
+
+    _, index, reads = mega_fuzz_case(seed, layout, ff)
+    build, kern, ref, init, _ = _mega_port(layout)
+    mt = build(index, dev)
+    enc, lens, first, kw = mega_inputs(index, reads, carried, mode)
+    pats = to_device(enc, dev, np.uint8)
+    lens_t = to_device(lens, dev)
+    state = init(mt, len(reads))
+    if first:
+        _, state = ref(mt, pats[:, MEGA_M:].contiguous(), lens_t, state, 0,
+                       ff_bound=index.ff_bound)
+    args = (mt, pats[:, :MEGA_M].contiguous(), lens_t, state, first)
+    got = kern(*args, ff_bound=index.ff_bound, masked=masked, **kw)
+    want = ref(*args, ff_bound=index.ff_bound, masked=masked, **kw)
+    for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if w.dtype == torch.uint16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w)
+    if layout == "compact":
+        return
+    table = mt["mega"]
+    L = -(-table.shape[0] // 2)
+    shards = [table[:L].contiguous(), table[L:].contiguous()]
+    if shards[1].shape[0] == 0:  # a table of one row: its own padding row
+        shards[1] = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    wide = layout != "narrow"
+    n_lo, n_hi = (mt["n_lo"], mt["n_hi"]) if wide else (mt["n"], 0)
+    outs = []
+    for fn in (TSM.sharded_scan_mega, TSM.sharded_scan_mega_ref):
+        st = tuple(t.clone() for t in state)
+        outs.append(fn(shards, L, mt["length"], mt["r"], n_lo, n_hi, st,
+                       args[1], lens_t, first, index.ff_bound, wide) + st)
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)

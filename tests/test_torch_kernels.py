@@ -339,10 +339,11 @@ def _mega_tables(index, dev, layout):
 
 
 # (masked, packed_out, fresh_state, M, first): the smoke's shapes at a small
-# batch — the dispatch batch (255 columns, u16 plane), one long-read chunk
-# with carried state after a first chunk of `first` columns (int32 packed
-# plane), and two planes
+# batch — the dispatch batch (255 columns, u16 plane) unmasked and masked
+# (as the engines scan it), one long-read chunk with carried state after a
+# first chunk of `first` columns (int32 packed plane), and two planes
 SETTINGS = {"dispatch": (False, True, True, 255, 0),
+            "dispatch-masked": (True, True, True, 255, 0),
             "long-chunk": (True, True, False, 256, 256),
             "two-planes": (False, False, True, 255, 0)}
 
@@ -350,7 +351,9 @@ SETTINGS = {"dispatch": (False, True, True, 255, 0),
 @pytest.mark.parametrize("layout,setting", [
     ("narrow", "dispatch"), ("narrow", "long-chunk"),
     ("narrow", "two-planes"), ("full", "dispatch"), ("full", "long-chunk"),
-    ("compact", "dispatch"), ("compact", "long-chunk")])
+    ("compact", "dispatch"), ("compact", "long-chunk"),
+    ("narrow", "dispatch-masked"), ("full", "dispatch-masked"),
+    ("compact", "dispatch-masked")])
 def test_mega_scan(dev, mega_case, layout, setting):
     """K5 (narrow) and K6a (full and compact wide layouts) against their
     plain versions: outputs, pad columns included, and the final state."""
@@ -397,6 +400,20 @@ def _lanes(reads, B):
     return (reads * (B // len(reads) + 1))[:B]
 
 
+def _mixed_lanes(reads, M, first):
+    """300 lanes whose reads walk 0, 1, 150 (at most M) and M steps of a
+    chunk at step_offset `first`, and more than fit it; some end at or
+    before step_offset (lengths 0, first // 2 and first).  Returns the
+    reads (each cut to the M + first columns the two chunks hold, the
+    read's rightmost) and their full lengths."""
+    text = b"".join(reads) * 4
+    full = [0, 1, first // 2, first, first + 1, first + 150, first + M,
+            first + M + 1000]
+    lens = [full[i % len(full)] for i in range(300)]
+    rs = [text[7 * i:7 * i + n][-(M + first):] for i, n in enumerate(lens)]
+    return rs, np.array(lens, dtype=np.int32)
+
+
 # output mode -> (packed_out, fresh_state, M)
 MODES = {"two-planes": (False, False, 129), "packed-i32": (True, False, 129),
          "packed-u16": (True, True, 255)}
@@ -404,13 +421,15 @@ MODES = {"two-planes": (False, False, 129), "packed-i32": (True, False, 129),
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("B", [1, 8193])
+@pytest.mark.parametrize("B", [1, 8193, "mixed"])
 @pytest.mark.parametrize("layout", ["narrow", "full", "compact"])
 def test_mega_scan_modes(dev, mega_case, layout, B, mode, masked):
     """K5 and K6a in every output mode, against their plain versions, at
-    one lane and at 8,193 (no multiple of the block size), masked and not.
-    The u16 plane scans from the fresh state; the others carry the state
-    of a first chunk of 96 columns (step_offset 96)."""
+    one lane, at 8,193 (no multiple of the block size) and on a batch of
+    mixed lengths (lanes of 0, 1, 150 and M steps, some ended at or before
+    step_offset; `_mixed_lanes`), masked and not.  The u16 plane scans
+    from the fresh state; the others carry the state of a first chunk of
+    96 columns (step_offset 96)."""
     _, _, narrow, wide, reads = mega_case
     index = narrow if layout == "narrow" else wide
     mt = _mega_tables(index, dev, layout)
@@ -421,8 +440,14 @@ def test_mega_scan_modes(dev, mega_case, layout, B, mode, masked):
          TW.initial_state_wide, "query_chunk_mega_wide"))
     packed_out, fresh, M = MODES[mode]
     first = 0 if fresh else 96
-    rs = [r * 2 for r in _lanes(reads, B)]
-    enc, lens = index.encode_patterns([r[:M + first] for r in rs], M + first)
+    if B == "mixed":
+        rs, lens = _mixed_lanes(reads, M, first)
+        enc, _ = index.encode_patterns(rs, M + first)
+        B = len(rs)
+    else:
+        rs = [r * 2 for r in _lanes(reads, B)]
+        enc, lens = index.encode_patterns([r[:M + first] for r in rs],
+                                          M + first)
     pat = to_device(enc, dev, np.uint8)
     lens_t = to_device(lens, dev)
     state = init(mt, B)

@@ -114,6 +114,42 @@ def test_query_chunk_mega_matches_jax(case, jax_tables, ff, masked,
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+# the dispatch scan's output modes -> (packed_out, M): the uint16 plane (M
+# <= 255), the packed int32 plane (M > 255) and two int32 planes
+BATCH_MODES = {"u16": (True, 255), "i32": (True, 300), "planes": (False, 255)}
+
+
+@pytest.mark.parametrize("mode", list(BATCH_MODES))
+def test_batch_plane_equals_jax_masked_scan(case, jax_tables, mode):
+    """The port's dispatch scan is masked: its plane, pad columns included,
+    equals JAX's query_chunk_mega(..., masked=True, fresh_state=True) on
+    the same reads (JAX's own query_batch_mega is unmasked, so its pad
+    columns differ; every real column is the same)."""
+    _, _, indexes, _, reads = case
+    index, jmt = indexes[2], jax_tables[2]
+    packed_out, M = BATCH_MODES[mode]
+    enc, lens = index.encode_patterns([r[:M] for r in reads], M)
+    cols = enc.astype(np.uint8)
+    (wp, wc), _ = JM.query_chunk_mega(
+        jmt, jnp.asarray(cols), jnp.asarray(lens),
+        JM.initial_state(jmt, enc.shape[0]), jnp.int32(0),
+        ff_bound=index.ff_bound, masked=True, packed_out=packed_out,
+        fresh_state=True)
+    gp, gc = TM.query_batch_mega(
+        mega_table_from_numpy(jmt, CPU), to_device(cols, CPU, np.uint8),
+        to_device(lens, CPU), ff_bound=index.ff_bound, packed_out=packed_out)
+    assert gp.numpy().dtype == np.asarray(wp).dtype
+    assert gp.dtype == {"u16": torch.uint16, "i32": torch.int32,
+                        "planes": torch.int32}[mode]
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    if packed_out:
+        assert gc is None and wc is None
+    else:
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    pad = np.arange(M)[None, :] < M - lens[:, None]
+    assert pad.any() and not gp.numpy()[pad].any()
+
+
 @pytest.mark.parametrize("mode", ["tunnels", "all"])
 def test_query_batch_matches_jax_and_oracle(mode):
     rng = np.random.default_rng(0x3E6B)

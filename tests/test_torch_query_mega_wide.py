@@ -149,6 +149,41 @@ def test_query_chunk_mega_wide_matches_jax(wide_setup, jax_tables, compact,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+# the dispatch scan's output modes -> (packed_out, M): the uint16 plane (M
+# <= 255), the packed int32 plane (M > 255) and two int32 planes
+BATCH_MODES = {"u16": (True, 255), "i32": (True, 300), "planes": (False, 255)}
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
+@pytest.mark.parametrize("mode", list(BATCH_MODES))
+def test_batch_plane_equals_jax_masked_scan(wide_setup, jax_tables, compact,
+                                            mode):
+    """The port's dispatch scan is masked: its plane, pad columns included,
+    equals JAX's query_chunk_mega_wide(..., masked=True,
+    fresh_state=True) on the same reads, in both layouts."""
+    _, _, index, _, reads = wide_setup
+    jmt = jax_tables[compact]
+    packed_out, M = BATCH_MODES[mode]
+    enc, lens = index.encode_patterns([r[:M] for r in reads], M)
+    cols = enc.astype(np.uint8)
+    (wp, wc), _ = JW.query_chunk_mega_wide(
+        jmt, jnp.asarray(cols), jnp.asarray(lens),
+        JW.initial_state_wide(jmt, enc.shape[0]), jnp.int32(0),
+        ff_bound=index.ff_bound, masked=True, packed_out=packed_out,
+        fresh_state=True)
+    gp, gc = TW.query_batch_mega_wide(
+        mega_table_from_numpy(jmt, CPU), to_device(cols, CPU, np.uint8),
+        to_device(lens, CPU), ff_bound=index.ff_bound, packed_out=packed_out)
+    assert gp.numpy().dtype == np.asarray(wp).dtype
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    if packed_out:
+        assert gc is None and wc is None
+    else:
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    pad = np.arange(M)[None, :] < M - lens[:, None]
+    assert pad.any() and not gp.numpy()[pad].any()
+
+
 @pytest.mark.parametrize("compact", [False, True])
 def test_query_batch_matches_int64_oracle(wide_setup, compact):
     _, big, index, _, reads = wide_setup
