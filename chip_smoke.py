@@ -117,6 +117,22 @@ version on the card.  Phases:
    equal to its plain version call by call, K1 among them (the compact
    engine's per-round route on 8,192 of the reads; every engine through
    both routes, the wide long reads too)
+13. the persisted table cache and the build's prewarm (every query above
+   went through the cache under "auto"): stage_prewarm on the mega
+   index; phase 6's reads through `query` again, which must load the
+   mega table (K14) and write records byte-equal to phase 6's, the loaded
+   tables equal to a fresh build; each "auto" decision held where build
+   and cache lie far apart: phase 6's save of C's table (its save and
+   load must beat its build), phase 7's skipped save of D's (its save and
+   load, measured in a scratch directory, must not beat its build) and
+   phases 4 and 10's skipped save of A's pos tables (the copy of its
+   tables to the host, the first step of any save, must take longer than
+   their build); D's full table built and loaded five times each, and
+   "auto" on the saved entry reported, not held (the two lie within
+   their runs' spread); a compact-layout engine must miss the full entry;
+   then phase 4's
+   query under utils/profiling.trace, records byte-equal to phase 4's,
+   and the device's busy share of its wall
 
 Each query scan (K3-K7, the chunk scans) is also timed on 16 lanes of
 long reads, whose time a step is that of a chain of dependent loads that
@@ -126,7 +142,8 @@ bound.
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
-lines are a [build path] line of stage seconds, the card line, one
+lines are a [cache and profile] line of phase 13's values, a [build
+path] line of stage seconds, the card line, one
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}.
 Everything is written under build/chip_smoke/ of the checkout.  Imports
 nothing of JAX and nothing of the JAX package colbwt_tpu (from bench.py
@@ -210,10 +227,14 @@ KERNEL_INFO = {
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 BUILD_KEYS = ("sa_lcp_s", "bwt_s", "mums_s", "thresholds_s", "colsplit_s",
-              "index_s", "build_s", "mums", "marks")
-QUERY_KEYS = ("engine", "read_s", "table_build_s", "scan_s", "write_s",
-              "query_s", "reads")
-STREAM_KEYS = ("engine", "table_build_s", "reads", "query_s")
+              "index_s", "table_cache", "prewarm_s", "build_s", "mums",
+              "marks")
+QUERY_KEYS = ("engine", "read_s", "table_cache", "table_build_s",
+              "table_save_s", "scan_s", "write_s", "query_s", "reads")
+STREAM_KEYS = ("engine", "table_cache", "table_build_s", "table_save_s",
+               "reads", "query_s")
+# a device interval of a torch.profiler Chrome trace: kernels and copies
+BUSY_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # phase 8's pangenome: haplotypes, haplotype length, substitutions each
 PANGENOME = (16, 4_500_000, 90_000)
 ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
@@ -313,10 +334,15 @@ def mega_row_bytes(torch, pml, lane, first: int, second: int) -> int:
     return int(lane.sum()) * first + mismatches * second
 
 
-def cuda_ms(torch, fn, reps: int = 3) -> float:
-    """Mean milliseconds per call on the current stream (one warm-up)."""
+def cuda_ms(torch, fn, reps: int = 3, slow_s: float | None = None
+            ) -> float:
+    """Mean milliseconds per call on the current stream (one warm-up); a
+    call whose warm-up took over `slow_s` seconds is timed once."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if slow_s is not None and time.perf_counter() - t0 > slow_s:
+        reps = 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -401,7 +427,9 @@ class Checks:
         time, the least time the longest lane's chain can take.  The first
         timed shape of each kernel goes in the JSON line."""
         ms = cuda_ms(self.torch, kernel_fn, reps)
-        plain = cuda_ms(self.torch, plain_fn, reps)
+        # a plain version of seconds a call (the 16-lane chains) is timed
+        # once: its mean of 3 cost a minute of the run
+        plain = cuda_ms(self.torch, plain_fn, reps, slow_s=1.0)
         lib = library_ms
         by = "bytes"
         if bound is not None:
@@ -670,6 +698,7 @@ def check_mega_kernels(torch, dev, mega_tbl, wide_tbl, reads, n_reads,
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.models.tensors import to_device
     from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops.query_mega_wide import wide_table_bytes
     from colbwt_tpu_torch.ops import query_mega_wide as TW
 
     t0 = time.perf_counter()
@@ -955,13 +984,17 @@ def mega_phase(torch, tag: str, query, pat: Path, names: list[str],
     t0 = time.perf_counter()
     what = check(pmls, cids)
     m = {"engine": v["engine"], "reads": len(names), "read_s": v["read_s"],
-         "table_build_s": v["table_build_s"], "scan_s": v["scan_s"],
+         "table_cache": v.get("table_cache"),
+         "table_build_s": v["table_build_s"],
+         "table_save_s": v["table_save_s"], "scan_s": v["scan_s"],
          "write_s": v["write_s"], "query_wall_s": v["wall_s"],
          "reads_per_s": len(names) / v["wall_s"],
          "scan_reads_per_s": len(names) / v["scan_s"],
          "device_mem_peak_bytes": peak}
     log(f"[phase {tag}] engine {v['engine']}: {len(names)} reads, table "
-        f"build {v['table_build_s']:.3f}s, scan {v['scan_s']:.3f}s, query "
+        f"build {v['table_build_s']:.3f}s (cache: "
+        f"{json.dumps(v.get('table_cache'))}, save {v['table_save_s']:.3f}s)"
+        f", scan {v['scan_s']:.3f}s, query "
         f"wall {v['wall_s']:.3f}s -> {m['reads_per_s']:.0f} reads/s (scan "
         f"only {m['scan_reads_per_s']:.0f} reads/s), device memory peak {peak} "
         f"B; {what} ({time.perf_counter() - t0:.1f}s); launches "
@@ -991,6 +1024,7 @@ def stream_phase(torch, tag: str, query, pat: Path, ref: Path, engine: str,
                            f"{ref}.split.{ext}.bin"),
                 f"phase {tag}: .split.{ext}.bin differs from {ref.name}'s")
     m = {"engine": v["engine"], "reads": v["reads"],
+         "table_cache": v.get("table_cache"),
          "table_build_s": v["table_build_s"], "query_wall_s": v["wall_s"],
          "reads_per_s": v["reads"] / v["wall_s"],
          "one_shot_reads_per_s": one_shot_reads_per_s,
@@ -2107,6 +2141,7 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.ops import _kernels as K
     from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops.query_mega_wide import wide_table_bytes
     from colbwt_tpu_torch.ops import query_pos as TQ
     from colbwt_tpu_torch.ops import query_xla as TX
     from colbwt_tpu_torch.parallel import make_mesh
@@ -2543,6 +2578,254 @@ def phase12(torch, dev, index, wide, batch: list[bytes],
     return walls, launches
 
 
+def busy_seconds(trace_file: Path) -> tuple[float, dict]:
+    """The union of the device's kernel and copy intervals in a
+    torch.profiler Chrome trace, in seconds, and the device microseconds
+    of its five busiest names."""
+    data = json.loads(trace_file.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events
+                   if e.get("cat") in BUSY_CATEGORIES and e.get("ph") == "X")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") in BUSY_CATEGORIES and e.get("ph") == "X":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    return busy * 1e-6, top
+
+
+def phase13(torch, dev, cli_main, bench_prefix: str, pat4: Path, wide,
+            c_event: dict, d_event: dict, a_events: dict
+            ) -> tuple[dict, list[dict]]:
+    """The persisted table cache and the build's prewarm on the indexes
+    phases 6-7 saved, then phase 4's query under the profiler:
+
+    1. stage_prewarm on C's mega index: its cache event and prewarm_s;
+    2. phase 6's reads through `query` on C's index again: a `load` event
+       (K14 uploads), records byte-equal to phase 6's, and the loaded
+       tables equal to a fresh build_mega_table on the card;
+    3. D's full mega-wide table in a scratch directory, built five times
+       (the first under "force", saving it, then under "off") and loaded
+       five times under "force", in turns; phase 7's decision under
+       "auto" (`d_event`, with no entry yet) must be the one the measured
+       save and medians give (save when the save and the load beat the
+       build); "auto" on the saved entry is reported and not held, since
+       D's build and load lie within their runs' spread; an engine whose
+       budget picks the compact layout must miss the full entry (K6b and
+       K6c launch);
+    4. the decisions where build and cache lie far apart: phase 6's save
+       of C's table (`c_event`) must be followed by loads, and its save
+       plus step 2's load must beat its build; phases 4 and 10's skipped
+       save of A's pos tables (`a_events`) must be right: the copy of
+       freshly built pos tables to the host, the first step of any save,
+       must take longer than their build;
+    5. phase 4's query again under utils/profiling.trace: records
+       byte-equal to phase 4's, the device's busy share (the union of its
+       kernel and copy intervals over the query wall).
+
+    Returns the phase's values and the launch counts of steps 1-5."""
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import query_mega as TM
+    from colbwt_tpu_torch.ops.query_mega_wide import wide_table_bytes
+    from colbwt_tpu_torch.pipeline.build import stage_prewarm
+    from colbwt_tpu_torch.pipeline import tables as TB
+    from colbwt_tpu_torch.pipeline.engines import QueryEngines
+    from colbwt_tpu_torch.utils import profiling
+    from colbwt_tpu_torch.utils.config import ColBwtConfig
+    from colbwt_tpu_torch.utils.log import get_logger
+
+    out: dict = {}
+    launches = []
+    mega = str(WORK / "mega")
+
+    # 1. prewarm C
+    def prewarm():
+        stage_prewarm(mega, ColBwtConfig(), get_logger("colbwt_torch.build"),
+                      dev)
+        return 0
+
+    K.reset_launches()
+    out["prewarm C"] = run_logged(prewarm, "colbwt_torch.build",
+                                  ("table_cache", "prewarm_s"))
+    launches.append(dict(K.launches))
+    require("table_cache" in out["prewarm C"],
+            "phase 13: the prewarm logged no table cache event")
+    log("[phase 13] prewarm of C's mega index: "
+        + json.dumps(out["prewarm C"]))
+
+    # 2. C's second query loads its tables from the cache
+    p13 = WORK / "reads_mega13.fa"
+    shutil.copy(pat4, p13)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    v = run_query(lambda: cli_main(["query", mega, "-p", str(p13)]))
+    lc = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    launches.append(lc)
+    ev = v.get("table_cache") or {}
+    require(v.get("engine") == "mega" and ev.get("event") == "load",
+            f"phase 13: C's query {v.get('engine')} / {ev}, expected a load")
+    for name in ("upload_rows", "query_chunk_mega"):
+        require(lc[name] > 0, f"{name} never launched in phase 13's query")
+    for ext in ("pml", "cid"):
+        require(same_bytes(f"{p13}.split.{ext}.bin",
+                           f"{WORK / 'reads_mega.fa'}.split.{ext}.bin"),
+                f"phase 13: .split.{ext}.bin differs from phase 6's")
+    index = ColPmlIndex.load(f"{mega}.colpml.npz")
+    eng = QueryEngines(index, ColBwtConfig(engine="mega"), None,
+                       table_dir=f"{mega}.torch_tables", device=dev)
+    require(eng.cache_events[0]["event"] == "load",
+            f"phase 13: {eng.cache_events}")
+    fresh = TM.build_mega_table(index, device=dev)
+    require(eng.mt.keys() == fresh.keys(), "phase 13: mega table keys")
+    for key, want in fresh.items():
+        got = eng.mt[key]
+        require(torch.equal(got, want) if isinstance(want, torch.Tensor)
+                else got == want,
+                f"phase 13: the loaded {key} differs from a fresh build")
+    del eng, fresh
+    # phase 6's query or the prewarm saved the entry
+    saved = [e for e in (c_event, out["prewarm C"]["table_cache"])
+             if e and e["event"] == "build+save"]
+    out["query C"] = {
+        "table_cache": ev, "load_s": v["table_build_s"],
+        "build_s": ev.get("replaced_build_seconds"),
+        "save_s": saved[0]["save_seconds"] if saved else None,
+        "query_wall_s": v["wall_s"], "device_mem_peak_bytes": peak,
+        "device_mem_peak_above_start_bytes": peak - base}
+    log("[phase 13] C's query from the cache: " + json.dumps(out["query C"])
+        + "; records byte-equal to phase 6's, the loaded mega and length "
+        "equal to a fresh build_mega_table; launches " + json.dumps(lc))
+
+    # 3. D's full layout built and loaded both ways, then auto
+    scratch = WORK / "d_cache"
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    def engine(cache: str, **kw) -> tuple[str, float, float]:
+        e = QueryEngines(wide, ColBwtConfig(table_cache=cache, **kw), None,
+                         table_dir=str(scratch), device=dev)
+        require(("mega" in e.mt) == ("pos_hbm_budget" not in kw),
+                f"phase 13: D's engine chose the wrong layout ({kw})")
+        got = ((e.cache_events or [{"event": "build"}])[0]["event"],
+               e.table_build_seconds, e.table_save_seconds)
+        del e
+        return got
+
+    K.reset_launches()
+    # five builds and five loads in turns, the first build saving the entry
+    runs = [engine("force")]
+    for _ in range(4):
+        runs += [engine("force"), engine("off")]
+    runs.append(engine("force"))
+    require([r[0] for r in runs] == ["build+save"] + ["load", "build"] * 4
+            + ["load"], f"phase 13: D {runs}")
+    builds = np.array([r[1] for r in runs if r[0] != "load"])
+    loads = np.array([r[1] for r in runs if r[0] == "load"])
+    build_s, load_s = float(np.median(builds)), float(np.median(loads))
+    save_s = runs[0][2]
+    # phase 7's decision, made before any entry existed
+    d_save = save_s + load_s < build_s
+    require(d_event["event"] == ("build+save" if d_save else
+                                 "build+skip-save"),
+            f"phase 13: phase 7 chose {d_event} at D, measured build "
+            f"{build_s}, save {save_s}, load {load_s}")
+    # auto on the saved entry: reported, not held (a tie by the spread)
+    spread = max(float(np.subtract(*np.percentile(x, [75, 25])))
+                 for x in (builds, loads))
+    auto = engine("auto")[0]
+    # the full entry is a miss for an engine that picks the compact layout
+    if not (scratch / "megawide").exists():
+        engine("force")
+    launches.append(dict(K.launches))
+    K.reset_launches()
+    compact = engine("force", pos_hbm_budget=wide_table_bytes(wide) - 1)
+    lc_compact = dict(K.launches)
+    require(compact[0] == "build+save"
+            and lc_compact["fill_block_wide"] > 0
+            and lc_compact["shared_table_wide"] > 0,
+            f"phase 13: the compact engine {compact}, launches {lc_compact}")
+    launches.append(lc_compact)
+    out["D"] = {"phase7_event": d_event, "build_s": builds.tolist(),
+                "save_s": save_s, "load_s": loads.tolist(),
+                "median_build_s": build_s, "median_load_s": load_s,
+                "save_pays": d_save, "spread_s": spread,
+                "auto_on_entry": auto,
+                "auto_on_entry_faster": ("load" if load_s < build_s
+                                         else "skip-load"),
+                "compact_event": compact[0]}
+    shutil.rmtree(scratch, ignore_errors=True)
+    log("[phase 13] D's full mega-wide table: " + json.dumps(out["D"]))
+
+    # 4. C's save and A's skipped saves, held to what they cost
+    require(c_event and c_event["event"] == "build+save"
+            and c_event["save_seconds"] + out["query C"]["load_s"]
+            < c_event["seconds"],
+            f"phase 13: phase 6 chose {c_event} at C, step 2 loaded in "
+            f"{out['query C']['load_s']}")
+    out["C"] = {"phase6_event": c_event,
+                "save_plus_load_s": c_event["save_seconds"]
+                + out["query C"]["load_s"]}
+    require(all(e and e["event"] == "build+skip-save"
+                for e in a_events.values()),
+            f"phase 13: A's decisions {a_events}")
+    index = ColPmlIndex.load(f"{bench_prefix}.colpml.npz")
+    K.reset_launches()
+    e = QueryEngines(index, ColBwtConfig(table_cache="off"), None,
+                     device=dev)
+    launches.append(dict(K.launches))
+    require(e.use_pos, f"phase 13: A's engine is {e.name}")
+    arrs = [v for v in e.pt.values() if TB.placement(v) == "dev"]
+    a_bytes = sum(v.nbytes for v in arrs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [v.cpu() for v in arrs]
+    copy_s = time.perf_counter() - t0
+    del host, arrs, e
+    torch.cuda.empty_cache()
+    a_builds = [ev["seconds"] for ev in a_events.values()]
+    require(copy_s > max(a_builds),
+            f"phase 13: A's tables copied to the host in {copy_s} s, "
+            f"under their builds {a_builds}: a save could have paid")
+    out["A"] = {"events": a_events, "bytes": a_bytes,
+                "measured_copy_to_host_s": copy_s}
+    log("[phase 13] C's save and A's skipped saves: "
+        + json.dumps({"C": out["C"], "A": out["A"]}))
+
+    # 5. phase 4's query under the profiler
+    pp = WORK / "reads_profile.fa"
+    shutil.copy(pat4, pp)
+    trace_dir = WORK / "profile"
+    K.reset_launches()
+    with profiling.trace(str(trace_dir), dev):
+        v = run_query(lambda: cli_main(["query", bench_prefix, "-p",
+                                        str(pp)]))
+        torch.cuda.synchronize()
+    launches.append(dict(K.launches))
+    for ext in ("pml", "cid"):
+        require(same_bytes(f"{pp}.split.{ext}.bin",
+                           f"{pat4}.split.{ext}.bin"),
+                f"phase 13: the profiled .split.{ext}.bin differs from "
+                "phase 4's")
+    busy, top = busy_seconds(trace_dir / profiling.TRACE_FILE)
+    require(busy > 0, "phase 13: the trace holds no device interval")
+    out["profile"] = {"query_wall_s": v["wall_s"], "scan_s": v["scan_s"],
+                      "table_build_s": v["table_build_s"], "busy_s": busy,
+                      "busy_share": busy / v["wall_s"],
+                      "busy_share_of_scan": busy / v["scan_s"],
+                      "top_us": top}
+    log("[phase 13] phase 4's query under the profiler: "
+        + json.dumps(out["profile"]))
+    return out, launches
+
+
 def start_native_build() -> subprocess.Popen | None:
     """Start compiling the host library of native/ (SA-IS, Kasai and the
     chunked SA lane of the build; colbwt_tpu/io/native.py) with the
@@ -2607,7 +2890,7 @@ def query_reads(docs: list[bytes], rng: np.random.Generator
 
 
 def run(torch) -> tuple[dict, list[dict]]:
-    """Phases 2-12 on the card; returns the main path's metrics and the
+    """Phases 2-13 on the card; returns the main path's metrics and the
     kernels' JSON entries.  Raises on any failed check."""
     from bench import N_READS, make_docs
     from colbwt_tpu_torch.io.fasta import FastaRecord, write_fasta
@@ -2727,7 +3010,9 @@ def run(torch) -> tuple[dict, list[dict]]:
     n_total = len(records)
     main_path = {
         "engine": v["engine"], "reads": n_total,
-        "read_s": v["read_s"], "table_build_s": v["table_build_s"],
+        "read_s": v["read_s"], "table_cache": v.get("table_cache"),
+        "table_build_s": v["table_build_s"],
+        "table_save_s": v["table_save_s"],
         "scan_s": v["scan_s"], "write_s": v["write_s"],
         "query_wall_s": v["wall_s"],
         "reads_per_s": n_total / v["wall_s"],
@@ -2830,6 +3115,10 @@ def run(torch) -> tuple[dict, list[dict]]:
         torch, "7b", query7b, p7b, [records[i][0] for i in sel],
         same_as_phase7, "mega-wide",
         ("query_chunk_mega_wide", "fill_block_wide", "shared_table_wide"))
+    # the entry phase 7 may have saved holds the full layout: a miss here
+    require(m["table_cache"] is None
+            or m["table_cache"]["event"].startswith("build"),
+            f"phase 7b: the compact layout was not built ({m['table_cache']})")
     paths["mega-wide compact"] = m
     launches.append(lc)
     log("[mega paths] " + json.dumps(paths))
@@ -2903,6 +3192,16 @@ def run(torch) -> tuple[dict, list[dict]]:
                             (pm7, ci7), chk)
     launches += lc12
     log("[sharded paths] " + json.dumps(walls12))
+
+    # phase 13: the table cache and prewarm on the indexes phases 6-7
+    # saved, and the main path's query under the profiler
+    v13, lc13 = phase13(torch, dev, cli_main, prefix, pat, wide_index,
+                        paths["mega"]["table_cache"],
+                        paths["mega-wide"]["table_cache"],
+                        {"A query": main_path["table_cache"],
+                         "A stream": fused["10"]["table_cache"]})
+    launches += lc13
+    log("[cache and profile] " + json.dumps(v13))
     log("[build path] " + json.dumps(
         {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
          "phase8b": v8bc["8b"], "phase8c": v8bc["8c"], "phase11": v11,

@@ -13,12 +13,14 @@ results.
                                 version beside each; the NumPy oracle
 - ``colbwt_tpu_torch.models``   the index (ColPmlIndex) and its device
                                 tensors
-- ``colbwt_tpu_torch.pipeline`` the build pipeline, engine selection,
-                                the one-shot and streaming queries
+- ``colbwt_tpu_torch.pipeline`` the build pipeline and its prewarm,
+                                engine selection, the persisted table
+                                cache, the one-shot and streaming queries
 - ``colbwt_tpu_torch.io``       file formats, FASTA, PML/CID writers, the
                                 native host library
 - ``colbwt_tpu_torch.utils``    configuration, logging, device selection,
-                                memory budgets, the chunked upload
+                                memory budgets, the chunked upload,
+                                profiling hooks
 
 The device defaults to ``cuda`` everywhere and raises when CUDA is absent;
 the plain PyTorch path runs only when a caller passes ``device="cpu"``.
@@ -27,6 +29,8 @@ host layer it shares with the JAX package is its own copy.
 """
 
 __version__ = "0.1.0"
+
+from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode  # noqa: F401
 
 __all__ = ["build_pipeline", "query_pipeline"]
 

@@ -3,15 +3,16 @@
 
     col-bwt-torch build [-i INPUT] -o OUTPUT [-r] [-m MODE] [-s SUB_SAMPLE]
                         [-l MIN_MUM] [-v] [--force] [--keep] [--clean]
-                        [--sa-mode M] [--chunk-chars C] [--device DEV]
-                        [fastas ...]
+                        [--sa-mode M] [--chunk-chars C] [--no-prewarm]
+                        [--device DEV] [fastas ...]
     col-bwt-torch query INDEX -p PATTERN [--text] [-l] [--stream]
                         [--engine E] [--batch-size B] [--device DEV]
 
 The device defaults to cuda and the run fails when CUDA is absent; pass
 --device cpu to run the plain PyTorch path.  `build` finds the multi-MUMs
 and walks the col-split on the device in both SA lanes (--sa-mode
-monolithic, or chunked for collections beyond the host SA budget).
+monolithic, or chunked for collections beyond the host SA budget), then
+prewarms the query engine's tables unless --no-prewarm.
 `query --stream` is the bounded-memory lane (pipeline/stream.py), with
 batches of 32768 reads unless --batch-size says otherwise.
 """
@@ -39,7 +40,8 @@ def _build(args: argparse.Namespace) -> int:
         mode=SplitMode(args.mode), split_rate=args.sub_sample,
         min_mum=args.min_mum, rev_comp=args.rev_comp, verbose=args.verbose,
         force=args.force, keep_temp=args.keep,
-        sa_mode=args.sa_mode, chunk_chars=args.chunk_chars)
+        sa_mode=args.sa_mode, chunk_chars=args.chunk_chars,
+        prewarm=not args.no_prewarm)
     build_pipeline(args.fastas, args.output, cfg, filelist=args.input,
                    device=args.device)
     if args.clean:
@@ -123,8 +125,10 @@ def main(argv: list[str] | None = None) -> int:
                    help="chunk size (characters) for --sa-mode chunked; "
                         "0 = auto (half the monolithic SA RAM budget)")
     b.add_argument("--no-prewarm", action="store_true",
-                   help="does nothing: accepted for col-bwt flag "
-                        "compatibility; the port has no prewarm yet")
+                   help="skip the build-exit prewarm (the query engine's "
+                        "tables built, and saved under "
+                        "OUTPUT.torch_tables/ where loading them beats "
+                        "building them)")
     b.add_argument("--device", type=str, default="cuda", help=device_help)
 
     q = sub.add_parser("query", help="Compute PMLs and chain statistics")

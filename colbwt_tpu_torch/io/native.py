@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ runtime (native/colbwt_native.cpp) —
-the port's copy of colbwt_tpu/io/native.py, without the single-core query
-engine that only bench.py's baseline calls.
+the port's copy of colbwt_tpu/io/native.py, with the single-core query
+engine (`query_pml_serial`, the bench baseline).
 
 The library is the repository's native/libcolbwt_native.so, shared by both
 packages.  Everything here is optional acceleration: each caller has a
@@ -43,6 +43,11 @@ def _load() -> ctypes.CDLL | None:
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.query_pml_serial.restype = None
+    lib.query_pml_serial.argtypes = [
+        u8p, i64p, i64p, i64p, i64p, u8p, i64p,
+        ctypes.c_int64, ctypes.c_int64,
+        u8p, i64p, ctypes.c_int64, i32p, i32p]
     lib.rle_encode.restype = ctypes.c_int64
     lib.rle_encode.argtypes = [u8p, ctypes.c_int64, u8p, i64p]
     lib.lcp_kasai.restype = None
@@ -82,6 +87,41 @@ def available() -> bool:
 
 def _p(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def query_pml_serial(tbl, patterns: list[bytes]
+                     ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """Single-core C++ reference engine (the bench baseline) on an oracle
+    LFTableArrays with col_id + threshold."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    chr_ = np.ascontiguousarray(tbl.char, dtype=np.uint8)
+    idx = np.ascontiguousarray(tbl.idx, dtype=np.int64)
+    lens = np.ascontiguousarray(tbl.length, dtype=np.int64)
+    di = np.ascontiguousarray(tbl.dest_interval, dtype=np.int64)
+    do = np.ascontiguousarray(tbl.dest_offset, dtype=np.int64)
+    cid = np.ascontiguousarray(
+        tbl.col_id if tbl.col_id is not None else np.zeros(tbl.r), dtype=np.uint8)
+    thr = np.ascontiguousarray(
+        tbl.threshold if tbl.threshold is not None else np.zeros(tbl.r),
+        dtype=np.int64)
+
+    offs = np.zeros(len(patterns) + 1, dtype=np.int64)
+    np.cumsum([len(p) for p in patterns], out=offs[1:])
+    flat = np.frombuffer(b"".join(patterns), dtype=np.uint8).copy()
+    pml = np.zeros(flat.size, dtype=np.int32)
+    cids = np.zeros(flat.size, dtype=np.int32)
+
+    lib.query_pml_serial(
+        _p(chr_, ctypes.c_uint8), _p(idx, ctypes.c_int64),
+        _p(lens, ctypes.c_int64), _p(di, ctypes.c_int64),
+        _p(do, ctypes.c_int64), _p(cid, ctypes.c_uint8),
+        _p(thr, ctypes.c_int64), tbl.r, tbl.n,
+        _p(flat, ctypes.c_uint8), _p(offs, ctypes.c_int64), len(patterns),
+        _p(pml, ctypes.c_int32), _p(cids, ctypes.c_int32))
+    return ([pml[offs[i]:offs[i + 1]].astype(np.int64) for i in range(len(patterns))],
+            [cids[offs[i]:offs[i + 1]].astype(np.int64) for i in range(len(patterns))])
 
 
 def rle_encode(data: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

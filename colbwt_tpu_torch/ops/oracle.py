@@ -1,6 +1,5 @@
 """Reference-semantics oracle in NumPy — the port's copy of
-colbwt_tpu/ops/oracle.py (without its round-trip helpers `invert` and
-`decompress` and the plain-BWT constructor, which nothing here calls).
+colbwt_tpu/ops/oracle.py.
 
 This module is the executable specification of col-bwt's algorithms, written
 host-side in NumPy with the exact semantics of the reference C++ (every
@@ -280,6 +279,17 @@ def succ_char(tbl: LFTableArrays, run: int, c: int):
     return run, 0
 
 
+def invert(tbl: LFTableArrays) -> bytes:
+    """Regenerate text by LF walking from row 0 until a terminator
+    (include/ds/LF_table.hpp:229-244).  Round-trip oracle."""
+    out = bytearray()
+    interval, offset = 0, 0
+    while tbl.char[interval] > TERMINATOR:
+        out.append(int(tbl.char[interval]))
+        interval, offset = lf_step(tbl, interval, offset)
+    return bytes(out)
+
+
 # ---------------------------------------------------------------------------
 # FL move table (include/ds/FL_table.hpp)
 # ---------------------------------------------------------------------------
@@ -354,6 +364,19 @@ def fl_step(tbl: FLTableArrays, interval: int, offset: int) -> tuple[int, int]:
         doff -= tbl.get_length(di)
         di += 1
     return di, doff
+
+
+def decompress(tbl: FLTableArrays) -> bytes:
+    """Regenerate text by forward steps — the FL round-trip oracle
+    (include/ds/FL_table.hpp:206-220; the reference does two warm-up steps to
+    skip mumemto's extra trailing terminator, our text convention needs one:
+    rank 0 is the first separator suffix, one FL step lands on text[0])."""
+    out = bytearray()
+    interval, offset = fl_step(tbl, 0, 0)
+    while tbl.char[interval] > TERMINATOR:
+        out.append(int(tbl.char[interval]))
+        interval, offset = fl_step(tbl, interval, offset)
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +766,32 @@ def build_col_pml(heads: np.ndarray, lens: np.ndarray,
     tbl.threshold = sub_thr
     tbl.bwt_r = bwt_r
     return tbl
+
+
+def build_col_pml_from_plain_bwt(bwt: bytes | np.ndarray,
+                                 split_pos: np.ndarray, split_ids: np.ndarray,
+                                 thresholds_per_bwt_run: np.ndarray
+                                 ) -> LFTableArrays:
+    """col_bwt construction from the explicit BWT string (the plain-BWT
+    constructor surface, include/col_bwt.hpp:232-329): run-length encode the
+    raw BWT, then split at col_runs positions exactly like the RLBWT path.
+
+    Note the reference's own plain-BWT ctor is dead code with a latent bug:
+    its char counter ``i`` never increments inside the read loop (it only
+    increments when a run is pushed, which is gated on ``i != 0`` — initially
+    false and never made true), so the in-loop run push can never fire and
+    nothing in the repo calls this ctor (build_col_bwt uses the RLBWT ctor at
+    src/build_col_bwt.cpp:38).  This function implements the *intended*
+    semantics, which — given col_split marks every BWT run head inside
+    covered regions (include/col_split.hpp:258-372) — produce the identical
+    table to the RLBWT path (differential-tested)."""
+    arr = (np.frombuffer(bwt, dtype=np.uint8) if isinstance(bwt, bytes)
+           else np.asarray(bwt, dtype=np.uint8))
+    # terminator normalization happens BEFORE run detection in the reference
+    # ctor (`if (c <= TERMINATOR) c = TERMINATOR` precedes the last_c compare)
+    heads, lens = rle(normalize_heads(arr))
+    return build_col_pml(heads, lens, split_pos, split_ids,
+                         thresholds_per_bwt_run)
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,16 @@ def wide_table_bytes(index: ColPmlIndex, compact: bool = False) -> int:
     return 4 * blocks * r * _WIDTH
 
 
+def choose_compact(index: ColPmlIndex, hbm_budget_bytes: int | None = None,
+                   device=None) -> bool:
+    """The layout `build_mega_table_wide` picks when not told: compact when
+    the full table exceeds the memory budget (default: the device's,
+    utils/hbm.resolve_pos_budget)."""
+    if hbm_budget_bytes is None:
+        hbm_budget_bytes = resolve_pos_budget(0, device)
+    return wide_table_bytes(index, compact=False) > hbm_budget_bytes
+
+
 def _check_wide_buildable(index: ColPmlIndex) -> None:
     if index.ff_bound < 2:
         raise ValueError("mega engine requires a run-split index "
@@ -263,9 +273,7 @@ def build_mega_table_wide(index: ColPmlIndex, compact: bool | None = None,
     _check_wide_buildable(index)
     dev = resolve_device(device)
     if compact is None:
-        if hbm_budget_bytes is None:
-            hbm_budget_bytes = resolve_pos_budget(0, dev)
-        compact = wide_table_bytes(index, compact=False) > hbm_budget_bytes
+        compact = choose_compact(index, hbm_budget_bytes, dev)
     r = index.r
     a = run_arrays(index, dev)
     meta = _meta(index)

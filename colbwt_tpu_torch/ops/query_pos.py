@@ -71,6 +71,17 @@ def choose_k(index: ColPmlIndex, hbm_budget_bytes: int = 10 << 30,
     return best
 
 
+def keeps_general_t1(index: ColPmlIndex, k: int, alphabet: bytes | None,
+                     hbm_budget_bytes: int) -> bool:
+    """Whether `build_pos_tables` keeps the general k=1 T1 beside a
+    restricted-alphabet table: it fits int32 and, with the k-step table,
+    the budget.  A table over every char (`alphabet` None) needs none."""
+    A_full = index.sigma + 1
+    return (alphabet is not None and fits(index, 1, A_full)
+            and (len(alphabet) ** k + A_full) * index.n * 8
+            <= hbm_budget_bytes)
+
+
 # ---------------------------------------------------------------------------
 # K1: the one-step table T1
 # ---------------------------------------------------------------------------
@@ -295,8 +306,8 @@ def build_pos_tables(index: ColPmlIndex, k: int | None = None,
         digit_of_dense = np.full(A_full + 1, -1, dtype=np.int32)
         digit_of_dense[digit_dense] = np.arange(A_key, dtype=np.int32)
         t1_general = (build_t1(index, np.arange(A_full), arrays, C)
-                      if fits(index, 1, A_full)
-                      and (A_key ** k + A_full) * n * 8 <= hbm_budget_bytes
+                      if keeps_general_t1(index, k, alphabet,
+                                          hbm_budget_bytes)
                       else None)
     else:
         digit_of_dense = np.arange(A_full + 1, dtype=np.int32)

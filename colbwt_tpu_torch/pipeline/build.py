@@ -28,10 +28,15 @@ package does, the device stages on `device` (default cuda):
                   else the oracle
   stage_index     as the JAX package, with this port's memory budget
 
+  stage_prewarm   with cfg.prewarm (the CLI's default): the engine a
+                  large query picks, its tables built and, where the
+                  table cache pays, saved under PREFIX.torch_tables
+
 `build_pipeline` attaches each stage's seconds to its log records
 (`sa_lcp_s`, `bwt_s`, `mums_s`, `thresholds_s`, `colsplit_s`, `index_s`,
-`build_s`) with the counts `mums` and `marks`.  `query_pipeline` runs the
-query on the device through pipeline/engines.py.
+`prewarm_s`, `build_s`; `build_s` includes the prewarm) with the counts
+`mums` and `marks`.  `query_pipeline` runs the query on the device through
+pipeline/engines.py.
 """
 
 from __future__ import annotations
@@ -395,6 +400,39 @@ def stage_index(prefix: str, cfg: ColBwtConfig, logger,
         raise
 
 
+def log_cache_events(logger, eng, prefix: str = "") -> None:
+    """One log record for each of the engine's table cache events, the
+    event attached as `table_cache`."""
+    for ev in eng.cache_events:
+        logger.info("%stable cache: %s", prefix, ev,
+                    extra={"table_cache": ev})
+
+
+def stage_prewarm(prefix: str, cfg: ColBwtConfig, logger,
+                  device=None) -> None:
+    """Make the built index query-ready at build exit (port of
+    colbwt_tpu/pipeline/build.py:386-435): load the kernel library (it
+    persists on disk, keyed by a hash of its sources: no compile cache and
+    no dummy dispatch are needed), then build the engine a large query
+    would pick on `device` (default cuda) with the table cache under
+    PREFIX.torch_tables, so that it builds and, where the cache pays,
+    saves its tables.  Logs each cache event and `prewarm_s`."""
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.pipeline.engines import QueryEngines
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+    if dev.type == "cuda":
+        K.load()
+    eng = QueryEngines(index, cfg, total_chars=None,
+                       table_dir=f"{prefix}.torch_tables", device=dev)
+    log_cache_events(logger, eng, "[prewarm] ")
+    prewarm_s = time.perf_counter() - t0
+    logger.info("[prewarm] engine %s ready in %.3fs", eng.name, prewarm_s,
+                extra={"prewarm_s": prewarm_s})
+
+
 def build_pipeline(fastas: list[str], output: str,
                    cfg: ColBwtConfig | None = None,
                    filelist: str | None = None, device=None) -> ColPmlIndex:
@@ -416,8 +454,7 @@ def build_pipeline(fastas: list[str], output: str,
     with _timed(logger, "index_s", "[index] stage"):
         stage_index(output, cfg, logger, dev)
     if cfg.prewarm:
-        logger.warning("prewarm is not ported (ROADMAP Queue 1 item 8); "
-                       "skipped")
+        stage_prewarm(output, cfg, logger, dev)
 
     if not cfg.keep_temp:
         _cleanup([Path(f"{output}.fa.bwt")])
@@ -436,8 +473,9 @@ def query_pipeline(index_prefix: str, pattern_file: str,
     .pml/.cid text, the src/pml_query.cpp:74-90 format).
 
     Logs where the time went, with each value also attached to its log
-    record: `read_s` (index load + FASTA parse), `engine`,
-    `table_build_s`, `scan_s` (encode, device scans, copies back),
+    record: `read_s` (index load + FASTA parse), `engine`, each table
+    cache event (`table_cache`), `table_build_s` (the tables' build or
+    load), `table_save_s`, `scan_s` (encode, device scans, copies back),
     `write_s` (output files), `query_s` (all of it), `reads` and
     `device_mem_peak_bytes` (the CUDA allocator's peak; None on the
     CPU)."""
@@ -464,10 +502,14 @@ def query_pipeline(index_prefix: str, pattern_file: str,
             len(reads))
 
     total_chars = sum(len(rd) for rd in reads)
-    eng = QueryEngines(index, cfg, total_chars, device=dev)
+    eng = QueryEngines(index, cfg, total_chars,
+                       table_dir=f"{index_prefix}.torch_tables", device=dev)
     logger.info("engine: %s", eng.name, extra={"engine": eng.name})
-    logger.info("tables built in %.3fs", eng.table_build_seconds,
-                extra={"table_build_s": eng.table_build_seconds})
+    log_cache_events(logger, eng)
+    logger.info("tables built or loaded in %.3fs (saved in %.3fs)",
+                eng.table_build_seconds, eng.table_save_seconds,
+                extra={"table_build_s": eng.table_build_seconds,
+                       "table_save_s": eng.table_save_seconds})
 
     # bucket by padded length; long reads stream in chunks with carried
     # state (the -l mode, src/pml_query.cpp:126-128)

@@ -19,8 +19,15 @@ utils/xfer.upload_chunked, K14, when it is larger than one chunk), its
 outputs come down into pinned host tensors without blocking, and an event
 recorded after them is what `materialize` waits on: the device is never
 synchronized, so the streaming query's next batch runs while the host
-drains this one.  The persisted table cache (`table_dir`) is not ported
-yet (ROADMAP Queue 1 item 8) and is ignored.
+drains this one.
+
+With a `table_dir` (the one-shot and streaming queries and the build's
+prewarm pass `<index_prefix>.torch_tables`), the pos, mega and mega-wide
+tables go through the persisted table cache (pipeline/tables.py) as the
+JAX package's do (engines.py:93-151): loaded when the measured load time
+beats the recorded build, saved when the measured save and load together
+beat the build just measured, every choice recorded in `cache_events`.
+The fused tables are not cached, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import (query_fused, query_mega, query_mega_wide,
                                   query_pos, query_xla)
+from colbwt_tpu_torch.pipeline import tables as TB
 from colbwt_tpu_torch.utils.config import ColBwtConfig
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
@@ -47,10 +55,11 @@ class QueryEngines:
     def __init__(self, index: ColPmlIndex, cfg: ColBwtConfig,
                  total_chars: int | None = None,
                  table_dir: str | None = None, device=None):
-        del table_dir  # table cache not ported (ROADMAP Queue 1 item 8)
         self.index = index
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.table_dir = table_dir if cfg.table_cache != "off" else None
+        self.cache_events: list[dict] = []  # load/build provenance a table
         # The pos tables cost O(A^k n) device work to build, so under "auto"
         # they only pay off for real workloads; total_chars=None means "the
         # workload is large/unbounded"
@@ -81,27 +90,119 @@ class QueryEngines:
         self.use_fused = (not self.use_pos and not self.use_wide
                           and not self.use_mega and index.ff_bound >= 1
                           and cfg.engine in ("auto", "fused"))
+        # the synchronised build or load of the tables, and the save's
         self.table_build_seconds = 0.0
+        self.table_save_seconds = 0.0
         self.pt = None
         self.mt = None
         self.ft = None
-        t0 = time.perf_counter()
         if self.use_pos:
-            self.pt = query_pos.build_pos_tables(
+            # the entry is keyed by all that shaped the tables
+            layout = {"k": pos_k, "alphabet": (None if pos_alpha is None
+                                               else pos_alpha.hex()),
+                      "t1": query_pos.keeps_general_t1(index, pos_k,
+                                                       pos_alpha, budget)}
+            self.pt = self._tables("pos", lambda: query_pos.build_pos_tables(
                 index, pos_k, hbm_budget_bytes=budget, alphabet=pos_alpha,
-                device=self.device)
+                device=self.device), layout)
         elif self.use_wide:
-            self.mt = query_mega_wide.build_mega_table_wide(
-                index, hbm_budget_bytes=budget, device=self.device)
+            compact = query_mega_wide.choose_compact(index, budget)
+            self.mt = self._tables(
+                "megawide", lambda: query_mega_wide.build_mega_table_wide(
+                    index, compact=compact, device=self.device),
+                {"compact": compact})
         elif self.use_mega:
-            self.mt = query_mega.build_mega_table(index, device=self.device)
+            self.mt = self._tables("mega", lambda: query_mega.build_mega_table(
+                index, device=self.device), {})
         elif self.use_fused:
-            self.ft = query_fused.build_fused_tables(index, self.device)
-        if self.use_pos or self.use_wide or self.use_mega or self.use_fused:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.table_build_seconds = time.perf_counter() - t0
+            self.ft, self.table_build_seconds = self._timed(
+                lambda: query_fused.build_fused_tables(index, self.device))
         self._xla_tb = None
+
+    def _timed(self, fn):
+        """(fn(), its seconds with the device synchronised after it)."""
+        t0 = time.perf_counter()
+        out = fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out, time.perf_counter() - t0
+
+    def _tables(self, kind: str, build_fn, layout: dict) -> dict:
+        """An engine's tables, built or loaded from the cache in
+        `table_dir` (pipeline/tables.py), with one provenance event either
+        way.  Under "auto" an entry is loaded when its projected load (its
+        device bytes over `TB.read_rate`) beats the build seconds it
+        recorded, and removed when it does not (a save is held to a
+        stricter rule, so it would not be saved again); a build is saved
+        when the projected save plus the projected load
+        (`TB.project_save`) beat the build just measured, that is when one
+        later load repays the save.  "force" always loads and saves, and
+        projects nothing.  An entry of another index or layout is a miss.
+        A directory that cannot be read or written costs the cache, never
+        the query: the tables are built and the event says why none was
+        saved."""
+        if self.table_dir is None:
+            tbl, self.table_build_seconds = self._timed(build_fn)
+            return tbl
+        force = self.cfg.table_cache == "force"
+        meta = TB.peek(self.table_dir, kind, self.index, layout)
+        if meta is not None:
+            build_s = meta.get("build_seconds")
+            proj = None
+            t0 = time.perf_counter()
+            if not (force or meta["largest"] is None or build_s is None):
+                try:
+                    proj = meta["dev_bytes"] / TB.read_rate(meta["largest"],
+                                                            self.device)
+                except (OSError, ValueError):
+                    meta = None  # removed or truncated meanwhile: a miss
+            probe_s = time.perf_counter() - t0
+            if meta is not None and (proj is None or proj < build_s):
+                got, secs = self._timed(lambda: TB.load_tables(
+                    self.table_dir, kind, self.index, self.device, layout))
+                if got is not None:
+                    self.table_build_seconds = secs
+                    self.cache_events.append({
+                        "kind": kind, "event": "load", "seconds": secs,
+                        "projected_seconds": proj, "probe_seconds": probe_s,
+                        "replaced_build_seconds": build_s})
+                    return got[0]
+                meta = None  # a half-written entry: build and save anew
+            elif meta is not None:
+                self.cache_events.append({
+                    "kind": kind, "event": "skip-load",
+                    "projected_seconds": proj, "probe_seconds": probe_s,
+                    "build_seconds": build_s,
+                    "removed": TB.remove_tables(self.table_dir, kind)})
+        tbl, build_s = self._timed(build_fn)
+        self.table_build_seconds = build_s
+        if meta is not None:  # an entry declined: not saved again
+            return tbl
+        ev = {"kind": kind, "event": "build+skip-save", "seconds": build_s}
+        if force:
+            ev.update(projected_save_seconds=None, projected_seconds=None,
+                      probe_seconds=0.0)
+        else:
+            got = TB.project_save(self.table_dir, tbl, build_s, self.device)
+            ev.update(projected_save_seconds=got["save_seconds"],
+                      projected_seconds=got["load_seconds"],
+                      probe_seconds=got["probe_seconds"])
+            if "error" in got:
+                ev["reason"] = got["error"]
+        if force or (ev["projected_seconds"] is not None and "reason" not in ev
+                     and ev["projected_save_seconds"]
+                     + ev["projected_seconds"] < build_s):
+            t0 = time.perf_counter()
+            try:
+                TB.save_tables(self.table_dir, kind, self.index, tbl,
+                               build_seconds=build_s, layout=layout)
+                ev["event"] = "build+save"
+            except OSError as e:
+                ev["reason"] = f"{type(e).__name__}: {e}"
+            self.table_save_seconds = time.perf_counter() - t0
+            ev["save_seconds"] = self.table_save_seconds
+        self.cache_events.append(ev)
+        return tbl
 
     @property
     def name(self) -> str:

@@ -15,8 +15,8 @@ read and output:
 Long reads (beyond cfg.long_read_len) are flushed in input order: every
 pending batch drains before they are queried.  Outputs are byte-identical
 to query_pipeline's and to the JAX package's query_stream on the same
-input.  The table cache next to the index is not ported (ROADMAP Queue 1
-item 8).
+input.  The engine's tables go through the table cache in
+INDEX_PREFIX.torch_tables/ (pipeline/tables.py), each cache event logged.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from pathlib import Path
 from colbwt_tpu_torch.io.fasta import stream_fasta
 from colbwt_tpu_torch.io.pml_out import PmlCidBinaryWriter
 from colbwt_tpu_torch.models.index import ColPmlIndex
+from colbwt_tpu_torch.pipeline.build import log_cache_events
 from colbwt_tpu_torch.utils.config import ColBwtConfig
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.log import Timer, device_mem_peak, get_logger
@@ -47,11 +48,15 @@ def query_stream(index_prefix: str, pattern_file: str,
     timer = Timer().start()
 
     index = ColPmlIndex.load(f"{index_prefix}.colpml.npz")
-    eng = QueryEngines(index, cfg, total_chars=None, device=dev)
-    logger.info("streaming %s with engine %s (tables in %.3fs)",
-                pattern_file, eng.name, eng.table_build_seconds,
+    eng = QueryEngines(index, cfg, total_chars=None,
+                       table_dir=f"{index_prefix}.torch_tables", device=dev)
+    log_cache_events(logger, eng)
+    logger.info("streaming %s with engine %s (tables in %.3fs, saved in "
+                "%.3fs)", pattern_file, eng.name, eng.table_build_seconds,
+                eng.table_save_seconds,
                 extra={"engine": eng.name,
-                       "table_build_s": eng.table_build_seconds})
+                       "table_build_s": eng.table_build_seconds,
+                       "table_save_s": eng.table_save_seconds})
 
     out_pml = f"{pattern_file}.split.pml.bin"
     out_cid = f"{pattern_file}.split.cid.bin"

@@ -1,7 +1,7 @@
 """Single configuration object for build + query — the port's copy of
 colbwt_tpu/utils/config.py, field for field, so a configuration means the
-same to both packages.  The port reads no `table_cache`, `dp` or `ip` yet
-(ROADMAP Queue 1 items 8 and 12).
+same to both packages.  Neither package's pipeline reads `dp` or `ip`: the
+sharded query API takes its mesh shape as arguments (parallel/mesh.py).
 
 The reference spreads its knobs over three tiers (compile-time macros in
 include/common/common.hpp:45-68, getopt Args at :211-276, and the CLI argparse
@@ -44,9 +44,11 @@ class ColBwtConfig:
     keep_temp: bool = False       # --keep
     force: bool = False           # --force
     verbose: bool = False         # -v
-    prewarm: bool = False         # the JAX package's build-exit query
-                                  # prewarm; not ported (build_pipeline
-                                  # warns and skips it)
+    prewarm: bool = False         # build exit builds the query engine's
+                                  # tables and saves them when the table
+                                  # cache pays (pipeline/build.py
+                                  # stage_prewarm); the CLI turns this on
+                                  # (--no-prewarm to skip)
 
     # --- format budget (include/common/common.hpp:46-54) ---
     rw_bytes: int = 5             # RW_BYTES: on-disk width of n-scale ints
@@ -75,12 +77,13 @@ class ColBwtConfig:
     long_read_chunk: int = 2048
     table_cache: str = "auto"     # "auto" | "force" | "off": persist built
                                   # engine tables (pos/mega/mega-wide) under
-                                  # <index>.tables/ and reload them on later
-                                  # launches (pipeline/tables.py), skipping
-                                  # the multi-GB device rebuild per process.
-                                  # "auto" loads/saves only when a measured
-                                  # bandwidth projection beats the recorded
-                                  # build time; "force" always does
+                                  # <index>.torch_tables/ (the port's own;
+                                  # JAX's is <index>.tables/) and reload them
+                                  # on later launches (pipeline/tables.py).
+                                  # "auto" loads/saves only when the
+                                  # projected load (file read and copy to
+                                  # the card, measured) beats the build
+                                  # time; "force" always does
     wide_n_limit: int = 2**31 - 1  # n above this uses the wide (two-limb)
                                   # index layout + ops.query_mega_wide; lower
                                   # it to force the wide path on small builds

@@ -1,7 +1,8 @@
 """Randomized differential fuzz of the port's pos scan (K3), col-split
-walk (K10a) and compact engine's scan (K4), the port's counterpart of
+walk (K10a), compact engine's scan (K4), mega and mega-wide scans (K5,
+K6a) and fused scan (K7), the port's counterpart of
 tests/test_fuzz_differential.py::test_fuzz_device_engines_vs_cpp for
-these three kernels.
+these kernels.
 
 Cases are made from numpy seeds as that file's `_random_case` makes them
 (its alphabets, SNP-style and independent documents, real or synthetic col
@@ -13,7 +14,10 @@ port's batch and long-read drivers, to the port's oracle; the walk is held
 to JAX's `_tunneled_walk` and to the NumPy model of the kernel
 (tests/test_torch_colsplit.py::walk_model) on random FL tables; the
 compact scan, on the unsplit index and on run-split ones at ff_bound 1-4,
-to JAX's `query_batch_device` and to the port's oracle.  The
+to JAX's `query_batch_device` and to the port's oracle; the mega scans to
+JAX's chunk scans and the oracle (below); the fused scan, on run-split
+indexes at ff_bound 1-4 and the port's own tables, to JAX's
+`query_batch_fused` on JAX's tables and to the port's oracle.  The
 `cuda` cases hold the kernels to their plain versions on the same cases on
 the card.  Every value is an integer: tolerance 0.
 
@@ -525,4 +529,69 @@ def test_mega_scan_fuzz_cuda(dev, seed, layout, ff, masked, carried, mode):
         outs.append(fn(shards, L, mt["length"], mt["r"], n_lo, n_hi, st,
                        args[1], lens_t, first, index.ff_bound, wide) + st)
     for g, w in zip(*outs):
+        assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K7, the fused scan
+# ---------------------------------------------------------------------------
+
+# (seed, ff_bound): indexes split to ff_bound 1-4 (the split may achieve a
+# larger bound; the scan takes the achieved one), three cases a bound
+FUSED_CASES = [(0x7F1 + 13 * i, ff) for i, ff in enumerate(
+    [1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4])]
+
+
+def fused_case(seed, ff):
+    """The case's table, its index split to ff_bound `ff`, reads, their
+    dense ids and lengths (as wide as the longest read, at least 1)."""
+    tbl, reads, _ = random_case(np.random.default_rng(seed))
+    index = ColPmlIndex.build(tbl, ff_bound=ff)
+    enc, lens = index.encode_patterns(
+        reads, max(1, max(len(x) for x in reads)))
+    return tbl, index, reads, enc, lens
+
+
+@pytest.mark.parametrize("seed,ff", FUSED_CASES)
+def test_fused_scan_fuzz(seed, ff):
+    """The plain K7 on the port's own tables (fused_rows, whose column 6
+    holds length[clip(di)]) equals JAX's query_batch_fused on JAX's tables
+    for the same index and ids, and every read's unpadded outputs equal
+    the port's oracle."""
+    import jax.numpy as jnp
+
+    from colbwt_tpu.ops import query_fused as JF
+    from colbwt_tpu_torch.ops import query_fused as TF
+
+    tbl, index, reads, enc, lens = fused_case(seed, ff)
+    k = index.ff_bound  # the bound the split achieved, >= the one asked
+    assert k >= ff
+    gp, gc = TF.query_batch_fused_ref(TF.build_fused_tables(index, "cpu"),
+                                      torch.from_numpy(enc),
+                                      torch.from_numpy(lens), ff_bound=k)
+    wp, wc = JF.query_batch_fused(JF.build_fused_tables(index),
+                                  jnp.asarray(enc), jnp.asarray(lens),
+                                  ff_bound=k)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    M = enc.shape[1]
+    for j, read in enumerate(reads):
+        ep, ec = O.query_pml_oracle(tbl, read)
+        np.testing.assert_array_equal(gp[j, M - len(read):].numpy(), ep)
+        np.testing.assert_array_equal(gc[j, M - len(read):].numpy(), ec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,ff", FUSED_CASES)
+def test_fused_scan_fuzz_cuda(dev, seed, ff):
+    """K7 equals its plain version on the same cases, on the card."""
+    from colbwt_tpu_torch.ops import query_fused as TF
+
+    _, index, _, enc, lens = fused_case(seed, ff)
+    ft = TF.build_fused_tables(index, dev)
+    args = (ft, to_device(enc, dev, np.uint8), to_device(lens, dev))
+    k = index.ff_bound
+    for g, w in zip(TF.query_batch_fused(*args, ff_bound=k),
+                    TF.query_batch_fused_ref(*args, ff_bound=k)):
+        assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)

@@ -36,7 +36,7 @@ def test_no_module_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "colbwt_tpu_torch.__path__, 'colbwt_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 41, mods\n"
+        "assert len(mods) >= 44, mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'colbwt_tpu'))\n"
         "assert not bad, bad\n"
@@ -44,7 +44,22 @@ def test_no_module_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 41
+    assert int(out.stdout.split()[-1]) >= 44
+
+
+def test_every_jax_module_has_a_port():
+    """Each module of the JAX package has its counterpart at the same
+    relative path in the port (construct_jax.py and colsplit_jax.py as
+    construct.py and colsplit.py), the table cache, profiling hooks and
+    r-index among them."""
+    jax_root, port_root = REPO / "colbwt_tpu", REPO / "colbwt_tpu_torch"
+    missing = [str(f.relative_to(jax_root))
+               for f in sorted(jax_root.rglob("*.py"))
+               if not (port_root / str(f.relative_to(jax_root)).replace(
+                   "_jax.py", ".py")).exists()]
+    assert not missing
+    for rel in ("pipeline/tables.py", "utils/profiling.py", "ops/rindex.py"):
+        assert (port_root / rel).exists()
 
 
 def _imported_modules(path: Path) -> set[str]:
