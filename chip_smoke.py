@@ -7,10 +7,14 @@ Drives the port's two entry points.  `col-bwt-torch build` on bench.py's
 collection (4 x 1 Mbp haplotypes, seed 0xBE7C, 20,000 mutations each,
 min-MUM 20, split rate 10) and on a pangenome of 16 x 4.5 Mbp haplotypes
 (n = 72,000,016), in both SA lanes and both split modes, with the native
-library and without it (the device suffix array); `col-bwt-torch
-query` on bench's index, on two indexes made from it by scaling every
-run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide paths) and on
-two run-split builds of it (the fused path), one-shot and `--stream`.
+library and without it (the device suffix array), and on config #3's
+10,000 genomes given as a file list (the large-N multi-MUM route);
+`col-bwt-torch query` on bench's index, on two indexes made from it by
+scaling every run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide
+paths), on two run-split builds of it (the fused path), one-shot and
+`--stream`, and `--stream` on config #3's index.
+
+    python3 chip_smoke.py --config3     # phases 1, 2 and 14 alone, whole
 Every CUDA kernel of those paths is checked against its plain PyTorch
 version on the card.  Phases:
 
@@ -133,6 +137,20 @@ version on the card.  Phases:
    then phase 4's
    query under utils/profiling.trace, records byte-equal to phase 4's,
    and the device's busy share of its wall
+14. config #3 (BASELINE.json: 10,000 near-identical SARS-CoV-2-sized
+   genomes, scripts/validate_config3.py's generator, seed 0xC0F3), cut to
+   genomes of CONFIG3_SMOKE["doc_len"] bp and CONFIG3_SMOKE["reads"]
+   reads (`--config3` runs it whole, 30,000 bp and 1,000,000 reads,
+   alone): the genomes written as 10,000 FASTA files and a file list,
+   `build -i LIST -m tunnels -s 10 -l 20` (the large-N route of K8,
+   N = 10,000, in chunks of 2**26; K10a; at full size n, the BWT's r and
+   the multi-MUM count must be logs/config3_all_r3.log's), the route's
+   first and last chunks equal to its plain version and the first timed
+   beside it, the same positions at N = 1,025 with uint16 and int32 ids
+   likewise; then `query --stream` of validate_config3.py's reads: 512
+   sampled records equal to the C++ serial engine (io/native) on the
+   index's table, 8 of them to the oracle; engine, tables' bytes, memory
+   peak, stage seconds and reads/s logged
 
 Each query scan (K3-K7, the chunk scans) is also timed on 16 lanes of
 long reads, whose time a step is that of a chain of dependent loads that
@@ -142,8 +160,8 @@ bound.
 
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
-lines are a [cache and profile] line of phase 13's values, a [build
-path] line of stage seconds, the card line, one
+lines are a [cache and profile] line of phase 13's values, phase 14's
+[config3] line, a [build path] line of stage seconds, the card line, one
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}.
 Everything is written under build/chip_smoke/ of the checkout.  Imports
 nothing of JAX and nothing of the JAX package colbwt_tpu (from bench.py
@@ -186,6 +204,9 @@ KERNEL_INFO = {
                           "colbwt_tpu/ops/query_mega_wide.py:183"),
     "mum_window": ("K8/K9", "colbwt_tpu_torch/csrc/construct.cu",
                    "colbwt_tpu/ops/construct_jax.py:245"),
+    "mum_window_two_pass": ("K8/K9 large-N route",
+                            "colbwt_tpu_torch/csrc/construct.cu",
+                            "colbwt_tpu/ops/construct_jax.py:245"),
     "tunneled_walk": ("K10a", "colbwt_tpu_torch/csrc/colsplit.cu",
                       "colbwt_tpu/ops/colsplit_jax.py:59"),
     "all_walk": ("K10b", "colbwt_tpu_torch/csrc/colsplit.cu",
@@ -241,6 +262,15 @@ ARTIFACTS = ("fa.bwt.heads", "fa.bwt.len", "fa.thr_pos", "fa.col_mums",
              "lengths", "fa.col_runs", "fa.col_ids", "fa.col_pml")
 # run-length scales of the mega (n ~ 1.0e9) and mega-wide (n ~ 4.1e9) indexes
 MEGA_SCALE, WIDE_SCALE = 256, 1024
+# BASELINE.json config #3 as scripts/validate_config3.py makes it (seed
+# 0xC0F3): genomes, genome length, hotspot sites, substitutions a genome,
+# reads of 150 bp; and what logs/config3_all_r3.log reports at that size
+CONFIG3 = {"docs": 10_000, "doc_len": 30_000, "hotspots": 600, "muts": 12,
+           "reads": 1_000_000}
+CONFIG3_LOG = {"n": 300_010_000, "bwt_r": 211_440, "mums": 410}
+# phase 14's cuts of it within the smoke's time (PERF.md section 4): the
+# reads first, then the genome length; `--config3` runs it whole
+CONFIG3_SMOKE = {"doc_len": 7_000, "reads": 262_144}
 # phase 12's counted runs of the per-step and per-round routes, by cell
 CELLS_G = {"sharded-pos (1,2) step route": "G-pos step",
            "sharded-compact (1,2) round route": "G-round",
@@ -1262,10 +1292,11 @@ def scan_inputs(arrays) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
-                 what: str) -> None:
+                 what: str, name: str = "mum_window", timed: bool = True
+                 ) -> None:
     """mum_window equal to its plain version on every chunk of C positions
-    (the slices find_multi_mums_chunked feeds it); the first and the last
-    (the tail) are timed."""
+    (the slices find_multi_mums_chunked feeds it), its route's errors kept
+    under `name`; the first and the last (the tail) are timed."""
     from colbwt_tpu_torch.ops import construct as TC
 
     lcp, sa_docs, rc = scan_inputs(arrays)
@@ -1285,10 +1316,10 @@ def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
                  f"documents, {min(n - s, C)} positions in range)")
         got = TC.mum_scan_chunk(*args)
         want = TC.mum_scan_chunk_ref(*args)
-        chk.equal("mum_window", got[0], want[0], label + " hits")
-        chk.equal("mum_window", got[1], want[1], label + " ell")
-        if k in (0, last):
-            chk.time("mum_window", lambda: TC.mum_scan_chunk(*args),
+        chk.equal(name, got[0], want[0], label + " hits")
+        chk.equal(name, got[1], want[1], label + " ell")
+        if timed and k in (0, last):
+            chk.time(name, lambda: TC.mum_scan_chunk(*args),
                      lambda: TC.mum_scan_chunk_ref(*args), label,
                      bound=(nbytes(args[:3], got), args[3] * 6 * N))
         del got, want, args
@@ -1333,13 +1364,14 @@ def check_build_kernels(torch, dev, prefix: str, arrays, chk: Checks
         f"unpackbits_little {unpack_ms:.4f} (each timed alone)")
     del got, want, t, padded, args, packed, ell
     check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk, "bench")
-    # the large-N route's two-pass kernels, its switch lowered, on bench's
-    # chunks
+    # the large-N route, its switch lowered, on bench's chunks (timed at
+    # config #3's in phase 14)
     tile_max = TC._TILE_MAX_N
     TC._TILE_MAX_N = 1
     try:
         check_chunks(torch, dev, arrays, num_docs, 1 << 20, chk,
-                     "bench, the large-N route (two passes),")
+                     "bench, the large-N route (two passes),",
+                     "mum_window_two_pass", timed=False)
     finally:
         TC._TILE_MAX_N = tile_max
     cl, cp = TC.find_multi_mums_chunked(lcp, sa_docs, rc, num_docs, 20,
@@ -2826,6 +2858,240 @@ def phase13(torch, dev, cli_main, bench_prefix: str, pat4: Path, wide,
     return out, launches
 
 
+def config3_docs(doc_len: int, n_docs: int | None = None
+                 ) -> tuple[list[bytes], np.random.Generator]:
+    """Config #3's genomes as scripts/validate_config3.py makes them (one
+    random base, CONFIG3["muts"] substitutions a genome drawn from
+    CONFIG3["hotspots"] sites; `n_docs` of them), and the generator, where
+    its reads go on drawing."""
+    rng = np.random.default_rng(0xC0F3)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = rng.choice(acgt, doc_len)
+    sites = rng.choice(doc_len, CONFIG3["hotspots"], replace=False)
+    docs = []
+    for _ in range(n_docs or CONFIG3["docs"]):
+        a = base.copy()
+        pos = rng.choice(sites, CONFIG3["muts"], replace=False)
+        a[pos] = rng.choice(acgt, CONFIG3["muts"])
+        docs.append(a.tobytes())
+    return docs, rng
+
+
+def config3_reads(docs: list[bytes], rng: np.random.Generator, count: int
+                  ) -> list[bytes]:
+    """validate_config3.py's reads: 150 bp from a random genome with up to
+    3 random substitutions each."""
+    doc_len = len(docs[0])
+    reads = []
+    for _ in range(count):
+        d = docs[int(rng.integers(0, len(docs)))]
+        s = int(rng.integers(0, doc_len - 150))
+        arr = bytearray(d[s:s + 150])
+        for _ in range(int(rng.integers(0, 4))):
+            arr[int(rng.integers(0, 150))] = int(rng.choice(list(b"ACGT")))
+        reads.append(bytes(arr))
+    return reads
+
+
+class EngineSpy:
+    """While active, keeps the QueryEngines a query makes, for its tables'
+    bytes."""
+
+    def __enter__(self):
+        from colbwt_tpu_torch.pipeline import engines
+
+        self.real = engines.QueryEngines
+        self.made = []
+        spy = self
+
+        class Recorded(self.real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                spy.made.append(self)
+
+        engines.QueryEngines = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from colbwt_tpu_torch.pipeline import engines
+
+        engines.QueryEngines = self.real
+        return False
+
+
+def check_config3_chunks(torch, dev, arrays, chk: Checks) -> dict:
+    """The large-N route at config #3's chunks (C = 2**26, N = 10,000,
+    uint16 ids, as find_multi_mums_chunked cuts them): the first and the
+    last equal to the plain version, the first timed beside it; then the
+    same first chunk's positions at N = 1,025 (uint16 and int32 ids), equal
+    and timed, for the route's growth with N.  Returns the times."""
+    from colbwt_tpu_torch.ops import construct as TC
+
+    lcp, sa_docs, rc = scan_inputs(arrays)
+    n, N = lcp.size, CONFIG3["docs"]
+    C = min(1 << 26, 1 << max(13, (n - 1).bit_length()))
+
+    def chunk(s, N, ids):
+        halo = 2 * N + 2
+
+        def sl(a, fill, dtype):
+            x = a[s:s + C + halo].astype(dtype)
+            return torch.from_numpy(np.concatenate(
+                [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
+        docs = (sl(sa_docs, 65535, np.uint16) if ids == "uint16"
+                else sl(sa_docs, -1, np.int32))
+        return (sl(lcp, 0, np.int32), docs, sl(rc, 1, np.uint8),
+                min(n - N - s, C), 20, N)
+
+    last = (n - 1) // C
+    times = {}
+    for k, N_, ids in ([(0, N, "uint16")]
+                       + ([(last, N, "uint16")] if last else [])
+                       + [(0, 1025, "uint16"), (0, 1025, "int32")]):
+        args = chunk(k * C, N_, ids)
+        label = (f"config #3 chunk {k} of {last + 1} (C = {C}, N = {N_}, "
+                 f"{ids} documents, {min(n - k * C, C)} positions in range)")
+        got = TC.mum_scan_chunk(*args)
+        want = TC.mum_scan_chunk_ref(*args)
+        chk.equal("mum_window_two_pass", got[0], want[0], label + " hits")
+        chk.equal("mum_window_two_pass", got[1], want[1], label + " ell")
+        hits = int(np.unpackbits(want[0].cpu().numpy()).sum())
+        del want
+        if k == 0:
+            # the bytes: lcp, documents and run changes read once, ell and
+            # the packed hits written once; 48 integer operations a start
+            times[f"N={N_} {ids}"] = chk.time(
+                "mum_window_two_pass", lambda: TC.mum_scan_chunk(*args),
+                lambda: TC.mum_scan_chunk_ref(*args), label,
+                bound=(nbytes(args[:3], got), 48 * C))
+        log(f"[phase 14] {label}: equal to the plain version, {hits} hits")
+        del got, args
+        torch.cuda.empty_cache()
+    times[f"ratio N={N} / N=1025"] = (times[f"N={N} uint16"]
+                                      / times["N=1025 uint16"])
+    return times
+
+
+def phase14(torch, dev, cli_main, chk: Checks, doc_len: int, n_reads: int
+            ) -> tuple[dict, list[dict]]:
+    """Config #3 through the port's entry points: its genomes written as
+    10,000 FASTA files and a file list, `build -i LIST -m tunnels -s 10 -l
+    20` (the large-N route in 2**26 chunks, K10a, the prewarm), the
+    route's chunks against its plain version, then `query --stream` of
+    validate_config3.py's reads, 512 sampled records equal to the C++
+    serial engine on the index's table and 8 of them to the oracle."""
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.io import native as native_lib
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import oracle as O
+
+    t0 = time.perf_counter()
+    work = WORK / "config3"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    docs, rng = config3_docs(doc_len)
+    files = []
+    for i, d in enumerate(docs):
+        files.append(work / f"g{i}.fa")
+        write_reads(files[-1], [(f"genome{i}", d)])
+    listing = work / "genomes.txt"
+    listing.write_text("".join(f"{f}\n" for f in files))
+    log(f"[phase 14] config #3: {len(docs)} genomes of {doc_len} bp written "
+        f"as FASTA files and a file list in {time.perf_counter() - t0:.1f}s")
+    prefix = str(work / "config3")
+    with Capture() as cap:
+        v, lc_build = run_build("14", lambda: cli_main(
+            ["build", "-i", str(listing), "-o", prefix, "-m", "tunnels", "-s",
+             "10", "-l", "20", "--device", str(dev)]),
+            ("mum_window", "mum_window_two_pass", "tunneled_walk"))
+    require(cap.args is not None, "phase 14 did not run the device scan")
+    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+    num_docs, ml, _ = F.read_col_mums(f"{prefix}.fa.col_mums")
+    got = {"n": int(index.n), "bwt_r": int(index.bwt_r),
+           "mums": int(ml.size)}
+    full = doc_len == CONFIG3["doc_len"]
+    require(num_docs == CONFIG3["docs"], f"phase 14: {num_docs} documents")
+    if full:
+        require(got == CONFIG3_LOG, f"phase 14: {got}, expected "
+                f"{CONFIG3_LOG} (logs/config3_all_r3.log)")
+    log(f"[phase 14] build: n = {got['n']}, BWT r = {got['bwt_r']}, "
+        f"{got['mums']} multi-MUMs, index r = {index.r}"
+        + (" (as logs/config3_all_r3.log)" if full else "")
+        + f"; mum_window launches {lc_build['mum_window']} (large-N route "
+        f"{lc_build['mum_window_two_pass']})")
+    t1 = time.perf_counter()
+    times = check_config3_chunks(torch, dev, cap.args, chk)
+    del cap
+    log(f"[phase 14] the large-N route's chunks checked and timed in "
+        f"{time.perf_counter() - t1:.1f}s: " + json.dumps(times))
+
+    t1 = time.perf_counter()
+    reads = config3_reads(docs, rng, n_reads)
+    del docs
+    pat = work / "reads.fa"
+    write_reads(pat, [(f"q{i}", r) for i, r in enumerate(reads)])
+    log(f"[phase 14] {len(reads)} reads made in "
+        f"{time.perf_counter() - t1:.1f}s")
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with EngineSpy() as spy:
+        q = run_logged(lambda: cli_main(["query", prefix, "-p", str(pat),
+                                         "--stream", "--device", str(dev)]),
+                       "colbwt_torch.stream",
+                       STREAM_KEYS + ("device_mem_peak_bytes",))
+    lc_query = dict(K.launches)
+    require(len(spy.made) == 1, f"phase 14: {len(spy.made)} engines")
+    eng = spy.made[0]
+    table_bytes = nbytes(eng.pt, eng.mt, eng.ft)
+    del spy, eng
+    require(q["reads"] == len(reads), f"phase 14: {q['reads']} records")
+    scan = {"pos": "query_chunk_pos", "xla": "query_batch_xla",
+            "mega": "query_chunk_mega", "mega-wide": "query_chunk_mega_wide",
+            "fused": "query_batch_fused"}[q["engine"].split("(")[0]]
+    require(lc_query[scan] > 0, f"phase 14: {scan} never launched")
+
+    t1 = time.perf_counter()
+    names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+    require(names == [f"q{i}" for i in range(len(reads))],
+            "phase 14 record names differ")
+    tbl = load_table(prefix)
+    sample = np.sort(rng.choice(len(reads), 512, replace=False))
+    want_p, want_c = native_lib.query_pml_serial(
+        tbl, [reads[i] for i in sample])
+    for j, i in enumerate(sample):
+        require(np.array_equal(pmls[i], want_p[j])
+                and np.array_equal(cids[i], want_c[j]),
+                f"phase 14 record q{i} differs from the C++ serial engine")
+    for i in sample[::64]:
+        ep, ec = O.query_pml_oracle(tbl, reads[i])
+        require(np.array_equal(pmls[i], ep) and np.array_equal(cids[i], ec),
+                f"phase 14 record q{i} differs from the oracle")
+    del names, pmls, cids, tbl
+    out = {"doc_len": doc_len, "docs": CONFIG3["docs"], **got,
+           "index_r": int(index.r), "build": v,
+           "large_n_route_ms": times, "engine": q.get("engine"),
+           "table_cache": q.get("table_cache"),
+           "table_bytes": table_bytes,
+           "table_build_s": q.get("table_build_s"),
+           "reads": q["reads"], "query_wall_s": q["wall_s"],
+           "reads_per_s": q["reads"] / q["wall_s"],
+           "device_mem_peak_bytes": q.get("device_mem_peak_bytes")}
+    log(f"[phase 14] query --stream, engine {q.get('engine')}: "
+        f"{q['reads']} reads in {q['wall_s']:.3f}s -> "
+        f"{out['reads_per_s']:.0f} reads/s, tables {table_bytes} B built "
+        f"in {q.get('table_build_s')}s, device memory peak "
+        f"{out['device_mem_peak_bytes']} B; 512 sampled records equal the "
+        f"C++ serial engine, 8 the oracle "
+        f"({time.perf_counter() - t1:.1f}s); launches "
+        f"{json.dumps(lc_query)}")
+    log("[config3] " + json.dumps(out))
+    shutil.rmtree(work, ignore_errors=True)
+    return out, [lc_build, lc_query]
+
+
 def start_native_build() -> subprocess.Popen | None:
     """Start compiling the host library of native/ (SA-IS, Kasai and the
     chunked SA lane of the build; colbwt_tpu/io/native.py) with the
@@ -3202,6 +3468,11 @@ def run(torch) -> tuple[dict, list[dict]]:
                          "A stream": fused["10"]["table_cache"]})
     launches += lc13
     log("[cache and profile] " + json.dumps(v13))
+
+    # phase 14: config #3 through the CLI, at the smoke's cuts
+    _, lc14 = phase14(torch, dev, cli_main, chk, CONFIG3_SMOKE["doc_len"],
+                      CONFIG3_SMOKE["reads"])
+    launches += lc14
     log("[build path] " + json.dumps(
         {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
          "phase8b": v8bc["8b"], "phase8c": v8bc["8c"], "phase11": v11,
@@ -3216,9 +3487,41 @@ def run(torch) -> tuple[dict, list[dict]]:
     return main_path, kernels
 
 
+def run_config3(torch) -> list[dict]:
+    """Phases 2 and 14 alone, config #3 whole; returns the large-N route's
+    JSON entry."""
+    from colbwt_tpu_torch.cli import main as cli_main
+    from colbwt_tpu_torch.ops import _kernels as K
+
+    t0 = time.perf_counter()
+    native = start_native_build()
+    K.load()
+    finish_native_build(native)
+    log(f"[phase 2] CUDA kernels and the native host library ready in "
+        f"{time.perf_counter() - t0:.1f}s")
+    WORK.mkdir(parents=True, exist_ok=True)
+    chk = Checks(torch)
+    _, lc14 = phase14(torch, torch.device("cuda"), cli_main, chk,
+                      CONFIG3["doc_len"], CONFIG3["reads"])
+    name = "mum_window_two_pass"
+    tag, src, replaces = KERNEL_INFO[name]
+    return [{"name": f"{tag} {name}", "route": "cuda", "source": src,
+             "replaces": replaces, "launches": sum(lc[name] for lc in lc14),
+             "max_abs_err": chk.err[name], **chk.ms[name]}]
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config3", action="store_true",
+                    help="phase 14 alone, config #3 whole (%d genomes of %d "
+                         "bp, %d reads)" % (CONFIG3["docs"],
+                                            CONFIG3["doc_len"],
+                                            CONFIG3["reads"]))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -3233,7 +3536,10 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     sys.path.insert(0, str(REPO))
-    _, kernels = run(torch)
+    if args.config3:
+        kernels = run_config3(torch)
+    else:
+        _, kernels = run(torch)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("build_t1_chunk", "compose_tables", "query_chunk_pos",
            "query_batch_xla", "query_chunk_mega", "query_chunk_mega_wide",
            "fill_block_wide", "shared_table_wide", "query_batch_fused",
-           "mum_window", "tunneled_walk", "all_walk", "upload_rows",
-           "doubling_round", "lcp_lift", "segmented_argmin",
+           "mum_window", "mum_window_two_pass", "tunneled_walk", "all_walk",
+           "upload_rows", "doubling_round", "lcp_lift", "segmented_argmin",
            "sharded_fetch", "compose_sharded_tk", "sharded_step_pos",
            "sharded_step_mega", "sharded_step_compact", "sharded_scan_mega",
            "sharded_scan_compact", "sharded_scan_pos")
@@ -72,8 +72,8 @@ _SIGNATURES = {
     "colbwt_host_stage": [_P, _I, _I],
     "colbwt_upload_threads": [],
     "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 2 + [_P],
-    "colbwt_mum_window_two_pass": ([_P, _P, _I, _P] + [_I] * 4 + [_P] * 3
-                                   + [_P]),
+    "colbwt_mum_window_two_pass": ([_P, _P, _I, _P] + [_I] * 4
+                                   + [_P, _I, _P, _P] + [_P]),
     "colbwt_tunneled_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 2
                             + [_P],
     "colbwt_all_walk": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3

@@ -35,7 +35,13 @@ One kernel carries both device forms, `mum_window` in csrc/construct.cu
 (a block a tile of window starts staged in shared memory, ell by doubling
 passes there, left-maximality by a prefix count, coverage tested lazily;
 one launch), for N up to _TILE_MAX_N; above it the wrapper routes by shape
-to the earlier two-pass kernels (`mum_window_route`):
+to the large-N route (`mum_window_route`), two launches whose work a
+window start does not grow with N: the least lcp and any run change of
+tiles of `span_tile(N)` positions into a scratch array, then a block a
+span of _SPAN starts, each window's head and tail by segmented scans of
+the span and the tiles between from the scratch; coverage only where the
+other conditions hold (such windows are disjoint, at most C/N + 1 a
+chunk), by a shared bitmap of the window's ids.  Both forms serve:
 
 - K8 (replaces construct_jax.py:245 `_mum_scan_chunk`): the window test
   on one chunk of C positions with a 2N+2 halo; `find_multi_mums_chunked`
@@ -68,10 +74,13 @@ from colbwt_tpu_torch.utils.device import resolve_device
 # (construct_jax.py:463): O(C) device memory at any n
 _CHUNKED_SCAN_MIN_N = 1 << 22
 # csrc/construct.cu kMumTileMaxN: the largest N of mum_window's tile route
-# (its halo of N + 1 positions stays near half the 2,048 starts of a tile
-# or below, and a candidate's coverage probe past N = 64 grows as N**2);
-# above it the two-pass kernels
-_TILE_MAX_N = 1024
+# (its coverage test is a 64-bit mask up to 64 documents, a probe that
+# grows as N**2 past it; on the H100 the large-N route beat it from 96
+# documents on and lost at 64, PERF.md); above it the large-N route
+_TILE_MAX_N = 64
+# csrc/construct.cu kSpan: the large-N route's window starts a block, and
+# its largest tile
+_SPAN = 2048
 # csrc/suffix.cu kArgTile: positions a warp of segmented_argmin takes at a
 # time (its workspace: a key a tile)
 _ARGMIN_TILE = 512
@@ -551,9 +560,20 @@ def mum_scan_chunk_ref(lcp_s: torch.Tensor, docs_s: torch.Tensor,
 
 def mum_window_route(num_docs: int) -> str:
     """The kernels `mum_scan_chunk` launches for N documents: "tile" (one
-    launch) up to _TILE_MAX_N, "two-pass" (the next-same-document distances
-    into a scratch array, then the window test) above it."""
+    launch) up to _TILE_MAX_N, "two-pass" (the tiles' summaries, then a
+    block a span of window starts) above it."""
     return "tile" if num_docs <= _TILE_MAX_N else "two-pass"
+
+
+def span_tile(num_docs: int) -> int:
+    """The large-N route's tile for N documents (csrc/construct.cu
+    span_tile_shift): _SPAN from N = _SPAN + 2, else the largest power of
+    two <= N - 2, 1 below N = 3; a window's first and last positions lie
+    in different tiles."""
+    t = 1
+    while 2 * t <= min(num_docs - 2, _SPAN):
+        t *= 2
+    return t
 
 
 def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
@@ -592,12 +612,17 @@ def mum_scan_chunk(lcp_s: torch.Tensor, docs_s: torch.Tensor,
         code = K.on(dev).colbwt_mum_window(
             *args, packed.data_ptr(), ell.data_ptr(), K.stream_handle(dev))
     else:
-        scratch = torch.empty(C + N, dtype=torch.int32, device=dev)
+        # a tile's (least lcp, any run change), int32 pairs
+        tiles = -(-L // span_tile(N))
+        scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
         code = K.on(dev).colbwt_mum_window_two_pass(
-            *args, scratch.data_ptr(), packed.data_ptr(), ell.data_ptr(),
-            K.stream_handle(dev))
+            *args, scratch.data_ptr(), 8 * tiles, packed.data_ptr(),
+            ell.data_ptr(), K.stream_handle(dev))
     K.check("mum_window", code)
+    # every call; the large-N route's also under its own name
     K.launches["mum_window"] += 1
+    if mum_window_route(N) != "tile":
+        K.launches["mum_window_two_pass"] += 1
     return packed[:-(-C // 8)], ell
 
 

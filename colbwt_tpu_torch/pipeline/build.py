@@ -373,11 +373,23 @@ def stage_index(prefix: str, cfg: ColBwtConfig, logger,
         with status("col_pml table", logger):
             tbl = O.build_col_pml(heads, lens, np.flatnonzero(bv),
                                   ids.astype(np.int64), thr.astype(np.int64))
-        F.write_col_pml_file(
-            f"{fa}.col_pml", bwt_r=int(tbl.bwt_r), n=int(tbl.n),
-            char=tbl.char, idx=tbl.idx,
-            dest_interval=tbl.dest_interval, dest_offset=tbl.dest_offset,
-            col_id=tbl.col_id, threshold=tbl.threshold)
+        # the reference's .col_pml rows hold an offset into a run in 2 bytes
+        # (LEN_BYTES): a table with an offset past 65,535 (config #3's
+        # 10,000 near-identical genomes have them) gets no such file; the
+        # index keeps int64 fields and goes on
+        offset_max = int(np.max(tbl.dest_offset, initial=0))
+        if offset_max < 1 << 16:
+            F.write_col_pml_file(
+                f"{fa}.col_pml", bwt_r=int(tbl.bwt_r), n=int(tbl.n),
+                char=tbl.char, idx=tbl.idx,
+                dest_interval=tbl.dest_interval,
+                dest_offset=tbl.dest_offset, col_id=tbl.col_id,
+                threshold=tbl.threshold)
+        else:
+            col_pml_out.unlink(missing_ok=True)
+            logger.warning("[index] %s not written: an offset into a run "
+                           "of %d exceeds its 2-byte field", col_pml_out,
+                           offset_max)
         wide = tbl.n > cfg.wide_n_limit
         sigma = int(np.unique(O.normalize_heads(tbl.char)).size)
         pos_viable = (not wide and tbl.n < 2**28

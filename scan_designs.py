@@ -126,7 +126,19 @@ shipped source with one change, compiled into a library of its own:
   tiles of 1,024 or 4,096 window starts in place of 2,048
   ("mums-tile-1024", "mums-tile-4096"), 128 or 512 threads a block in
   place of 256, scalar staging loads in place of 16-byte ones
-  ("mums-scalar-loads");
+  ("mums-scalar-loads"); then config #3's collection (chip_smoke.py's
+  phase 14 generator at full size, 10,000 genomes of 30,000 bp, n =
+  300,010,000) for the large-N route alone: its first chunk (C = 2**26,
+  N = 10,000, uint16 ids; its two kernels' device times apart, by
+  torch.profiler) and the same positions at N = 1,025, the
+  shipped route against the parent's two-pass kernels and against the
+  span kernel's registers capped for 6 blocks an SM in place of 4
+  ("mums-span-blocks-6") or not capped ("mums-span-any-blocks"), and at
+  N = 1,024, 256 and 64 the tile
+  route against the large-N route; then the routes' switch on
+  collections of 32-256 genomes made the same way (n just past 2**26):
+  the tile route (past the shipped switch, the parent's) against the
+  large-N route;
 - thr (suffix.cu, K12 alone; the same collections): each character's
   call (two launches) apart, the terminator's among them, and the five
   as compute_thresholds makes them: a warp's tiles of 256 or 1,024
@@ -143,9 +155,10 @@ group are timed too, called as its wrappers called them (int32 ids for
 K7, row-major planes); its entry points must take the shipped ones'
 arguments, but for those in PARENT_SIGNATURES (K13e's per-step entry
 point, which took every argument where the shipped one takes a parameter
-block prepared once and the step; the parent's K8, which took a scratch
-array, and K12, which took no workspace); an entry point the parent
-lacks (the K13e chunk scan, K8's two-pass entry) is not bound there.
+block prepared once and the step; the parent's large-N K8 route, which
+took a scratch array of distances and no size, and K12, which took no
+workspace); an entry point the parent lacks (the K13e chunk scan) is not
+bound there.
 --designs names the designs to time and build (default: all, the
 shipped kernel first and again last); the shipped kernel runs at every
 shape anyway, as the reference that every design's outputs must equal,
@@ -179,6 +192,9 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "scan_designs"
+# the routes' switch: collections of this many genomes (config #3's
+# generator, n just past 2**26), each route on its first chunk
+SWITCH_DOCS = (32, 64, 96, 128, 192, 256)
 # each group's sources, compiled together into one library a design
 GROUPS = {"scans": ("query_fused.cu", "query_mega.cu"),
           "lcp": ("suffix.cu",),
@@ -197,7 +213,8 @@ PTXAS_KERNELS = ("lcp_walk_kernel", "isa_scatter_kernel",
                  "tunneled_walk_kernel", "sharded_step_mega_kernel",
                  "sharded_step_compact_kernel", "build_t1_chunk_kernel",
                  "sharded_step_pos_kernel", "sharded_scan_pos_kernel",
-                 "mum_tile_kernel", "argmin_tile_kernel",
+                 "mum_tile_kernel", "mum_span_kernel",
+                 "mum_summary_kernel", "argmin_tile_kernel",
                  "argmin_finish_kernel")
 
 _FUSED_STORE = ("    pml_out[col * B + b] = new_len;\n"
@@ -305,6 +322,7 @@ _SCAN_POS_STORE = "      packed[col * B + b] =\n"
 _MUM_TILE = "constexpr int kMumTile = 2048;"
 _MUM_THREADS = "constexpr int kMumThreads = 256;\n"
 _MUM_WIDE = "  if ((reinterpret_cast<uintptr_t>(src + base) & 15) == 0) {\n"
+_SPAN_BOUNDS = "__launch_bounds__(kSpanThreads, 4)\n    mum_span_kernel("
 _ARG_TILE = "constexpr int kArgTile = 512;"
 _ARG_WARPS = "constexpr int kArgWarps = 8;"
 # K12's reduction: one shared 64-bit atomicMin of a run's packed key
@@ -603,6 +621,12 @@ VARIANTS = {
         ("construct.cu", _MUM_THREADS, _MUM_THREADS.replace("256", "512"))],
     "mums-scalar-loads": [
         ("construct.cu", _MUM_WIDE, "  if (false) {\n")],
+    "mums-span-blocks-6": [
+        ("construct.cu", _SPAN_BOUNDS,
+         _SPAN_BOUNDS.replace("kSpanThreads, 4", "kSpanThreads, 6"))],
+    "mums-span-any-blocks": [
+        ("construct.cu", _SPAN_BOUNDS,
+         _SPAN_BOUNDS.replace("kSpanThreads, 4", "kSpanThreads"))],
     "thr-two-pass-32": [
         ("suffix.cu", _ARG_KEYS,
          _ARG_KEYS + "  int32_t* s_min = reinterpret_cast<int32_t*>(mine);\n"
@@ -661,7 +685,8 @@ XLA_VARIANTS = ("xla-threads-64", "xla-threads-128", "xla-column-major",
                 "xla-scalar-stores", "xla-group-4", "xla-pair-on-mismatch")
 STEP_VARIANTS = ("step-row-major", "step-interleaved", "scan-pos-row-major")
 MUMS_VARIANTS = ("mums-tile-1024", "mums-tile-4096", "mums-threads-128",
-                 "mums-threads-512", "mums-scalar-loads")
+                 "mums-threads-512", "mums-scalar-loads",
+                 "mums-span-blocks-6", "mums-span-any-blocks")
 THR_VARIANTS = ("thr-tile-256", "thr-tile-1024", "thr-warps-4",
                 "thr-warps-16", "thr-two-pass-32", "thr-atomic-a-run",
                 "thr-min-blocks-6")
@@ -690,8 +715,10 @@ PARENT_SIGNATURES = {
     "colbwt_all_walk": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P] * 3
                        + [_P],
     "colbwt_sharded_step_pos": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_P],
-    # the two-pass K8 (a scratch array) and one-warp-a-segment K12
-    "colbwt_mum_window": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3 + [_P],
+    # the first-port large-N route (a scratch array of C + N distances,
+    # no size) and one-warp-a-segment K12
+    "colbwt_mum_window_two_pass": [_P, _P, _I, _P] + [_I] * 4 + [_P] * 3
+                                  + [_P],
     "colbwt_segmented_argmin": [_P] * 3 + [_I] + [_P] + [_P]}
 # the variants of each group
 GROUP_VARIANTS = {"scans": tuple(dict.fromkeys(FUSED_VARIANTS
@@ -835,11 +862,16 @@ def main() -> int:
     if "lcp" in groups:
         sweep_lcp(torch, of("lcp"), compare)
     if {"mums", "thr"} & set(groups):
-        for label, docs in collections():
+        for label, docs in collections("mums" in groups):
             cols = collection_arrays(torch, label, docs)
-            if "mums" in groups:
+            del docs
+            if label == "config3":
+                sweep_mums_large_n(torch, of("mums"), compare, cols)
+            elif label.startswith("switch"):
+                sweep_mums_switch(torch, of("mums"), compare, cols)
+            elif "mums" in groups:
                 sweep_mums(torch, of("mums"), compare, cols)
-            if "thr" in groups:
+            if "thr" in groups and label in ("bench", "pangenome"):
                 sweep_thr(torch, of("thr"), compare, cols)
             del cols
             torch.cuda.empty_cache()
@@ -949,14 +981,20 @@ def sweep_lcp(torch, libs: dict, compare) -> None:
         torch.cuda.empty_cache()
 
 
-def collections():
-    """bench.py's collection and chip_smoke.py's pangenome, as (label,
-    documents), one at a time."""
+def collections(config3: bool):
+    """bench.py's collection and chip_smoke.py's pangenome, and with
+    `config3` config #3's (chip_smoke.py phase 14's at full size) and, for
+    the routes' switch, collections of SWITCH_DOCS genomes made the same
+    way (n just past 2**26), as (label, documents), one at a time."""
     from bench import make_docs
-    from chip_smoke import pangenome_docs
+    from chip_smoke import CONFIG3, config3_docs, pangenome_docs
 
     yield "bench", make_docs()
     yield "pangenome", pangenome_docs()
+    if config3:
+        yield "config3", config3_docs(CONFIG3["doc_len"])[0]
+        for N in SWITCH_DOCS:  # the routes' switch: n just past 2**26
+            yield f"switch N={N}", config3_docs((1 << 26) // N + 1, N)[0]
 
 
 def collection_arrays(torch, label: str, docs: list[bytes]) -> dict:
@@ -1009,10 +1047,9 @@ def sweep_mums(torch, libs: dict, compare, cols: dict) -> None:
         ptrs = (lcp_s.data_ptr(), docs_s.data_ptr(),
                 int(docs_s.dtype == torch.uint16), chg_s.data_ptr(), C, N,
                 limit, min_mum)
-        packed, ell, scratch = out
+        packed, ell, _ = out
         K.check("mum_window", lib.colbwt_mum_window(
-            *ptrs, *((scratch.data_ptr(),) if parent else ()),
-            packed.data_ptr(), ell.data_ptr(), stream))
+            *ptrs, packed.data_ptr(), ell.data_ptr(), stream))
         return packed[:-(-C // 8)], ell
 
     def run(shape, args, reps):
@@ -1026,7 +1063,8 @@ def sweep_mums(torch, libs: dict, compare, cols: dict) -> None:
         del got
         designs = {name: (lambda lib=lib, o=outputs(C), p=name == "parent":
                           window(lib, p, args, o))
-                   for name, lib in libs.items()}
+                   for name, lib in libs.items()
+                   if not name.startswith("mums-span")}
         compare(f"K8 {cols['label']} {shape}, bound {bound:.4f} ms ({by})",
                 designs, reps)
 
@@ -1070,6 +1108,181 @@ def sweep_mums(torch, libs: dict, compare, cols: dict) -> None:
     log(f"[designs] K9 route at n = {n}: multi_mum_scan {wrapper_ms:.4f} ms "
         f"= padding copies {pad_ms:.4f} + the kernel (above) + "
         f"unpackbits_little {unpack_ms:.4f}")
+
+
+def sweep_mums_large_n(torch, libs: dict, compare, cols: dict) -> None:
+    """The large-N route on config #3's first chunk (C = 2**26, uint16
+    ids): at N = 10,000 and N = 1,025, the shipped route (the tiles'
+    summaries, then a block a span of starts) against the parent's
+    two-pass kernels (each position's next-same-document distance by up to
+    N + 1 probes, then O(N) work a window start), the shipped one held to
+    its plain version first; then at N = 1,024, 256 and 64 the tile route
+    (past the shipped switch the parent's, which took up to 1,024) against
+    the shipped large-N route.  The labels carry the bound (the inputs and
+    outputs once)."""
+    from chip_smoke import least_ms, nbytes
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import construct as TC
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lcp, sa_docs, rc = cols["lcp"], cols["sa_docs"], cols["rc"]
+    n = lcp.size
+    C = min(1 << 26, 1 << max(13, (n - 1).bit_length()))
+
+    def chunk(N):
+        halo = 2 * N + 2
+
+        def sl(a, fill, dtype):
+            x = a[:C + halo].astype(dtype)
+            return torch.from_numpy(np.concatenate(
+                [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
+        return (sl(lcp, 0, np.int32), sl(sa_docs, 65535, np.uint16),
+                sl(rc, 1, np.uint8), min(n - N, C), 20, N)
+
+    def outputs(N):
+        tiles = -(-(C + 2 * N + 2) // TC.span_tile(N))
+        return (torch.empty(-(-C // 32) * 4, dtype=torch.uint8, device=dev),
+                torch.empty(C, dtype=torch.int32, device=dev),
+                torch.empty(max(C + N, 2 * tiles), dtype=torch.int32,
+                            device=dev))
+
+    def tile_lib(N):
+        """The tile route's library for N: the shipped one up to its
+        switch, past it the parent's (which took up to 1,024)."""
+        return libs["shipped"] if N <= TC._TILE_MAX_N else libs.get("parent")
+
+    def route(lib, parent, args, out, tile=False):
+        lcp_s, docs_s, chg_s, limit, min_mum, N = args
+        ptrs = (lcp_s.data_ptr(), docs_s.data_ptr(), 1, chg_s.data_ptr(), C,
+                N, limit, min_mum)
+        packed, ell, scratch = out
+        if tile:
+            code = lib.colbwt_mum_window(*ptrs, packed.data_ptr(),
+                                         ell.data_ptr(), stream)
+        else:
+            size = () if parent else (4 * scratch.numel(),)
+            code = lib.colbwt_mum_window_two_pass(
+                *ptrs, scratch.data_ptr(), *size, packed.data_ptr(),
+                ell.data_ptr(), stream)
+        K.check("mum_window", code)
+        return packed[:-(-C // 8)], ell
+
+    for N, pair in ((10_000, "parent"), (1025, "parent"), (1024, "tile"),
+                    (256, "tile"), (64, "tile")):
+        args = chunk(N)
+        got = route(libs["shipped"], False, args, outputs(N))
+        for g, w in zip(got, TC.mum_scan_chunk_ref(*args)):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"config #3 N = {N}: the large-N route "
+                                   "differs from its plain version")
+        bound, by = least_ms(nbytes(args[:3], got), 48 * C)
+        del got
+        designs = {"shipped": (lambda o=outputs(N), a=args:
+                               route(libs["shipped"], False, a, o))}
+        if pair == "tile":
+            if tile_lib(N) is not None:
+                designs["tile route"] = (lambda o=outputs(N), a=args,
+                                         lib=tile_lib(N):
+                                         route(lib, False, a, o, tile=True))
+        else:
+            designs.update({name: (lambda lib=lib, o=outputs(N), a=args,
+                                   p=name == "parent": route(lib, p, a, o))
+                            for name, lib in libs.items()
+                            if name == "parent"
+                            or name.startswith("mums-span")})
+        compare(f"K8 large-N route, config #3's first chunk, C = {C}, N = "
+                f"{N}, uint16 documents, bound {bound:.4f} ms ({by})",
+                designs, 2)
+        if N == 10_000:
+            log("[designs] the large-N route's two kernels on the card "
+                "(torch.profiler, 5 calls): " + json.dumps(
+                    kernel_ms(torch, designs["shipped"], 5)))
+        del args, designs
+        torch.cuda.empty_cache()
+
+
+def sweep_mums_switch(torch, libs: dict, compare, cols: dict) -> None:
+    """The tile route against the large-N route on the first chunk (C =
+    2**26, uint16 ids) of a collection of N genomes made as config #3's,
+    for `_TILE_MAX_N`: both held to the plain version.  Past the shipped
+    switch the tile route is the parent's library (skipped without
+    --parent)."""
+    from chip_smoke import least_ms, nbytes
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import construct as TC
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lcp, sa_docs, rc, N = cols["lcp"], cols["sa_docs"], cols["rc"], cols["N"]
+    n, C, halo = lcp.size, 1 << 26, 2 * N + 2
+
+    def sl(a, fill, dtype):
+        x = a[:C + halo].astype(dtype)
+        return torch.from_numpy(np.concatenate(
+            [x, np.full(C + halo - x.size, fill, dtype)])).to(dev)
+    args = (sl(lcp, 0, np.int32), sl(sa_docs, 65535, np.uint16),
+            sl(rc, 1, np.uint8), min(n - N, C), 20, N)
+    tiles = -(-(C + halo) // TC.span_tile(N))
+    scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+    ptrs = (args[0].data_ptr(), args[1].data_ptr(), 1, args[2].data_ptr(),
+            C, N, args[3], 20)
+
+    # the tile route: the shipped library up to its switch, past it the
+    # parent's (which took up to 1,024 documents)
+    tile_lib = (libs["shipped"] if N <= TC._TILE_MAX_N
+                else libs.get("parent"))
+    if tile_lib is None:
+        return
+
+    def run(tile):
+        packed = torch.empty(C // 8, dtype=torch.uint8, device=dev)
+        ell = torch.empty(C, dtype=torch.int32, device=dev)
+        lib = tile_lib if tile else libs["shipped"]
+        if tile:
+            code = lib.colbwt_mum_window(*ptrs, packed.data_ptr(),
+                                         ell.data_ptr(), stream)
+        else:
+            code = lib.colbwt_mum_window_two_pass(
+                *ptrs, scratch.data_ptr(), 4 * scratch.numel(),
+                packed.data_ptr(), ell.data_ptr(), stream)
+        K.check("mum_window", code)
+        return packed, ell
+
+    want = TC.mum_scan_chunk_ref(*args)
+    for tile in (True, False):
+        for g, w in zip(run(tile), want):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"switch N = {N}: a route differs from "
+                                   "the plain version")
+    bound, by = least_ms(nbytes(args[:3], want), 48 * C)
+    hits = int(np.unpackbits(want[0].cpu().numpy()).sum())
+    del want
+    compare(f"K8 routes' switch, {N} genomes of {(n - N) // N} bp, first "
+            f"chunk C = {C}, {hits} hits, bound {bound:.4f} ms ({by})",
+            {"shipped": lambda: run(False), "tile route": lambda: run(True)},
+            5)
+
+
+def kernel_ms(torch, fn, calls: int) -> dict:
+    """Device milliseconds a call of each kernel `fn` launches, from a
+    torch.profiler trace of `calls` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0)
+        if dev_us:
+            out[ev.key[:60]] = dev_us / 1e3 / calls
+    return out
 
 
 def sweep_thr(torch, libs: dict, compare, cols: dict) -> None:

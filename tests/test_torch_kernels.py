@@ -557,6 +557,17 @@ MUM_SHAPES = {
 }
 
 
+def span_shape(shape: str, N: int) -> tuple[int, int]:
+    """(C, limit) of a large-N route case: the tile shapes, and four
+    windows of N with limit in the last span."""
+    if shape == "four windows of N":
+        return 4 * N + 37, 4 * N + 32
+    return MUM_SHAPES[shape]
+
+
+SPAN_SHAPES = sorted(MUM_SHAPES) + ["four windows of N"]
+
+
 def mum_synthetic(num_docs: int, C: int, limit: int, u16: bool, seed: int,
                   wide_ids: bool = False):
     """One chunk of C window starts and its 2N+2 halo made to reach every
@@ -693,10 +704,12 @@ def test_mum_window(dev, num_docs, base_len, u16):
 @pytest.mark.parametrize("num_docs", [2, 4, 16, 65, 130])
 @pytest.mark.parametrize("shape", sorted(MUM_SHAPES))
 def test_mum_window_tiles(dev, shape, num_docs, u16, wide_ids):
-    """The tile route at the tile's edges, one launch each: C not a multiple
-    of the tile with limit in the last tile, a chunk shorter than a tile,
-    limit -1; synthetic chunks that reach every branch of the window
-    test (ids past 63 included), against the plain version."""
+    """The window test at the tile's edges, one launch each: C not a
+    multiple of the tile with limit in the last tile, a chunk shorter than
+    a tile, limit -1; synthetic chunks that reach every branch of the
+    window test (ids past 63 included), against the plain version.  Up to
+    _TILE_MAX_N (64) documents the tile route runs, past it (65, 130) the
+    large-N route."""
     C, limit = MUM_SHAPES[shape]
     a = mum_synthetic(num_docs, C, limit, u16, num_docs, wide_ids)
     args = (*(to_device(x, dev, x.dtype) for x in a), limit, 12, num_docs)
@@ -738,6 +751,29 @@ def test_mum_window_large_n_route(dev, monkeypatch, u16):
         for g, w in zip(TC.find_multi_mums(ranks, sa, lcp, doc_ids, num_docs,
                                            8, device=dev), (ml, mp)):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("u16", [True, False], ids=["uint16", "int32"])
+@pytest.mark.parametrize("num_docs", [1025, 10_000])
+@pytest.mark.parametrize("shape", SPAN_SHAPES)
+def test_mum_window_span_route(dev, shape, num_docs, u16):
+    """The large-N route as the wrapper picks it (no switch lowered), one
+    call each: N = 1,025 (tiles of 512) and config #3's N = 10,000 (tiles
+    of the span, a core every block reduces), C < N, C not a multiple of
+    the span, limit -1, four windows of N; against the plain version."""
+    assert TC.mum_window_route(num_docs) == "two-pass"
+    C, limit = span_shape(shape, num_docs)
+    a = mum_synthetic(num_docs, C, limit, u16, num_docs)
+    args = (*(to_device(x, dev, x.dtype) for x in a), limit, 12, num_docs)
+    before = K.launches["mum_window"]
+    got = TC.mum_scan_chunk(*args)
+    assert K.launches["mum_window"] == before + 1
+    want = TC.mum_scan_chunk_ref(*args)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    if shape == "four windows of N":
+        bits = np.unpackbits(want[0].cpu().numpy(), bitorder="little")
+        assert bits.sum() > 0
 
 
 def test_mum_window_chunked_route(dev, monkeypatch):

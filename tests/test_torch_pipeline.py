@@ -422,3 +422,98 @@ def test_large_query_warns_as_jax(golden, tmp_path, caplog, monkeypatch,
         assert "if len(reads) >= 1_000_000:" in src
         for half in text.split("— "):
             assert half.strip() in src
+
+
+def test_file_list_build_past_the_tile_route_matches_jax(tmp_path,
+                                                          monkeypatch):
+    """1,030 genomes of 255 bp given through a file list (`build -i`),
+    n = 263,680 >= 2**18, so both packages take their device branch (the
+    port's plain versions here), the multi-MUM scan through the chunked
+    route (its cut-off lowered in both) at N > _TILE_MAX_N: every artifact
+    and the index byte-equal to the JAX package's build."""
+    import colbwt_tpu.ops.construct_jax as CJ
+    import colbwt_tpu_torch.ops.construct as TC
+
+    monkeypatch.setattr(CJ, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+    monkeypatch.setattr(TC, "_CHUNKED_SCAN_MIN_N", 1 << 10)
+    chunks = []
+    real = TC.mum_scan_chunk
+
+    def spy(*args):
+        chunks.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(TC, "mum_scan_chunk", spy)
+    rng = np.random.default_rng(0xC0F3)
+    N, length = 1030, 255
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, length)
+    sites = rng.choice(length, 12, replace=False)
+    files = []
+    for d in range(N):
+        a = base.copy()
+        pos = rng.choice(sites, 2, replace=False)
+        a[pos] = rng.choice(acgt, 2)
+        files.append(tmp_path / f"g{d}.fa")
+        write_fasta(str(files[-1]), [FastaRecord(f"g{d}", a.tobytes())])
+    listing = tmp_path / "genomes.txt"
+    listing.write_text("".join(f"{f}\n" for f in files))
+    assert N > TC._TILE_MAX_N and N * (length + 1) >= TB._DEVICE_MIN_N
+    cfg = dict(min_mum=20, split_rate=10, keep_temp=True)
+    jax_build([], str(tmp_path / "jax"), ColBwtConfig(**cfg),
+              filelist=str(listing))
+    assert torch_cli(["build", "-i", str(listing), "-o",
+                      str(tmp_path / "torch"), "-m", "tunnels", "-s", "10",
+                      "-l", "20", "--keep", "--device", "cpu"]) == 0
+    for ext in ARTIFACTS:
+        assert (tmp_path / f"torch.{ext}").read_bytes() == \
+            (tmp_path / f"jax.{ext}").read_bytes(), ext
+    num_docs, ml, _ = F.read_col_mums(str(tmp_path / "torch.fa.col_mums"))
+    assert num_docs == N and ml.size > 0 and chunks == [N]
+    a = np.load(tmp_path / "torch.colpml.npz")
+    b = np.load(tmp_path / "jax.colpml.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_run_past_the_col_pml_offset_field(tmp_path):
+    """The smallest input whose table has an offset into a run past
+    65,535 (one document, 65,537 A's then a C: the head of the C's run
+    maps 65,536 positions into the run of A's; config #3's 10,000
+    near-identical genomes have such offsets): the reference's .col_pml
+    rows keep that offset in 2 bytes, so the JAX package's build raises
+    there, and the port's writes no .col_pml, builds the index and answers
+    as the oracle."""
+    fa = tmp_path / "a.fa"
+    write_fasta(str(fa), [FastaRecord("a", b"A" * 65_537 + b"C")])
+    cfg = dict(min_mum=20, split_rate=10, keep_temp=True)
+    with pytest.raises(OverflowError):
+        jax_build([str(fa)], str(tmp_path / "jax"), ColBwtConfig(**cfg))
+    index = build_pipeline([str(fa)], str(tmp_path / "torch"),
+                           ColBwtConfig(**cfg), device="cpu")
+    assert not (tmp_path / "torch.fa.col_pml").exists()
+    assert int(index.n) == 65_539
+    heads, lens = F.read_rlbwt(str(tmp_path / "torch.fa"))
+    tbl = TO.build_col_pml(
+        heads, lens,
+        np.flatnonzero(F.read_sdsl_bit_vector(
+            str(tmp_path / "torch.fa.col_runs"))),
+        F.read_col_ids(str(tmp_path / "torch.fa.col_ids")).astype(np.int64),
+        F.read_thresholds_file(str(tmp_path / "torch.fa.thr_pos")
+                               ).astype(np.int64))
+    assert int(np.max(tbl.dest_offset)) == 65_536
+    reads = [b"A" * 150, b"AAAAC" + b"A" * 40, b"C" * 10]
+    pat = tmp_path / "reads.fa"
+    write_fasta(str(pat), [FastaRecord(f"r{i}", r)
+                           for i, r in enumerate(reads)])
+    query_pipeline(str(tmp_path / "torch"), str(pat),
+                   ColBwtConfig(**cfg), device="cpu")
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
+
+    _, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+    for r, pm, ci in zip(reads, pmls, cids):
+        ep, ec = TO.query_pml_oracle(tbl, r)
+        np.testing.assert_array_equal(pm, ep)
+        np.testing.assert_array_equal(ci, ec)
