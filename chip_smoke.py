@@ -12,9 +12,15 @@ library and without it (the device suffix array), and on config #3's
 `col-bwt-torch query` on bench's index, on two indexes made from it by
 scaling every run length (n ~ 1.0e9 and ~ 4.1e9, the mega and mega-wide
 paths), on two run-split builds of it (the fused path), one-shot and
-`--stream`, and `--stream` on config #3's index.
+`--stream`, and `--stream` on config #3's index and config #4's (8
+haplotypes given as a file list, the compact fallback past the general
+T1's int32 bound).
 
     python3 chip_smoke.py --config3     # phases 1, 2 and 14 alone, whole
+    python3 chip_smoke.py --config4     # phases 1, 2 and 15 alone, whole
+    python3 chip_smoke.py --config4 --sa-mode chunked
+        # then, in the same machine: config #4 through the chunked SA lane,
+        # byte-equal to the build --config4 left
 Every CUDA kernel of those paths is checked against its plain PyTorch
 version on the card.  Phases:
 
@@ -151,6 +157,28 @@ version on the card.  Phases:
    sampled records equal to the C++ serial engine (io/native) on the
    index's table, 8 of them to the oracle; engine, tables' bytes, memory
    peak, stage seconds and reads/s logged
+15. config #4 (BASELINE.json: 8 human-chr21-scale haplotypes, one random
+   base and 25,000 substitutions per 46,000,000 bp, min-MUM 100,
+   scripts/validate_config4.py's generator, seed 0xC4), cut to haplotypes
+   of CONFIG4_SMOKE["doc_len"] bp and CONFIG4_SMOKE["reads"] reads
+   (`--config4` runs it whole, 46,000,000 bp and 5,000,000 reads, alone),
+   with 1,024 reads with an N added: the haplotypes written as FASTA files
+   and a file list, `build -i LIST -m tunnels -s 10 -l 100` (K8's tile
+   route, N = 8; K10a; the prewarm's K1), then `query --stream`, pos at
+   k = 1 over ACGT keys without the general T1, whose N reads K4 serves on
+   the run-split index.  At full size config #4's n makes those decisions
+   and the run split; the cut forces them through ColBwtConfig (run_split
+   "always", a pos_hbm_budget of 5·n·8 bytes), calls build_pipeline and
+   query_stream with it and prints them, and any other decision fails it.
+   K8's chunks, K10a's buckets, K1's chunks and K3's and K4's shapes from
+   the query equal to their plain versions and timed; 256 sampled records
+   equal to the C++ serial engine, 8 of them and the 4 N reads among them
+   to the oracle; at full size n, the BWT's r, the multi-MUMs, the col-split
+   marks and the col runs must be logs/config4_r3.log's; engine, tables'
+   bytes, memory peak, stage seconds and reads/s logged.  `--config4
+   --sa-mode chunked` builds it again with `--sa-mode chunked --chunk-chars
+   100000000` (4 chunks): every artifact and the index byte-equal to the
+   monolithic build's
 
 Each query scan (K3-K7, the chunk scans) is also timed on 16 lanes of
 long reads, whose time a step is that of a chain of dependent loads that
@@ -161,7 +189,8 @@ bound.
 Launch counts are reset just before each build and query and read just
 after it; a kernel's "launches" is the sum over all of them.  The last
 lines are a [cache and profile] line of phase 13's values, phase 14's
-[config3] line, a [build path] line of stage seconds, the card line, one
+[config3] line, phase 15's [config4] line, a [build path] line of stage
+seconds, the card line, one
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}.
 Everything is written under build/chip_smoke/ of the checkout.  Imports
 nothing of JAX and nothing of the JAX package colbwt_tpu (from bench.py
@@ -271,6 +300,21 @@ CONFIG3_LOG = {"n": 300_010_000, "bwt_r": 211_440, "mums": 410}
 # phase 14's cuts of it within the smoke's time (PERF.md section 4): the
 # reads first, then the genome length; `--config3` runs it whole
 CONFIG3_SMOKE = {"doc_len": 7_000, "reads": 262_144}
+# BASELINE.json config #4 as scripts/validate_config4.py makes it (seed
+# 0xC4): haplotypes, haplotype length, substitutions a haplotype, min-MUM,
+# reads of 150 bp, and the reads with an N added to them as to cell A's
+# (without them no read leaves the pos engine's ACGT keys); and what
+# logs/config4_r3.log reports at that size (col runs: the table's rows)
+CONFIG4 = {"docs": 8, "doc_len": 46_000_000, "muts": 25_000, "min_mum": 100,
+           "reads": 5_000_000, "n_reads": 1_024}
+CONFIG4_LOG = {"n": 368_000_008, "bwt_r": 36_212_696, "mums": 108_106,
+               "marks": 4_298_137, "col_runs": 38_265_504}
+# phase 15's cut of it within the smoke's time (PERF.md section 4): the
+# reads first, then the haplotype length (n > 2**26: K8 runs two chunks);
+# `--config4` runs it whole
+CONFIG4_SMOKE = {"doc_len": 8_500_000, "reads": 262_144}
+# the chunked SA lane's chunk at config #4: two haplotypes a chunk, 4 chunks
+CONFIG4_CHUNK_CHARS = 100_000_000
 # phase 12's counted runs of the per-step and per-round routes, by cell
 CELLS_G = {"sharded-pos (1,2) step route": "G-pos step",
            "sharded-compact (1,2) round route": "G-round",
@@ -367,12 +411,15 @@ def mega_row_bytes(torch, pml, lane, first: int, second: int) -> int:
 def cuda_ms(torch, fn, reps: int = 3, slow_s: float | None = None
             ) -> float:
     """Mean milliseconds per call on the current stream (one warm-up); a
-    call whose warm-up took over `slow_s` seconds is timed once."""
+    call whose warm-up took over `slow_s` seconds is timed by the warm-up
+    alone, on the host's clock between two synchronisations."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    if slow_s is not None and time.perf_counter() - t0 > slow_s:
-        reps = 1
+    warm_s = time.perf_counter() - t0
+    if slow_s is not None and warm_s > slow_s:
+        return warm_s * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -457,9 +504,10 @@ class Checks:
         time, the least time the longest lane's chain can take.  The first
         timed shape of each kernel goes in the JSON line."""
         ms = cuda_ms(self.torch, kernel_fn, reps)
-        # a plain version of seconds a call (the 16-lane chains) is timed
-        # once: its mean of 3 cost a minute of the run
-        plain = cuda_ms(self.torch, plain_fn, reps, slow_s=1.0)
+        # a plain version of over 50 ms a call is timed by its first call
+        # alone: the 16-lane chains take seconds, and repeats of the plain
+        # versions cost about a minute of the smoke's 1,200 s
+        plain = cuda_ms(self.torch, plain_fn, reps, slow_s=0.05)
         lib = library_ms
         by = "bytes"
         if bound is not None:
@@ -1160,18 +1208,18 @@ class TimedCalls:
         return [ev[0].elapsed_time(ev[1]) for _, _, ev in self.calls]
 
 
-def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks
-                      ) -> None:
-    """K3 at each shape cell S-A's streamed query gave it (batches of
+def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks,
+                      cell: str = "S-A") -> None:
+    """K3 at each shape a streamed query of `cell` gave it (S-A: batches of
     32,768 reads, the N reads' general-T1 batch, the long reads' chunks):
-    held to its plain version, timed, with each shape's launches and, at
-    k = 4, its chain floor."""
+    held to its plain version, timed, with each shape's launches and, where
+    its k's 16-lane step was timed, its chain floor."""
     import inspect
 
     from colbwt_tpu_torch.ops import query_pos as TQ
 
     require(sum(k3.count.values()) == launches,
-            f"phase 10: {sum(k3.count.values())} K3 calls seen, "
+            f"{cell}: {sum(k3.count.values())} K3 calls seen, "
             f"{launches} launches counted")
     sig = inspect.signature(TQ.query_chunk_pos)
     for key, (args, kw) in k3.first.items():
@@ -1182,7 +1230,7 @@ def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks
         want = TQ.query_chunk_pos_ref(*args, **kw)
         for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
             if w is not None:
-                chk.equal("query_chunk_pos", g, w, f"S-A shape {key}")
+                chk.equal("query_chunk_pos", g, w, f"{cell} shape {key}")
         pats, k, off = a["patterns"], a["k"], a["step_offset"]
         B = pats.shape[0]
         M = pats.shape[1] * 8 // a["pack"] if a["pack"] else pats.shape[1]
@@ -1192,7 +1240,7 @@ def time_stream_scans(torch, k3: FirstCalls, launches: int, chk: Checks
         chk.time("query_chunk_pos",
                  lambda: TQ.query_chunk_pos(*args, **kw),
                  lambda: TQ.query_chunk_pos_ref(*args, **kw),
-                 f"S-A: {k3.count[key]} launches of {B} x {M}, k={k}"
+                 f"{cell}: {k3.count[key]} launches of {B} x {M}, k={k}"
                  f"{', masked' if a['masked'] else ''}"
                  f"{f', step offset {off}' if off else ''}",
                  bound=(nbytes(pats, a["lengths"], a["pos0"], a["mlen0"],
@@ -1292,8 +1340,8 @@ def scan_inputs(arrays) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
-                 what: str, name: str = "mum_window", timed: bool = True
-                 ) -> None:
+                 what: str, name: str = "mum_window", timed: bool = True,
+                 min_mum: int = 20) -> None:
     """mum_window equal to its plain version on every chunk of C positions
     (the slices find_multi_mums_chunked feeds it), its route's errors kept
     under `name`; the first and the last (the tail) are timed."""
@@ -1311,7 +1359,7 @@ def check_chunks(torch, dev, arrays, num_docs: int, C: int, chk: Checks,
     last = (n - 1) // C
     for k, s in enumerate(range(0, n, C)):
         args = (sl(lcp, s, 0, np.int32), sl(sa_docs, s, 65535, np.uint16),
-                sl(rc, s, 1, np.uint8), min(n - N - s, C), 20, N)
+                sl(rc, s, 1, np.uint8), min(n - N - s, C), min_mum, N)
         label = (f"{what} chunk {k} of {last + 1} (C = {C}, N = {N}, uint16 "
                  f"documents, {min(n - s, C)} positions in range)")
         got = TC.mum_scan_chunk(*args)
@@ -1460,18 +1508,18 @@ def forward_rows(torch, fd: dict, p0, num_steps: int) -> dict:
 
 
 def check_build_walks(torch, walks: TimedCalls, launches: int,
-                      chk: Checks) -> None:
-    """K10a at the buckets phase 8's build gave it: each launch's time in
+                      chk: Checks, cell: str = "B8") -> None:
+    """K10a at the buckets a build of `cell` gave it: each launch's time in
     the build, its outputs against the plain version's, its fast-forward
     rows; the first bucket timed against its plain version."""
     from colbwt_tpu_torch.ops import colsplit as TCS
 
     require(len(walks.calls) == launches,
-            f"phase 8: {len(walks.calls)} K10a calls, {launches} launches")
+            f"{cell}: {len(walks.calls)} K10a calls, {launches} launches")
     build_ms = walks.ms()
     for j, ((fd, p0, lens, T, rate, N), _, _) in enumerate(walks.calls):
         ms = build_ms[j]
-        what = (f"B8 bucket {j + 1} of {len(walks.calls)}, {p0.shape[0]} "
+        what = (f"{cell} bucket {j + 1} of {len(walks.calls)}, {p0.shape[0]} "
                 f"MUMs x T = {T}, rate {rate}, N = {N}, "
                 f"r = {fd['idx'].shape[0]}")
         got = TCS.tunneled_walk(fd, p0, lens, T, rate, N)
@@ -1737,33 +1785,6 @@ def phase8(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
     v["n"] = int(n)
     v["query_wall_s"] = q["wall_s"]
     return v, launches
-
-
-def time_t1_pangenome(torch, dev, prefix: str, chk: Checks) -> None:
-    """K1 at phase 8's index (n = 72,000,016, r = 13,740,206: its r-sized
-    arrays outgrow the 50 MB L2), one chunk of 2**25 positions for the
-    first ACGT char, against its plain version."""
-    from colbwt_tpu_torch.models.index import ColPmlIndex
-    from colbwt_tpu_torch.models.tensors import to_device
-    from colbwt_tpu_torch.ops import query_pos as TQ
-
-    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
-    n, C = index.n, TQ._T1_CHUNK
-    c = int(index.char_map[ord("A")])
-    a = TQ.t1_inputs(index, C, dev)
-    args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
-            a["threshold"], to_device(index.pred_jump[c], dev),
-            to_device(index.succ_jump[c], dev), a["col_id"], c, 0, 0, n, C)
-    buf = torch.empty((C, 2), dtype=torch.int32, device=dev)
-    chk.equal("build_t1_chunk", TQ.build_t1_chunk(buf, *args),
-              TQ.build_t1_chunk_ref(torch.empty_like(buf), *args),
-              f"phase 8's index, C={C}")
-    chk.time("build_t1_chunk", lambda: TQ.build_t1_chunk(buf, *args),
-             lambda: TQ.build_t1_chunk_ref(buf, *args),
-             f"one chunk of C={C} positions at phase 8's index (n={n}, "
-             f"r={index.r})", bound=(t1_bytes(index, c, 0, C), C * 40))
-    del a, args, buf
-    torch.cuda.empty_cache()
 
 
 def phase8bc(dev, cli_main, fastas: list[str], bench_prefix: str
@@ -2893,6 +2914,102 @@ def config3_reads(docs: list[bytes], rng: np.random.Generator, count: int
     return reads
 
 
+def config4_muts(doc_len: int) -> int:
+    """Config #4's substitutions a haplotype at `doc_len` bp: its density,
+    CONFIG4["muts"] per CONFIG4["doc_len"] bp."""
+    return round(CONFIG4["muts"] * doc_len / CONFIG4["doc_len"])
+
+
+def config4_docs(doc_len: int, muts: int
+                 ) -> tuple[list[bytes], np.random.Generator]:
+    """Config #4's haplotypes as scripts/validate_config4.py makes them (one
+    random base, `muts` substitutions a haplotype at positions drawn with
+    replacement), and the generator, where its reads go on drawing."""
+    rng = np.random.default_rng(0xC4)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = rng.choice(acgt, doc_len)
+    docs = []
+    for _ in range(CONFIG4["docs"]):
+        a = base.copy()
+        pos = rng.integers(0, doc_len, muts)
+        a[pos] = rng.choice(acgt, muts)
+        docs.append(a.tobytes())
+    return docs, rng
+
+
+def config4_reads(docs: list[bytes], rng: np.random.Generator, count: int
+                  ) -> list[bytes]:
+    """validate_config4.py's reads: 150 bp from a random haplotype with up
+    to 3 random substitutions each."""
+    doc_len = len(docs[0])
+    reads = []
+    for _ in range(count):
+        d = docs[int(rng.integers(0, len(docs)))]
+        s = int(rng.integers(0, doc_len - 150))
+        arr = bytearray(d[s:s + 150])
+        for _ in range(int(rng.integers(0, 4))):
+            arr[int(rng.integers(0, 150))] = int(rng.choice(list(b"ACGT")))
+        reads.append(bytes(arr))
+    return reads
+
+
+def write_config4_reads(path: str, doc_len: int, muts: int, count: int
+                        ) -> None:
+    """The reads of config #4 at `doc_len` bp written to `path` as FASTA:
+    validate_config4.py's `count` reads (q0, q1, ...), then CONFIG4["n_reads"]
+    of them with one N inserted (n0, n1, ...), as query_reads adds them to
+    cell A's.  Phase 15 runs it in a process of its own beside the build."""
+    docs, rng = config4_docs(doc_len, muts)
+    reads = config4_reads(docs, rng, count)
+    del docs
+    n_reads = []
+    for i in rng.choice(count, CONFIG4["n_reads"], replace=False):
+        p = int(rng.integers(0, 151))
+        n_reads.append(reads[i][:p] + b"N" + reads[i][p:])
+    write_reads(Path(path), [(f"q{i}", r) for i, r in enumerate(reads)]
+                + [(f"n{i}", r) for i, r in enumerate(n_reads)])
+
+
+def write_config3_reads(path: str, doc_len: int, count: int) -> None:
+    """The reads of config #3 at `doc_len` bp written to `path` as FASTA
+    (q0, q1, ...): validate_config3.py's `count` reads.  Phase 14 runs it
+    in a process of its own beside the build."""
+    docs, rng = config3_docs(doc_len)
+    write_reads(Path(path), [(f"q{i}", r) for i, r
+                             in enumerate(config3_reads(docs, rng, count))])
+
+
+class Beside:
+    """While active, `target(*args)` runs in a process of its own (spawned:
+    it imports this file, none of the caller's state); `wait` joins it and
+    fails on an exit code other than 0, and leaving stops it if it still
+    runs."""
+
+    def __init__(self, target, *args):
+        import multiprocessing
+
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=target, args=args)
+
+    def __enter__(self):
+        self.proc.start()
+        return self
+
+    def wait(self) -> float:
+        """Join the process; returns the seconds waited."""
+        t0 = time.perf_counter()
+        self.proc.join()
+        require(self.proc.exitcode == 0,
+                f"{self.proc.name} exited {self.proc.exitcode}")
+        return time.perf_counter() - t0
+
+    def __exit__(self, *exc):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        return False
+
+
 class EngineSpy:
     """While active, keeps the QueryEngines a query makes, for its tables'
     bytes."""
@@ -2901,13 +3018,12 @@ class EngineSpy:
         from colbwt_tpu_torch.pipeline import engines
 
         self.real = engines.QueryEngines
-        self.made = []
-        spy = self
+        self.made = made = []
 
         class Recorded(self.real):
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
-                spy.made.append(self)
+                made.append(self)
 
         engines.QueryEngines = Recorded
         return self
@@ -2916,6 +3032,11 @@ class EngineSpy:
         from colbwt_tpu_torch.pipeline import engines
 
         engines.QueryEngines = self.real
+        # the engines' class holds the list it appends to: keep a copy and
+        # empty that list, so no reference cycle (engine, class, list) holds
+        # an engine's tables on the card after the caller drops it
+        held, self.made = self.made, list(self.made)
+        held.clear()
         return False
 
 
@@ -2978,10 +3099,12 @@ def phase14(torch, dev, cli_main, chk: Checks, doc_len: int, n_reads: int
     10,000 FASTA files and a file list, `build -i LIST -m tunnels -s 10 -l
     20` (the large-N route in 2**26 chunks, K10a, the prewarm), the
     route's chunks against its plain version, then `query --stream` of
-    validate_config3.py's reads, 512 sampled records equal to the C++
-    serial engine on the index's table and 8 of them to the oracle."""
+    validate_config3.py's reads (made in a process of their own beside the
+    build), 512 sampled records equal to the C++ serial engine on the
+    index's table and 8 of them to the oracle."""
     from colbwt_tpu_torch.io import formats as F
     from colbwt_tpu_torch.io import native as native_lib
+    from colbwt_tpu_torch.io.fasta import read_fasta
     from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
     from colbwt_tpu_torch.models.index import ColPmlIndex
     from colbwt_tpu_torch.ops import _kernels as K
@@ -2991,7 +3114,7 @@ def phase14(torch, dev, cli_main, chk: Checks, doc_len: int, n_reads: int
     work = WORK / "config3"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    docs, rng = config3_docs(doc_len)
+    docs, _ = config3_docs(doc_len)
     files = []
     for i, d in enumerate(docs):
         files.append(work / f"g{i}.fa")
@@ -3001,95 +3124,497 @@ def phase14(torch, dev, cli_main, chk: Checks, doc_len: int, n_reads: int
     log(f"[phase 14] config #3: {len(docs)} genomes of {doc_len} bp written "
         f"as FASTA files and a file list in {time.perf_counter() - t0:.1f}s")
     prefix = str(work / "config3")
-    with Capture() as cap:
-        v, lc_build = run_build("14", lambda: cli_main(
-            ["build", "-i", str(listing), "-o", prefix, "-m", "tunnels", "-s",
-             "10", "-l", "20", "--device", str(dev)]),
-            ("mum_window", "mum_window_two_pass", "tunneled_walk"))
-    require(cap.args is not None, "phase 14 did not run the device scan")
-    index = ColPmlIndex.load(f"{prefix}.colpml.npz")
-    num_docs, ml, _ = F.read_col_mums(f"{prefix}.fa.col_mums")
-    got = {"n": int(index.n), "bwt_r": int(index.bwt_r),
-           "mums": int(ml.size)}
-    full = doc_len == CONFIG3["doc_len"]
-    require(num_docs == CONFIG3["docs"], f"phase 14: {num_docs} documents")
-    if full:
-        require(got == CONFIG3_LOG, f"phase 14: {got}, expected "
-                f"{CONFIG3_LOG} (logs/config3_all_r3.log)")
-    log(f"[phase 14] build: n = {got['n']}, BWT r = {got['bwt_r']}, "
-        f"{got['mums']} multi-MUMs, index r = {index.r}"
-        + (" (as logs/config3_all_r3.log)" if full else "")
-        + f"; mum_window launches {lc_build['mum_window']} (large-N route "
-        f"{lc_build['mum_window_two_pass']})")
-    t1 = time.perf_counter()
-    times = check_config3_chunks(torch, dev, cap.args, chk)
-    del cap
-    log(f"[phase 14] the large-N route's chunks checked and timed in "
-        f"{time.perf_counter() - t1:.1f}s: " + json.dumps(times))
-
-    t1 = time.perf_counter()
-    reads = config3_reads(docs, rng, n_reads)
-    del docs
     pat = work / "reads.fa"
-    write_reads(pat, [(f"q{i}", r) for i, r in enumerate(reads)])
-    log(f"[phase 14] {len(reads)} reads made in "
-        f"{time.perf_counter() - t1:.1f}s")
-    K.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    with EngineSpy() as spy:
-        q = run_logged(lambda: cli_main(["query", prefix, "-p", str(pat),
-                                         "--stream", "--device", str(dev)]),
-                       "colbwt_torch.stream",
-                       STREAM_KEYS + ("device_mem_peak_bytes",))
-    lc_query = dict(K.launches)
-    require(len(spy.made) == 1, f"phase 14: {len(spy.made)} engines")
-    eng = spy.made[0]
-    table_bytes = nbytes(eng.pt, eng.mt, eng.ft)
-    del spy, eng
-    require(q["reads"] == len(reads), f"phase 14: {q['reads']} records")
-    scan = {"pos": "query_chunk_pos", "xla": "query_batch_xla",
-            "mega": "query_chunk_mega", "mega-wide": "query_chunk_mega_wide",
-            "fused": "query_batch_fused"}[q["engine"].split("(")[0]]
-    require(lc_query[scan] > 0, f"phase 14: {scan} never launched")
+    with Beside(write_config3_reads, str(pat), doc_len, n_reads) as maker:
+        with Capture() as cap:
+            v, lc_build = run_build("14", lambda: cli_main(
+                ["build", "-i", str(listing), "-o", prefix, "-m", "tunnels",
+                 "-s", "10", "-l", "20", "--device", str(dev)]),
+                ("mum_window", "mum_window_two_pass", "tunneled_walk"))
+        require(cap.args is not None, "phase 14 did not run the device scan")
+        index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+        num_docs, ml, _ = F.read_col_mums(f"{prefix}.fa.col_mums")
+        got = {"n": int(index.n), "bwt_r": int(index.bwt_r),
+               "mums": int(ml.size)}
+        full = doc_len == CONFIG3["doc_len"]
+        require(num_docs == CONFIG3["docs"],
+                f"phase 14: {num_docs} documents")
+        if full:
+            require(got == CONFIG3_LOG, f"phase 14: {got}, expected "
+                    f"{CONFIG3_LOG} (logs/config3_all_r3.log)")
+        log(f"[phase 14] build: n = {got['n']}, BWT r = {got['bwt_r']}, "
+            f"{got['mums']} multi-MUMs, index r = {index.r}"
+            + (" (as logs/config3_all_r3.log)" if full else "")
+            + f"; mum_window launches {lc_build['mum_window']} (large-N route "
+            f"{lc_build['mum_window_two_pass']})")
+        t1 = time.perf_counter()
+        times = check_config3_chunks(torch, dev, cap.args, chk)
+        del cap
+        log(f"[phase 14] the large-N route's chunks checked and timed in "
+            f"{time.perf_counter() - t1:.1f}s: " + json.dumps(times))
 
-    t1 = time.perf_counter()
-    names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
-    _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
-    require(names == [f"q{i}" for i in range(len(reads))],
-            "phase 14 record names differ")
-    tbl = load_table(prefix)
-    sample = np.sort(rng.choice(len(reads), 512, replace=False))
-    want_p, want_c = native_lib.query_pml_serial(
-        tbl, [reads[i] for i in sample])
-    for j, i in enumerate(sample):
-        require(np.array_equal(pmls[i], want_p[j])
-                and np.array_equal(cids[i], want_c[j]),
-                f"phase 14 record q{i} differs from the C++ serial engine")
-    for i in sample[::64]:
-        ep, ec = O.query_pml_oracle(tbl, reads[i])
-        require(np.array_equal(pmls[i], ep) and np.array_equal(cids[i], ec),
-                f"phase 14 record q{i} differs from the oracle")
-    del names, pmls, cids, tbl
-    out = {"doc_len": doc_len, "docs": CONFIG3["docs"], **got,
-           "index_r": int(index.r), "build": v,
-           "large_n_route_ms": times, "engine": q.get("engine"),
-           "table_cache": q.get("table_cache"),
-           "table_bytes": table_bytes,
-           "table_build_s": q.get("table_build_s"),
-           "reads": q["reads"], "query_wall_s": q["wall_s"],
-           "reads_per_s": q["reads"] / q["wall_s"],
-           "device_mem_peak_bytes": q.get("device_mem_peak_bytes")}
-    log(f"[phase 14] query --stream, engine {q.get('engine')}: "
-        f"{q['reads']} reads in {q['wall_s']:.3f}s -> "
-        f"{out['reads_per_s']:.0f} reads/s, tables {table_bytes} B built "
-        f"in {q.get('table_build_s')}s, device memory peak "
-        f"{out['device_mem_peak_bytes']} B; 512 sampled records equal the "
-        f"C++ serial engine, 8 the oracle "
-        f"({time.perf_counter() - t1:.1f}s); launches "
-        f"{json.dumps(lc_query)}")
-    log("[config3] " + json.dumps(out))
+        log(f"[phase 14] {n_reads} reads written beside the build, waited "
+            f"{maker.wait():.1f}s for")
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with EngineSpy() as spy:
+            q = run_logged(lambda: cli_main(
+                ["query", prefix, "-p", str(pat), "--stream", "--device",
+                 str(dev)]), "colbwt_torch.stream",
+                STREAM_KEYS + ("device_mem_peak_bytes",))
+        lc_query = dict(K.launches)
+        require(len(spy.made) == 1, f"phase 14: {len(spy.made)} engines")
+        eng = spy.made[0]
+        table_bytes = nbytes(eng.pt, eng.mt, eng.ft)
+        del spy, eng
+        require(q["reads"] == n_reads, f"phase 14: {q['reads']} records")
+        scan = {"pos": "query_chunk_pos", "xla": "query_batch_xla",
+                "mega": "query_chunk_mega",
+                "mega-wide": "query_chunk_mega_wide",
+                "fused": "query_batch_fused"}[q["engine"].split("(")[0]]
+        require(lc_query[scan] > 0, f"phase 14: {scan} never launched")
+
+        t1 = time.perf_counter()
+        names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+        _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+        require(names == [f"q{i}" for i in range(n_reads)],
+                "phase 14 record names differ")
+        tbl = load_table(prefix)
+        sample = np.sort(np.random.default_rng(0xC3C3).choice(
+            n_reads, 512, replace=False))
+        picked = set(sample.tolist())
+        reads = {i: r.seq for i, r in enumerate(read_fasta(pat))
+                 if i in picked}
+        want_p, want_c = native_lib.query_pml_serial(
+            tbl, [reads[i] for i in sample])
+        for j, i in enumerate(sample):
+            require(np.array_equal(pmls[i], want_p[j])
+                    and np.array_equal(cids[i], want_c[j]),
+                    f"phase 14 record q{i} differs from the C++ serial engine")
+        for i in sample[::64]:
+            ep, ec = O.query_pml_oracle(tbl, reads[i])
+            require(np.array_equal(pmls[i], ep)
+                    and np.array_equal(cids[i], ec),
+                    f"phase 14 record q{i} differs from the oracle")
+        del names, pmls, cids, tbl, reads
+        out = {"doc_len": doc_len, "docs": CONFIG3["docs"], **got,
+               "index_r": int(index.r), "build": v,
+               "large_n_route_ms": times, "engine": q.get("engine"),
+               "table_cache": q.get("table_cache"),
+               "table_bytes": table_bytes,
+               "table_build_s": q.get("table_build_s"),
+               "reads": q["reads"], "query_wall_s": q["wall_s"],
+               "reads_per_s": q["reads"] / q["wall_s"],
+               "device_mem_peak_bytes": q.get("device_mem_peak_bytes")}
+        log(f"[phase 14] query --stream, engine {q.get('engine')}: "
+            f"{q['reads']} reads in {q['wall_s']:.3f}s -> "
+            f"{out['reads_per_s']:.0f} reads/s, tables {table_bytes} B built "
+            f"in {q.get('table_build_s')}s, device memory peak "
+            f"{out['device_mem_peak_bytes']} B; 512 sampled records equal the "
+            f"C++ serial engine, 8 the oracle "
+            f"({time.perf_counter() - t1:.1f}s); launches "
+            f"{json.dumps(lc_query)}")
+        log("[config3] " + json.dumps(out))
     shutil.rmtree(work, ignore_errors=True)
     return out, [lc_build, lc_query]
+
+
+def check_t1_chunks(torch, dev, index, chk: Checks, what: str) -> int:
+    """K1 over every chunk of 2**25 positions of `index` for its first ACGT
+    char, as build_t1 fills them (the tail chunk overlapping the one before
+    it), each against its plain version and the first timed beside it.
+    Returns the chunk count."""
+    from colbwt_tpu_torch.models.tensors import to_device
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    n = index.n
+    C = min(n, TQ._T1_CHUNK)
+    c = int(index.char_map[ord("A")])
+    a = TQ.t1_inputs(index, C, dev)
+    pred = to_device(index.pred_jump[c], dev)
+    succ = to_device(index.succ_jump[c], dev)
+    got = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    want = torch.empty_like(got)
+    starts = [min(s, n - C) for s in range(0, n, C)]
+    for j, s in enumerate(starts):
+        args = (a["char"], a["idx_pad"], a["length"], a["lf_pos0"],
+                a["threshold"], pred, succ, a["col_id"], c, 0, s, n, C)
+        TQ.build_t1_chunk(got, *args)
+        TQ.build_t1_chunk_ref(want, *args)
+        chk.equal("build_t1_chunk", got, want,
+                  f"{what}, chunk {j} of {len(starts)} (s = {s})")
+        if j == 0:
+            chk.time("build_t1_chunk", lambda: TQ.build_t1_chunk(got, *args),
+                     lambda: TQ.build_t1_chunk_ref(want, *args),
+                     f"{what}: one chunk of C={C} positions (n={n}, "
+                     f"r={index.r})", bound=(t1_bytes(index, c, s, C), C * 40))
+    del a, pred, succ, got, want
+    torch.cuda.empty_cache()
+    return len(starts)
+
+
+def check_k3_chain(torch, k3: FirstCalls, chk: Checks, cell: str) -> None:
+    """K3 on 16 lanes of the first batch a streamed query of `cell` gave it:
+    its time a step at that k, a chain of dependent loads that no other lane
+    hides, for the chain floors of time_stream_scans."""
+    import inspect
+
+    from colbwt_tpu_torch.ops import query_pos as TQ
+
+    args, kw = next(iter(k3.first.values()))
+    a = inspect.signature(TQ.query_chunk_pos).bind(*args, **kw)
+    a.apply_defaults()
+    a = dict(a.arguments)
+    for f in ("patterns", "lengths", "pos0", "mlen0"):
+        a[f] = a[f][:16].contiguous()
+    got, want = TQ.query_chunk_pos(**a), TQ.query_chunk_pos_ref(**a)
+    for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        if w is not None:
+            chk.equal("query_chunk_pos", g, w, f"{cell}: 16 lanes")
+    k, pack = a["k"], a["pack"]
+    M = a["patterns"].shape[1] * 8 // pack if pack else a["patterns"].shape[1]
+    steps = int(((a["lengths"].long() - a["step_offset"]).clamp(0, M)
+                 + k - 1).max()) // k
+    chk.time("query_chunk_pos", lambda: TQ.query_chunk_pos(**a),
+             lambda: TQ.query_chunk_pos_ref(**a),
+             f"{cell}: 16 lanes of its first batch, k={k}",
+             chain=(f"query_chunk_pos k={k}", steps, True))
+
+
+def check_compact_calls(torch, k4: FirstCalls, launches: int, r: int,
+                        chk: Checks, cell: str) -> int:
+    """K4 at each shape the compact fallback of a streamed query of `cell`
+    gave it (the N reads, on the run-split index of r rows): held to its
+    plain version and timed beside its bound, its chain floor from 16 of
+    its lanes.  Returns the reads it scanned."""
+    from colbwt_tpu_torch.ops import query_xla as TX
+
+    require(sum(k4.count.values()) == launches,
+            f"{cell}: {sum(k4.count.values())} K4 calls seen, {launches} "
+            "launches counted")
+    rows = 0
+    for key, (args, kw) in k4.first.items():
+        tb, pats, lens = args
+        B, M = pats.shape
+        rows += B * k4.count[key]
+        got = TX.query_batch_device(*args, **kw)
+        want = TX.query_batch_device_ref(*args, **kw)
+        for g, w, part in zip(got, want, ("pml", "cid")):
+            chk.equal("query_batch_xla", g, w, f"{cell} shape {key} {part}")
+        lane = lens.clamp(max=M).cpu().numpy()
+        chain = f"query_batch_xla ff_bound={kw.get('ff_bound', 0)}"
+        a16 = (tb, pats[:16].contiguous(), lens[:16].contiguous())
+        for g, w, part in zip(TX.query_batch_device(*a16, **kw),
+                              TX.query_batch_device_ref(*a16, **kw),
+                              ("pml", "cid")):
+            chk.equal("query_batch_xla", g, w, f"{cell}: 16 lanes {part}")
+        chk.time("query_batch_xla", lambda: TX.query_batch_device(*a16, **kw),
+                 lambda: TX.query_batch_device_ref(*a16, **kw),
+                 f"{cell}: 16 lanes of {M}, r = {r}",
+                 chain=(chain, int(lane[:16].max()), True))
+        steps = int(lane.sum())
+        chk.time("query_batch_xla", lambda: TX.query_batch_device(*args, **kw),
+                 lambda: TX.query_batch_device_ref(*args, **kw),
+                 f"{cell}: {k4.count[key]} launches of {B} x {M}, "
+                 f"ff_bound={kw.get('ff_bound', 0)}, r = {r}",
+                 bound=(nbytes(args[1:], got) + gathered(tb, steps, 40),
+                        steps * 30),
+                 chain=(chain, int(lane.max()), False))
+    return rows
+
+
+def phase15(torch, dev, cli_main, chk: Checks, doc_len: int, n_reads: int
+            ) -> tuple[dict, list[dict]]:
+    """Config #4 through the port's entry points: its 8 haplotypes written
+    as FASTA files and a file list, `build -i LIST -m tunnels -s 10 -l 100`
+    (K8's tile route, N = 8, in chunks of 2**26; K10a; the prewarm's K1),
+    then `query --stream` of validate_config4.py's reads and CONFIG4["n_reads"]
+    reads with an N added (as cell A's: without them no read leaves the
+    ACGT keys, and the compact fallback never runs), made in a process of
+    their own while the build runs.  At full size config #4's n makes two
+    decisions that the cut's cannot: the run split (n > 2**28) and pos at
+    k = 1 over ACGT keys without the general T1 (6·n > 2**31 - 1), whose
+    N reads K4 serves.  The cut forces both through ColBwtConfig
+    (run_split "always", a pos_hbm_budget of 5·n·8 bytes, within
+    [4·n·8, (4 + sigma + 1)·n·8)) and calls build_pipeline and query_stream
+    with it; any other decision fails the phase.  K8's chunks, K10a's
+    buckets, K1's chunks, and K3's and K4's shapes from the query are held
+    to their plain versions and timed; 256 sampled records equal the C++
+    serial engine on the index's table, 8 of them and the N reads among
+    them the oracle.  At full size n, the BWT's r, the multi-MUMs, the
+    col-split marks and the col runs must be logs/config4_r3.log's, and the
+    build is left under build/chip_smoke/config4/ for `--sa-mode chunked`."""
+    from colbwt_tpu_torch.io import formats as F
+    from colbwt_tpu_torch.io import native as native_lib
+    from colbwt_tpu_torch.io.fasta import read_fasta
+    from colbwt_tpu_torch.io.pml_out import read_pml_cid_binary
+    from colbwt_tpu_torch.models.index import ColPmlIndex
+    from colbwt_tpu_torch.ops import _kernels as K
+    from colbwt_tpu_torch.ops import oracle as O
+    from colbwt_tpu_torch.ops import query_pos as TQ
+    from colbwt_tpu_torch.pipeline import build_pipeline, query_stream
+    from colbwt_tpu_torch.utils.config import ColBwtConfig, SplitMode
+    from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
+
+    t0 = time.perf_counter()
+    whole = doc_len == CONFIG4["doc_len"]
+    cell = "SC4 whole" if whole else "SC4"
+    work = WORK / "config4"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    muts = config4_muts(doc_len)
+    docs, _ = config4_docs(doc_len, muts)
+    files = []
+    for i, d in enumerate(docs):
+        files.append(work / f"hap{i}.fa")
+        write_reads(files[-1], [(f"hap{i}", d)])
+    listing = work / "haplotypes.txt"
+    listing.write_text("".join(f"{f}\n" for f in files))
+    n = sum(len(d) + 1 for d in docs)
+    del docs
+    pat = work / "reads.fa"
+    with Beside(write_config4_reads, str(pat), doc_len, muts,
+                n_reads) as maker:
+        prefix = str(work / "config4")
+        budget = 5 * n * 8
+        forced = ({} if whole else
+                  {"run_split": "always", "pos_hbm_budget": budget})
+        log(f"[phase 15] config #4: {CONFIG4['docs']} haplotypes of {doc_len} "
+            f"bp ({muts} substitutions each, n = {n}) written as FASTA files "
+            f"and a file list in {time.perf_counter() - t0:.1f}s; "
+            + ("decisions made by n" if whole else
+               "forced through ColBwtConfig: " + json.dumps(forced)
+               + " (the run split, as n > 2**28 makes it, and pos k = 1 over "
+               "ACGT keys without the general T1, as 6·n > 2**31 - 1 makes "
+               "it)"))
+        min_mum = str(CONFIG4["min_mum"])
+        if whole:
+            def build():
+                return cli_main(["build", "-i", str(listing), "-o", prefix,
+                                 "-m", "tunnels", "-s", "10", "-l", min_mum,
+                                 "--device", str(dev)])
+        else:
+            cfg = ColBwtConfig(mode=SplitMode.TUNNELS, split_rate=10,
+                               min_mum=CONFIG4["min_mum"], prewarm=True,
+                               **forced)
+
+            def build():
+                build_pipeline([], prefix, cfg, filelist=str(listing),
+                               device=dev)
+                return 0
+        with Capture() as cap, TimedCalls(
+                torch, "colbwt_tpu_torch.ops.colsplit",
+                "tunneled_walk") as walks:
+            v, lc_build = run_build("15", build, ("mum_window",
+                                                  "tunneled_walk",
+                                                  "build_t1_chunk"))
+        require(cap.args is not None, "phase 15 did not run the device scan")
+        t1 = time.perf_counter()
+        check_build_walks(torch, walks, lc_build["tunneled_walk"], chk, cell)
+        del walks
+        C = min(1 << 26, 1 << max(13, (n - 1).bit_length()))
+        check_chunks(torch, dev, cap.args, CONFIG4["docs"], C, chk,
+                     f"{cell}", min_mum=CONFIG4["min_mum"])
+        del cap
+        index = ColPmlIndex.load(f"{prefix}.colpml.npz")
+        tbl = load_table(prefix)
+        _, ml, _ = F.read_col_mums(f"{prefix}.fa.col_mums")
+        got = {"n": int(index.n), "bwt_r": int(index.bwt_r),
+               "mums": int(ml.size), "marks": int(v["marks"]),
+               "col_runs": int(tbl.char.size)}
+        require(got["n"] == n, f"phase 15: n = {got['n']}, expected {n}")
+        if whole:
+            require(got == CONFIG4_LOG, f"phase 15: {got}, expected "
+                    f"{CONFIG4_LOG} (logs/config4_r3.log)")
+        require(index.ff_bound == 2 and index.r > got["col_runs"],
+                f"phase 15: the index is not run-split (ff_bound "
+                f"{index.ff_bound}, r = {index.r})")
+        t1_chunks = check_t1_chunks(torch, dev, index, chk, f"{cell}'s index")
+        log(f"[phase 15] build: " + json.dumps(got)
+            + (" (as logs/config4_r3.log)" if whole else "")
+            + f", run-split index r = {index.r} (ff_bound {index.ff_bound}); "
+            f"K8's {-(-n // C)} chunks, K10a's buckets and K1's {t1_chunks} "
+            f"chunks equal to their plain versions "
+            f"({time.perf_counter() - t1:.1f}s)")
+
+        log(f"[phase 15] {n_reads} + {CONFIG4['n_reads']} N reads written "
+            f"beside the build, waited {maker.wait():.1f}s for")
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        keys = STREAM_KEYS + ("device_mem_peak_bytes",)
+        with EngineSpy() as spy, FirstCalls(
+                "colbwt_tpu_torch.ops.query_pos", "query_chunk_pos") as k3, \
+                FirstCalls("colbwt_tpu_torch.ops.query_xla",
+                           "query_batch_device") as k4:
+            if whole:
+                q = run_logged(lambda: cli_main(
+                    ["query", prefix, "-p", str(pat), "--stream", "--device",
+                     str(dev)]), "colbwt_torch.stream", keys)
+            else:  # the CLI's --stream batch, the budget forced
+                qcfg = ColBwtConfig(batch_size=32768, pos_hbm_budget=budget)
+
+                def stream():
+                    query_stream(prefix, str(pat), qcfg, device=dev)
+                    return 0
+                q = run_logged(stream, "colbwt_torch.stream", keys)
+        lc_query = dict(K.launches)
+        require(len(spy.made) == 1, f"phase 15: {len(spy.made)} engines")
+        eng = spy.made[0]
+        pt = eng.pt or {}
+        decided = {"engine": eng.name, "keys": str(pt.get("alphabet")),
+                   "general_t1": pt.get("t1") is not None}
+        require(decided == {"engine": "pos(k=1)", "keys": str(b"ACGT"),
+                            "general_t1": False},
+                f"phase 15: engine {decided}, expected pos(k=1) over ACGT "
+                "keys without the general T1")
+        table_bytes = nbytes(pt)
+        loaded = any(ev["event"] == "load" for ev in eng.cache_events)
+        for name in ("query_chunk_pos", "query_batch_xla",
+                     "upload_rows" if loaded else "build_t1_chunk"):
+            require(lc_query[name] > 0, f"{name} never launched in phase 15")
+        require(q["reads"] == n_reads + CONFIG4["n_reads"],
+                f"phase 15: {q['reads']} records")
+        if loaded:  # K14 brought the tables: they must be a fresh build's
+            fresh = TQ.build_pos_tables(
+                index, 1, hbm_budget_bytes=resolve_pos_budget(
+                    forced.get("pos_hbm_budget", 0), dev),
+                alphabet=b"ACGT", device=dev)
+            chk.equal("upload_rows", pt["table"], fresh["table"],
+                      f"{cell}'s pos table from the cache")
+            del fresh
+        t1 = time.perf_counter()
+        check_k3_chain(torch, k3, chk, cell)
+        time_stream_scans(torch, k3, lc_query["query_chunk_pos"], chk, cell)
+        rows = check_compact_calls(torch, k4, lc_query["query_batch_xla"],
+                                   index.r, chk, cell)
+        require(rows == CONFIG4["n_reads"],
+                f"phase 15: K4 scanned {rows} reads, expected the "
+                f"{CONFIG4['n_reads']} N reads")
+        del spy, eng, pt, k3, k4
+        torch.cuda.empty_cache()
+        log(f"[phase 15] K3's and K4's shapes from the query equal to their "
+            f"plain versions ({time.perf_counter() - t1:.1f}s)")
+
+        t1 = time.perf_counter()
+        names, pmls = read_pml_cid_binary(f"{pat}.split.pml.bin")
+        _, cids = read_pml_cid_binary(f"{pat}.split.cid.bin")
+        require(names == [f"q{i}" for i in range(n_reads)]
+                + [f"n{i}" for i in range(CONFIG4["n_reads"])],
+                "phase 15 record names differ")
+        # 4 N reads: the oracle scans every run for an N (its successor and
+        # predecessor runs, neither of which exists), 1-6 s a read
+        rng = np.random.default_rng(0xC4C4)
+        plain = np.sort(rng.choice(n_reads, 252, replace=False))
+        with_n = n_reads + np.sort(rng.choice(CONFIG4["n_reads"], 4,
+                                              replace=False))
+        sample = np.concatenate([plain, with_n])
+        picked = set(sample.tolist())
+        reads = {i: r.seq for i, r in enumerate(read_fasta(pat))
+                 if i in picked}
+        want_p, want_c = native_lib.query_pml_serial(
+            tbl, [reads[i] for i in sample])
+        for j, i in enumerate(sample):
+            require(np.array_equal(pmls[i], want_p[j])
+                    and np.array_equal(cids[i], want_c[j]),
+                    f"phase 15 record {names[i]} differs from the C++ "
+                    "serial engine")
+        for i in np.concatenate([plain[::32], with_n]):
+            ep, ec = O.query_pml_oracle(tbl, reads[i])
+            require(np.array_equal(pmls[i], ep)
+                    and np.array_equal(cids[i], ec),
+                    f"phase 15 record {names[i]} differs from the oracle")
+        del names, pmls, cids, tbl, reads
+        check_s = time.perf_counter() - t1
+        out = {"doc_len": doc_len, "docs": CONFIG4["docs"], **got,
+               "index_r": int(index.r), "forced": forced, "build": v,
+               "engine": q.get("engine"), "decided": decided,
+               "table_cache": q.get("table_cache"),
+               "table_bytes": table_bytes,
+               "table_build_s": q.get("table_build_s"),
+               "reads": q["reads"], "query_wall_s": q["wall_s"],
+               "reads_per_s": q["reads"] / q["wall_s"],
+               "device_mem_peak_bytes": q.get("device_mem_peak_bytes"),
+               "phase_s": time.perf_counter() - t0}
+        log(f"[phase 15] query --stream, engine {q.get('engine')} (ACGT "
+            f"keys, no general T1): {q['reads']} reads in "
+            f"{q['wall_s']:.3f}s -> {out['reads_per_s']:.0f} reads/s, tables "
+            f"{table_bytes} B in {q.get('table_build_s')}s (cache: "
+            f"{json.dumps(q.get('table_cache'))}), device memory peak "
+            f"{out['device_mem_peak_bytes']} B; 256 sampled records equal the "
+            f"C++ serial engine, {plain[::32].size} of them and the "
+            f"{with_n.size} N reads among them the oracle "
+            f"({check_s:.1f}s); launches {json.dumps(lc_query)}")
+        log("[config4] " + json.dumps(out))
+    if not whole:
+        shutil.rmtree(work, ignore_errors=True)
+    return out, [lc_build, lc_query]
+
+
+def phase15_chunked(torch, dev, cli_main, chk: Checks) -> tuple[dict, dict]:
+    """`--config4 --sa-mode chunked`: config #4 built again through the
+    chunked SA lane (`--sa-mode chunked --chunk-chars` CONFIG4_CHUNK_CHARS,
+    4 chunks), K8's streamed chunks and K10a's buckets held to their plain
+    versions; every artifact and the index byte-equal to the monolithic
+    build `--config4` left under build/chip_smoke/config4/ (absent: a
+    failure)."""
+    from colbwt_tpu_torch.ops import construct as TC
+
+    work = WORK / "config4"
+    prefix = str(work / "config4")
+    listing = work / "haplotypes.txt"
+    need = ([f"{prefix}.{ext}" for ext in ARTIFACTS]
+            + [f"{prefix}.colpml.npz", str(listing)])
+    missing = [p for p in need if not Path(p).exists()]
+    require(not missing, "--sa-mode chunked compares with the monolithic "
+            f"build of `--config4`, run before it; missing: {missing}")
+    pre = str(work / "config4_chunked")
+    real = TC.mum_scan_chunk
+    first, calls = [], [0]
+
+    def checked(*args):
+        got = real(*args)
+        want = TC.mum_scan_chunk_ref(*args)
+        what = f"SC4 chunked lane, chunk {calls[0]}"
+        chk.equal("mum_window", got[0], want[0], what + " hits")
+        chk.equal("mum_window", got[1], want[1], what + " ell")
+        calls[0] += 1
+        if not first:
+            first.append(clone_args(torch, args))
+        return got
+
+    TC.mum_scan_chunk = checked
+    try:
+        with TimedCalls(torch, "colbwt_tpu_torch.ops.colsplit",
+                        "tunneled_walk") as walks:
+            v, lc = run_build("15c", lambda: cli_main(
+                ["build", "-i", str(listing), "-o", pre, "-m", "tunnels",
+                 "-s", "10", "-l", str(CONFIG4["min_mum"]), "--sa-mode",
+                 "chunked", "--chunk-chars", str(CONFIG4_CHUNK_CHARS),
+                 "--no-prewarm", "--device", str(dev)]),
+                ("mum_window", "tunneled_walk"))
+    finally:
+        TC.mum_scan_chunk = real
+    require(bool(first), "the chunked lane launched no K8 chunk")
+    args = first[0]
+    packed, ell = TC.mum_scan_chunk(*args)
+    chk.time("mum_window", lambda: TC.mum_scan_chunk(*args),
+             lambda: TC.mum_scan_chunk_ref(*args),
+             f"SC4 chunked lane, its first streamed chunk ({args[3]} "
+             f"window starts, N = {args[5]})",
+             bound=(nbytes(args[:3], packed, ell), args[3] * 6 * args[5]))
+    check_build_walks(torch, walks, lc["tunneled_walk"], chk,
+                      "SC4 chunked lane")
+    for ext in ARTIFACTS:
+        require(same_bytes(f"{pre}.{ext}", f"{prefix}.{ext}"),
+                f"--sa-mode chunked: .{ext} differs from the monolithic "
+                "build's")
+    require(same_index(f"{pre}.colpml.npz", f"{prefix}.colpml.npz"),
+            "--sa-mode chunked: the index differs from the monolithic build's")
+    log(f"[phase 15c] chunked SA lane (--chunk-chars {CONFIG4_CHUNK_CHARS}): "
+        f"{len(ARTIFACTS)} artifacts and the index byte-equal to the "
+        f"monolithic build's; K8's {calls[0]} streamed chunks equal to "
+        "their plain version at their calls")
+    return v, lc
 
 
 def start_native_build() -> subprocess.Popen | None:
@@ -3445,7 +3970,9 @@ def run(torch) -> tuple[dict, list[dict]]:
     # phases 8-8c: the build path through the CLI; 11-11c: without the
     # native library
     v8, lc8 = phase8(torch, dev, cli_main, chk)
-    time_t1_pangenome(torch, dev, str(WORK / "pangenome"), chk)
+    # K1 at phase 8's index: its r-sized arrays outgrow the 50 MB L2
+    check_t1_chunks(torch, dev, ColPmlIndex.load(
+        str(WORK / "pangenome.colpml.npz")), chk, "phase 8's index")
     v8bc, lc8bc = phase8bc(dev, cli_main, fastas, prefix)
     v11, lc11 = phase11(dev, cli_main, fastas, prefix, v3)
     v11b, lc11b = phase11b(torch, dev, str(WORK / "pangenome"), v8, chk)
@@ -3473,24 +4000,33 @@ def run(torch) -> tuple[dict, list[dict]]:
     _, lc14 = phase14(torch, dev, cli_main, chk, CONFIG3_SMOKE["doc_len"],
                       CONFIG3_SMOKE["reads"])
     launches += lc14
+    # phase 15: config #4 through the entry points, at the smoke's cuts
+    _, lc15 = phase15(torch, dev, cli_main, chk, CONFIG4_SMOKE["doc_len"],
+                      CONFIG4_SMOKE["reads"])
+    launches += lc15
     log("[build path] " + json.dumps(
         {"phase3_device": v3, "phase3_host": host3, "phase8": v8,
          "phase8b": v8bc["8b"], "phase8c": v8bc["8c"], "phase11": v11,
          "phase11b": v11b, "phase11c": v11c}))
 
-    kernels = []
-    for name, (tag, src, replaces) in KERNEL_INFO.items():
-        kernels.append({"name": f"{tag} {name}", "route": "cuda",
-                        "source": src, "replaces": replaces,
-                        "launches": sum(lc[name] for lc in launches),
-                        "max_abs_err": chk.err[name], **chk.ms[name]})
-    return main_path, kernels
+    return main_path, kernel_entries(chk, launches, KERNEL_INFO)
 
 
-def run_config3(torch) -> list[dict]:
-    """Phases 2 and 14 alone, config #3 whole; returns the large-N route's
-    JSON entry."""
-    from colbwt_tpu_torch.cli import main as cli_main
+def kernel_entries(chk: Checks, launches: list[dict], names) -> list[dict]:
+    """The {"kernels": ...} line's entries of the kernels `names`: launches
+    summed over `launches`, the error and times `chk` kept."""
+    out = []
+    for name in names:
+        tag, src, replaces = KERNEL_INFO[name]
+        out.append({"name": f"{tag} {name}", "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "launches": sum(lc[name] for lc in launches),
+                    "max_abs_err": chk.err[name], **chk.ms[name]})
+    return out
+
+
+def phase2_alone() -> None:
+    """Phase 2 for a run of one phase: the kernels and the host library."""
     from colbwt_tpu_torch.ops import _kernels as K
 
     t0 = time.perf_counter()
@@ -3500,14 +4036,37 @@ def run_config3(torch) -> list[dict]:
     log(f"[phase 2] CUDA kernels and the native host library ready in "
         f"{time.perf_counter() - t0:.1f}s")
     WORK.mkdir(parents=True, exist_ok=True)
+
+
+def run_config3(torch) -> list[dict]:
+    """Phases 2 and 14 alone, config #3 whole; returns the large-N route's
+    JSON entry."""
+    from colbwt_tpu_torch.cli import main as cli_main
+
+    phase2_alone()
     chk = Checks(torch)
     _, lc14 = phase14(torch, torch.device("cuda"), cli_main, chk,
                       CONFIG3["doc_len"], CONFIG3["reads"])
-    name = "mum_window_two_pass"
-    tag, src, replaces = KERNEL_INFO[name]
-    return [{"name": f"{tag} {name}", "route": "cuda", "source": src,
-             "replaces": replaces, "launches": sum(lc[name] for lc in lc14),
-             "max_abs_err": chk.err[name], **chk.ms[name]}]
+    return kernel_entries(chk, lc14, ["mum_window_two_pass"])
+
+
+def run_config4(torch, chunked: bool) -> list[dict]:
+    """Phases 2 and 15 alone, config #4 whole; with `chunked` its build
+    through the chunked SA lane against the one `--config4` left.  Returns
+    the JSON entries of the kernels it held to their plain versions."""
+    from colbwt_tpu_torch.cli import main as cli_main
+
+    phase2_alone()
+    chk = Checks(torch)
+    dev = torch.device("cuda")
+    if chunked:
+        _, lc = phase15_chunked(torch, dev, cli_main, chk)
+        launches = [lc]
+    else:
+        _, launches = phase15(torch, dev, cli_main, chk, CONFIG4["doc_len"],
+                              CONFIG4["reads"])
+    return kernel_entries(chk, launches,
+                          [name for name in KERNEL_INFO if name in chk.ms])
 
 
 def main() -> int:
@@ -3521,7 +4080,22 @@ def main() -> int:
                          "bp, %d reads)" % (CONFIG3["docs"],
                                             CONFIG3["doc_len"],
                                             CONFIG3["reads"]))
+    ap.add_argument("--config4", action="store_true",
+                    help="phase 15 alone, config #4 whole (%d haplotypes of "
+                         "%d bp, %d + %d reads); its build is left for "
+                         "--sa-mode chunked" % (
+                             CONFIG4["docs"], CONFIG4["doc_len"],
+                             CONFIG4["reads"], CONFIG4["n_reads"]))
+    ap.add_argument("--sa-mode", choices=("monolithic", "chunked"),
+                    default="monolithic",
+                    help="with --config4: chunked builds config #4 through "
+                         "the chunked SA lane and holds it byte-equal to the "
+                         "monolithic build a --config4 run left")
     args = ap.parse_args()
+    if args.sa_mode == "chunked" and not args.config4:
+        ap.error("--sa-mode chunked goes with --config4")
+    if args.config3 and args.config4:
+        ap.error("--config3 and --config4 run apart")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -3538,6 +4112,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.config3:
         kernels = run_config3(torch)
+    elif args.config4:
+        kernels = run_config4(torch, args.sa_mode == "chunked")
     else:
         _, kernels = run(torch)
     print(card)
