@@ -65,6 +65,7 @@ from colbwt_tpu_torch.ops import colsplit as TCS
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.hbm import (resolve_pos_budget,
                                         resolve_sa_budget_chars)
+from colbwt_tpu_torch.utils.profiling import StepTimer
 
 # below this n the host oracle beats device dispatch for construction
 # (colbwt_tpu/pipeline/build.py:40)
@@ -85,10 +86,13 @@ def _cleanup(paths: list[Path]) -> None:
 
 @contextlib.contextmanager
 def _timed(logger, key: str, what: str):
-    """Log `what` with its seconds, attached to the record as `key`."""
-    t0 = time.perf_counter()
-    yield
-    s = time.perf_counter() - t0
+    """Log `what` with its seconds, attached to the record as `key`; the
+    stage is a recorder span named `key`, so a profiler's trace shows it
+    beside the card's work."""
+    rec = StepTimer()
+    with rec.stage(key):
+        yield
+    s = rec.stages[key]
     logger.info("%s in %.3fs", what, s, extra={key: s})
 
 

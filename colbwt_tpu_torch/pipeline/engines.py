@@ -21,6 +21,12 @@ recorded after them is what `materialize` waits on: the device is never
 synchronized, so the streaming query's next batch runs while the host
 drains this one.
 
+Each engine records into a span recorder (utils/profiling.StepTimer; the
+streaming query passes its job's): `engine.encode` and `engine.launch`
+spans a dispatch, `engine.wait` and `engine.unpack` a materialize, and
+the counters `scanned_bases`, `padded_cells`, `fallback_reads`, `bytes_up`
+and `bytes_down`.
+
 With a `table_dir` (the one-shot and streaming queries and the build's
 prewarm pass `<index_prefix>.torch_tables`), the pos, mega and mega-wide
 tables go through the persisted table cache (pipeline/tables.py) as the
@@ -46,6 +52,7 @@ from colbwt_tpu_torch.pipeline import tables as TB
 from colbwt_tpu_torch.utils.config import ColBwtConfig
 from colbwt_tpu_torch.utils.device import resolve_device
 from colbwt_tpu_torch.utils.hbm import resolve_pos_budget
+from colbwt_tpu_torch.utils.profiling import StepTimer
 from colbwt_tpu_torch.utils.xfer import CHUNK_BYTES, upload_chunked
 
 
@@ -54,8 +61,10 @@ class QueryEngines:
 
     def __init__(self, index: ColPmlIndex, cfg: ColBwtConfig,
                  total_chars: int | None = None,
-                 table_dir: str | None = None, device=None):
+                 table_dir: str | None = None, device=None,
+                 timer: StepTimer | None = None):
         self.index = index
+        self.timer = timer if timer is not None else StepTimer()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.table_dir = table_dir if cfg.table_cache != "off" else None
@@ -224,9 +233,10 @@ class QueryEngines:
     def _up(self, a: np.ndarray, dtype=np.int32) -> torch.Tensor:
         """A host array on the device without blocking: from pinned memory,
         or through upload_chunked (K14) when larger than one chunk."""
+        a = np.ascontiguousarray(a, dtype=dtype)
+        self.timer.count("bytes_up", a.nbytes)
         if self.device.type == "cpu":
             return to_device(a, self.device, dtype)
-        a = np.ascontiguousarray(a, dtype=dtype)
         if a.nbytes > CHUNK_BYTES:
             return upload_chunked(a, self.device)
         return torch.from_numpy(a).pin_memory().to(self.device,
@@ -235,7 +245,10 @@ class QueryEngines:
     def _down(self, t: torch.Tensor | None) -> torch.Tensor | None:
         """A device output copied into pinned host memory without blocking
         (a CPU tensor stays as it is)."""
-        if t is None or self.device.type == "cpu":
+        if t is None:
+            return t
+        self.timer.count("bytes_down", t.numel() * t.element_size())
+        if self.device.type == "cpu":
             return t
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
@@ -244,26 +257,33 @@ class QueryEngines:
     # ------------------------------------------------------------------
     def dispatch(self, batch: list[bytes], padded: int):
         """Launch one device batch without waiting for it; returns (pml,
-        cid, lens, fallback, event) for `materialize`: the outputs on their
-        way into pinned host tensors and the CUDA event recorded after
-        those copies (None on the CPU).  On the pos and mega engines the pml
-        side may be one packed pml << 8 | cid plane, and the cid side is
-        then None."""
+        cid, lens, fallback, event, timer) for `materialize`: the outputs on
+        their way into pinned host tensors, the CUDA event recorded after
+        those copies (None on the CPU) and the recorder its spans go to.
+        On the pos and mega engines the pml side may be one packed
+        pml << 8 | cid plane, and the cid side is then None."""
         p, c, lens, fallback = self._scan(batch, padded)
-        p, c = self._down(p), self._down(c)
-        if fallback is not None:
-            idxs, p2, c2 = fallback
-            fallback = (idxs, self._down(p2), self._down(c2))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return p, c, lens, fallback, event
+        with self.timer.stage("engine.launch"):
+            p, c = self._down(p), self._down(c)
+            if fallback is not None:
+                idxs, p2, c2 = fallback
+                fallback = (idxs, self._down(p2), self._down(c2))
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+        return p, c, lens, fallback, event, self.timer
+
+    def _launched(self, lens: np.ndarray, padded: int) -> None:
+        """Count one scan launched over reads of `lens` padded to
+        `padded` columns."""
+        self.timer.count("scanned_bases", int(lens.sum()))
+        self.timer.count("padded_cells", lens.size * padded)
 
     def _scan(self, batch: list[bytes], padded: int):
         """Encode, upload and launch one batch: (device pml, device cid,
         lens, fallback)."""
-        index, pt = self.index, self.pt
+        index, pt, tm = self.index, self.pt, self.timer
         if self.use_pos:
             # M must divide both k (key folding) and the digit-packing
             # group (4 digits/byte at A <= 4, 2 at A <= 16)
@@ -274,48 +294,63 @@ class QueryEngines:
                 padded = 252  # largest <= 255 multiple of every k <= 4:
                 # keeps the u16 packed plane for reads whose power-of-2
                 # bucket would round to 256
-            dig, lens, bad = query_pos._encode_digits(index, pt, batch, padded)
-            dig, pack = query_pos.pack_digits(dig, pt["A"])
-            p, c = query_pos.query_batch_pos(
-                pt["table"], pt["n"], self._up(dig, np.uint8), self._up(lens),
-                k=self.pos_k, A=pt["A"], packed_out=True, pack=pack)
+            with tm.stage("engine.encode"):
+                dig, lens, bad = query_pos._encode_digits(index, pt, batch,
+                                                          padded)
+                dig, pack = query_pos.pack_digits(dig, pt["A"])
+            with tm.stage("engine.launch"):
+                p, c = query_pos.query_batch_pos(
+                    pt["table"], pt["n"], self._up(dig, np.uint8),
+                    self._up(lens), k=self.pos_k, A=pt["A"], packed_out=True,
+                    pack=pack)
+            self._launched(lens, padded)
             if bad.any():  # reads with non-key bytes: general k=1 fallback
                 idxs = np.flatnonzero(bad)
-                e2, l2 = index.encode_patterns([batch[i] for i in idxs],
-                                               padded)
-                if pt["t1"] is not None:
-                    p2, c2 = query_pos.query_batch_pos(
-                        pt["t1"], pt["n"], self._up(e2, np.uint8),
-                        self._up(l2), k=1, A=pt["A_full"])
-                else:  # general T1 does not fit: compact engine
-                    p2, c2 = query_xla.query_batch_device(
-                        self._compact_tables(), self._up(e2), self._up(l2),
-                        ff_bound=index.ff_bound)
+                tm.count("fallback_reads", idxs.size)
+                with tm.stage("engine.encode"):
+                    e2, l2 = index.encode_patterns([batch[i] for i in idxs],
+                                                   padded)
+                with tm.stage("engine.launch"):
+                    if pt["t1"] is not None:
+                        p2, c2 = query_pos.query_batch_pos(
+                            pt["t1"], pt["n"], self._up(e2, np.uint8),
+                            self._up(l2), k=1, A=pt["A_full"])
+                    else:  # general T1 does not fit: compact engine
+                        p2, c2 = query_xla.query_batch_device(
+                            self._compact_tables(), self._up(e2),
+                            self._up(l2), ff_bound=index.ff_bound)
+                self._launched(l2, padded)
                 return p, c, lens, (idxs, p2, c2)
             return p, c, lens, None
         if self.use_wide or self.use_mega:
             if padded > 255 and max(len(r) for r in batch) <= 255:
                 padded = 255  # keep the u16 packed plane for short reads
                 # whose power-of-2 bucket would round to 256
-            enc, lens = index.encode_patterns(batch, padded)
+            with tm.stage("engine.encode"):
+                enc, lens = index.encode_patterns(batch, padded)
             scan = (query_mega_wide.query_batch_mega_wide if self.use_wide
                     else query_mega.query_batch_mega)
             # uint8 dense ids up; one packed plane down (u16 at padded <=
             # 255, else int32, lossless below the 2**23 pml guard with 8-bit
             # cids), two planes otherwise
-            p, c = scan(self.mt, self._up(enc, np.uint8), self._up(lens),
-                        ff_bound=index.ff_bound,
-                        packed_out=self._cid8 and padded < (1 << 23))
+            with tm.stage("engine.launch"):
+                p, c = scan(self.mt, self._up(enc, np.uint8), self._up(lens),
+                            ff_bound=index.ff_bound,
+                            packed_out=self._cid8 and padded < (1 << 23))
+            self._launched(lens, padded)
             return p, c, lens, None
-        enc, lens = index.encode_patterns(batch, padded)
-        if self.use_fused:  # uint8 ids up: a quarter of the int32 bytes
-            p, c = query_fused.query_batch_fused(
-                self.ft, self._up(enc, np.uint8), self._up(lens),
-                ff_bound=index.ff_bound)
-        else:
-            p, c = query_xla.query_batch_device(
-                self._compact_tables(), self._up(enc), self._up(lens),
-                ff_bound=index.ff_bound)
+        with tm.stage("engine.encode"):
+            enc, lens = index.encode_patterns(batch, padded)
+        with tm.stage("engine.launch"):
+            if self.use_fused:  # uint8 ids up: a quarter of the int32 bytes
+                p, c = query_fused.query_batch_fused(
+                    self.ft, self._up(enc, np.uint8), self._up(lens),
+                    ff_bound=index.ff_bound)
+            else:
+                p, c = query_xla.query_batch_device(
+                    self._compact_tables(), self._up(enc), self._up(lens),
+                    ff_bound=index.ff_bound)
+        self._launched(lens, padded)
         return p, c, lens, None
 
     @staticmethod
@@ -324,18 +359,20 @@ class QueryEngines:
         returns (pml (B, W), cid (B, W), lens (B,)) with any fallback reads
         spliced back in.  A packed plane (cid side None) is split on the
         host."""
-        p_host, c_host, lens, fallback, event = result
-        if event is not None:
-            event.synchronize()
-        if c_host is None:
-            p, c = query_pos.unpack_pml_cid(p_host.numpy())
-        else:
-            p = p_host.numpy()
-            c = c_host.numpy()
-        if fallback is not None:
-            idxs, p2, c2 = fallback
-            p[idxs] = p2.numpy()
-            c[idxs] = c2.numpy()
+        p_host, c_host, lens, fallback, event, tm = result
+        with tm.stage("engine.wait"):
+            if event is not None:
+                event.synchronize()
+        with tm.stage("engine.unpack"):
+            if c_host is None:
+                p, c = query_pos.unpack_pml_cid(p_host.numpy())
+            else:
+                p = p_host.numpy()
+                c = c_host.numpy()
+            if fallback is not None:
+                idxs, p2, c2 = fallback
+                p[idxs] = p2.numpy()
+                c[idxs] = c2.numpy()
         return p, c, np.asarray(lens)
 
     # ------------------------------------------------------------------
