@@ -21,12 +21,19 @@ Two surfaces, matching the reference:
        bytes   name (name_len bytes, no NUL)
        uint64  m  (number of per-base values)
        uint16 × m  values (PML capped at 65535; CID is <= 255 by id binning)
+
+   A batch of records can be written from its (B, W) output planes
+   (`record_layout`, `fill_records`, `PmlCidBinaryWriter.append_planes`):
+   each file's bytes are assembled in one buffer, a block of rows a run of
+   records of one shape, and written at once.  The bytes are those of the
+   per-record path.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -95,11 +102,102 @@ def write_pml_cid_binary(pml_path: str | Path, cid_path: str | Path,
     _write_binary_one(cid_path, names, cids)
 
 
+class RecordLayout(NamedTuple):
+    """Where a batch's records lie in a file's buffer (the same in both
+    files): record i spans bytes offsets[i]:offsets[i + 1], and runs[j]:
+    runs[j + 1] is the j-th run of consecutive records of one shape
+    (name bytes and value count), filled as one block of rows."""
+    offsets: np.ndarray       # (B + 1,) int64
+    runs: np.ndarray          # (blocks + 1,) int64: first records, then B
+    names: np.ndarray         # uint8: the names' UTF-8 bytes, joined
+    name_offsets: np.ndarray  # (B + 1,) int64 into `names`
+    lens: np.ndarray          # (B,) int64: the values a record
+
+    @property
+    def blocks(self) -> int:
+        return self.runs.size - 1
+
+
+def record_layout(names: list[str], lens: np.ndarray) -> RecordLayout:
+    """Lay out the records of reads `names` with `lens` values each."""
+    enc = list(map(str.encode, names))
+    name_lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
+    lens = np.asarray(lens, dtype=np.int64)
+    if lens.shape != name_lens.shape:
+        raise ValueError(f"{name_lens.size} names for {lens.size} lengths")
+    if name_lens.size and int(name_lens.max()) > 0xFFFF:
+        raise ValueError("a read name is longer than 65535 bytes")
+    B = name_lens.size
+    offsets = np.zeros(B + 1, dtype=np.int64)
+    np.cumsum(10 + name_lens + 2 * lens, out=offsets[1:])
+    name_offsets = np.zeros(B + 1, dtype=np.int64)
+    np.cumsum(name_lens, out=name_offsets[1:])
+    cuts = np.flatnonzero((np.diff(name_lens) != 0) | (np.diff(lens) != 0))
+    runs = np.concatenate([[0], cuts + 1, [B]]) if B else np.zeros(1, np.int64)
+    return RecordLayout(offsets, runs.astype(np.int64),
+                        np.frombuffer(b"".join(enc), dtype=np.uint8),
+                        name_offsets, lens)
+
+
+def as_u16_plane(plane: np.ndarray) -> np.ndarray:
+    """A plane's values as the binary files store them: little-endian
+    uint16, C-contiguous, clipped to 0..65535 unless already uint16 (no
+    copy then)."""
+    plane = np.asarray(plane)
+    if plane.dtype != np.uint16:
+        plane = np.clip(plane, 0, 0xFFFF)
+    return np.ascontiguousarray(plane, dtype="<u2")
+
+
+def fill_records(layout: RecordLayout, pml: np.ndarray, cid: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Both files' bytes (uint8) for a batch whose reads' values sit
+    right-aligned in the rows of the (B, W) planes `pml` and `cid`
+    (clipped to 0..65535 unless they are uint16).  A run of records of one
+    shape is a (rows, record size) block of the buffer, filled by a slice
+    assignment a field: the header fields once, then copied whole into the
+    CID buffer, then the values of each plane."""
+    pml, cid = as_u16_plane(pml), as_u16_plane(cid)
+    B = layout.lens.size
+    if pml.ndim != 2 or pml.shape[0] != B or cid.shape != pml.shape:
+        raise ValueError(f"planes {pml.shape} and {cid.shape} for {B} reads")
+    W = pml.shape[1]
+    if B and int(layout.lens.max()) > W:
+        raise ValueError(f"a read of {int(layout.lens.max())} values in "
+                         f"planes {W} wide")
+    a, b = layout.runs[:-1], layout.runs[1:]
+    nl = layout.name_offsets[a + 1] - layout.name_offsets[a]
+    blocks = list(zip(layout.offsets[a].tolist(), layout.offsets[b].tolist(),
+                      a.tolist(), b.tolist(), nl.tolist(),
+                      layout.lens[a].tolist(),
+                      layout.name_offsets[a].tolist(),
+                      layout.name_offsets[b].tolist()))
+    out_p = np.empty(int(layout.offsets[-1]), dtype=np.uint8)
+    for o0, o1, r0, r1, k, m, n0, n1 in blocks:
+        blk = out_p[o0:o1].reshape(r1 - r0, 10 + k + 2 * m)
+        blk[:, 0:2] = np.frombuffer(struct.pack("<H", k), dtype=np.uint8)
+        blk[:, 2:2 + k] = layout.names[n0:n1].reshape(r1 - r0, k)
+        blk[:, 2 + k:10 + k] = np.frombuffer(struct.pack("<Q", m),
+                                             dtype=np.uint8)
+    out_c = out_p.copy()
+    for o0, o1, r0, r1, k, m, _, _ in blocks:
+        if not m:
+            continue
+        R = 10 + k + 2 * m
+        out_p[o0:o1].reshape(r1 - r0, R)[:, 10 + k:] = \
+            pml[r0:r1, W - m:].view(np.uint8)
+        out_c[o0:o1].reshape(r1 - r0, R)[:, 10 + k:] = \
+            cid[r0:r1, W - m:].view(np.uint8)
+    return out_p, out_c
+
+
 class PmlCidBinaryWriter:
     """Incremental writer for the .split.pml.bin/.split.cid.bin pair —
     byte-identical to write_pml_cid_binary, but records append as batches
     finish, so 100M-read streaming runs hold no outputs in memory
-    (the reference streams one read at a time, src/pml_query.cpp:73-86)."""
+    (the reference streams one read at a time, src/pml_query.cpp:73-86):
+    `append` from per-read arrays, a record at a time, and `append_planes`
+    from a batch's output planes, a write a file."""
 
     def __init__(self, pml_path: str | Path, cid_path: str | Path):
         self._pml = Path(pml_path).open("wb")
@@ -112,6 +210,15 @@ class PmlCidBinaryWriter:
             self._pml.write(_record_bytes(name, p))
             self._cid.write(_record_bytes(name, c))
             self.records += 1
+
+    def append_planes(self, layout: RecordLayout, pml: np.ndarray,
+                      cid: np.ndarray) -> None:
+        """Append a batch from its output planes (`fill_records`): one
+        write a file."""
+        out_p, out_c = fill_records(layout, pml, cid)
+        self._pml.write(out_p)
+        self._cid.write(out_c)
+        self.records += layout.lens.size
 
     def close(self) -> None:
         self._pml.close()

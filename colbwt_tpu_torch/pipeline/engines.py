@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from colbwt_tpu_torch.io.pml_out import as_u16_plane
 from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.models.tensors import index_tensors, to_device
 from colbwt_tpu_torch.ops import (query_fused, query_mega, query_mega_wide,
@@ -255,11 +256,16 @@ class QueryEngines:
         return host
 
     # ------------------------------------------------------------------
-    def dispatch(self, batch: list[bytes], padded: int):
+    def dispatch(self, batch: list[bytes], padded: int,
+                 narrow: bool = False):
         """Launch one device batch without waiting for it; returns (pml,
-        cid, lens, fallback, event, timer) for `materialize`: the outputs on
-        their way into pinned host tensors, the CUDA event recorded after
-        those copies (None on the CPU) and the recorder its spans go to.
+        cid, lens, fallback, event, timer, narrow) for `materialize`: the
+        outputs on their way into pinned host tensors, the CUDA event
+        recorded after those copies (None on the CPU), the recorder its
+        spans go to, and whether `materialize` splits a uint16 packed plane
+        without widening it (`narrow`, the caller's choice, rides in the
+        result: materialize keeps one argument, as the benchmark's fault
+        control, bench_port/test_bench_port_control.py, replaces it).
         On the pos and mega engines the pml side may be one packed
         pml << 8 | cid plane, and the cid side is then None."""
         p, c, lens, fallback = self._scan(batch, padded)
@@ -272,7 +278,7 @@ class QueryEngines:
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
-        return p, c, lens, fallback, event, self.timer
+        return p, c, lens, fallback, event, self.timer, narrow
 
     def _launched(self, lens: np.ndarray, padded: int) -> None:
         """Count one scan launched over reads of `lens` padded to
@@ -358,21 +364,30 @@ class QueryEngines:
         """Wait for a dispatch() result's event (not for the device);
         returns (pml (B, W), cid (B, W), lens (B,)) with any fallback reads
         spliced back in.  A packed plane (cid side None) is split on the
-        host."""
-        p_host, c_host, lens, fallback, event, tm = result
+        host.  The planes are int32, but where the dispatch asked for
+        `narrow` a uint16 packed plane is split without widening, and the
+        fallback rows spliced into it are clipped to 0..65535 as the
+        binary files store them (io.pml_out.as_u16_plane)."""
+        p_host, c_host, lens, fallback, event, tm, narrow = result
         with tm.stage("engine.wait"):
             if event is not None:
                 event.synchronize()
         with tm.stage("engine.unpack"):
             if c_host is None:
-                p, c = query_pos.unpack_pml_cid(p_host.numpy())
+                pk = p_host.numpy()
+                p, c = ((pk >> 8, pk & 0xFF)
+                        if narrow and pk.dtype == np.uint16
+                        else query_pos.unpack_pml_cid(pk))
             else:
                 p = p_host.numpy()
                 c = c_host.numpy()
             if fallback is not None:
                 idxs, p2, c2 = fallback
-                p[idxs] = p2.numpy()
-                c[idxs] = c2.numpy()
+                p2, c2 = p2.numpy(), c2.numpy()
+                if p.dtype == np.uint16:
+                    p2, c2 = as_u16_plane(p2), as_u16_plane(c2)
+                p[idxs] = p2
+                c[idxs] = c2
         return p, c, np.asarray(lens)
 
     # ------------------------------------------------------------------

@@ -10,7 +10,10 @@ read and output:
   memory without blocking (pipeline/engines.py), so the card computes
   batch i+1 while the host waits on batch i's event and writes it,
 - PML/CID records append to the .split.*.bin files as each batch lands
-  (io.pml_out.PmlCidBinaryWriter), never accumulating in memory.
+  (io.pml_out.PmlCidBinaryWriter), never accumulating in memory: a
+  batch's records are assembled from its uint16 output planes in one
+  buffer a file, a block of rows a run of records of one shape
+  (io.pml_out.record_layout, fill_records), and written at once.
 
 Long reads (beyond cfg.long_read_len) are flushed in input order: every
 pending batch drains before they are queried.  Outputs are byte-identical
@@ -26,9 +29,9 @@ stream.load_index, stream.tables, stream.read (FASTA parse and batch
 assembly, one a batch), stream.dispatch, stream.drain, stream.long,
 stream.close [stream.job]; engine.encode, engine.launch [stream.dispatch];
 engine.wait, engine.unpack, stream.slice, stream.write [stream.drain].
-Counters: batches, reads, bases, long_reads, launches and first_record_s
-here; scanned_bases, padded_cells, fallback_reads, bytes_up and bytes_down
-in the engine.
+Counters: batches, reads, bases, long_reads, launches, first_record_s and
+write_blocks (the record blocks assembled) here; scanned_bases,
+padded_cells, fallback_reads, bytes_up and bytes_down in the engine.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from collections import deque
 from pathlib import Path
 
 from colbwt_tpu_torch.io.fasta import stream_fasta
-from colbwt_tpu_torch.io.pml_out import PmlCidBinaryWriter
+from colbwt_tpu_torch.io.pml_out import PmlCidBinaryWriter, record_layout
 from colbwt_tpu_torch.models.index import ColPmlIndex
 from colbwt_tpu_torch.ops import _kernels as K
 from colbwt_tpu_torch.pipeline.build import log_cache_events
@@ -86,10 +89,9 @@ def query_stream(index_prefix: str, pattern_file: str,
         # pending: (names, dispatch result) in input order, bounded depth
         pending: deque = deque()
 
-        def write(writer: PmlCidBinaryWriter, names: list[str], pmls,
-                  cids) -> None:
+        def write(append, *args) -> None:
             with tm.stage("stream.write"):
-                writer.append(names, pmls, cids)
+                append(*args)
             if "first_record_s" not in tm.counters:
                 tm.counters["first_record_s"] = (
                     time.perf_counter_ns() - tm.spans[0][1]) * 1e-9
@@ -98,11 +100,10 @@ def query_stream(index_prefix: str, pattern_file: str,
             with tm.stage("stream.drain"):
                 names, result = pending.popleft()
                 p, c, lens = QueryEngines.materialize(result)
-                W = p.shape[1]
                 with tm.stage("stream.slice"):
-                    pmls = [p[j, W - int(lens[j]):] for j in range(len(names))]
-                    cids = [c[j, W - int(lens[j]):] for j in range(len(names))]
-                write(writer, names, pmls, cids)
+                    layout = record_layout(names, lens)
+                    tm.count("write_blocks", layout.blocks)
+                write(writer.append_planes, layout, p, c)
 
         def flush_long(writer: PmlCidBinaryWriter, names: list[str],
                        reads: list[bytes]) -> None:
@@ -114,7 +115,7 @@ def query_stream(index_prefix: str, pattern_file: str,
             with tm.stage("stream.long"):
                 p, c = eng.query_long_reads(reads)
             with tm.stage("stream.drain"):
-                write(writer, names, p, c)
+                write(writer.append, names, p, c)
 
         with PmlCidBinaryWriter(out_pml, out_cid) as writer:
             batch_names: list[str] = []
@@ -135,8 +136,8 @@ def query_stream(index_prefix: str, pattern_file: str,
                 with tm.stage("stream.dispatch"):
                     m = max(max(len(r) for r in batch_reads), 1)
                     padded = 1 << (m - 1).bit_length()
-                    pending.append((batch_names,
-                                    eng.dispatch(batch_reads, padded)))
+                    pending.append((batch_names, eng.dispatch(
+                        batch_reads, padded, narrow=True)))
                 tm.count("batches")
                 batch_names, batch_reads = [], []
 

@@ -82,3 +82,72 @@ def test_stream_matches_one_shot(built, engine):
         files[how] = [(tmp / f"{pat.name}.split.{x}.bin").read_bytes()
                       for x in ("pml", "cid")]
     assert files["stream"] == files["one"]
+
+
+def _mixed_batch(tmp, docs_reads):
+    """One batch of 120 reads whose names change length at 10 and 100,
+    whose lengths change in runs and singly, with N reads among them."""
+    rng = np.random.default_rng(0x3B7C)
+    src = [r.seq for r in docs_reads if len(r.seq) >= 70]
+    reads = []
+    for i in range(5, 125):
+        m = 60 if i < 70 else (61 if i % 9 else 40 + i % 13)
+        seq = bytearray(src[i % len(src)][:m])
+        if i % 17 == 4:
+            seq[int(rng.integers(0, m))] = ord("N")
+        reads.append(FastaRecord(f"q{i}", bytes(seq)))
+    write_fasta(tmp / "mixed.fa", reads)
+    return reads
+
+
+@pytest.mark.parametrize("engine", ["pos", "xla"])
+def test_stream_mixed_batch_matches_jax(built, engine):
+    """Records of several shapes in one batch, N reads spliced in from the
+    fallback: the port's files equal the JAX package's, one block a run of
+    one (name length, read length)."""
+    tmp, reads = built
+    mixed = _mixed_batch(tmp, reads)
+    cfg = ColBwtConfig(engine=engine, batch_size=256, table_cache="off")
+    outs = {}
+    for pkg, stream in (("jax", jax_stream), ("torch", query_stream)):
+        pat = tmp / f"mixed.{engine}.{pkg}.fa"
+        pat.write_bytes((tmp / "mixed.fa").read_bytes())
+        kw = {"device": "cpu"} if pkg == "torch" else {}
+        stats = stream(str(tmp / "idx"), str(pat), cfg, **kw)
+        outs[pkg] = [(tmp / f"{pat.name}.split.{x}.bin").read_bytes()
+                     for x in ("pml", "cid")]
+    assert outs["torch"] == outs["jax"]
+    shapes = [(len(r.name), len(r.seq)) for r in mixed]
+    runs = 1 + sum(a != b for a, b in zip(shapes, shapes[1:]))
+    assert stats["counters"]["batches"] == 1
+    assert stats["counters"]["write_blocks"] == runs
+    if engine == "pos":
+        assert stats["counters"]["fallback_reads"] > 0
+
+
+def test_stream_batch_path_writes_no_record_at_a_time(built, monkeypatch):
+    """The short-read batches go through the batch form of the writer; the
+    long-read path still writes record by record."""
+    from colbwt_tpu_torch.io import pml_out
+
+    calls = []
+    real = pml_out._record_bytes
+
+    def spy(name, arr):
+        calls.append(name)
+        return real(name, arr)
+
+    monkeypatch.setattr(pml_out, "_record_bytes", spy)
+    tmp, reads = built
+    for name, long_reads in (("short", False), ("long", True)):
+        pat = tmp / f"spy.{name}.fa"
+        pat.write_bytes((tmp / "reads.fa").read_bytes())
+        cfg = _cfg("pos") if long_reads else ColBwtConfig(
+            engine="pos", batch_size=32, table_cache="off")
+        stats = query_stream(str(tmp / "idx"), str(pat), cfg, device="cpu")
+        assert stats["reads"] == len(reads)
+        if long_reads:
+            assert sorted(calls) == sorted(
+                2 * [r.name for r in reads if len(r.seq) > 128])
+        else:
+            assert calls == []
